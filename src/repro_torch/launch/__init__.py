@@ -1,0 +1,1 @@
+"""Launch entry points (``python -m repro_torch.launch.serve``)."""
