@@ -20,13 +20,26 @@ printed:
   4. serve    full-width bitnet-3b with seeded random weights: 8 requests
               of 128–1536 prompt tokens (numpy default_rng(0)), 32 new
               tokens each, through the continuous-batching Scheduler on 4
-              slots; launch counts are zeroed just before and read just
-              after, and must all be > 0; the Scheduler's tokens must equal
-              lockstep_generate's for 2 requests, and chunked prefill must
-              equal whole-prompt prefill bitwise for one prompt; then
+              slots, greedy, LOP decode; launch counts are zeroed just
+              before and read just after each path, and every kernel of
+              the path must show launches; the Scheduler's tokens must
+              equal lockstep_generate's for 2 requests, and chunked prefill
+              must equal whole-prompt prefill bitwise for one prompt; then
               clean timings: a decode step over 4 active lanes with no
               prefill in flight, one prefill chunk, a whole-prompt prefill,
-              and a torch.profiler breakdown of decode steps.
+              and a torch.profiler breakdown of decode steps;
+  4b. no-LOP  the same 8 requests on a use_lop=False engine sharing the
+              weights: the dense decode kernel must launch and the LOP one
+              must not; scheduler == lockstep for 2 requests; its steady
+              decode step beside the LOP engine's;
+  4c. sampled the 8 requests sampled (T 0.8, top-k 50, top-p 0.95, seed =
+      + faults rid) on the LOP engine, scheduler == sampled lockstep for 2
+              requests and the steady sampled decode step; then on the
+              no-LOP engine 4 requests clean and under transient NaN
+              logits (every fault recovered, every stream bitwise the
+              clean one), a sticky NaN lane (reason "fault"), a 1 us
+              deadline and a mid-decode cancellation; and the LOP engine
+              under NaN logits, recovering through the dense retry.
 
 The line before the last two is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -124,7 +137,8 @@ def check_close(torch, name, got, want, bitwise=False) -> float:
 def kernel_phase(torch, np) -> dict:
     from repro_torch.core.lop import lop_features, pack_features
     from repro_torch.kernels import ref as plain
-    from repro_torch.kernels.decode_attention import fused_decode_attention
+    from repro_torch.kernels.decode_attention import (
+        fused_decode_attention, fused_dense_decode_attention)
     from repro_torch.kernels.prefill_attention import fused_prefill_attention
     from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
 
@@ -292,6 +306,54 @@ def kernel_phase(torch, np) -> dict:
     rows["fused_decode_attention"] = dict(
         ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         max_abs_err=err, shape=f"B={b} H=32 M={m_cap} k_keep={k_keep}")
+
+    # ---- #5 fused_dense_decode_attention: the same inputs, every valid
+    #      token attended (the --no-lop and recovery-retry path) ----
+    dargs = (qi, qsc, kd, vd, ksd, vsd, new_len)
+
+    def dkern(*a):
+        return fused_dense_decode_attention(*a, hkv=h, block=blk, window=0,
+                                            softmax_scale=scale)
+
+    def dref(qi_, qsc_, k_, v_, ks_, vs_, nl_):
+        out = plain.decode_attention_ref(
+            qi_.reshape(b, h, dh), qsc_.reshape(b, h, 1),
+            k_.reshape(b, h, m_cap, dh), v_.reshape(b, h, m_cap, dh),
+            ks_.reshape(b, h, m_cap), vs_.reshape(b, h, m_cap), None, nl_,
+            block=blk, k_keep=k_keep, window=0, softmax_scale=scale,
+            use_lop=False)
+        return out.reshape(bh, 1, dh)
+    got, want = dkern(*dargs), dref(*dargs)
+    derr = check_close(torch, "fused_dense_decode_attention", got, want)
+    if got.reshape(b, h, dh)[1].any():
+        raise AssertionError("fused_dense_decode_attention: retired lane "
+                             "not zero")
+    d_ms = cuda_ms(torch, dkern, copies(torch, dargs), 50)
+    dp_ms = cuda_ms(torch, dref, [dargs], 3)
+    db_ms, db_by = bound_ms(
+        nbytes(qi, qsc, new_len) + h * sum(nl) * (2 * dh + 8) + bh * dh * 4,
+        int8_ops=2.0 * h * sum(nl) * dh, f32_ops=2.0 * h * sum(nl) * dh)
+    # library yardstick: SDPA over the dequantized f32 K/V with the
+    # validity mask (one PyTorch call, same function up to rounding; the
+    # retired lane's fully masked row is NaN there, zero in the kernel)
+    qf = (qi.float() * qsc[..., None])[:, None]           # [BH, 1, 1, dh]
+    kf = (kd.float() * ksd[..., None])[:, None]           # [BH, 1, M, dh]
+    vf = (vd.float() * vsd[..., None])[:, None]
+    lane_len = new_len.repeat_interleave(h)
+    mask = (torch.arange(m_cap, device=dev)[None, :]
+            < lane_len[:, None])[:, None, None, :]        # [BH, 1, 1, M]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(torch, lambda a, b_, c_, m_: sdpa(a, b_, c_,
+                                                      attn_mask=m_),
+                     [(qf, kf, vf, mask)], 20)
+    log(f"  fused_dense_decode_attention B={b} M={m_cap} new_len={nl}: "
+        f"{d_ms:.4f} ms (plain {dp_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{db_ms:.4f} ms by {db_by}); LOP at the same shape: {ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms")
+    rows["fused_dense_decode_attention"] = dict(
+        ms=d_ms, plain_ms=dp_ms, bound_ms=db_ms, bound_by=db_by,
+        library_ms=lib_ms, max_abs_err=derr,
+        shape=f"B={b} H=32 M={m_cap} new_len={nl}")
     return rows
 
 
@@ -299,12 +361,86 @@ def kernel_phase(torch, np) -> dict:
 # phase 4: serve full-width bitnet-3b
 # ---------------------------------------------------------------------------
 
-def serve_phase(torch, np, card: str) -> dict:
-    from repro_torch.configs import get_config
+LOP_PATH = ("fused_qlinear", "fused_ffn", "fused_prefill_attention",
+            "fused_decode_attention")
+DENSE = "fused_dense_decode_attention"
+
+
+def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
+    """Serve ``reqs`` through a Scheduler on ``engine`` with the launch
+    counts zeroed just before and read just after. → dict."""
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving.scheduler import Scheduler
+
+    sched = Scheduler(engine, n_slots=N_SLOTS, **sched_kw)
+    if sched.capacity != 1664:
+        raise AssertionError(f"pool capacity {sched.capacity} != 1664")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        sched.submit(r)
+    results = {r.rid: r for r in sched.run_to_completion()}
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  [{label}] launch counts: {counts}")
+    if sorted(results) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"[{label}] finished rids {sorted(results)}")
+    n_tok = sum(len(r.tokens) for r in results.values())
+    ttft = [r.ttft for r in results.values()]
+    step_ms = float(np.percentile(sched.decode_seconds, 50) * 1e3)
+    log(f"  [{label}] served {len(reqs)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.2f} tok/s, TTFT p50 "
+        f"{np.percentile(ttft, 50) * 1e3:.1f} ms, serve-cycle decode p50 "
+        f"{step_ms:.2f} ms over {sched.decode_steps} steps (waits on the "
+        f"cycle's prefill chunk), max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    return dict(sched=sched, results=results, counts=counts,
+                tokens_per_s=n_tok / wall,
+                ttft_p50_ms=float(np.percentile(ttft, 50) * 1e3),
+                serve_cycle_decode_ms_p50=step_ms, peak_bytes=peak)
+
+
+def check_counts(counts: dict, label: str, launched, idle=()) -> None:
+    missing = [k for k in launched if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"[{label}] kernels not launched: {missing}")
+    stray = [k for k in idle if counts[k] != 0]
+    if stray:
+        raise AssertionError(f"[{label}] kernels launched that this path "
+                             f"must not run: {stray}")
+
+
+def check_tokens(cfg, results, gen: int, label: str) -> None:
+    for r in results.values():
+        if r.finish_reason != "length" or len(r.tokens) != gen or not all(
+                0 <= x < cfg.vocab_padded for x in r.tokens):
+            raise AssertionError(f"[{label}] rid {r.rid}: "
+                                 f"{r.finish_reason} {r.tokens}")
+
+
+def check_lockstep(engine, reqs, results, rids, label: str) -> None:
+    from repro_torch.serving.scheduler import lockstep_generate
+    for rid in rids:
+        req = reqs[rid]
+        ref = lockstep_generate(engine, req.prompt, req.max_new_tokens,
+                                sampling=req.sampling)
+        if ref != results[rid].tokens:
+            raise AssertionError(f"[{label}] rid {rid}: scheduler "
+                                 f"{results[rid].tokens} != lockstep {ref}")
+    log(f"  [{label}] scheduler tokens == lockstep tokens for rids "
+        f"{', '.join(map(str, rids))}")
+
+
+def serve_phase(torch, np, card: str):
+    """Phase 4: the greedy LOP serve. → (engine, reqs, stats)."""
+    from repro_torch.configs import get_config
     from repro_torch.serving.api import GenerateRequest, PooledEngine
-    from repro_torch.serving.scheduler import Scheduler, lockstep_generate
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.launch.serve import make_requests
 
     cfg = get_config("bitnet-3b")
     max_len = MAX_PROMPT + GEN
@@ -324,47 +460,10 @@ def serve_phase(torch, np, card: str) -> dict:
     warm.run_to_completion()
     del warm
 
-    sched = Scheduler(engine, n_slots=N_SLOTS)
-    if sched.capacity != 1664:
-        raise AssertionError(f"pool capacity {sched.capacity} != 1664")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.monotonic()
-    for r in reqs:
-        sched.submit(r)
-    results = {r.rid: r for r in sched.run_to_completion()}
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  launch counts on the serve path: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the serve path: "
-                             f"{missing}")
-    if sorted(results) != list(range(N_REQUESTS)):
-        raise AssertionError(f"finished rids {sorted(results)}")
-    for r in results.values():
-        if len(r.tokens) != GEN or not all(0 <= x < cfg.vocab_padded
-                                           for x in r.tokens):
-            raise AssertionError(f"rid {r.rid}: bad tokens {r.tokens}")
-    n_tok = sum(len(r.tokens) for r in results.values())
-    ttft = [r.ttft for r in results.values()]
-    step_ms = np.percentile(sched.decode_seconds, 50) * 1e3
-    log(f"  served {N_REQUESTS} requests, {n_tok} tokens in {wall:.3f} s: "
-        f"{n_tok / wall:.2f} tok/s, TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f}"
-        f" ms, serve-cycle decode p50 {step_ms:.2f} ms over "
-        f"{sched.decode_steps} steps (waits on the cycle's prefill chunk), "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB [{card}]")
-
-    # scheduler vs lockstep, token for token, on two requests
-    for rid in (0, 1):
-        ref = lockstep_generate(engine, reqs[rid].prompt, GEN)
-        if ref != results[rid].tokens:
-            raise AssertionError(f"rid {rid}: scheduler {results[rid].tokens}"
-                                 f" != lockstep {ref}")
-    log("  scheduler tokens == lockstep tokens for rids 0, 1")
+    run = serve_run(torch, np, engine, reqs, "LOP greedy", card)
+    check_counts(run["counts"], "LOP greedy", LOP_PATH, idle=(DENSE,))
+    check_tokens(cfg, run["results"], GEN, "LOP greedy")
+    check_lockstep(engine, reqs, run["results"], (0, 1), "LOP greedy")
 
     # chunked prefill vs whole-prompt prefill, bitwise
     prompt = max((r.prompt for r in reqs), key=len)
@@ -387,11 +486,173 @@ def serve_phase(torch, np, card: str) -> dict:
             raise AssertionError(f"chunked prefill cache '{key}' != whole")
     log(f"  chunked prefill ({len(pf.chunks)} chunks) == whole-prompt "
         f"prefill, bitwise, for a {s}-token prompt")
+    del chk, pool, whole
     steady = steady_phase(torch, np, engine, reqs, card)
-    return dict(counts=counts, tokens_per_s=n_tok / wall,
-                ttft_p50_ms=float(np.percentile(ttft, 50) * 1e3),
-                serve_cycle_decode_ms_p50=float(step_ms), peak_bytes=peak,
-                **steady)
+    stats = {k: v for k, v in run.items() if k not in ("sched", "results")}
+    return engine, reqs, dict(stats, **steady)
+
+
+def decode_step_ms(torch, np, engine, reqs, sampling=None):
+    """p50 of 10 decode steps over 4 active lanes with no prefill in flight
+    (host clock around work that ends in a synchronize). → (ms, sched)."""
+    from dataclasses import replace
+
+    from repro_torch.serving.scheduler import Scheduler
+
+    sched = Scheduler(engine, n_slots=N_SLOTS)
+    for r in reqs[:N_SLOTS]:
+        sched.submit(replace(r, max_new_tokens=96, arrival=None,
+                             **({} if sampling is None
+                                else dict(sampling=sampling(r.rid)))))
+    sched.admit()
+    while sched.n_prefilling:
+        sched.step()
+    if sched.n_active != N_SLOTS:
+        raise AssertionError(f"{sched.n_active} lanes active, want {N_SLOTS}")
+    step_s = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return float(np.median(step_s[2:]) * 1e3), sched
+
+
+def nolop_phase(torch, np, engine, reqs, card: str) -> dict:
+    """Phase 4b: the same 8 requests on a use_lop=False engine sharing the
+    LOP engine's quantized weights."""
+    from repro_torch.serving.api import PooledEngine
+
+    dense = PooledEngine(engine.cfg, engine.qp, max_len=engine.max_len,
+                         use_lop=False, device="cuda")
+    run = serve_run(torch, np, dense, reqs, "no-LOP greedy", card)
+    check_counts(run["counts"], "no-LOP greedy",
+                 ("fused_qlinear", "fused_ffn", "fused_prefill_attention",
+                  DENSE), idle=("fused_decode_attention",))
+    check_tokens(engine.cfg, run["results"], GEN, "no-LOP greedy")
+    check_lockstep(dense, reqs, run["results"], (0, 1), "no-LOP greedy")
+    run.pop("sched")
+    step_ms = decode_step_ms(torch, np, dense, reqs)[0]
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), no-LOP: "
+        f"{step_ms:.2f} ms [{card}]")
+    return dict(dense=dense, counts=run["counts"],
+                tokens_per_s=run["tokens_per_s"],
+                ttft_p50_ms=run["ttft_p50_ms"], decode_step_ms_p50=step_ms)
+
+
+def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
+    """Phase 4c: sampled serve, then the fault-recovery, sticky-fault,
+    deadline and cancellation contracts on the card."""
+    from dataclasses import replace
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import faults
+    from repro_torch.serving.api import (CancelToken, GenerateRequest,
+                                         SamplingParams)
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = engine.cfg
+
+    def sp(rid):
+        return SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                              seed=rid)
+
+    # 1. sampled LOP serve == sampled lockstep
+    sreqs = [replace(r, sampling=sp(r.rid)) for r in reqs]
+    run = serve_run(torch, np, engine, sreqs, "LOP sampled", card)
+    check_counts(run["counts"], "LOP sampled", LOP_PATH, idle=(DENSE,))
+    check_tokens(cfg, run["results"], GEN, "LOP sampled")
+    check_lockstep(engine, sreqs, run["results"], (0, 1), "LOP sampled")
+    sampled_tps = run["tokens_per_s"]
+    del run                       # its pool would count in later peaks
+    sampled_ms = decode_step_ms(torch, np, engine, reqs, sampling=sp)[0]
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP sampled "
+        f"(T=0.8, top_k=50, top_p=0.95): {sampled_ms:.2f} ms [{card}]")
+
+    # 2. transient NaNs on the no-LOP engine recover to the clean streams
+    freqs = [replace(r, max_new_tokens=16) for r in reqs[:N_SLOTS]]
+    dense_launches = 0
+    streams = []
+    for plan in (faults.FaultPlan(),
+                 faults.FaultPlan(nan_logits=frozenset({(3, 0), (7, 2)}))):
+        frun = None                   # free the last run's pool first
+        with faults.inject(plan):
+            frun = serve_run(torch, np, dense, freqs,
+                             f"no-LOP faults={sorted(plan.nan_logits)}", card,
+                             check_invariants=True)
+        dense_launches += frun["counts"][DENSE]
+        streams.append({rid: r.tokens for rid, r in frun["results"].items()})
+    fs = frun["sched"]
+    if not (fs.fault_events >= 1 and fs.fault_recoveries == fs.fault_events
+            and fs.fault_finishes == 0):
+        raise AssertionError(f"fault run: events {fs.fault_events}, "
+                             f"recoveries {fs.fault_recoveries}, finishes "
+                             f"{fs.fault_finishes}")
+    if streams[0] != streams[1]:
+        raise AssertionError("recovered streams != clean streams")
+    log(f"  transient NaNs: {fs.fault_events} events, "
+        f"{fs.fault_recoveries} recovered, 0 gave up; every stream bitwise "
+        f"the clean run's")
+
+    # 3.-4. sticky fault, deadline, cancellation
+    ops.reset_launch_counts()
+    short = reqs[0].prompt[:200]
+    with faults.inject(faults.FaultPlan(sticky_nan_lanes=frozenset({0}))):
+        sticky = Scheduler(dense, n_slots=1, check_invariants=True)
+        sticky.submit(GenerateRequest(rid=0, prompt=short, max_new_tokens=8))
+        (res,) = sticky.run_to_completion()
+    if res.finish_reason != "fault" or sticky.fault_finishes != 1:
+        raise AssertionError(f"sticky lane finished {res.finish_reason}")
+    tok = CancelToken()
+
+    def cancel_at_two(sr):
+        if sr.index == 2:
+            tok.cancel()
+
+    ab = Scheduler(engine, n_slots=2, check_invariants=True)
+    ab.submit(GenerateRequest(rid=0, prompt=short, max_new_tokens=16,
+                              deadline_ms=1e-3))
+    ab.submit(GenerateRequest(rid=1, prompt=short, max_new_tokens=16,
+                              on_token=cancel_at_two, cancel=tok))
+    got = {r.rid: r for r in ab.run_to_completion()}
+    if (got[0].finish_reason, got[0].tokens) != ("deadline", []) \
+            or got[1].finish_reason != "cancelled" \
+            or len(got[1].tokens) != 3 or ab.deadline_count != 1:
+        raise AssertionError(f"deadline/cancel: {got[0].finish_reason} "
+                             f"{got[0].tokens}, {got[1].finish_reason} "
+                             f"{got[1].tokens}")
+    dense_launches += ops.launch_counts()[DENSE]
+    log("  sticky lane -> fault; 1 us deadline -> deadline, no tokens; "
+        "cancel after the 3rd token -> cancelled with 3 tokens")
+
+    # 5. the production shape: a LOP server whose retry runs dense
+    ops.reset_launch_counts()
+    with faults.inject(faults.FaultPlan(nan_logits=frozenset({(3, 0),
+                                                              (7, 2)}))):
+        lop_faults = Scheduler(engine, n_slots=N_SLOTS, check_invariants=True)
+        for r in freqs:
+            lop_faults.submit(replace(r, arrival=None))
+        lres = lop_faults.run_to_completion()
+    counts = ops.launch_counts()
+    dense_launches += counts[DENSE]
+    if not (lop_faults.fault_events >= 1 and lop_faults.fault_finishes == 0
+            and lop_faults.fault_recoveries == lop_faults.fault_events):
+        raise AssertionError(f"LOP fault run: events "
+                             f"{lop_faults.fault_events}, finishes "
+                             f"{lop_faults.fault_finishes}")
+    if any(r.finish_reason != "length" for r in lres):
+        raise AssertionError("LOP fault run: a request did not finish")
+    retries = lop_faults.fault_events
+    if counts[DENSE] != cfg.n_layers * retries:
+        raise AssertionError(f"dense launches {counts[DENSE]} != "
+                             f"{cfg.n_layers} x {retries} retries")
+    log(f"  LOP engine under NaN faults: {lop_faults.fault_events} events, "
+        f"all recovered through the dense retry ({counts[DENSE]} dense "
+        f"launches = {cfg.n_layers} layers x {retries} retries)")
+    return dict(sampled_tokens_per_s=sampled_tps,
+                sampled_decode_step_ms_p50=sampled_ms,
+                dense_launches=dense_launches)
 
 
 def _dev_us(evt) -> float:
@@ -406,26 +667,7 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
     lanes with no prefill in flight, one 128-token prefill chunk at the end
     of a 1536-token prompt, a whole-prompt prefill, and a profiler
     breakdown of decode steps (device time by kernel, busy share)."""
-    from dataclasses import replace
-
-    from repro_torch.serving.scheduler import Scheduler
-
-    sched = Scheduler(engine, n_slots=N_SLOTS)
-    for r in reqs[:N_SLOTS]:
-        sched.submit(replace(r, max_new_tokens=96, arrival=None))
-    sched.admit()
-    while sched.n_prefilling:
-        sched.step()
-    if sched.n_active != N_SLOTS:
-        raise AssertionError(f"{sched.n_active} lanes active, want {N_SLOTS}")
-    step_s = []
-    for _ in range(12):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sched.step()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    decode_ms = float(np.median(step_s[2:]) * 1e3)
+    decode_ms, sched = decode_step_ms(torch, np, engine, reqs)
 
     from torch.profiler import ProfilerActivity, profile
     n_prof = 4
@@ -447,8 +689,8 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
         if us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
     dev_us = sum(by_name.values())
-    log(f"  decode step (B={N_SLOTS}, no prefill in flight): p50 "
-        f"{decode_ms:.2f} ms over {len(step_s) - 2} steps [{card}]")
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP greedy: "
+        f"p50 {decode_ms:.2f} ms over 10 steps [{card}]")
     if dev_us:
         log(f"  profiler, {n_prof} decode steps: device busy "
             f"{dev_us / 1e3:.2f} ms of {prof_wall_us / 1e3:.2f} ms wall "
@@ -534,7 +776,24 @@ def main() -> int:
     # ---- 4. serve ----
     log(f"[serve] bitnet-3b full width, {N_SLOTS} slots, {N_REQUESTS} "
         f"requests, gen {GEN} [{smi}]")
-    serve = serve_phase(torch, np, smi)
+    engine, reqs, serve = serve_phase(torch, np, smi)
+
+    # ---- 4b. no-LOP serve ----
+    log(f"[serve no-LOP] the same {N_REQUESTS} requests on a use_lop=False "
+        f"engine sharing the weights [{smi}]")
+    nolop = nolop_phase(torch, np, engine, reqs, smi)
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight): LOP "
+        f"{serve['decode_step_ms_p50']:.2f} ms, no-LOP "
+        f"{nolop['decode_step_ms_p50']:.2f} ms [{smi}]")
+
+    # ---- 4c. sampled serve and faults ----
+    log(f"[serve sampled + faults] [{smi}]")
+    sampled = sampled_fault_phase(torch, np, engine, nolop["dense"], reqs, smi)
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP: greedy "
+        f"{serve['decode_step_ms_p50']:.2f} ms, sampled "
+        f"{sampled['sampled_decode_step_ms_p50']:.2f} ms [{smi}]")
+    launches = dict(serve["counts"])
+    launches[DENSE] = nolop["counts"][DENSE] + sampled["dense_launches"]
 
     sources = {"fused_qlinear": ("qlinear.cu", "src/repro/kernels/qlinear.py:224"),
                "fused_ffn": ("qlinear.cu", "src/repro/kernels/qlinear.py:368"),
@@ -543,14 +802,16 @@ def main() -> int:
                    "src/repro/kernels/prefill_attention.py:217"),
                "fused_decode_attention": (
                    "decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:422")}
+                   "src/repro/kernels/decode_attention.py:422"),
+               DENSE: ("decode_attention.cu",
+                       "src/repro/kernels/decode_attention.py:380")}
     kernels = []
     for kname, row in rows.items():
         src, replaces = sources[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
-            "launches": serve["counts"][kname],
+            "launches": launches[kname],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -2,10 +2,10 @@
 
 The package mirrors the JAX reference's layout (``configs/``, ``core/``,
 ``kernels/``, ``models/``, ``serving/``, ``launch/``). Plain tensor code is
-PyTorch; the four kernels of the serving path (TINT projection, whole FFN,
-chunked-prefill attention, LOP-sparse decode attention) are hand-written
-CUDA C++ under ``csrc/``, built with ``nvcc`` at first use and bound with
-``ctypes``. Each kernel keeps a plain PyTorch version beside it, which a
+PyTorch; the five kernels of the serving path (TINT projection, whole FFN,
+chunked-prefill attention, LOP-sparse and dense decode attention) are
+hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
+and bound with ``ctypes``. Each kernel keeps a plain PyTorch version beside it, which a
 wrapper takes only for tensors on the CPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,7 +1,8 @@
-// LOP-sparse decode attention for Hopper (sm_90a).
+// Decode attention for Hopper (sm_90a): the LOP-sparse mode and the dense
+// mode of src/repro/kernels/decode_attention.py:fused_decode_attention.
 //
-// Replaces the Pallas body src/repro/kernels/decode_attention.py:
-// _fused_lop_kernel (fused_decode_attention, LOP mode, pos_offset 0,
+// ---- LOP mode ----
+// Replaces the Pallas body _fused_lop_kernel (LOP mode, pos_offset 0,
 // per-query-head selection, no returned stats).
 //
 // What it computes, per (batch·kv-head) lane, in three phases:
@@ -29,6 +30,25 @@
 // stages only the selected K/V blocks in shared memory, a thread per token
 // for the logits and per output dim for the value sum. All reductions
 // have a fixed order, so the output is a function of the lane alone.
+//
+// ---- dense mode ----
+// Replaces the Pallas body _fused_dense_kernel (use_lop=False, pos_offset
+// 0, no returned stats): exact attention streamed over every K/V block.
+// Per lane, blocks run in index order; a block with no valid token
+// (t ≥ new_len, or before new_len − window when window is set) is skipped
+// whole. Otherwise its logits ((dot·q_scale)·k_scale)·softmax_scale, with
+// invalid tokens at −1e30, fold into the online softmax: m_new = max(m,
+// max s), α = exp(m − m_new), ℓ = ℓα + Σp, acc = acc·α + Σ p·(v·v_scale).
+// The flush divides where ℓ > 0, so new_len == 0 emits exact zero.
+//
+// What bounds it: bytes — every valid block of int8 K and V plus their
+// f32 scales (≈ 2·d + 8 bytes a token), against 2·d int8 ops and 2·d f32
+// ops a token. Design: one CTA (128 threads) per lane; a block's K/V words
+// are copied contiguously into shared memory, a thread per token forms
+// the logit with __dp4a, a thread per output dim forms the value sum. The
+// reductions have a fixed order and no CTA reads another lane, so a
+// lane's output is bitwise the same whatever the other lanes hold — the
+// recovery retry, which runs one lane alone, depends on that.
 #include "common.cuh"
 
 #include <climits>
@@ -272,6 +292,115 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
   }
 }
 
+// Shared layout (dynamic): k tile int [block·dw] | v tile int8 [block·dw·4]
+// | qw int [G·dw] | ks, vs, p f32 [block] | acc f32 [G·d] | m, l f32 [G]
+// | red [kWarps]
+__host__ __device__ inline size_t dense_smem_bytes(int G, int d, int block) {
+  const int dw = d / 4;
+  return sizeof(int) * (2 * static_cast<size_t>(block) * dw + G * dw)
+       + sizeof(float) * (3 * block + G * d + 2 * G + kWarps);
+}
+
+__global__ void __launch_bounds__(kThreads)
+dense_decode_kernel(const int8_t* __restrict__ qi,
+                    const float* __restrict__ qsc,
+                    const int8_t* __restrict__ kc,
+                    const int8_t* __restrict__ vc,
+                    const float* __restrict__ ksc,
+                    const float* __restrict__ vsc,
+                    const int* __restrict__ new_len, float* __restrict__ out,
+                    int G, int M, int d, int hkv, int block, int window,
+                    float softmax_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dw = d / 4;
+  int* k_s = reinterpret_cast<int*>(smem);
+  int* v_w = k_s + block * dw;
+  const int8_t* v_s = reinterpret_cast<const int8_t*>(v_w);
+  int* qw = v_w + block * dw;
+  float* ks_s = reinterpret_cast<float*>(qw + G * dw);
+  float* vs_s = ks_s + block;
+  float* p_s = vs_s + block;
+  float* acc = p_s + block;
+  float* m_s = acc + G * d;
+  float* l_s = m_s + G;
+  float* red = l_s + G;
+
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const int nl = min(max(new_len[bh / hkv], 0), M);
+  const int lo_tok = window ? max(nl - window, 0) : 0;
+  const size_t lane_tok = static_cast<size_t>(bh) * M;
+  const int8_t* q_lane = qi + static_cast<size_t>(bh) * G * d;
+
+  for (int i = tid; i < G * dw; i += kThreads)
+    qw[i] = reinterpret_cast<const int*>(q_lane)[i];
+  for (int i = tid; i < G * d; i += kThreads) acc[i] = 0.0f;
+  for (int i = tid; i < G; i += kThreads) { m_s[i] = REPRO_NEG_INF; l_s[i] = 0.0f; }
+  __syncthreads();
+
+  // blocks holding at least one valid token: [jb_lo, jb_hi); the rest are
+  // the reference's skipped tiles
+  const int jb_lo = lo_tok / block;
+  const int jb_hi = (nl + block - 1) / block;
+  for (int jb = jb_lo; jb < jb_hi; ++jb) {
+    const int t0 = jb * block;
+    const int* k_src = reinterpret_cast<const int*>(kc + (lane_tok + t0) * d);
+    const int* v_src = reinterpret_cast<const int*>(vc + (lane_tok + t0) * d);
+    for (int i = tid; i < block * dw; i += kThreads) {
+      k_s[i] = k_src[i];
+      v_w[i] = v_src[i];
+    }
+    for (int t = tid; t < block; t += kThreads) {
+      ks_s[t] = ksc[lane_tok + t0 + t];
+      vs_s[t] = vsc[lane_tok + t0 + t];
+    }
+    __syncthreads();
+    const int tstart = max(lo_tok - t0, 0);       // live tokens [tstart, end)
+    const int end = min(nl - t0, block);
+    for (int g = 0; g < G; ++g) {
+      const float qs = qsc[static_cast<size_t>(bh) * G + g];
+      const int* qg = qw + g * dw;
+      float lmax = REPRO_NEG_INF;
+      for (int t = tid; t < block; t += kThreads) {
+        int dot = 0;
+        for (int w = 0; w < dw; ++w) dot = __dp4a(qg[w], k_s[t * dw + w], dot);
+        float s = __fmul_rn(__fmul_rn(__fmul_rn(static_cast<float>(dot), qs), ks_s[t]),
+                            softmax_scale);
+        if (t < tstart || t >= end) s = REPRO_NEG_INF;
+        p_s[t] = s;
+        lmax = fmaxf(lmax, s);
+      }
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, block_max(lmax, red));
+      const float alpha = expf(m_prev - m_new);
+      float lsum = 0.0f;
+      for (int t = tid; t < block; t += kThreads) {
+        const float p = expf(p_s[t] - m_new);
+        p_s[t] = p;
+        lsum = __fadd_rn(lsum, p);
+      }
+      const float psum = block_sum(lsum, red);   // ends in __syncthreads
+      for (int dd = tid; dd < d; dd += kThreads) {
+        float part = 0.0f;
+        for (int t = 0; t < block; ++t)
+          part = fmaf(p_s[t], __fmul_rn(static_cast<float>(v_s[t * d + dd]), vs_s[t]), part);
+        acc[g * d + dd] = __fadd_rn(__fmul_rn(acc[g * d + dd], alpha), part);
+      }
+      __syncthreads();
+      if (tid == 0) {
+        l_s[g] = __fadd_rn(__fmul_rn(l_s[g], alpha), psum);
+        m_s[g] = m_new;
+      }
+      __syncthreads();
+    }
+  }
+
+  float* o = out + static_cast<size_t>(bh) * G * d;
+  for (int i = tid; i < G * d; i += kThreads) {
+    const float l = l_s[i / d];
+    o[i] = __fdiv_rn(acc[i], l > 0.0f ? l : 1.0f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -301,6 +430,33 @@ int repro_lop_decode_attention(const void* qi, const void* qsc, const void* k,
       static_cast<const uint8_t*>(feat), static_cast<const int*>(new_len),
       static_cast<float*>(out), G, M, d, hkv, block, k_keep, window,
       softmax_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+size_t repro_dense_decode_smem_bytes(int G, int d, int block) {
+  return dense_smem_bytes(G, d, block);
+}
+
+// qi int8 [BH, G, d]; qsc f32 [BH, G]; k/v int8 [BH, M, d]; k/v scales
+// f32 [BH, M]; new_len int32 [B]; out f32 [BH, G, d]. d % 4 == 0,
+// M % block == 0.
+int repro_dense_decode_attention(const void* qi, const void* qsc,
+                                 const void* k, const void* v, const void* ks,
+                                 const void* vs, const void* new_len,
+                                 void* out, int BH, int G, int M, int d,
+                                 int hkv, int block, int window,
+                                 float softmax_scale, void* stream) {
+  const size_t smem = dense_smem_bytes(G, d, block);
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_decode_kernel<<<BH, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(qi), static_cast<const float*>(qsc),
+      static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(new_len), static_cast<float*>(out), G, M, d,
+      hkv, block, window, softmax_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

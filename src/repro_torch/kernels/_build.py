@@ -46,6 +46,8 @@ SIGNATURES = {
     "decode_attention": {
         "repro_lop_decode_attention": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
         "repro_decode_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+        "repro_dense_decode_attention": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
+        "repro_dense_decode_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
 }
 

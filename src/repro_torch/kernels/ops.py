@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.decode_attention import fused_decode_attention
+from repro_torch.kernels.decode_attention import (
+    fused_decode_attention, fused_dense_decode_attention)
 from repro_torch.kernels.prefill_attention import fused_prefill_attention
 from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
 
@@ -24,6 +25,7 @@ KERNELS = {
     "fused_ffn": fused_ffn,
     "fused_prefill_attention": fused_prefill_attention,
     "fused_decode_attention": fused_decode_attention,
+    "fused_dense_decode_attention": fused_dense_decode_attention,
 }
 
 
@@ -160,17 +162,25 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
             shared_select=shared_select, pos_offset=pos_offset,
             return_stats=return_stats)
     bh = b * hkv
-    out = fused_decode_attention(
-        qi.reshape(bh, g, dh).contiguous(),
-        qsc.reshape(bh, g).to(torch.float32).contiguous(),
-        k_cache.reshape(bh, m, dh).contiguous(),
-        v_cache.reshape(bh, m, dh).contiguous(),
-        k_scale.reshape(bh, m).contiguous(),
-        v_scale.reshape(bh, m).contiguous(),
-        feat.reshape(bh, m, dh // 2).contiguous(), new_len.contiguous(),
-        hkv=hkv, block=block, k_keep=k_keep, window=window,
-        softmax_scale=softmax_scale, use_lop=use_lop,
-        shared_select=shared_select,
-        pos_offset=0 if pos_offset is None else int(pos_offset),
-        return_stats=return_stats)
+    lanes = (qi.reshape(bh, g, dh).contiguous(),
+             qsc.reshape(bh, g).to(torch.float32).contiguous(),
+             k_cache.reshape(bh, m, dh).contiguous(),
+             v_cache.reshape(bh, m, dh).contiguous(),
+             k_scale.reshape(bh, m).contiguous(),
+             v_scale.reshape(bh, m).contiguous())
+    po = 0 if pos_offset is None else int(pos_offset)
+    if use_lop:
+        out = fused_decode_attention(
+            *lanes, feat.reshape(bh, m, dh // 2).contiguous(),
+            new_len.contiguous(), hkv=hkv, block=block, k_keep=k_keep,
+            window=window, softmax_scale=softmax_scale,
+            shared_select=shared_select, pos_offset=po,
+            return_stats=return_stats)
+    else:
+        # the dense body never reads the selection, so shared_select is
+        # moot there (as in the reference kernel)
+        out = fused_dense_decode_attention(
+            *lanes, new_len.contiguous(), hkv=hkv, block=block,
+            window=window, softmax_scale=softmax_scale, pos_offset=po,
+            return_stats=return_stats)
     return out.reshape(b, h, dh)

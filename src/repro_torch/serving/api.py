@@ -1,44 +1,140 @@
-"""Serving API of the port: requests, results and the pooled engine.
+"""Serving API of the port: sampling params, requests, results and the
+pooled engine.
 
-:class:`PooledEngine` wraps the engine functions behind the lifecycle the
-scheduler speaks — ``init_pool`` / ``prefill`` / ``prefill_chunk`` /
-``insert`` / ``extract`` / ``decode_step`` / ``evict`` / ``sample_first``
-— with greedy sampling (argmax, first maximal index). Seeded sampling,
-stop sequences, deadlines, faults, prefix caching and speculative decoding
-are not ported yet.
+* :class:`SamplingParams` — per-request decode policy (greedy /
+  temperature / top-k / top-p + PRNG seed); the sampling contract lives in
+  :mod:`repro_torch.serving.sampling`.
+* :class:`GenerateRequest` — prompt, budget, eos, stop token sequences, an
+  optional streaming ``on_token`` callback, a :class:`CancelToken` and a
+  ``deadline_ms`` latency budget.
+* :class:`StepResult` — one streamed token; :class:`FinishedRequest` — the
+  completed request with its finish reason and latency breakdown.
+* :class:`PooledEngine` — the lifecycle the scheduler speaks:
+  ``init_pool`` / ``prefill`` / ``prefill_chunk`` / ``insert`` /
+  ``extract`` / ``decode_step`` / ``retry_step`` / ``rollback`` /
+  ``evict`` / ``sample_first`` / ``set_sampling_state``.
+
+Sampling state lives in the pool (``seed`` / ``sample_step``):
+``decode_step`` reads each lane's key schedule there and advances it with
+the lane. After every ``decode_step`` the engine publishes ``last_ok``
+(np bool [B]), each lane's logit finiteness for that step; ``retry_step``
+recomputes one quarantined lane with the LOP screen off (the dense decode
+kernel) against a pool already rewound by ``rollback``. Prefix caching and
+speculative decoding are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.serving import cache as _cache
-from repro_torch.serving.engine import prefill, prefill_chunk, serve_step
 from repro_torch.models.transformer import init_params
+from repro_torch.serving import cache as _cache
+from repro_torch.serving import faults as _faults
+from repro_torch.serving.engine import (guard_logits, prefill, prefill_chunk,
+                                        serve_step)
 from repro_torch.serving.quantize import quantize_params
+from repro_torch.serving.sampling import sample_with_seed
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decode policy. ``temperature <= 0`` is the greedy fast
+    path (bitwise argmax); ``top_k <= 0`` and ``top_p >= 1`` disable their
+    filters; ``seed`` drives the lane-local key schedule."""
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+
+GREEDY = SamplingParams()
+
+
+class CancelToken:
+    """Mutable cancellation handle carried by a frozen request: the
+    submitter calls :meth:`cancel`; the scheduler retires the request at
+    its next serve cycle (queued, mid-prefill or mid-decode) with reason
+    ``"cancelled"``."""
+
+    __slots__ = ("_cancelled",)
+
+    def __init__(self) -> None:
+        self._cancelled = False
+
+    def cancel(self) -> None:
+        self._cancelled = True
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancelled
+
+
+@dataclass(frozen=True)
+class StepResult:
+    """One streamed token: ``index`` is its 0-based position in the
+    generated stream; ``finished`` marks the request's final token, with
+    ``finish_reason`` "eos" | "stop" | "length" (a cancellation, deadline
+    or fault emits no token)."""
+    rid: int
+    token: int
+    index: int
+    finished: bool
+    finish_reason: str = ""
 
 
 @dataclass(frozen=True, eq=False)
 class GenerateRequest:
-    """One generation request: prompt, token budget, optional EOS id."""
+    """One generation request (frozen envelope).
+
+    ``stop`` holds token sequences: decoding finishes with reason "stop"
+    as soon as the generated stream ends with one of them (the matched
+    suffix stays in ``tokens``). ``on_token`` streams every emitted token
+    in order; ``cancel`` is the mid-flight abort handle; ``deadline_ms``
+    is the latency budget from ``arrival`` (stamped at submit when None).
+    """
     rid: int
     prompt: np.ndarray                 # int32 [prompt_len]
     max_new_tokens: int
     eos_id: int | None = None
+    sampling: SamplingParams = GREEDY
+    stop: tuple = ()                   # tuple[tuple[int, ...], ...]
+    on_token: Callable[[StepResult], None] | None = None
+    cancel: CancelToken | None = None
     arrival: float | None = None
+    deadline_ms: float | None = None
+
+    def __post_init__(self):
+        # hashable int tuples from any iterable of iterables; empty
+        # sequences dropped
+        stop = tuple(tuple(int(t) for t in seq) for seq in self.stop)
+        object.__setattr__(self, "stop", tuple(s for s in stop if s))
+
+    @property
+    def cancelled(self) -> bool:
+        return self.cancel is not None and self.cancel.cancelled
 
 
 @dataclass(frozen=True, eq=False)
 class FinishedRequest:
-    """Completed request: emitted tokens and its latency breakdown."""
+    """Completed request: emitted tokens and its latency breakdown.
+    ``token_times`` stamps each token's emission (index 0 == ``t_first``);
+    a request retired before its first token has empty ``tokens`` and
+    ``t_first == t_done``."""
     rid: int
     prompt_len: int
     tokens: list
-    finish_reason: str                 # "eos" | "length"
+    finish_reason: str                 # "eos" | "stop" | "length" |
+    #                                    "cancelled" | "deadline" |
+    #                                    "shed" | "fault"
     t_arrival: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0
@@ -48,6 +144,20 @@ class FinishedRequest:
     @property
     def ttft(self) -> float:
         return self.t_first - self.t_arrival
+
+    @property
+    def latency(self) -> float:
+        return self.t_done - self.t_arrival
+
+    @property
+    def itl(self) -> list:
+        """Inter-token latencies (seconds), one per token after the first."""
+        return [b - a for a, b in zip(self.token_times, self.token_times[1:])]
+
+
+def _int32(x: int) -> int:
+    """A Python int wrapped to int32, as the reference's pool stores it."""
+    return (int(x) + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
 class PooledEngine:
@@ -71,6 +181,7 @@ class PooledEngine:
         self.use_lop = use_lop
         self.chunk_tokens = cfg.lop_block
         self.supports_chunked = cfg.family == "dense"
+        self.last_ok = None            # np bool [B] after each decode_step
 
     @classmethod
     def from_seed(cls, cfg, *, seed: int, max_len: int, device=None, **kw):
@@ -118,14 +229,100 @@ class PooledEngine:
 
     # ---------------- decode ----------------
 
-    def decode_step(self, pool, tokens):
-        """Advance every active lane one token, greedily.
-        tokens [B, 1] → (np.int32 [B], pool)."""
+    def _vec(self, values, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, dtype), device=self.device)
+
+    def _fault_add(self, add):
+        return None if add is None else self._vec(add, np.float32)
+
+    def _sample(self, logits, seeds, steps, temperature, top_k, top_p):
+        return sample_with_seed(logits, seeds, steps,
+                                self._vec(temperature, np.float32),
+                                self._vec(top_k, np.int32),
+                                self._vec(top_p, np.float32))
+
+    def _pick(self, logits, pool, advance, temperature, top_k, top_p):
+        """Argmax when every lane is greedy (``sample_step`` stays put);
+        otherwise each lane samples under its in-pool key schedule and
+        ``sample_step`` moves by ``advance``."""
+        if np.all(np.asarray(temperature) <= 0.0):
+            return torch.argmax(logits, dim=-1)
+        steps = pool["sample_step"]
+        toks = self._sample(logits, pool["seed"], steps, temperature, top_k,
+                            top_p)
+        pool["sample_step"] = steps + advance
+        return toks
+
+    @staticmethod
+    def _read(toks, ok):
+        """One host transfer for the tokens and the finiteness mask."""
+        both = torch.stack([toks.to(torch.int32), ok.to(torch.int32)])
+        both = both.cpu().numpy()
+        return both[0], both[1].astype(bool)
+
+    def decode_step(self, pool, tokens, temperature, top_k, top_p):
+        """Advance every active lane one token and sample it.
+        tokens [B, 1]; temperature/top_k/top_p per lane [B].
+        → (np.int32 [B], pool); ``self.last_ok`` holds each lane's logit
+        finiteness for this step. When every lane is greedy the sampler is
+        skipped for a bare argmax and ``sample_step`` does not move;
+        otherwise each lane samples under its in-pool key schedule and
+        active lanes' ``sample_step`` advances. An active
+        :mod:`repro_torch.serving.faults` plan injects here."""
+        n = np.asarray(tokens).shape[0]
+        fadd = self._fault_add(_faults.decode_fault_add(n))
         logits, pool = serve_step(self.cfg, self.qp, pool,
                                   self._tokens(tokens), use_lop=self.use_lop)
-        return (torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy(),
-                pool)
+        logits, ok = guard_logits(logits, fadd)
+        advance = (pool["active"].to(torch.int32) if "active" in pool
+                   else 1)
+        toks = self._pick(logits, pool, advance, temperature, top_k, top_p)
+        toks, self.last_ok = self._read(toks, ok)
+        return toks, pool
 
-    def sample_first(self, logits) -> int:
-        """A request's first token from its prefill logits [1, V]."""
-        return int(torch.argmax(logits[0]).item())
+    def retry_step(self, pool, slot: int, tokens, temperature, top_k, top_p):
+        """Recovery step for ONE quarantined lane whose faulted append was
+        rewound (``rollback``): the lane recomputes its token with the LOP
+        screen off — the dense decode kernel — while every other lane is
+        masked inactive (its lengths, K/V and key schedule do not move).
+        ``sample_step`` advances only on the sampled path.
+        → (np.int32 [B], np.bool [B], pool); only row ``slot`` means
+        anything. A sticky injected fault still poisons the retry."""
+        n = np.asarray(tokens).shape[0]
+        fadd = self._fault_add(_faults.retry_fault_add(n))
+        act = pool["active"]
+        only = act & (torch.arange(act.shape[0], device=act.device) == slot)
+        pool["active"] = only
+        logits, pool = serve_step(self.cfg, self.qp, pool,
+                                  self._tokens(tokens), use_lop=False)
+        logits, ok = guard_logits(logits, fadd)
+        toks = self._pick(logits, pool, only.to(torch.int32), temperature,
+                          top_k, top_p)
+        pool["active"] = act
+        toks, ok = self._read(toks, ok)
+        return toks, ok, pool
+
+    def rollback(self, pool, slot: int, n: int) -> dict:
+        """Rewind lane ``slot`` by ``n`` appends
+        (:func:`repro_torch.serving.cache.rollback_slot`)."""
+        return _cache.rollback_slot(pool, slot, n)
+
+    def set_sampling_state(self, pool, slot: int, seed: int,
+                           step: int) -> dict:
+        """Write lane ``slot``'s key schedule (at activation ``step=1``:
+        the prefill-seeded first token was emission 0)."""
+        pool["seed"][slot] = _int32(seed)
+        pool["sample_step"][slot] = step
+        return pool
+
+    def sample_first(self, logits, sampling: SamplingParams | None = None,
+                     seed_step: int = 0) -> int:
+        """A request's first token from its prefill logits [1, V], through
+        the decode step's sampler at key-schedule step ``seed_step``."""
+        sp = sampling or GREEDY
+        if sp.greedy:
+            return int(torch.argmax(logits[0]).item())
+        tok = self._sample(logits[:1], self._vec([_int32(sp.seed)], np.int32),
+                           self._vec([seed_step], np.int32),
+                           [sp.temperature], [sp.top_k], [sp.top_p])
+        return int(tok[0].item())

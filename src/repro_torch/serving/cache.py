@@ -4,14 +4,15 @@ The cache is a dict of tensors: ``lengths`` int32 [B] and, per layer-stacked
 leaf, ``layers.k``/``layers.v`` int8 [L, B, Hkv, M, dh], ``k_scale``/
 ``v_scale`` f32 [L, B, Hkv, M] and ``feat`` uint8 [L, B, Hkv, M, dh//2].
 Capacity M is block-aligned (``lop_block``). A slot-paged pool adds an
-``active`` bool [B] mask.
+``active`` bool [B] mask and each lane's sampling state, ``seed`` and
+``sample_step`` int32 [B] (the PRNG schedule travels with the lane).
 
 Unlike the reference's functional updates, these operations write the
 pool in place: ``insert_slot`` copies a batch-1 cache into a lane,
 ``extract_slot`` returns *views* of a lane (so a chunked-prefill step that
 writes its chunk into the extracted lane writes the pool itself), and
-``evict_slot`` retires a lane. Bytes above a lane's length are stale and
-masked by every reader.
+``evict_slot`` retires a lane and ``rollback_slot`` rewinds one. Bytes
+above a lane's length are stale and masked by every reader.
 """
 
 from __future__ import annotations
@@ -53,6 +54,9 @@ def init_cache_pool(cfg, n_slots: int, max_len: int, device) -> dict:
     """Slot-paged pool: ``n_slots`` persistent decode lanes, all inactive."""
     pool = init_cache(cfg, n_slots, max_len, device)
     pool["active"] = torch.zeros(n_slots, dtype=torch.bool, device=device)
+    pool["seed"] = torch.zeros(n_slots, dtype=torch.int32, device=device)
+    pool["sample_step"] = torch.zeros(n_slots, dtype=torch.int32,
+                                      device=device)
     return pool
 
 
@@ -91,4 +95,24 @@ def evict_slot(pool, slot: int) -> dict:
     pool["layers"]["feat"][:, slot].zero_()
     pool["active"][slot] = False
     pool["lengths"][slot] = 0
+    return pool
+
+
+def rollback_slot(pool, slot: int, n: int) -> dict:
+    """Rewind lane ``slot`` by ``n`` appended tokens (in place).
+
+    ``lengths`` drops by ``n`` (clamped at 0) and the rows
+    ``[lengths − n, lengths)`` of k/v/k_scale/v_scale/feat are zeroed, so
+    the lane is bit for bit its pool-init pattern there; ``sample_step``
+    rewinds by ``n`` too (clamped at 0), keeping a sampled lane's key
+    schedule aligned with its emission count.
+    """
+    old = int(pool["lengths"][slot])
+    new = max(old - n, 0)
+    for key in _LEAVES:
+        pool["layers"][key][:, slot, :, new:old].zero_()
+    pool["lengths"][slot] = new
+    if "sample_step" in pool:
+        pool["sample_step"][slot] = torch.clamp_min(
+            pool["sample_step"][slot] - n, 0)
     return pool

@@ -234,3 +234,15 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True):
                                   else active.to(torch.int32))
     return _logits(cfg, qp, x[:, -1]), cache
 
+
+
+def guard_logits(logits, fault_add=None):
+    """Fault-injection and detection point of the decode step: adds the
+    per-lane offset ``fault_add`` f32 [B] (NaN rows when a
+    :mod:`repro_torch.serving.faults` plan injects; None in production)
+    and computes each lane's finiteness on the logits' device — one
+    reduction, no [B, V] host transfer. → (logits [B, V], ok bool [B]).
+    A lane with ``ok`` False must not emit its sampled token."""
+    if fault_add is not None:
+        logits = logits + fault_add[:, None]
+    return logits, torch.isfinite(logits).all(dim=-1)

@@ -147,8 +147,45 @@ def test_decode_kernel_matches_plain(cuda, b, h, hkv, m, dh, block, k_keep,
     assert not got[1].any()                          # retired lane → zero
 
 
-@pytest.mark.parametrize("mode", [dict(use_lop=False),
-                                  dict(shared_select=True),
+@pytest.mark.parametrize("dh", [32, 100])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("window", [0, 256])
+def test_dense_decode_kernel_matches_plain(cuda, dh, g, window):
+    rng = np.random.default_rng(dh * 10 + g + window)
+    b, hkv, m, block = 4, 8, 1664, 128
+    arrs = _dev(_decode(rng, b, g * hkv, hkv, m, dh), cuda)
+    new_len = torch.tensor([m - 64, 0, 700, block + 1], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(block=block, k_keep=2, window=window, use_lop=False)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(*arrs, new_len, **kw)
+    want = plain.decode_attention_ref(*arrs, new_len,
+                                      softmax_scale=dh ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_dense_decode_attention"] == 1
+    assert ops.launch_counts()["fused_decode_attention"] == 0
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[1].any()                          # retired lane → zero
+
+
+def test_dense_decode_lanes_independent_bitwise(cuda):
+    """A lane's output is the same bits whether the other lanes are live
+    or retired (new_len 0): the recovery retry runs one lane alone."""
+    rng = np.random.default_rng(5)
+    b, h, m, dh = 4, 32, 1664, 100
+    arrs = _dev(_decode(rng, b, h, h, m, dh), cuda)
+    full = torch.tensor([1500, 300, 900, 1663], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(block=128, k_keep=2, use_lop=False)
+    together = ops.decode_attention(*arrs, full, **kw)
+    for lane in range(b):
+        alone = torch.where(torch.arange(b, device=cuda) == lane, full, 0)
+        out = ops.decode_attention(*arrs, alone.to(torch.int32), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out[lane], together[lane]), lane
+
+
+@pytest.mark.parametrize("mode", [dict(shared_select=True),
                                   dict(return_stats=True),
                                   dict(pos_offset=128)])
 def test_decode_kernel_rejects_unported_modes(cuda, mode):
