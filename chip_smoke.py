@@ -39,10 +39,25 @@ printed:
               logits (every fault recovered, every stream bitwise the
               clean one), a sticky NaN lane (reason "fault"), a 1 us
               deadline and a mid-decode cancellation; and the LOP engine
-              under NaN logits, recovering through the dense retry.
+              under NaN logits, recovering through the dense retry;
+  5. standalone kernels and the per-head LOP decode, at full width:
+              the TINT GEMM (ternary_matmul), the LOP screen
+              (lop_scores_kernel), single-head flash prefill and block-sparse
+              decode, each held against its plain version (integers
+              bitwise, f32 at rtol = atol = 1e-4) and timed as in phase 3
+              beside one PyTorch call for the same function; then the paths
+              a user of the kernel API runs, each with the launch counts
+              zeroed before and read after: the TINT chain
+              (ternary_matmul(quantize(x)) · x_scale · γ, bitwise
+              qlinear_fused at the QKV and O shapes, m = 4 and 128), one
+              1536-token flash prefill, and the paper's per-head
+              predictive-sparse decode (lop_screen over every (batch,
+              kv-head) lane → select_blocks → sparse_decode over every
+              lane; 2 launches) against the fused LOP decode kernel (1
+              launch) on the K/V of one layer of the serve engine's cache.
 
-The line before the last two is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last two is the ``kernels`` JSON (nine entries); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 TOL = dict(rtol=2e-5, atol=2e-5)
+TOL_STANDALONE = dict(rtol=1e-4, atol=1e-4)   # the reference's kernel tests
 
 SEED = 0
 N_SLOTS, N_REQUESTS, GEN = 4, 8, 32
@@ -120,17 +136,19 @@ def nbytes(*tensors) -> int:
 # phase 3: kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def check_close(torch, name, got, want, bitwise=False) -> float:
+def check_close(torch, name, got, want, bitwise=False, tol=TOL) -> float:
     torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
+    if got.is_floating_point() and not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
-    err = float((got - want).abs().max()) if got.numel() else 0.0
+    err = (float((got.double() - want.double()).abs().max())
+           if got.numel() else 0.0)
     if bitwise:
-        if not torch.equal(got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"{name}: not bitwise the plain version "
                                  f"(max |err| {err})")
     else:
-        torch.testing.assert_close(got, want, **TOL, msg=lambda m: f"{name}: {m}")
+        torch.testing.assert_close(got, want, **tol,
+                                   msg=lambda m: f"{name}: {m}")
     return err
 
 
@@ -655,6 +673,363 @@ def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
                 dense_launches=dense_launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the standalone kernels and the per-head LOP decode
+# ---------------------------------------------------------------------------
+
+STANDALONE = ("ternary_matmul", "lop_scores_kernel", "int8_flash_prefill",
+              "sparse_decode_attention")
+TINT_SHAPES = (("qkv", 3200, 9600), ("o", 3200, 3200),
+               ("gate_up", 3200, 17280), ("down", 8640, 3200))
+PER_HEAD_LEN = (1600, 1, 700, 1200)
+
+
+def cache_lanes(torch, np, engine) -> dict:
+    """K/V, scales and LOP features of the last layer for 4 lanes, each a
+    whole-prompt prefill of a seeded prompt of PER_HEAD_LEN tokens on the
+    serve engine. → {leaf: [B, Hkv, M, ...]}."""
+    cfg = engine.cfg
+    rng = np.random.default_rng(SEED + 13)
+    leaves = {key: [] for key in ("k", "v", "k_scale", "v_scale", "feat")}
+    for n in PER_HEAD_LEN:
+        prompt = rng.integers(0, cfg.vocab, n).astype(np.int32)
+        _, cache = engine.prefill(prompt[None])
+        for key, vals in leaves.items():
+            vals.append(cache["layers"][key][cfg.n_layers - 1, 0].clone())
+        del cache
+    return {key: torch.stack(vals) for key, vals in leaves.items()}
+
+
+def time_row(torch, kern, ref, args, n_iter, b_ms, b_by, lib):
+    """Time ``kern`` (L2 cold) and ``ref`` on ``args``, and the library
+    call ``lib = (fn, its args)`` (L2 cold). → the row fields."""
+    fn, lib_args = lib
+    return dict(ms=cuda_ms(torch, kern, copies(torch, args), n_iter),
+                plain_ms=cuda_ms(torch, ref, [args], 3),
+                library_ms=cuda_ms(torch, fn, copies(torch, lib_args),
+                                   n_iter),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def fmt_row(row) -> str:
+    return (f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']})")
+
+
+def standalone_kernels(torch, np, lanes, card) -> dict:
+    """Part 1: each standalone kernel against its plain version on the
+    card, at full width, with its times. → rows by kernel name."""
+    from repro_torch.core.lop import features_to_pot, pot, unpack_features
+    from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.int8_attention import (int8_flash_prefill,
+                                                    sparse_decode_attention)
+    from repro_torch.kernels.lop_scores import lop_scores_kernel
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.serving.lop_select import select_blocks
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 14)
+    rows = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # ---- #7 ternary_matmul: the four projections at m = 4 and 128 ----
+    err, first = 0.0, None
+    for m in (4, 128):
+        for label, k, n in TINT_SHAPES:
+            x = t(rng.integers(-127, 128, (m, k)).astype(np.int8))
+            packed = t(rng.integers(0, 256, (k // 4, n)).astype(np.uint8))
+            got = ternary_matmul(x, packed)
+            want = plain.ternary_matmul_ref(x, packed, k)
+            err = max(err, check_close(torch, f"ternary_matmul[{label},m={m}]",
+                                       got, want, bitwise=True))
+            # library yardstick: torch._int_mm on the unpacked int8 weight
+            # (4x the weight bytes); it wants more than 16 rows, so m = 4
+            # is padded to 32
+            w8 = unpack_ternary(packed, k)
+            x_pad = torch.zeros((max(m, 32), k), dtype=torch.int8,
+                                device=dev)
+            x_pad[:m] = x
+            if not torch.equal(torch._int_mm(x_pad, w8)[:m], want):
+                raise AssertionError("torch._int_mm disagrees with the "
+                                     "plain TINT GEMM")
+            b_ms, b_by = bound_ms(nbytes(x, packed) + m * n * 4,
+                                  int8_ops=2.0 * m * k * n)
+            row = time_row(torch, ternary_matmul,
+                           lambda a, b: plain.ternary_matmul_ref(a, b, k),
+                           (x, packed), 50, b_ms, b_by,
+                           lib=(torch._int_mm, (x_pad, w8)))
+            log(f"  ternary_matmul {label} m={m} k={k} n={n}: {fmt_row(row)}"
+                f" bitwise=True{' (_int_mm at 32 rows)' if m < 32 else ''}"
+                f" [{card}]")
+            if first is None:
+                first = dict(row, shape=f"{label} m={m} k={k} n={n}")
+    rows["ternary_matmul"] = dict(first, max_abs_err=err)
+
+    # ---- #6 lop_scores_kernel: every (B, Hkv) lane of the cache ----
+    b, hkv, m_cap, dh = lanes["k"].shape
+    n_lanes = b * hkv
+    qi = t(rng.integers(-127, 128, (b, hkv, dh)).astype(np.int8))
+    q_pot = pot(qi).reshape(n_lanes, 1, dh)
+    feat = lanes["feat"].reshape(n_lanes, m_cap, dh // 2)
+    got = lop_scores_kernel(q_pot, feat)
+    want = plain.lop_scores_ref(q_pot, feat)
+    err = check_close(torch, "lop_scores_kernel", got, want, bitwise=True)
+    # library yardstick: one batched f32 product of the unpacked pot
+    # operands (exact: |score| < 2^24); _int_mm is 2-D and has no lanes
+    k_pot = features_to_pot(unpack_features(feat)).float().transpose(1, 2)
+    q_f = q_pot.float()
+    if not torch.equal(torch.bmm(q_f, k_pot).to(torch.int32), want):
+        raise AssertionError("torch.bmm disagrees with the plain LOP screen")
+    b_ms, b_by = bound_ms(nbytes(q_pot, feat) + n_lanes * m_cap * 4,
+                          int8_ops=2.0 * n_lanes * m_cap * dh)
+    row = time_row(torch, lop_scores_kernel,
+                   plain.lop_scores_ref, (q_pot, feat), 50, b_ms, b_by,
+                   lib=(torch.bmm, (q_f, k_pot)))
+    log(f"  lop_scores_kernel lanes={n_lanes} g=1 M={m_cap} d={dh}: "
+        f"{fmt_row(row)} bitwise=True (library: torch.bmm, f32 pot) [{card}]")
+    rows["lop_scores_kernel"] = dict(row, max_abs_err=err,
+                                     shape=f"lanes={n_lanes} g=1 M={m_cap} "
+                                           f"d={dh}")
+
+    # ---- #8 int8_flash_prefill: one head of 1536 tokens ----
+    s_len = 1536
+    sm = dh ** -0.5
+    q8, k8, v8 = (t(rng.integers(-127, 128, (s_len, dh)).astype(np.int8))
+                  for _ in range(3))
+    qs8, ks8, vs8 = (t(rng.uniform(0.001, 0.02, (s_len, 1)).astype(
+        np.float32)) for _ in range(3))
+    args8 = (q8, k8, v8, qs8, ks8, vs8)
+    err = 0.0
+    for causal, window in ((True, 0), (True, 512), (False, 0)):
+        kw = dict(softmax_scale=sm, causal=causal, window=window)
+        got = int8_flash_prefill(*args8, **kw)
+        want = plain.flash_prefill_ref(*args8, **kw)
+        err = max(err, check_close(
+            torch, f"int8_flash_prefill[causal={causal},window={window}]",
+            got, want, tol=TOL_STANDALONE))
+    pairs = s_len * (s_len + 1) / 2
+    b_ms, b_by = bound_ms(nbytes(*args8) + s_len * dh * 4,
+                          int8_ops=2.0 * pairs * dh, f32_ops=2.0 * pairs * dh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qf, kf, vf = ((a.float() * sc)[None, None]
+                  for a, sc in ((q8, qs8), (k8, ks8), (v8, vs8)))
+    kw = dict(softmax_scale=sm, causal=True)
+    row = time_row(torch, lambda *a: int8_flash_prefill(*a, **kw),
+                   lambda *a: plain.flash_prefill_ref(*a, **kw), args8, 20,
+                   b_ms, b_by,
+                   lib=(lambda a, b_, c: sdpa(a, b_, c, is_causal=True),
+                        (qf, kf, vf)))
+    log(f"  int8_flash_prefill s={s_len} d={dh} causal: {fmt_row(row)}; "
+        f"{-(-s_len // 16)} CTAs of 16 rows on 132 SMs; SWA 512 and "
+        f"non-causal checked too (library: SDPA on dequantized f32) [{card}]")
+    rows["int8_flash_prefill"] = dict(row, max_abs_err=err,
+                                      shape=f"s={s_len} d={dh} causal")
+
+    # ---- #9 sparse_decode_attention: the per-head path's selections ----
+    new_len = torch.tensor(PER_HEAD_LEN, dtype=torch.int32, device=dev)
+    scores = plain.lop_scores_ref(q_pot, feat).reshape(b, hkv, 1, m_cap)
+    blk = 128
+    idx, gt = select_blocks(scores, new_len, block=blk, k_keep=2)
+    nb = idx.shape[-1]
+    q9, k9, v9 = (qi.reshape(n_lanes, 1, dh),
+                  lanes["k"].reshape(n_lanes, m_cap, dh),
+                  lanes["v"].reshape(n_lanes, m_cap, dh))
+    qs9 = t(rng.uniform(0.001, 0.02, (n_lanes, 1, 1)).astype(np.float32))
+    ks9, vs9 = (lanes[key].reshape(n_lanes, m_cap, 1)
+                for key in ("k_scale", "v_scale"))
+    idx9 = idx.reshape(n_lanes, nb).contiguous()
+    gt9 = gt.reshape(n_lanes, 3 * nb).contiguous()
+    args9 = (q9, k9, v9, qs9, ks9, vs9, idx9, gt9)
+    kw = dict(block=blk, softmax_scale=sm)
+    got = sparse_decode_attention(*args9, **kw)
+    want = plain.sparse_decode_attention_ref(*args9, **kw)
+    err = check_close(torch, "sparse_decode_attention", got, want,
+                      tol=TOL_STANDALONE)
+    gate = gt9[:, :nb] > 0
+    start, end = gt9[:, 2 * nb:], gt9[:, nb:2 * nb]
+    live = ((end - start).clamp_min(0) * gate).sum().item()
+    b_ms, b_by = bound_ms(nbytes(q9, qs9, idx9, gt9)
+                          + live * (2 * dh + 8) + n_lanes * dh * 4,
+                          int8_ops=2.0 * live * dh, f32_ops=2.0 * live * dh)
+    # library yardstick: SDPA over the selected blocks, gathered and
+    # dequantized beforehand, with the live-token mask
+    sel = (idx9[..., None] * blk
+           + torch.arange(blk, device=dev)).reshape(n_lanes, nb * blk)
+    lane_ix = torch.arange(n_lanes, device=dev)[:, None]
+    kg, vg = ((c[lane_ix, sel].float() * sc[lane_ix, sel])[:, None]
+              for c, sc in ((k9, ks9), (v9, vs9)))
+    tpos = torch.arange(blk, device=dev)
+    live_mask = (gate[..., None] & (tpos >= start[..., None])
+                 & (tpos < end[..., None]))
+    lib9 = (lambda a, b_, c, m_: sdpa(a, b_, c, attn_mask=m_),
+            ((q9.float() * qs9)[:, None], kg, vg,
+             live_mask.reshape(n_lanes, 1, 1, nb * blk)))
+    row = time_row(torch, lambda *a: sparse_decode_attention(*a, **kw),
+                   lambda *a: plain.sparse_decode_attention_ref(*a, **kw),
+                   args9, 50, b_ms, b_by, lib=lib9)
+    log(f"  sparse_decode_attention lanes={n_lanes} g=1 K={nb} blocks of "
+        f"{blk}, new_len={list(PER_HEAD_LEN)}: {fmt_row(row)} (library: "
+        f"SDPA on the gathered dequantized blocks) [{card}]")
+    rows["sparse_decode_attention"] = dict(
+        row, max_abs_err=err,
+        shape=f"lanes={n_lanes} g=1 K={nb} block={blk} M={m_cap}")
+    return rows
+
+
+def per_head_decode(torch, ops, select_blocks, qi, qsc, lanes, new_len, *,
+                    block, k_keep):
+    """The paper's per-head predictive-sparse decode through the kernel
+    API (the Fig. 8 path): one lop_screen over every (batch, kv-head)
+    lane, select_blocks, one sparse_decode over every (batch, kv-head,
+    group) lane. qi int8 [B, H, dh]; qsc f32 [B, H, 1]. → f32 [B, H, dh]."""
+    b, h, dh = qi.shape
+    hkv = lanes["k"].shape[1]
+    g = h // hkv
+    qg = qi.reshape(b, hkv, g, dh)
+    scores = ops.lop_screen(qg, lanes["feat"])
+    idx, gate_tokens = select_blocks(scores, new_len, block=block,
+                                     k_keep=k_keep)
+    out = ops.sparse_decode(
+        qg[..., None, :], lanes["k"], lanes["v"],
+        qsc.reshape(b, hkv, g, 1, 1), lanes["k_scale"][..., None],
+        lanes["v_scale"][..., None], idx, gate_tokens, block=block,
+        softmax_scale=dh ** -0.5)
+    return out.reshape(b, h, dh)
+
+
+def standalone_paths(torch, np, lanes, card) -> dict:
+    """Parts 2 and 3: the TINT chain, one flash prefill and the per-head
+    decode, each driven with the launch counts zeroed just before and
+    read just after. → launches by kernel name."""
+    from repro_torch.core.lop import kv_traffic_bytes
+    from repro_torch.core.quantization import quantize
+    from repro_torch.core.ternary import TernaryWeight
+    from repro_torch.kernels import ops
+    from repro_torch.serving.lop_select import select_blocks
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 15)
+    launches = dict.fromkeys(STANDALONE, 0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def counted(label, fn, want):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_counts(counts, label, want)
+        for key in launches:
+            launches[key] += counts[key]
+        return out, counts
+
+    # ---- the TINT chain == the fused projection, bitwise ----
+    d = 3200
+    cases = []
+    for m in (4, 128):
+        for label, n, per_col in (("qkv", 3 * d, True), ("o", d, False)):
+            gamma = t((rng.uniform(0.01, 0.05, (1, n)) if per_col
+                       else np.full((1, 1), 0.03)).astype(np.float32))
+            cases.append((label, m, t(rng.standard_normal((m, d)).astype(
+                np.float32)), TernaryWeight(t(rng.integers(
+                    0, 256, (d // 4, n)).astype(np.uint8)), gamma, (d, n))))
+
+    def chain():
+        outs = []
+        for _, _, x, tw in cases:
+            xq = quantize(x)
+            acc = ops.ternary_matmul(xq.values, tw)
+            outs.append(acc.to(torch.float32) * xq.scale * tw.scale)
+        return outs
+    chained, _ = counted("TINT chain", chain, ("ternary_matmul",))
+    for (label, m, x, tw), y in zip(cases, chained):
+        fused = ops.qlinear_fused(x, tw.packed, tw.scale)
+        torch.cuda.synchronize()
+        if not torch.equal(y, fused):
+            raise AssertionError(f"TINT chain [{label}, m={m}] != "
+                                 "qlinear_fused")
+    log(f"  TINT chain (absmax quantize -> ternary_matmul -> (acc*xs)*gamma)"
+        f" == qlinear_fused bitwise for QKV (per-column gamma) and O (scalar"
+        f" gamma) at m = 4 and 128; {launches['ternary_matmul']} "
+        f"ternary_matmul launches")
+
+    # ---- one head of flash prefill at 1536 tokens ----
+    s_len, dh = 1536, lanes["k"].shape[-1]
+    q8, k8, v8 = (t(rng.integers(-127, 128, (s_len, dh)).astype(np.int8))
+                  for _ in range(3))
+    scales = [t(rng.uniform(0.001, 0.02, (s_len, 1)).astype(np.float32))
+              for _ in range(3)]
+    out, _ = counted("flash prefill", lambda: ops.flash_prefill(
+        q8, k8, v8, *scales, softmax_scale=dh ** -0.5, causal=True),
+        ("int8_flash_prefill",))
+    if out.shape != (s_len, dh) or not torch.isfinite(out).all():
+        raise AssertionError(f"flash prefill: {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    log(f"  flash_prefill (one head, s={s_len}, causal): finite [{s_len}, "
+        f"{dh}] output")
+
+    # ---- the per-head predictive-sparse decode vs the fused kernel ----
+    b, hkv, m_cap, _ = lanes["k"].shape
+    h, block, k_keep = hkv, 128, 2
+    qi = t(rng.integers(-127, 128, (b, h, dh)).astype(np.int8))
+    qsc = t(rng.uniform(0.001, 0.02, (b, h, 1)).astype(np.float32))
+    new_len = torch.tensor(PER_HEAD_LEN, dtype=torch.int32, device=dev)
+
+    def per_head(qi_, qsc_, k_, v_, ks_, vs_, f_, nl_):
+        return per_head_decode(
+            torch, ops, select_blocks, qi_, qsc_,
+            dict(k=k_, v=v_, k_scale=ks_, v_scale=vs_, feat=f_), nl_,
+            block=block, k_keep=k_keep)
+
+    def fused(*a):
+        return ops.decode_attention(*a, block=block, k_keep=k_keep)
+    args = (qi, qsc, lanes["k"], lanes["v"], lanes["k_scale"],
+            lanes["v_scale"], lanes["feat"], new_len)
+    got, ph_counts = counted("per-head LOP decode", lambda: per_head(*args),
+                             ("lop_scores_kernel", "sparse_decode_attention"))
+    want, f_counts = counted("fused LOP decode", lambda: fused(*args),
+                             ("fused_decode_attention",))
+    err = check_close(torch, "per-head decode vs fused_decode_attention",
+                      got, want, tol=TOL_STANDALONE)
+    n_ph = sum(ph_counts.values())
+    n_f = sum(f_counts.values())
+    ph_ms = cuda_ms(torch, per_head, copies(torch, args), 20)
+    f_ms = cuda_ms(torch, fused, copies(torch, args), 20)
+    queries = b * h
+    dense_b = queries * kv_traffic_bytes(m_cap, dh, 0, with_lop=False)
+    lop_b = queries * kv_traffic_bytes(m_cap, dh, k_keep * block)
+    scores_b = 2 * b * hkv * m_cap * 4       # int32 scores out and back in
+    log(f"  per-head LOP decode (B={b}, H={h}, M={m_cap}, k_keep={k_keep}, "
+        f"new_len={list(PER_HEAD_LEN)}): agrees with fused_decode_attention "
+        f"(max |err| {err:.3g}, rtol=atol=1e-4); launches {n_ph} per-head "
+        f"vs {n_f} fused; {ph_ms:.4f} ms per-head vs {f_ms:.4f} ms fused "
+        f"(L2 cold) [{card}]")
+    log(f"  modeled K/V bytes per decode step (kv_traffic_bytes, {queries} "
+        f"head-queries): dense {dense_b}, per-head LOP {lop_b} (+{scores_b} "
+        f"of int32 scores written and read back between its launches), "
+        f"fused LOP {lop_b}")
+    return launches
+
+
+def standalone_phase(torch, np, engine, card) -> dict:
+    """Phase 5. → rows of the four standalone kernels, with launches."""
+    t0 = time.monotonic()
+    lanes = cache_lanes(torch, np, engine)
+    log(f"  K/V of layer {engine.cfg.n_layers - 1} from whole-prompt "
+        f"prefills of {list(PER_HEAD_LEN)} tokens in "
+        f"{time.monotonic() - t0:.1f} s [{card}]")
+    rows = standalone_kernels(torch, np, lanes, card)
+    launches = standalone_paths(torch, np, lanes, card)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    return rows
+
+
 def _dev_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -795,6 +1170,16 @@ def main() -> int:
     launches = dict(serve["counts"])
     launches[DENSE] = nolop["counts"][DENSE] + sampled["dense_launches"]
 
+    # ---- 5. standalone kernels and the per-head LOP decode ----
+    log(f"[standalone kernels + per-head LOP decode] full width (d 3200, "
+        f"32 heads of 100, ffn 8640, capacity 1664, lop_block 128, k_keep "
+        f"2); integers bitwise, f32 at rtol=atol={TOL_STANDALONE['rtol']} "
+        f"[{smi}]")
+    standalone = standalone_phase(torch, np, engine, smi)
+    for kname, row in standalone.items():
+        launches[kname] = row["launches"]
+    rows.update(standalone)
+
     sources = {"fused_qlinear": ("qlinear.cu", "src/repro/kernels/qlinear.py:224"),
                "fused_ffn": ("qlinear.cu", "src/repro/kernels/qlinear.py:368"),
                "fused_prefill_attention": (
@@ -804,7 +1189,18 @@ def main() -> int:
                    "decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:422"),
                DENSE: ("decode_attention.cu",
-                       "src/repro/kernels/decode_attention.py:380")}
+                       "src/repro/kernels/decode_attention.py:380"),
+               "ternary_matmul": (
+                   "ternary_matmul.cu",
+                   "src/repro/kernels/ternary_matmul.py:77"),
+               "lop_scores_kernel": (
+                   "lop_scores.cu", "src/repro/kernels/lop_scores.py:71"),
+               "int8_flash_prefill": (
+                   "int8_attention.cu",
+                   "src/repro/kernels/int8_attention.py:122"),
+               "sparse_decode_attention": (
+                   "int8_attention.cu",
+                   "src/repro/kernels/int8_attention.py:237")}
     kernels = []
     for kname, row in rows.items():
         src, replaces = sources[kname]

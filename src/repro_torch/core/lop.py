@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantization import int_matmul
+
 # LO field values 0..6 encode ⌊log₂|x|⌋ for |x| ∈ [1,127]; 7 encodes x == 0.
 LO_ZERO = 7
 DEFAULT_N_BUCKETS = 64
@@ -34,6 +36,13 @@ def pot(x: torch.Tensor) -> torch.Tensor:
     """sgn(x)·2^LO(|x|) as int8 (0 stays 0, max ±64)."""
     return (torch.sign(x.to(torch.int32)) * _mag(leading_one(x))).to(
         torch.int8)
+
+
+def lop_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Surrogate scores ŝ = pot(q)·pot(k)ᵀ in int32, exactly.
+    q [..., d], k [..., M, d] → [..., M]."""
+    return int_matmul(pot(q)[..., None, :], pot(k).transpose(-1, -2))[
+        ..., 0, :]
 
 
 def lop_features(x: torch.Tensor) -> torch.Tensor:
@@ -130,3 +139,21 @@ def block_reduce_scores(scores: torch.Tensor, block: int,
         raise ValueError(f"M={m} not a multiple of block={block}")
     s = scores.reshape(*lead, m // block, block)
     return s.amax(-1) if mode == "max" else s.sum(-1)
+
+
+def exact_topk(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Comparator-based top-k indices (int32), ties to the lower index —
+    the oracle for recall tests."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[..., :k].to(torch.int32)
+
+
+def kv_traffic_bytes(m: int, d: int, k: int, *, packed_features: bool = True,
+                     with_lop: bool = True) -> int:
+    """K/V bytes fetched per (head, query): all M int8 keys and values
+    without LOP; with LOP the feature cache (d/2 bytes a key when packed)
+    plus K exact keys and values."""
+    if not with_lop:
+        return 2 * m * d
+    feat = m * (d // 2 if packed_features else d)
+    return feat + 2 * k * d

@@ -43,6 +43,28 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return (qt.values.to(torch.float32) * qt.scale).to(dtype)
 
 
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of small-int tensors → int32.
+
+    Formed as a float64 matmul of the int values, which is exact far
+    beyond these magnitudes (CUDA has no integer matmul, and an int8
+    matmul on the CPU wraps), then cast to int32.
+    """
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.int32)
+
+
+def int8_matmul(xq: QuantizedTensor, wq_values: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """Integer-domain GEMM with one output dequantization.
+
+    ``xq.values [..., k] @ wq_values [k, n]`` accumulated exactly in int32,
+    then ``(acc·x_scale)·w_scale`` in f32 — the reference's op order.
+    """
+    acc = int_matmul(xq.values, wq_values)
+    return acc.to(torch.float32) * xq.scale * w_scale
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -53,3 +75,10 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
         torch.float32)
     y = xf * torch.rsqrt(ms + eps)
     return (y * gamma.to(torch.float32)).to(x.dtype)
+
+
+def online_softmax_stats(logits: torch.Tensor, dim: int = -1):
+    """Running max and sum of exponentials (the softmax reductions)."""
+    m = logits.amax(dim=dim, keepdim=True)
+    s = torch.exp(logits - m).sum(dim=dim, keepdim=True)
+    return m, s

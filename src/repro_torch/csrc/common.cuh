@@ -46,3 +46,63 @@ __device__ __forceinline__ int8_t barrier_quantize(float x, float scale) {
   q = fminf(fmaxf(q, -127.0f), 127.0f);
   return static_cast<int8_t>(static_cast<int>(q));
 }
+
+// Fixed-order reductions over a CTA of kWarps warps (thread sequential →
+// warp tree → warps 0..kWarps−1); ``red`` holds kWarps entries. All
+// threads get the result.
+template <int kWarps>
+__device__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
+  return r;
+}
+
+template <int kWarps>
+__device__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < kWarps; ++w) r = __fadd_rn(r, red[w]);
+  return r;
+}
+
+template <int kWarps>
+__device__ int block_max_int(int v, int* red) {
+  v = warp_max_int(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  int r = red[0];
+  for (int w = 1; w < kWarps; ++w) r = max(r, red[w]);
+  return r;
+}
+
+// 256-entry table: a byte of four 2-bit ternary codes (code j = bits
+// 2j..2j+1; 1 → +1, 2 → −1, 0 and 3 → 0) → the four int8 values packed
+// as a char4 word, ready for __dp4a.
+__device__ __forceinline__ int ternary_code_word(int byte) {
+  int v = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = (byte >> (2 * j)) & 3;
+    const int t = (c == 1) ? 1 : ((c == 2) ? -1 : 0);
+    v |= (t & 0xff) << (8 * j);
+  }
+  return v;
+}
+
+// LOP nibble (sgn << 3) | LO → pot value: 0 for LO 7, else ±2^LO.
+__device__ __forceinline__ int nib_pot(int nib) {
+  const int lo = nib & 7;
+  const int mag = (lo == 7) ? 0 : (1 << lo);
+  return (nib & 8) ? -mag : mag;
+}

@@ -60,46 +60,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBuckets = 64;
 
-__device__ __forceinline__ int nib_pot(int nib) {
-  const int lo = nib & 7;
-  const int mag = (lo == 7) ? 0 : (1 << lo);
-  return (nib & 8) ? -mag : mag;
-}
-
-// Fixed-order block reductions (thread sequential → warp tree → warps 0..3).
-__device__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
-  return r;
-}
-
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = __fadd_rn(r, red[w]);
-  return r;
-}
-
-__device__ int block_max_int(int v, int* red) {
-  v = warp_max_int(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = max(r, red[w]);
-  return r;
-}
-
 // One row of comparison_free_rank over nb block scores (single thread).
 __device__ void rank_row(const float* s, int* rank, int nb, int k) {
   float smin = CUDART_INF_F, smax = -CUDART_INF_F;
@@ -213,7 +173,7 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
           best = max(best, sc);
         }
       }
-      best = block_max_int(best, red_i);
+      best = block_max_int<kWarps>(best, red_i);
       if (tid == 0)
         blk[g * nb + jb] = lo < hi ? static_cast<float>(best) : -CUDART_INF_F;
     }
@@ -261,7 +221,7 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
       lmax = fmaxf(lmax, s);
     }
     const float m_prev = m_s[g];
-    const float m_new = fmaxf(m_prev, block_max(lmax, red));
+    const float m_new = fmaxf(m_prev, block_max<kWarps>(lmax, red));
     const float alpha = expf(m_prev - m_new);
     float lsum = 0.0f;
     for (int t = tid; t < block; t += kThreads) {
@@ -269,7 +229,7 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
       p_s[t] = p;
       lsum = __fadd_rn(lsum, p);
     }
-    const float psum = block_sum(lsum, red);     // ends in __syncthreads
+    const float psum = block_sum<kWarps>(lsum, red);     // ends in __syncthreads
     for (int dd = tid; dd < d; dd += kThreads) {
       float part = 0.0f;
       for (int t = 0; t < block; ++t)
@@ -370,7 +330,7 @@ dense_decode_kernel(const int8_t* __restrict__ qi,
         lmax = fmaxf(lmax, s);
       }
       const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, block_max(lmax, red));
+      const float m_new = fmaxf(m_prev, block_max<kWarps>(lmax, red));
       const float alpha = expf(m_prev - m_new);
       float lsum = 0.0f;
       for (int t = tid; t < block; t += kThreads) {
@@ -378,7 +338,7 @@ dense_decode_kernel(const int8_t* __restrict__ qi,
         p_s[t] = p;
         lsum = __fadd_rn(lsum, p);
       }
-      const float psum = block_sum(lsum, red);   // ends in __syncthreads
+      const float psum = block_sum<kWarps>(lsum, red);   // ends in __syncthreads
       for (int dd = tid; dd < d; dd += kThreads) {
         float part = 0.0f;
         for (int t = 0; t < block; ++t)

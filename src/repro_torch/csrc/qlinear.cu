@@ -62,16 +62,7 @@ qlinear_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
   const int n = blockIdx.x * kCols + lane;
 
   // code table: byte → four int8 ternary values packed as a char4
-  for (int b = tid; b < 256; b += kThreads) {
-    int v = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int c = (b >> (2 * j)) & 3;
-      int t = (c == 1) ? 1 : ((c == 2) ? -1 : 0);
-      v |= (t & 0xff) << (8 * j);
-    }
-    lut[b] = v;
-  }
+  for (int b = tid; b < 256; b += kThreads) lut[b] = ternary_code_word(b);
 
   // ---- absmax barrier: warp w quantizes rows w, w + 8, ... of the tile ----
   for (int r = warp; r < BM; r += kSplit) {

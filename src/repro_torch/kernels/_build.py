@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("qlinear", "prefill_attention", "decode_attention")
+SOURCES = ("qlinear", "prefill_attention", "decode_attention",
+           "ternary_matmul", "lop_scores", "int8_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,6 +49,20 @@ SIGNATURES = {
         "repro_decode_smem_bytes": ([_I] * 5, ctypes.c_size_t),
         "repro_dense_decode_attention": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
         "repro_dense_decode_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    },
+    "ternary_matmul": {
+        "repro_ternary_matmul": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        "repro_ternary_matmul_max_k": ([], _I),
+    },
+    "lop_scores": {
+        "repro_lop_scores": ([_P] * 3 + [_I] * 4 + [_P], _I),
+        "repro_lop_scores_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+    },
+    "int8_attention": {
+        "repro_flash_prefill": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
+        "repro_flash_prefill_max_d": ([], _I),
+        "repro_sparse_decode": ([_P] * 9 + [_I] * 7 + [_F, _P], _I),
+        "repro_sparse_decode_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
 }
 

@@ -51,7 +51,7 @@ def _check_common(qi, qsc, k_cache, v_cache, k_scale, v_scale, new_len, *,
 
 def _check_smem(smem: int) -> None:
     if smem > SMEM_LIMIT:
-        raise ValueError(f"decode lane needs {smem} B of shared memory "
+        raise ValueError(f"one CTA needs {smem} B of shared memory "
                          f"(limit {SMEM_LIMIT})")
 
 

@@ -12,13 +12,21 @@ Every kernel counts the calls that launched it (``KERNELS[name].launches``);
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core.lop import pot
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import (
     fused_decode_attention, fused_dense_decode_attention)
+from repro_torch.kernels.int8_attention import (int8_flash_prefill,
+                                                sparse_decode_attention)
+from repro_torch.kernels.lop_scores import lop_scores_kernel
 from repro_torch.kernels.prefill_attention import fused_prefill_attention
 from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
+from repro_torch.kernels.ternary_matmul import (
+    ternary_matmul as ternary_matmul_kernel)
 
 KERNELS = {
     "fused_qlinear": fused_qlinear,
@@ -26,6 +34,10 @@ KERNELS = {
     "fused_prefill_attention": fused_prefill_attention,
     "fused_decode_attention": fused_decode_attention,
     "fused_dense_decode_attention": fused_dense_decode_attention,
+    "ternary_matmul": ternary_matmul_kernel,
+    "lop_scores_kernel": lop_scores_kernel,
+    "int8_flash_prefill": int8_flash_prefill,
+    "sparse_decode_attention": sparse_decode_attention,
 }
 
 
@@ -49,6 +61,98 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def _col_scale(scale: torch.Tensor, n: int) -> torch.Tensor:
     """Per-node γ (scalar or per-column row) → per-column f32 row [.., 1, n]."""
     return scale.to(torch.float32).expand(*scale.shape[:-2], 1, n)
+
+
+def _lanes(t: torch.Tensor, lead: tuple, name: str) -> int:
+    """Check that ``t`` starts with the lane dims ``lead``; → their count."""
+    if tuple(t.shape[:len(lead)]) != tuple(lead):
+        raise ValueError(f"{name}: leading dims {tuple(t.shape)} do not "
+                         f"start with the lane dims {tuple(lead)}")
+    return math.prod(lead)
+
+
+def ternary_matmul(x, tw):
+    """int8 activations [..., k] × a packed TernaryWeight → the raw int32
+    accumulator [..., n]; the caller dequantizes (``(acc·x_scale)·γ``)."""
+    k, n = tw.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if not _on_cuda(x):
+        out = _ref.ternary_matmul_ref(x2, tw.packed, k)
+    else:
+        out = ternary_matmul_kernel(x2.contiguous(), tw.packed.contiguous())
+    return out.reshape(*lead, n)
+
+
+def lop_screen(q, feat_packed):
+    """LOP surrogate scores: int8 queries [..., d] × packed (sgn‖LO) cache
+    [m, d//2] → int32 [..., m], with pot() applied to q here.
+
+    Batched as a vmap of that call is: with ``feat_packed`` [*L, m, d//2]
+    and q [*L, ..., d], lane l's queries are screened against lane l's
+    cache, all lanes in one launch → [*L, ..., m].
+    """
+    d = q.shape[-1]
+    lead = feat_packed.shape[:-2]
+    m = feat_packed.shape[-2]
+    n_lanes = _lanes(q, lead, "q")
+    rows = q.shape[len(lead):-1]
+    qp = pot(q).reshape(n_lanes, -1, d)
+    feat = feat_packed.reshape(n_lanes, m, feat_packed.shape[-1])
+    if not _on_cuda(q):
+        out = _ref.lop_scores_ref(qp, feat)
+    else:
+        out = lop_scores_kernel(qp.contiguous(), feat.contiguous())
+    return out.reshape(*lead, *rows, m)
+
+
+def flash_prefill(q, k, v, q_scale, k_scale, v_scale, *,
+                  softmax_scale: float, causal: bool = True, window: int = 0):
+    """One head of int8 flash attention: q/k/v int8 [s, d], per-token
+    scales f32 [s, 1] → f32 [s, d]; causal, sliding-window (``window``)
+    or non-causal."""
+    fn = int8_flash_prefill if _on_cuda(q) else _ref.flash_prefill_ref
+    return fn(*(t.contiguous() for t in (q, k, v, q_scale, k_scale,
+                                          v_scale)),
+              softmax_scale=softmax_scale, causal=causal, window=window)
+
+
+def sparse_decode(q, k_cache, v_cache, q_scale, k_scale, v_scale, block_idx,
+                  gate_tokens, *, block: int, softmax_scale: float):
+    """Decode attention over caller-chosen K/V blocks of one kv head.
+
+    q int8 [g, d]; k/v_cache int8 [m, d]; q_scale f32 [g, 1]; k/v_scale
+    f32 [m, 1]; block_idx int32 [nb], walked in order; gate_tokens int32
+    [3·nb] = [gate ‖ end ‖ start]: tokens [start, end) of a gated block are
+    live. → f32 [g, d]; a call whose gates are all 0 gives exact zero.
+
+    Batched as a vmap of that call is: block_idx [*L, nb], gate_tokens
+    [*L, 3·nb], q [*L, g, d], q_scale [*L, g, 1], and caches [*C, m, d]
+    with scales [*C, m, 1], C a prefix of L — lanes past C share their
+    cache lane, as the Fig. 8 path broadcasts a kv head's cache over its
+    query heads (L = (B, Hkv, G), C = (B, Hkv)). One launch runs every
+    lane → f32 [*L, g, d].
+    """
+    lead = block_idx.shape[:-1]
+    cache_lead = k_cache.shape[:-2]
+    nb = block_idx.shape[-1]
+    g, d = q.shape[-2:]
+    m = k_cache.shape[-2]
+    n_lanes = _lanes(q, lead, "q")
+    if tuple(lead[:len(cache_lead)]) != tuple(cache_lead):
+        raise ValueError(f"cache lanes {tuple(cache_lead)} are not a prefix "
+                         f"of the lanes {tuple(lead)}")
+    n_cache = math.prod(cache_lead)
+    args = (q.reshape(n_lanes, g, d), k_cache.reshape(n_cache, m, d),
+            v_cache.reshape(n_cache, m, d), q_scale.reshape(n_lanes, g, 1),
+            k_scale.reshape(n_cache, m, 1), v_scale.reshape(n_cache, m, 1),
+            block_idx.reshape(n_lanes, nb).to(torch.int32),
+            gate_tokens.reshape(n_lanes, 3 * nb).to(torch.int32))
+    fn = (sparse_decode_attention if _on_cuda(q)
+          else _ref.sparse_decode_attention_ref)
+    out = fn(*(a.contiguous() for a in args), block=block,
+             softmax_scale=softmax_scale)
+    return out.reshape(*lead, g, d)
 
 
 def qlinear_fused(x, packed, scale, bias=None, *, act=None):

@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the four serving kernels.
+"""Plain PyTorch versions of the port's kernels: the five of the serving
+path and the four standalone building blocks (the TINT GEMM, the LOP
+screen, single-head flash prefill and block-sparse decode).
 
 Each function repeats its kernel's arithmetic with plain tensor ops and
 runs on the CPU and on the card alike: the wrappers in
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lop import features_to_pot, pot, unpack_features
-from repro_torch.core.quantization import quantize
+from repro_torch.core.quantization import int_matmul, quantize
 from repro_torch.core.ternary import unpack_ternary
 
 NEG_INF = -1e30
@@ -36,12 +38,6 @@ def apply_act(y: torch.Tensor, act: str | None) -> torch.Tensor:
     if act == "gelu":
         return F.gelu(y, approximate="tanh")
     raise ValueError(f"unknown activation {act!r}")
-
-
-def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer product of small-int tensors → int32 (float64 path)."""
-    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
-        torch.int32)
 
 
 def qlinear_ref(x, packed, scale, bias=None, *, act=None):
@@ -199,3 +195,101 @@ def _stats_to_out(m, l, acc, b, h, dh, return_stats):
     if return_stats:
         return out, m.reshape(b, h, 1), l.reshape(b, h, 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Standalone building blocks
+# ---------------------------------------------------------------------------
+
+def ternary_matmul_ref(x, packed, k: int) -> torch.Tensor:
+    """int8 x [..., k] × packed ternary [k//4, n] → raw int32 [..., n]."""
+    return int_matmul(x, unpack_ternary(packed, k))
+
+
+def lop_scores_ref(q_pot, packed_feat) -> torch.Tensor:
+    """Surrogate scores from the packed feature cache. pot-rounded int8
+    queries [..., g, d] × packed (sgn‖LO) features [..., m, d//2] →
+    int32 [..., g, m]; leading dims are lanes."""
+    kp = features_to_pot(unpack_features(packed_feat))
+    return int_matmul(q_pot, kp.transpose(-1, -2))
+
+
+def flash_prefill_ref(q, k, v, q_scale, k_scale, v_scale, *,
+                      softmax_scale: float, causal: bool = True,
+                      window: int = 0) -> torch.Tensor:
+    """One head of causal / sliding-window / non-causal int8 attention.
+
+    q/k/v int8 [s, d]; per-token scales f32 [s, 1] → f32 [s, d]. Logits
+    scale as ``((dot·q_scale)·k_scale)·softmax_scale``; every causal row
+    sees its own diagonal, so no row is fully masked.
+    """
+    s = q.shape[0]
+    logits = int_matmul(q, k.transpose(0, 1)).to(torch.float32)
+    logits = logits * q_scale * k_scale.reshape(1, s) * softmax_scale
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        rel = pos[:, None] - pos[None, :]
+        mask = rel >= 0
+        if window:
+            mask = mask & (rel < window)
+        logits = torch.where(mask, logits, NEG_INF)
+    vf = v.to(torch.float32) * v_scale
+    _, l, acc = _guarded_softmax_out(logits, vf)
+    return acc / torch.where(l > 0, l, torch.ones_like(l))
+
+
+def sparse_decode_attention_ref(q, k_cache, v_cache, q_scale, k_scale,
+                                v_scale, block_idx, gate_tokens, *,
+                                block: int,
+                                softmax_scale: float) -> torch.Tensor:
+    """Decode attention over caller-chosen K/V blocks, lane-batched.
+
+    q int8 [L, g, d]; q_scale f32 [L, g, 1]; k/v_cache int8 [C, m, d];
+    k/v_scale f32 [C, m, 1], L a multiple of C: lane l reads cache lane
+    l // (L // C); block_idx int32 [L, nb] (clamped into range, as a gather
+    does); gate_tokens int32 [L, 3·nb] = [gate ‖ end ‖ start]. → f32
+    [L, g, d].
+
+    The blocks fold in the given order into an online softmax, as the
+    kernel walks them: a block with gate 0 is skipped; tokens outside its
+    [start, end) get −1e30; m' = max(m, max s), α = exp(m − m'), p =
+    exp(s − m'), ℓ = ℓα + Σp, acc = acc·α + p·(v·v_scale); the flush
+    divides only where ℓ > 0, so a lane whose gates are all 0 emits exact
+    zero.
+    """
+    n_lanes, g, d = q.shape
+    n_cache, m = k_cache.shape[:2]
+    nbt = m // block
+    nb = block_idx.shape[-1]
+    dev = q.device
+    cl = (torch.arange(n_lanes, device=dev) // (n_lanes // n_cache))[:, None]
+    idx = block_idx.to(torch.int64).clamp(0, nbt - 1)
+    kb = k_cache.reshape(n_cache, nbt, block, d)[cl, idx]   # [L,nb,block,d]
+    vb = v_cache.reshape(n_cache, nbt, block, d)[cl, idx]
+    ksb = k_scale.reshape(n_cache, nbt, block)[cl, idx]     # [L,nb,block]
+    vsb = v_scale.reshape(n_cache, nbt, block)[cl, idx]
+    gate = gate_tokens[:, :nb] > 0
+    end = gate_tokens[:, nb:2 * nb]
+    start = gate_tokens[:, 2 * nb:]
+    t = torch.arange(block, device=dev)
+    m_run = torch.full((n_lanes, g, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((n_lanes, g, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_lanes, g, d), dtype=torch.float32, device=dev)
+    for j in range(nb):
+        s = int_matmul(q, kb[:, j].transpose(-1, -2)).to(torch.float32)
+        s = s * q_scale * ksb[:, j, None, :] * softmax_scale
+        live = (t >= start[:, j, None]) & (t < end[:, j, None])
+        s = torch.where(live[:, None, :], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new)
+        vf = vb[:, j].to(torch.float32) * vsb[:, j, :, None]
+        pv = torch.matmul(p.to(torch.float64), vf.to(torch.float64)).to(
+            torch.float32)
+        on = gate[:, j, None, None]
+        l_run = torch.where(on, l_run * alpha + p.sum(-1, keepdim=True),
+                            l_run)
+        acc = torch.where(on, acc * alpha + pv, acc)
+        m_run = torch.where(on, m_new, m_run)
+    return acc / torch.where(l_run > 0, l_run, torch.ones_like(l_run))

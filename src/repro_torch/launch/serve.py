@@ -9,8 +9,9 @@ Builds a seeded model on the device (the CUDA card unless ``--device cpu``),
 synthesizes requests with prompt lengths drawn from
 ``numpy.random.default_rng(seed)``, serves them through the
 :class:`repro_torch.serving.scheduler.Scheduler` (chunked prefill
-interleaved with decode) and reports tokens/s, TTFT, latency and the time
-of a serve cycle's decode call. ``--no-lop`` decodes with dense attention
+interleaved with decode) and reports tokens/s, TTFT, latency, the time
+of a serve cycle's decode call and, last, the modeled K/V traffic per
+head and query, dense against LOP. ``--no-lop`` decodes with dense attention
 (the LOP ablation arm); the sampling flags give every request the same
 policy, request ``rid`` sampling under seed ``sample_seed + rid``.
 ``--max-queue`` sheds submits past that queue depth and ``--deadline-ms``
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import resolve_config
+from repro_torch.core.lop import kv_traffic_bytes
 from repro_torch.serving.api import (GenerateRequest, PooledEngine,
                                      SamplingParams, StepResult)
 from repro_torch.serving.scheduler import Scheduler, lockstep_generate
@@ -203,8 +205,13 @@ def main(argv=None) -> int:
             status += (f" ({len(out['verify_skipped_rids'])} requests "
                        "skipped: no natural finish)")
         print(f"scheduler vs lockstep token equivalence: {status}")
-        return 0 if out["verified"] else 1
-    return 0
+
+    m = args.max_prompt + args.gen
+    full = kv_traffic_bytes(m, cfg.hd, m, with_lop=False)
+    lop = kv_traffic_bytes(m, cfg.hd, int(m * cfg.lop_keep), with_lop=True)
+    print(f"modeled KV traffic/head/query: {full} B dense → {lop} B with LOP"
+          f" ({full / lop:.1f}× reduction at keep={cfg.lop_keep})")
+    return 0 if not args.verify or out["verified"] else 1
 
 
 if __name__ == "__main__":

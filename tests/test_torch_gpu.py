@@ -5,8 +5,11 @@ the ``cuda`` fixture, never at import). Run on a card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: outputs whose float steps the kernel repeats op for op (the
-projection without an activation) must be bitwise; everything else agrees
-to rtol = atol = 2e-5 (online vs. one-pass softmax, other exp/tanh code).
+projection without an activation) and every integer result (the TINT GEMM,
+the LOP screen) must be bitwise; the serving kernels' f32 outputs agree to
+rtol = atol = 2e-5 (online vs. one-pass softmax, other exp/tanh code), the
+standalone attention kernels' to rtol = atol = 1e-4 (the reference's own
+kernel-test tolerance).
 """
 import numpy as np
 import pytest
@@ -202,3 +205,164 @@ def test_cuda_tensor_never_takes_plain_path(cuda):
     packed = torch.randint(0, 256, (16, 32), dtype=torch.uint8, device=cuda)
     ops.qlinear_fused(x, packed, torch.full((1, 1), 0.02, device=cuda))
     assert ops.launch_counts()["fused_qlinear"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the four standalone kernels
+# ---------------------------------------------------------------------------
+
+TOL_STANDALONE = dict(rtol=1e-4, atol=1e-4)
+
+
+def _launched(name):
+    """Assert that the block ran kernel ``name`` exactly once."""
+    class _Count:
+        def __enter__(self):
+            ops.reset_launch_counts()
+
+        def __exit__(self, *exc):
+            if exc[0] is None:
+                assert ops.launch_counts()[name] == 1
+    return _Count()
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 3200, 9600), (128, 3200, 3200), (4, 8640, 3200), (128, 3200, 17280),
+    (7, 100, 13), (33, 96, 40), (1, 4, 1)])
+def test_ternary_matmul_kernel_matches_plain(cuda, m, k, n):
+    from repro_torch.core.ternary import TernaryWeight
+    rng = np.random.default_rng(m + k + n)
+    x, packed = _dev((rng.integers(-127, 128, (m, k)).astype(np.int8),
+                      rng.integers(0, 256, (k // 4, n)).astype(np.uint8)),
+                     cuda)
+    tw = TernaryWeight(packed, torch.ones((1, 1), device=cuda), (k, n))
+    with _launched("ternary_matmul"):
+        got = ops.ternary_matmul(x, tw)
+    want = plain.ternary_matmul_ref(x, packed, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,label", [(4, "qkv"), (128, "qkv"), (4, "o"),
+                                     (128, "o")])
+def test_tint_chain_bitwise_fused_qlinear(cuda, m, label):
+    """(ternary_matmul(quantize(x)) · x_scale) · γ == the fused projection,
+    bitwise: per-column γ (QKV) and one scalar γ (O)."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.core.ternary import TernaryWeight
+    rng = np.random.default_rng(m)
+    d = 3200
+    n = 3 * d if label == "qkv" else d
+    gamma = (rng.uniform(0.01, 0.05, (1, n)) if label == "qkv"
+             else np.full((1, 1), 0.03)).astype(np.float32)
+    x, packed, gamma = _dev((rng.standard_normal((m, d)).astype(np.float32),
+                             rng.integers(0, 256, (d // 4, n)).astype(
+                                 np.uint8), gamma), cuda)
+    xq = quantize(x)
+    acc = ops.ternary_matmul(xq.values, TernaryWeight(packed, gamma, (d, n)))
+    chain = acc.to(torch.float32) * xq.scale * gamma
+    fused = ops.qlinear_fused(x, packed, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(chain, fused)
+
+
+@pytest.mark.parametrize("lanes,g,m,d", [
+    (128, 1, 1664, 100), (3, 12, 1000, 100), (1, 40, 2048, 128),
+    (2, 9, 77, 64)])
+def test_lop_scores_kernel_matches_plain(cuda, lanes, g, m, d):
+    from repro_torch.core.lop import lop_features, pack_features
+    rng = np.random.default_rng(lanes + g + m)
+    q = rng.integers(-127, 128, (lanes, g, d)).astype(np.int8)
+    k = rng.integers(-127, 128, (lanes, m, d)).astype(np.int8)
+    q, k = _dev((q, k), cuda)
+    feat = pack_features(lop_features(k))
+    with _launched("lop_scores_kernel"):
+        got = ops.lop_screen(q, feat)
+    want = plain.lop_scores_ref(_pot(q), feat)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _pot(q):
+    from repro_torch.core.lop import pot
+    return pot(q)
+
+
+@pytest.mark.parametrize("s,d,causal,window", [
+    (1536, 100, True, 0), (512, 64, True, 128), (300, 100, False, 0),
+    (257, 128, True, 100)])
+def test_flash_prefill_kernel_matches_plain(cuda, s, d, causal, window):
+    rng = np.random.default_rng(s + d + window)
+    arrs = _dev([rng.integers(-127, 128, (s, d)).astype(np.int8)
+                 for _ in range(3)]
+                + [rng.uniform(0.001, 0.02, (s, 1)).astype(np.float32)
+                   for _ in range(3)], cuda)
+    kw = dict(softmax_scale=d ** -0.5, causal=causal, window=window)
+    with _launched("int8_flash_prefill"):
+        got = ops.flash_prefill(*arrs, **kw)
+    want = plain.flash_prefill_ref(*arrs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL_STANDALONE)
+
+
+@pytest.mark.parametrize("lanes,share,g,m,d,block,nb", [
+    (128, 1, 1, 1664, 100, 128, 2), (6, 3, 6, 2048, 64, 128, 4),
+    (16, 4, 8, 256, 32, 32, 8)])
+def test_sparse_decode_kernel_matches_plain(cuda, lanes, share, g, m, d,
+                                            block, nb):
+    rng = np.random.default_rng(lanes + g + nb)
+    n_cache = lanes // share
+    q = rng.integers(-127, 128, (lanes, g, d)).astype(np.int8)
+    qs = rng.uniform(0.001, 0.02, (lanes, g, 1)).astype(np.float32)
+    kc = rng.integers(-127, 128, (n_cache, m, d)).astype(np.int8)
+    vc = rng.integers(-127, 128, (n_cache, m, d)).astype(np.int8)
+    ks = rng.uniform(0.001, 0.02, (n_cache, m, 1)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.02, (n_cache, m, 1)).astype(np.float32)
+    bidx = rng.integers(0, m // block, (lanes, nb)).astype(np.int32)
+    bidx[0, 0] = m // block + 3                  # clamped into the cache
+    gate = (rng.random((lanes, nb)) < 0.8).astype(np.int32)
+    gate[0] = 1
+    end = rng.integers(1, block + 1, (lanes, nb)).astype(np.int32)
+    start = np.minimum(rng.integers(0, block, (lanes, nb)), end - 1)
+    start[0, -1], end[0, -1] = 5, 5              # gated, empty interval
+    gate[1], start[1, 0], end[1, 0] = 0, 7, 7    # ... and nothing else live
+    gate[1, 0] = 1
+    gt = np.concatenate([gate, end, start.astype(np.int32)], axis=1)
+    gt[-1, :nb] = 0                              # an empty lane
+    args = _dev((q, kc, vc, qs, ks, vs, bidx, gt), cuda)
+    kw = dict(block=block, softmax_scale=d ** -0.5)
+    # lanes as [C, share]: the cache lanes are their leading dim
+    lane_args = [a.reshape(n_cache, share, *a.shape[1:])
+                 if i in (0, 3, 6, 7) else a for i, a in enumerate(args)]
+    with _launched("sparse_decode_attention"):
+        got = ops.sparse_decode(*lane_args, **kw).reshape(lanes, g, d)
+    want = plain.sparse_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL_STANDALONE)
+    assert not got[-1].any()
+
+
+def test_per_head_pipeline_matches_fused_decode(cuda):
+    """lop_screen → select_blocks → sparse_decode (two launches) == the
+    fused LOP decode kernel (one launch) at full width."""
+    from repro_torch.serving.lop_select import select_blocks
+    rng = np.random.default_rng(21)
+    b, h, m, dh, block, k_keep = 4, 32, 1664, 100, 128, 2
+    qi, qsc, kc, vc, ks, vs, feat = _dev(_decode(rng, b, h, h, m, dh), cuda)
+    new_len = torch.tensor([1600, 1, 700, 1200], dtype=torch.int32,
+                           device=cuda)
+    qg = qi.reshape(b, h, 1, dh)
+    ops.reset_launch_counts()
+    scores = ops.lop_screen(qg, feat)
+    idx, gt = select_blocks(scores, new_len, block=block, k_keep=k_keep)
+    per_head = ops.sparse_decode(
+        qg[..., None, :], kc, vc, qsc.reshape(b, h, 1, 1, 1), ks[..., None],
+        vs[..., None], idx, gt, block=block, softmax_scale=dh ** -0.5)
+    counts = ops.launch_counts()
+    fused = ops.decode_attention(qi, qsc, kc, vc, ks, vs, feat, new_len,
+                                 block=block, k_keep=k_keep)
+    torch.cuda.synchronize()
+    assert counts["lop_scores_kernel"] == counts[
+        "sparse_decode_attention"] == 1
+    torch.testing.assert_close(per_head.reshape(b, h, dh), fused,
+                               **TOL_STANDALONE)
