@@ -16,7 +16,11 @@ printed:
               >100 MB of copies so each launch finds L2 cold, as decode
               does), beside the plain version's time, the least time the
               card could take (bound) and, where one PyTorch call computes
-              the same function, that call's time;
+              the same function, that call's time; for #3 also 12
+              chunks of 128 rows bitwise one whole 1536-row call, a
+              sliding window of 512 against the plain version, and for #3
+              and #8 (phase 5) the CTAs, warps per CTA, dynamic shared
+              memory and ptxas' registers / static smem / spills;
   4. serve    full-width bitnet-3b with seeded random weights: 8 requests
               of 128–1536 prompt tokens (numpy default_rng(0)), 32 new
               tokens each, through the continuous-batching Scheduler on 4
@@ -64,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +137,28 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_summary(build, source: str, kernel: str) -> str:
+    """Registers, static shared memory and spills of one kernel, from the
+    ptxas log nvcc wrote beside the library."""
+    found, stats = False, {}
+    for line in build.ptxas_report(source).splitlines():
+        if "Compiling entry" in line:
+            found = kernel in line
+        elif found:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                hit = re.search(pat, line)
+                if hit:
+                    stats[key] = int(hit.group(1))
+    if "registers" not in stats:
+        raise AssertionError(f"no ptxas report for {kernel} in {source}")
+    return (f"ptxas: {stats['registers']} registers, {stats.get('smem', 0)} B "
+            f"static smem, spills {stats.get('spill_stores', 0)} B stored / "
+            f"{stats.get('spill_loads', 0)} B loaded")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -157,7 +184,10 @@ def kernel_phase(torch, np) -> dict:
     from repro_torch.kernels import ref as plain
     from repro_torch.kernels.decode_attention import (
         fused_decode_attention, fused_dense_decode_attention)
+    from repro_torch.kernels import _build
     from repro_torch.kernels.prefill_attention import fused_prefill_attention
+    from repro_torch.kernels.prefill_attention import \
+        launch_shape as prefill_launch_shape
     from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
 
     dev = torch.device("cuda")
@@ -231,24 +261,45 @@ def kernel_phase(torch, np) -> dict:
     v_c = t(rng.integers(-127, 128, (h, m_cap, dh)).astype(np.int8))
     ks = t((rng.random((h, m_cap)) * 0.02 + 0.001).astype(np.float32))
     vs = t((rng.random((h, m_cap)) * 0.02 + 0.001).astype(np.float32))
+    scale = dh ** -0.5
+    ptx = ptxas_summary(_build, "prefill_attention", "prefill_kernel")
     for label, r, q_off in (("chunk", c, s_total - c), ("whole", s_total, 0)):
         qi = t(rng.integers(-127, 128, (h, r, dh)).astype(np.int8))
         qsc = t((rng.random((h, r)) * 0.02 + 0.001).astype(np.float32))
         kv_len = torch.tensor([q_off + r], dtype=torch.int32, device=dev)
         args = (qi, qsc, k_c, v_c, ks, vs, kv_len, q_off)
-        scale = dh ** -0.5
 
-        def kern(*a):
-            return fused_prefill_attention(*a, hkv=h, chunk=r, causal=True,
-                                           window=0, softmax_scale=scale)
+        def kern(*a, window=0):
+            return fused_prefill_attention(*a, hkv=h, chunk=a[0].shape[1],
+                                           causal=True, window=window,
+                                           softmax_scale=scale)
 
-        def ref(qi_, qsc_, k_, v_, ks_, vs_, kvl_, qo_):
+        def ref(qi_, qsc_, k_, v_, ks_, vs_, kvl_, qo_, window=0):
             return plain.prefill_attention_ref(
                 qi_[None], qsc_[None], k_[None], v_[None], ks_[None],
-                vs_[None], kvl_, qo_, causal=True, softmax_scale=scale)[0]
+                vs_[None], kvl_, qo_, causal=True, window=window,
+                softmax_scale=scale)[0]
         got, want = kern(*args), ref(*args)
         err = max(err, check_close(torch, f"fused_prefill_attention[{label}]",
                                    got, want))
+        if label == "whole":
+            # chunked == whole bitwise at kernel level: 128-row chunks of
+            # the same prompt over the same cache, each at its own q_off
+            for start in range(0, s_total, c):
+                part = kern(qi[:, start:start + c].contiguous(),
+                            qsc[:, start:start + c].contiguous(), k_c, v_c,
+                            ks, vs, torch.tensor([start + c], dtype=torch.int32,
+                                                 device=dev), start)
+                check_close(torch, f"fused_prefill_attention[chunk at "
+                            f"{start}] vs whole", part,
+                            got[:, start:start + c], bitwise=True)
+            log(f"  fused_prefill_attention: {s_total // c} chunks of {c} "
+                f"rows bitwise one whole call ({h} lanes, dh {dh})")
+            # sliding window 512 over the whole prompt
+            got_w = kern(*args, window=512)
+            err = max(err, check_close(
+                torch, "fused_prefill_attention[whole, window 512]", got_w,
+                ref(*args, window=512)))
         ms = cuda_ms(torch, kern, copies(torch, args), 20)
         p_ms = cuda_ms(torch, ref, [args], 2)
         kvl = q_off + r
@@ -267,9 +318,12 @@ def kernel_phase(torch, np) -> dict:
         lib_ms = cuda_ms(torch, lambda a, b_, c_, m_: sdpa(a, b_, c_,
                                                           attn_mask=m_),
                          [(qf, kf, vf, mask)], 10)
+        shape = prefill_launch_shape(h, r, dh)
         log(f"  fused_prefill_attention {label} R={r} q_off={q_off} M={m_cap}:"
             f" {ms:.4f} ms (plain {p_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound"
-            f" {b_ms:.4f} ms by {b_by})")
+            f" {b_ms:.4f} ms by {b_by}; {b_ms / ms:.1%} of bound); "
+            f"{shape['ctas']} CTAs x {shape['warps']} warps, "
+            f"{shape['smem']} B dynamic smem; {ptx}")
         if timed is None:
             timed = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms,
@@ -723,8 +777,10 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
     from repro_torch.core.lop import features_to_pot, pot, unpack_features
     from repro_torch.core.ternary import unpack_ternary
     from repro_torch.kernels import ref as plain
-    from repro_torch.kernels.int8_attention import (int8_flash_prefill,
-                                                    sparse_decode_attention)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.int8_attention import (
+        flash_prefill_launch_shape, int8_flash_prefill,
+        sparse_decode_attention)
     from repro_torch.kernels.lop_scores import lop_scores_kernel
     from repro_torch.kernels.ternary_matmul import ternary_matmul
     from repro_torch.serving.lop_select import select_blocks
@@ -823,9 +879,13 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
                    b_ms, b_by,
                    lib=(lambda a, b_, c: sdpa(a, b_, c, is_causal=True),
                         (qf, kf, vf)))
-    log(f"  int8_flash_prefill s={s_len} d={dh} causal: {fmt_row(row)}; "
-        f"{-(-s_len // 16)} CTAs of 16 rows on 132 SMs; SWA 512 and "
-        f"non-causal checked too (library: SDPA on dequantized f32) [{card}]")
+    shape = flash_prefill_launch_shape(s_len, dh)
+    log(f"  int8_flash_prefill s={s_len} d={dh} causal: {fmt_row(row)}, "
+        f"{b_ms / row['ms']:.1%} of bound; {shape['ctas']} CTAs of 16 rows x "
+        f"{shape['warps']} warps on 132 SMs, {shape['smem']} B dynamic smem; "
+        f"{ptxas_summary(_build, 'int8_attention', 'flash_prefill_kernel')}; "
+        f"SWA 512 and non-causal checked too (library: SDPA on dequantized "
+        f"f32) [{card}]")
     rows["int8_flash_prefill"] = dict(row, max_abs_err=err,
                                       shape=f"s={s_len} d={dh} causal")
 

@@ -9,21 +9,20 @@
 // k ≤ r (causal), r − k < window as well (sliding window), or every key
 // (non-causal), with logits ((dot·q_scale)·k_scale)·softmax_scale and an
 // online softmax in f32: m' = max(m, max s), α = exp(m − m'), p = exp(s −
-// m'), ℓ = ℓα + Σp, acc = acc·α + p·(v·v_scale); the flush is acc / ℓ.
-// A row folds only the 128-token tiles from the one holding its first
-// visible key to the one holding its last, so its running max is finite
-// after the first fold and a masked logit (−1e30) gives p = 0 exactly:
-// the TPU kernel's fold of p = 1 over a tile the row cannot see at all
-// (wiped later by α = 0) never arises, and every row has ℓ > 0.
+// m') with p = 0 where s ≤ −1e30/2, ℓ = ℓα + Σp, acc = acc·α + p·(v·v_scale);
+// the flush is acc / ℓ. A fold never sees p = 1 over a tile the row
+// cannot see (the TPU kernel's fold, wiped later by α = 0): a masked
+// logit gives p = 0, so such a tile is a no-op, and every row has ℓ > 0.
 //
-// What bounds it: at s = 1536 the 2·s²/2·d int8 operations of QKᵀ and
-// as many f32 operations of P·V (operations; the int8 Q/K/V bytes are
-// small). Design: as the chunked-prefill kernel: a CTA owns 16 query
-// rows, streams 128-token K/V tiles into shared memory, and each of its
-// four warps folds four rows; within a row lane l owns tokens l + 32i for
-// the logits (__dp4a, head_dim a multiple of 4 up to 128) and dims
-// l + 32j of the output. One head gives s/16 CTAs (96 at s = 1536), fewer
-// than the card's 132 SMs.
+// What bounds it: at s = 1536 the s²/2·2d f32 operations of P·V (the
+// int8 QKᵀ runs on the tensor cores; the int8 Q/K/V bytes are small).
+// Design: the shared tile core of int8_flash.cuh — the chunked-prefill
+// kernel's fold with one lane, qpos = r and kv_len = M = s. One head
+// gives only s/16 CTAs (96 at s = 1536, for 132 SMs), one per SM, so a
+// CTA runs 8 warps (137 KB of shared memory at d 100): two warps per
+// scheduler instead of one, and the longest warp folds 6 of the last
+// slab's 48 key tiles instead of 12. Slabs launch last-first, the longest
+// first.
 //
 // ---- block-sparse decode ----
 // Replaces the Pallas kernel sparse_decode_attention
@@ -45,7 +44,7 @@
 // lane; a block's K/V words are copied into shared memory, a thread per
 // token forms the logit with __dp4a, a thread per output dim the value
 // sum; every reduction has a fixed order.
-#include "common.cuh"
+#include "int8_flash.cuh"
 
 namespace {
 
@@ -53,137 +52,34 @@ namespace {
 // flash prefill
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 128;                 // tokens per K/V tile
-constexpr int kPfWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kPfWarps * kRowsPerWarp;   // query rows per CTA
-constexpr int kMaxD = 128;
-constexpr int kMaxW = kMaxD / 4;
-constexpr int kKStride = kMaxW + 1;        // odd word stride: no bank conflicts
+constexpr int kFlashWarps = 8;
 
-__device__ __forceinline__ int first_key(int r, int causal, int window) {
-  return (causal && window) ? max(0, r - window + 1) : 0;
-}
-
-__device__ __forceinline__ int key_end(int r, int s, int causal) {
-  return causal ? r + 1 : s;
-}
-
-__global__ void __launch_bounds__(kPfWarps * 32)
+__global__ void __launch_bounds__(kFlashWarps * 32, 1)
 flash_prefill_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
                      const int8_t* __restrict__ v, const float* __restrict__ qsc,
                      const float* __restrict__ ksc, const float* __restrict__ vsc,
                      float* __restrict__ out, int s, int d, int causal,
                      int window, float softmax_scale) {
-  __shared__ int q_s[kRows][kMaxW];
-  __shared__ int k_s[kTile][kKStride];
-  __shared__ __align__(16) int8_t v_s[kTile][kMaxD];
-  __shared__ float ks_s[kTile], vs_s[kTile];
-  __shared__ float p_s[kPfWarps][kTile];
-
-  const int r0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int dw = d >> 2;
-  const int r_last = min(r0 + kRows, s) - 1;
-
-  for (int i = tid; i < kRows * kMaxW; i += blockDim.x) {
-    const int r = i / kMaxW, w = i % kMaxW;
-    q_s[r][w] = (r0 + r < s && w < dw)
-        ? reinterpret_cast<const int*>(q + static_cast<size_t>(r0 + r) * d)[w] : 0;
-  }
-  // tiles any row of the CTA can see
-  const int jt_lo = first_key(r0, causal, window) / kTile;
-  const int jt_hi = (key_end(r_last, s, causal) + kTile - 1) / kTile;
-
-  float m_r[kRowsPerWarp], l_r[kRowsPerWarp], acc[kRowsPerWarp][4];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m_r[i] = REPRO_NEG_INF;
-    l_r[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-
-  for (int jt = jt_lo; jt < jt_hi; ++jt) {
-    const int t0 = jt * kTile;
-    __syncthreads();                       // the last tile's readers are done
-    for (int i = tid; i < kTile * dw; i += blockDim.x) {
-      const int t = i / dw, w = i % dw;
-      int kv = 0, vv = 0;
-      if (t0 + t < s) {
-        const size_t base = static_cast<size_t>(t0 + t) * d;
-        kv = reinterpret_cast<const int*>(k + base)[w];
-        vv = reinterpret_cast<const int*>(v + base)[w];
-      }
-      k_s[t][w] = kv;
-      reinterpret_cast<int*>(v_s[t])[w] = vv;
-    }
-    for (int t = tid; t < kTile; t += blockDim.x) {
-      const bool in = t0 + t < s;
-      ks_s[t] = in ? ksc[t0 + t] : 0.0f;
-      vs_s[t] = in ? vsc[t0 + t] : 0.0f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ri = 0; ri < kRowsPerWarp; ++ri) {
-      const int rl = warp * kRowsPerWarp + ri;
-      const int r = r0 + rl;
-      const int lo = first_key(r, causal, window), hi = key_end(r, s, causal);
-      if (r >= s || t0 >= hi || t0 + kTile <= lo) continue;   // warp-uniform
-      const float qs = qsc[r];
-      float sv[4];
-      float bmax = REPRO_NEG_INF;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = lane + 32 * i;
-        int dot = 0;
-        for (int w = 0; w < dw; ++w) dot = __dp4a(q_s[rl][w], k_s[t][w], dot);
-        const float x = __fmul_rn(__fmul_rn(__fmul_rn(static_cast<float>(dot), qs), ks_s[t]),
-                                  softmax_scale);
-        const int kpos = t0 + t;
-        sv[i] = (kpos >= lo && kpos < hi) ? x : REPRO_NEG_INF;
-        bmax = fmaxf(bmax, sv[i]);
-      }
-      bmax = warp_max(bmax);
-      const float m_new = fmaxf(m_r[ri], bmax);
-      const float alpha = expf(m_r[ri] - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(sv[i] - m_new);
-        p_s[warp][lane + 32 * i] = p;
-        psum = __fadd_rn(psum, p);
-      }
-      psum = warp_sum(psum);
-      l_r[ri] = __fadd_rn(__fmul_rn(l_r[ri], alpha), psum);
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int dd = lane + 32 * j;
-        if (dd < d) {
-          float part = 0.0f;
-          for (int t = 0; t < kTile; ++t)
-            part = fmaf(p_s[warp][t], __fmul_rn(static_cast<float>(v_s[t][dd]), vs_s[t]), part);
-          acc[ri][j] = __fadd_rn(__fmul_rn(acc[ri][j], alpha), part);
-        }
-      }
-      m_r[ri] = m_new;
-      __syncwarp();
-    }
-  }
-
-#pragma unroll
-  for (int ri = 0; ri < kRowsPerWarp; ++ri) {
-    const int r = r0 + warp * kRowsPerWarp + ri;
-    if (r >= s) continue;
-    float* dst = out + static_cast<size_t>(r) * d;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int dd = lane + 32 * j;
-      if (dd < d) dst[dd] = __fdiv_rn(acc[ri][j], l_r[ri]);
-    }
-  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_flash::Slab a;
+  a.q = q;
+  a.qs = qsc;
+  a.k = k;
+  a.v = v;
+  a.ks = ksc;
+  a.vs = vsc;
+  a.out = out;
+  a.n_rows = s;
+  a.M = s;
+  a.d = d;
+  a.r0 = (gridDim.x - 1 - blockIdx.x) * int8_flash::kRows;
+  a.q_off = 0;
+  a.chunk = s;
+  a.kv_len = s;
+  a.causal = causal;
+  a.window = window;
+  a.softmax_scale = softmax_scale;
+  int8_flash::fold_slab<kFlashWarps, /*kKScaleFirst=*/false>(a, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -301,7 +197,15 @@ sparse_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs
 
 extern "C" {
 
-int repro_flash_prefill_max_d() { return kMaxD; }
+int repro_flash_prefill_max_d() { return int8_flash::kMaxD; }
+
+int repro_flash_prefill_warps() { return kFlashWarps; }
+
+int repro_flash_prefill_rows() { return int8_flash::kRows; }
+
+size_t repro_flash_prefill_smem_bytes(int d) {
+  return int8_flash::smem_bytes(kFlashWarps, d);
+}
 
 // One head. q/k/v int8 [s, d]; q/k/v scales f32 [s]; out f32 [s, d].
 // d % 4 == 0, d ≤ 128, s ≥ 1.
@@ -309,8 +213,14 @@ int repro_flash_prefill(const void* q, const void* k, const void* v,
                         const void* qs, const void* ks, const void* vs,
                         void* out, int s, int d, int causal, int window,
                         float softmax_scale, void* stream) {
-  const int grid = (s + kRows - 1) / kRows;
-  flash_prefill_kernel<<<grid, kPfWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = int8_flash::smem_bytes(kFlashWarps, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (s + int8_flash::kRows - 1) / int8_flash::kRows;
+  flash_prefill_kernel<<<grid, kFlashWarps * 32, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(qs),
       static_cast<const float*>(ks), static_cast<const float*>(vs),

@@ -6,10 +6,10 @@ Each ``csrc/<name>.cu`` compiles on its own into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
-(never ``--use_fast_math``). ``<hash>`` covers the source and the shared
-header, so an edit rebuilds and a stale library is never loaded; the
-ptxas report (registers, shared memory, spills) lands beside it as
-``<name>-<hash>.log``. :func:`build_all` starts one ``nvcc`` per source at
+(never ``--use_fast_math``). ``<hash>`` covers the source and every
+``csrc/*.cuh`` header, so an edit to either rebuilds and a stale library
+is never loaded; the ptxas report (registers, shared memory, spills)
+lands beside it as ``<name>-<hash>.log``. :func:`build_all` starts one ``nvcc`` per source at
 once. Nothing is built at import: the first launch builds what it needs.
 """
 
@@ -43,6 +43,9 @@ SIGNATURES = {
     "prefill_attention": {
         "repro_prefill_attention": ([_P] * 8 + [_I] * 9 + [_F, _P], _I),
         "repro_prefill_max_d": ([], _I),
+        "repro_prefill_warps": ([], _I),
+        "repro_prefill_rows": ([], _I),
+        "repro_prefill_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "decode_attention": {
         "repro_lop_decode_attention": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
@@ -61,6 +64,9 @@ SIGNATURES = {
     "int8_attention": {
         "repro_flash_prefill": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
         "repro_flash_prefill_max_d": ([], _I),
+        "repro_flash_prefill_warps": ([], _I),
+        "repro_flash_prefill_rows": ([], _I),
+        "repro_flash_prefill_smem_bytes": ([_I], ctypes.c_size_t),
         "repro_sparse_decode": ([_P] * 9 + [_I] * 7 + [_F, _P], _I),
         "repro_sparse_decode_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
@@ -77,7 +83,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{name}-{h.hexdigest()[:12]}.so"

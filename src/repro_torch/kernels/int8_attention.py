@@ -51,6 +51,15 @@ def int8_flash_prefill(q, k, v, q_scale, k_scale, v_scale, *,
 int8_flash_prefill.launches = 0
 
 
+def flash_prefill_launch_shape(s: int, d: int) -> dict:
+    """CTAs, warps per CTA and dynamic shared-memory bytes of one
+    :func:`int8_flash_prefill` launch over ``s`` tokens at head dim ``d``."""
+    lib = _build.load("int8_attention")
+    rows = lib.repro_flash_prefill_rows()
+    return dict(ctas=-(-s // rows), warps=lib.repro_flash_prefill_warps(),
+                smem=lib.repro_flash_prefill_smem_bytes(d))
+
+
 def sparse_decode_attention(q, k_cache, v_cache, q_scale, k_scale, v_scale,
                             block_idx, gate_tokens, *, block: int,
                             softmax_scale: float) -> torch.Tensor:

@@ -55,3 +55,12 @@ def fused_prefill_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale,
 
 
 fused_prefill_attention.launches = 0
+
+
+def launch_shape(bh: int, r: int, d: int) -> dict:
+    """CTAs, warps per CTA and dynamic shared-memory bytes of one launch
+    over ``bh`` lanes of ``r`` rows at head dim ``d``."""
+    lib = _build.load("prefill_attention")
+    rows = lib.repro_prefill_rows()
+    return dict(ctas=bh * -(-r // rows), warps=lib.repro_prefill_warps(),
+                smem=lib.repro_prefill_smem_bytes(d))

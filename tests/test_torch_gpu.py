@@ -85,13 +85,20 @@ def _attn(rng, b, h, hkv, c, dh, m):
 
 @pytest.mark.parametrize("b,h,hkv,c,dh,m,window,causal", [
     (1, 32, 32, 128, 100, 1664, 0, True), (2, 4, 2, 8, 32, 64, 12, True),
-    (2, 4, 2, 8, 100, 64, 0, False)])
+    (2, 4, 2, 8, 100, 64, 0, False),
+    # GQA (rows g-major, G = 4), R = 148 not a multiple of 16, three lanes
+    # at kv_len [156, 0, 119]: the empty lane is exact zero
+    (3, 8, 2, 37, 100, 256, 0, True),
+    # window 48 at dh 100: late rows' leading key tiles fully masked
+    (1, 4, 4, 64, 100, 512, 48, True), (3, 8, 2, 24, 100, 300, 40, True),
+    (2, 4, 2, 13, 64, 96, 0, True), (3, 8, 2, 20, 128, 128, 0, False)])
 def test_prefill_kernel_matches_plain(cuda, b, h, hkv, c, dh, m, window,
                                       causal):
     rng = np.random.default_rng(dh + m)
     arrs = _dev(_attn(rng, b, h, hkv, c, dh, m), cuda)
     kvl = m - 100 if m > 200 else m - 24
-    kv_len = torch.tensor([kvl, 0][:b], dtype=torch.int32, device=cuda)
+    kv_len = torch.tensor([kvl, 0, kvl - 37][:b], dtype=torch.int32,
+                          device=cuda)
     kw = dict(q_offset=kvl - c, causal=causal, window=window)
     got = ops.prefill_attention(*arrs, kv_len, **kw)
     want = plain.prefill_attention_ref(*arrs, kv_len, kvl - c,
@@ -103,18 +110,20 @@ def test_prefill_kernel_matches_plain(cuda, b, h, hkv, c, dh, m, window,
         assert not got[1].any()
 
 
-def test_prefill_chunked_bitwise_whole_on_card(cuda):
+@pytest.mark.parametrize("h,hkv,c,window", [
+    (32, 32, 128, 0), (8, 2, 40, 0), (32, 32, 128, 48), (8, 2, 40, 48)])
+def test_prefill_chunked_bitwise_whole_on_card(cuda, h, hkv, c, window):
     rng = np.random.default_rng(11)
-    s, c, m = 300, 128, 1664
-    qi, qsc, ki, vi, ks, vs = _dev(_attn(rng, 1, 32, 32, 384, 100, m), cuda)
+    s, m = 300, 1664
+    qi, qsc, ki, vi, ks, vs = _dev(_attn(rng, 1, h, hkv, 384, 100, m), cuda)
     whole = ops.prefill_attention(qi[:, :, :s], qsc[:, :, :s], ki, vi, ks, vs,
                                   torch.tensor([s], dtype=torch.int32,
-                                               device=cuda))
+                                               device=cuda), window=window)
     for start in range(0, s, c):
         part = ops.prefill_attention(
             qi[:, :, start:start + c], qsc[:, :, start:start + c], ki, vi, ks,
             vs, torch.tensor([start + c], dtype=torch.int32, device=cuda),
-            q_offset=start)
+            q_offset=start, window=window)
         n = min(c, s - start)
         assert torch.equal(part[:, :, :n], whole[:, :, start:start + n])
 
@@ -290,7 +299,13 @@ def _pot(q):
 
 @pytest.mark.parametrize("s,d,causal,window", [
     (1536, 100, True, 0), (512, 64, True, 128), (300, 100, False, 0),
-    (257, 128, True, 100)])
+    (257, 128, True, 100),
+    # s not a multiple of the 32-token key tile
+    (1000, 100, True, 0), (77, 32, True, 0), (203, 128, False, 0),
+    # a window inside one tile, and one spanning three tiles
+    (400, 100, True, 20), (600, 64, True, 80),
+    # head dims 32 / 64 / 100 / 128
+    (129, 32, True, 0), (640, 64, False, 0), (513, 128, True, 0)])
 def test_flash_prefill_kernel_matches_plain(cuda, s, d, causal, window):
     rng = np.random.default_rng(s + d + window)
     arrs = _dev([rng.integers(-127, 128, (s, d)).astype(np.int8)

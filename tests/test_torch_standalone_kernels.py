@@ -81,6 +81,25 @@ def test_c_signatures_match_sources(source):
         assert argtypes == want, name
 
 
+@pytest.mark.parametrize("header", sorted(
+    p.name for p in _build.CSRC.glob("*.cuh")))
+def test_build_hash_covers_every_header(header, tmp_path, monkeypatch):
+    """A one-byte edit to any shared header names a new library for every
+    source, so a stale build is never loaded."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {s: _build._lib_path(s) for s in _build.SOURCES}
+    assert before == {s: _build._lib_path(s) for s in _build.SOURCES}
+    path = csrc / header
+    data = bytearray(path.read_bytes())
+    data[-1] ^= 1
+    path.write_bytes(bytes(data))
+    after = {s: _build._lib_path(s) for s in _build.SOURCES}
+    assert all(after[s] != before[s] for s in _build.SOURCES)
+
+
 # ---------------------------------------------------------------------------
 # core: ternary weights, int8 GEMM, softmax stats, LOP scores and traffic
 # ---------------------------------------------------------------------------
