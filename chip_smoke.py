@@ -49,7 +49,12 @@ printed:
               (lop_scores_kernel), single-head flash prefill and block-sparse
               decode, each held against its plain version (integers
               bitwise, f32 at rtol = atol = 1e-4) and timed as in phase 3
-              beside one PyTorch call for the same function; then the paths
+              beside one PyTorch call for the same function; #7 also with
+              its calls captured in one CUDA graph (the device's time
+              without the host's enqueue time), its launch shape (CTAs,
+              warps, dynamic smem, k split), ptxas' registers / static
+              smem / spills and its share of bound, and bitwise once more
+              at k 27,392 x n 5,120 (above the former k cap); then the paths
               a user of the kernel API runs, each with the launch counts
               zeroed before and read after: the TINT chain
               (ternary_matmul(quantize(x)) · x_scale · γ, bitwise
@@ -114,6 +119,31 @@ def cuda_ms(torch, fn, arg_sets, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, arg_sets, per_graph: int = 20, replays: int = 5) -> float:
+    """Mean ms per call of ``fn(*args)`` with the calls captured in one CUDA
+    graph (cycling through ``arg_sets``, L2 cold): the device's time for
+    the launches, without the host's time to enqueue them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*arg_sets[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(per_graph):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
 
 
 def copies(torch, args, min_bytes: float = 100e6, cap: int = 16) -> list:
@@ -782,6 +812,8 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
         flash_prefill_launch_shape, int8_flash_prefill,
         sparse_decode_attention)
     from repro_torch.kernels.lop_scores import lop_scores_kernel
+    from repro_torch.kernels.ternary_matmul import launch_shape as \
+        tint_launch_shape
     from repro_torch.kernels.ternary_matmul import ternary_matmul
     from repro_torch.serving.lop_select import select_blocks
 
@@ -793,6 +825,8 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     # ---- #7 ternary_matmul: the four projections at m = 4 and 128 ----
+    log(f"  ternary_matmul: decode kernel {ptxas_summary(_build, 'ternary_matmul', 'ternary_matmul_decode_kernel')}; "
+        f"chunk kernel {ptxas_summary(_build, 'ternary_matmul', 'ternary_matmul_chunk_kernel')}")
     err, first = 0.0, None
     for m in (4, 128):
         for label, k, n in TINT_SHAPES:
@@ -818,11 +852,29 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
                            lambda a, b: plain.ternary_matmul_ref(a, b, k),
                            (x, packed), 50, b_ms, b_by,
                            lib=(torch._int_mm, (x_pad, w8)))
+            g_ms = graph_ms(torch, ternary_matmul, copies(torch, (x, packed)))
+            shape = tint_launch_shape(m, k, n)
             log(f"  ternary_matmul {label} m={m} k={k} n={n}: {fmt_row(row)}"
-                f" bitwise=True{' (_int_mm at 32 rows)' if m < 32 else ''}"
-                f" [{card}]")
+                f" bitwise=True{' (_int_mm at 32 rows)' if m < 32 else ''}; "
+                f"in a CUDA graph {g_ms:.4f} ms; {b_ms / row['ms']:.1%} of "
+                f"bound ({b_ms / g_ms:.1%} in the graph); {shape['ctas']} "
+                f"CTAs x {shape['warps']} warps ({shape['tiles']} tiles, k "
+                f"split {shape['split']}), {shape['smem']} B dynamic smem "
+                f"[{card}]")
             if first is None:
                 first = dict(row, shape=f"{label} m={m} k={k} n={n}")
+    # check only: k above the former 13,952 cap (qwen1.5-32b's down
+    # projection)
+    k, n = 27392, 5120
+    for m in (4, 128):
+        x = t(rng.integers(-127, 128, (m, k)).astype(np.int8))
+        packed = t(rng.integers(0, 256, (k // 4, n)).astype(np.uint8))
+        err = max(err, check_close(
+            torch, f"ternary_matmul[k={k},n={n},m={m}]", ternary_matmul(
+                x, packed), plain.ternary_matmul_ref(x, packed, k),
+            bitwise=True))
+        log(f"  ternary_matmul m={m} k={k} n={n}: bitwise=True (check only)")
+        del x, packed
     rows["ternary_matmul"] = dict(first, max_abs_err=err)
 
     # ---- #6 lop_scores_kernel: every (B, Hkv) lane of the cache ----

@@ -55,7 +55,7 @@ SIGNATURES = {
     },
     "ternary_matmul": {
         "repro_ternary_matmul": ([_P] * 3 + [_I] * 3 + [_P], _I),
-        "repro_ternary_matmul_max_k": ([], _I),
+        "repro_ternary_matmul_shape": ([_I] * 3 + [_P], _I),
     },
     "lop_scores": {
         "repro_lop_scores": ([_P] * 3 + [_I] * 4 + [_P], _I),

@@ -1,12 +1,17 @@
-"""CUDA TINT GEMM wrapper (``csrc/ternary_matmul.cu``).
+"""CUDA TINT GEMM wrapper (``csrc/ternary_matmul.cu``, on the ternary tile
+core ``csrc/ternary_tile.cuh``).
 
 Replaces the Pallas ``ternary_matmul``: int8 activations × packed 2-bit
 ternary weights → the raw int32 accumulator, no barrier and no
 dequantization. Exact, so bitwise the plain version; k may be any
-multiple of 4.
+multiple of 4. Where a tile's k is split over a cluster of CTAs, they
+sum their partial tiles through distributed shared memory (exact integer
+sums, so the same bits every call).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -21,9 +26,8 @@ def ternary_matmul(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError(f"x: expected [m, k], got {tuple(x.shape)}")
     m, k = x.shape
-    max_k = lib.repro_ternary_matmul_max_k()
-    if k % 4 or k > max_k:
-        raise ValueError(f"k={k} must be a multiple of 4 and at most {max_k}")
+    if k % 4:
+        raise ValueError(f"k={k} must be a multiple of 4")
     require(packed, "packed", torch.uint8)
     if packed.dim() != 2 or packed.shape[0] * 4 != k:
         raise ValueError(f"packed: expected [{k // 4}, n], got "
@@ -39,3 +43,13 @@ def ternary_matmul(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
 
 
 ternary_matmul.launches = 0
+
+
+def launch_shape(m: int, k: int, n: int) -> dict:
+    """CTAs, warps per CTA, dynamic shared-memory bytes, output tiles and
+    the CTAs each tile's k is split over (``split``) of one
+    :func:`ternary_matmul` launch on the current card."""
+    info = (ctypes.c_int * 5)()
+    _build.check(_build.load("ternary_matmul").repro_ternary_matmul_shape(
+        m, k, n, ctypes.addressof(info)), "repro_ternary_matmul_shape")
+    return dict(zip(("ctas", "warps", "smem", "tiles", "split"), info))

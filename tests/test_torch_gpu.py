@@ -19,6 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as plain
 
 pytestmark = pytest.mark.gpu
+torch.set_num_threads(1)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -237,7 +238,15 @@ def _launched(name):
 
 @pytest.mark.parametrize("m,k,n", [
     (4, 3200, 9600), (128, 3200, 3200), (4, 8640, 3200), (128, 3200, 17280),
-    (7, 100, 13), (33, 96, 40), (1, 4, 1)])
+    (7, 100, 13), (33, 96, 40), (1, 4, 1),
+    # k above the old 13,952 cap
+    (4, 16384, 64), (128, 27392, 40), (16, 49152, 24),
+    # k no multiple of 16 or 32 (4-byte row copies, a partial last stage)
+    (5, 100, 64), (128, 3204, 256),
+    # m across the 16- and 128-row tiles
+    (17, 256, 128), (129, 512, 96), (200, 1024, 160),
+    # n no multiple of the 128-column tile (odd n: byte copies)
+    (4, 3200, 13), (128, 3200, 9601)])
 def test_ternary_matmul_kernel_matches_plain(cuda, m, k, n):
     from repro_torch.core.ternary import TernaryWeight
     rng = np.random.default_rng(m + k + n)
@@ -250,6 +259,42 @@ def test_ternary_matmul_kernel_matches_plain(cuda, m, k, n):
     want = plain.ternary_matmul_ref(x, packed, k)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_ternary_matmul_every_code_byte(cuda, m):
+    """A packed stream holding every byte value 0..255, so code 3 (→ 0)
+    meets every other code in every position of a byte."""
+    from repro_torch.core.ternary import TernaryWeight
+    rng = np.random.default_rng(m)
+    k, n = 3200, 320
+    x = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    packed = (np.arange(k // 4 * n) % 256).astype(np.uint8).reshape(k // 4, n)
+    x, packed = _dev((x, packed), cuda)
+    tw = TernaryWeight(packed, torch.ones((1, 1), device=cuda), (k, n))
+    with _launched("ternary_matmul"):
+        got = ops.ternary_matmul(x, tw)
+    want = plain.ternary_matmul_ref(x, packed, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 8640, 3200), (128, 3200, 3200)])
+def test_ternary_matmul_split_k_deterministic(cuda, m, k, n):
+    """Two calls on the same inputs are bitwise equal where the launch
+    splits k over a cluster of CTAs that sum their partial tiles."""
+    from repro_torch.kernels.ternary_matmul import (launch_shape,
+                                                    ternary_matmul)
+    assert launch_shape(m, k, n)["split"] > 1
+    rng = np.random.default_rng(k + n)
+    x, packed = _dev((rng.integers(-127, 128, (m, k)).astype(np.int8),
+                      rng.integers(0, 256, (k // 4, n)).astype(np.uint8)),
+                     cuda)
+    first = ternary_matmul(x, packed)
+    second = ternary_matmul(x, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, plain.ternary_matmul_ref(x, packed, k))
 
 
 @pytest.mark.parametrize("m,label", [(4, "qkv"), (128, "qkv"), (4, "o"),

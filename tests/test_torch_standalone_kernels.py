@@ -193,10 +193,11 @@ def test_ternary_matmul_vs_pallas(m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 3200, 64), (3, 8640, 40),
-                                   (2, 100, 12)])
+                                   (2, 100, 12), (2, 16384, 24)])
 def test_ternary_matmul_vs_ref_bitnet_k(m, k, n):
-    """k = 3200 / 8640 (bitnet-3b's projections) and a k that is no
-    multiple of 8: the TPU kernel cannot take them, its ref arm can."""
+    """k = 3200 / 8640 (bitnet-3b's projections), a k that is no multiple
+    of 8, and a k above the CUDA kernel's former 13,952 cap: the TPU
+    kernel cannot take them, its ref arm can."""
     rng = np.random.default_rng(k + n)
     x = rng.integers(-127, 128, (m, k)).astype(np.int8)
     jw, tw = _tw(rng, k, n)
