@@ -16,7 +16,12 @@ printed:
               >100 MB of copies so each launch finds L2 cold, as decode
               does), beside the plain version's time, the least time the
               card could take (bound) and, where one PyTorch call computes
-              the same function, that call's time; for #3 also 12
+              the same function, that call's time; #1 and #2 (on the
+              ternary tile core) also with their calls captured in one
+              CUDA graph (the device's time without the host's), with
+              their GEMM launch shapes and ptxas' registers / static smem
+              / spills, and #2 checked once more at f 14,336 on a narrow
+              d (above the former k cap); for #3 also 12
               chunks of 128 rows bitwise one whole 1536-row call, a
               sliding window of 512 against the plain version, and for #3
               and #8 (phase 5) the CTAs, warps per CTA, dynamic shared
@@ -31,7 +36,8 @@ printed:
               must equal whole-prompt prefill bitwise for one prompt; then
               clean timings: a decode step over 4 active lanes with no
               prefill in flight, one prefill chunk, a whole-prompt prefill,
-              and a torch.profiler breakdown of decode steps;
+              and a torch.profiler breakdown of decode steps and of one
+              chunk; every serve run prints a sha256 of its tokens;
   4b. no-LOP  the same 8 requests on a use_lop=False engine sharing the
               weights: the dense decode kernel must launch and the LOP one
               must not; scheduler == lockstep for 2 requests; its steady
@@ -71,6 +77,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import re
@@ -163,6 +170,13 @@ def bound_ms(nbytes: float, int8_ops: float = 0.0,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def fmt_shape(shape: dict) -> str:
+    """One launch of a kernel on the ternary tile core."""
+    return (f"{shape['ctas']} CTAs x {shape['warps']} warps ({shape['tiles']} "
+            f"tiles, k split {shape['split']}), {shape['smem']} B dynamic "
+            f"smem")
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -219,6 +233,8 @@ def kernel_phase(torch, np) -> dict:
     from repro_torch.kernels.prefill_attention import \
         launch_shape as prefill_launch_shape
     from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
+    from repro_torch.kernels.qlinear import \
+        launch_shape as qlinear_launch_shape
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -229,6 +245,11 @@ def kernel_phase(torch, np) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     # ---- #1 fused_qlinear: QKV and O at decode (m = 4) and chunk (128) ----
+    log("  qlinear.cu: " + "; ".join(
+        f"{kern} {ptxas_summary(_build, 'qlinear', kern)}"
+        for kern in ("barrier_kernel", "qlinear_decode_kernel",
+                     "qlinear_chunk_kernel", "gate_up_decode_kernel",
+                     "gate_up_chunk_kernel")))
     err, timed = 0.0, None
     for label, m, k, n in (("qkv", 4, d, 3 * d), ("o", 4, d, d),
                            ("qkv", 128, d, 3 * d), ("o", 128, d, d)):
@@ -240,27 +261,33 @@ def kernel_phase(torch, np) -> dict:
         err = max(err, check_close(torch, f"fused_qlinear[{label},m={m}]",
                                    got, want, bitwise=True))
         args = (x, packed, gamma)
-        ms = cuda_ms(torch, fused_qlinear, copies(torch, args), 50)
+        arg_sets = copies(torch, args)
+        ms = cuda_ms(torch, fused_qlinear, arg_sets, 50)
+        g_ms = graph_ms(torch, fused_qlinear, arg_sets)
         p_ms = cuda_ms(torch, lambda a, b, c: plain.qlinear_ref(a, b, c[None]),
                        [args], 3)
         b_ms, b_by = bound_ms(nbytes(x, packed, gamma) + m * n * 4,
                               int8_ops=2.0 * m * k * n)
-        log(f"  fused_qlinear {label} m={m} k={k} n={n}: {ms:.4f} ms "
-            f"(plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}) "
-            f"bitwise={True}")
+        log(f"  fused_qlinear {label} m={m} k={k} n={n}: {ms:.4f} ms, in a "
+            f"CUDA graph {g_ms:.4f} ms (plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}; {b_ms / ms:.1%} of bound, "
+            f"{b_ms / g_ms:.1%} in the graph) bitwise=True; GEMM "
+            f"{fmt_shape(qlinear_launch_shape(m, k, n))}")
         if timed is None:
             timed = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"{label} m={m} k={k} n={n}")
     rows["fused_qlinear"] = dict(timed, max_abs_err=err, library_ms=None)
 
-    # ---- #2 fused_ffn at decode (m = 4) and chunk (128) ----
+    # ---- #2 fused_ffn at decode (m = 4) and chunk (128); then once at
+    #      f 14,336 (mistral-nemo, above the former k cap) on a narrow d ----
     err, timed = 0.0, None
-    for m in (4, 128):
-        x = t(rng.standard_normal((m, d)).astype(np.float32))
-        gu = t(rng.integers(0, 256, (d // 4, 2 * f)).astype(np.uint8))
-        gs = t(rng.uniform(0.01, 0.05, (2 * f,)).astype(np.float32))
-        down = t(rng.integers(0, 256, (f // 4, d)).astype(np.uint8))
-        ds = t(np.full((d,), 0.02, np.float32))
+    for m, dd, ff in ((4, d, f), (128, d, f), (4, 256, 14336),
+                      (128, 256, 14336)):
+        x = t(rng.standard_normal((m, dd)).astype(np.float32))
+        gu = t(rng.integers(0, 256, (dd // 4, 2 * ff)).astype(np.uint8))
+        gs = t(rng.uniform(0.01, 0.05, (2 * ff,)).astype(np.float32))
+        down = t(rng.integers(0, 256, (ff // 4, dd)).astype(np.uint8))
+        ds = t(np.full((dd,), 0.02, np.float32))
         args = (x, gu, gs, down, ds)
 
         def kern(*a):
@@ -270,14 +297,25 @@ def kernel_phase(torch, np) -> dict:
             return plain.ffn_fused_ref(x_, gu_, gs_[None], down_, ds_[None],
                                        gated=True, act="silu")
         got, want = kern(*args), ref(*args)
-        err = max(err, check_close(torch, f"fused_ffn[m={m}]", got, want))
-        ms = cuda_ms(torch, kern, copies(torch, args), 30)
+        err = max(err, check_close(torch, f"fused_ffn[m={m},d={dd},f={ff}]",
+                                   got, want))
+        if ff != f:
+            log(f"  fused_ffn m={m} d={dd} f={ff}: within rtol=atol="
+                f"{TOL['rtol']} of the plain version, bitwise="
+                f"{bool(torch.equal(got, want))} (check only)")
+            continue
+        arg_sets = copies(torch, args)
+        ms = cuda_ms(torch, kern, arg_sets, 30)
+        g_ms = graph_ms(torch, kern, arg_sets)
         p_ms = cuda_ms(torch, ref, [args], 3)
         b_ms, b_by = bound_ms(nbytes(*args) + m * d * 4,
                               int8_ops=2.0 * m * d * 2 * f + 2.0 * m * f * d)
-        log(f"  fused_ffn m={m} d={d} f={f}: {ms:.4f} ms (plain {p_ms:.3f} "
-            f"ms, bound {b_ms:.4f} ms by {b_by}) bitwise="
-            f"{bool(torch.equal(got, want))}")
+        log(f"  fused_ffn m={m} d={d} f={f}: {ms:.4f} ms, in a CUDA graph "
+            f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
+            f"graph) bitwise={bool(torch.equal(got, want))}; gate‖up GEMM "
+            f"{fmt_shape(qlinear_launch_shape(m, d, f, gated=True))}, down "
+            f"GEMM {fmt_shape(qlinear_launch_shape(m, f, d))}")
         if timed is None:
             timed = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"m={m} d={d} f={f}")
@@ -492,6 +530,7 @@ def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
     if sorted(results) != sorted(r.rid for r in reqs):
         raise AssertionError(f"[{label}] finished rids {sorted(results)}")
     n_tok = sum(len(r.tokens) for r in results.values())
+    log(f"  [{label}] tokens sha256 {tokens_digest(results)}")
     ttft = [r.ttft for r in results.values()]
     step_ms = float(np.percentile(sched.decode_seconds, 50) * 1e3)
     log(f"  [{label}] served {len(reqs)} requests, {n_tok} tokens in "
@@ -504,6 +543,14 @@ def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
                 tokens_per_s=n_tok / wall,
                 ttft_p50_ms=float(np.percentile(ttft, 50) * 1e3),
                 serve_cycle_decode_ms_p50=step_ms, peak_bytes=peak)
+
+
+def tokens_digest(results: dict) -> str:
+    """sha256 (16 hex digits) of every request's tokens in rid order: the
+    same digest on two builds means the same tokens."""
+    text = json.dumps([[rid, [int(x) for x in results[rid].tokens]]
+                       for rid in sorted(results)])
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 def check_counts(counts: dict, label: str, launched, idle=()) -> None:
@@ -853,14 +900,11 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
                            (x, packed), 50, b_ms, b_by,
                            lib=(torch._int_mm, (x_pad, w8)))
             g_ms = graph_ms(torch, ternary_matmul, copies(torch, (x, packed)))
-            shape = tint_launch_shape(m, k, n)
             log(f"  ternary_matmul {label} m={m} k={k} n={n}: {fmt_row(row)}"
                 f" bitwise=True{' (_int_mm at 32 rows)' if m < 32 else ''}; "
                 f"in a CUDA graph {g_ms:.4f} ms; {b_ms / row['ms']:.1%} of "
-                f"bound ({b_ms / g_ms:.1%} in the graph); {shape['ctas']} "
-                f"CTAs x {shape['warps']} warps ({shape['tiles']} tiles, k "
-                f"split {shape['split']}), {shape['smem']} B dynamic smem "
-                f"[{card}]")
+                f"bound ({b_ms / g_ms:.1%} in the graph); "
+                f"{fmt_shape(tint_launch_shape(m, k, n))} [{card}]")
             if first is None:
                 first = dict(row, shape=f"{label} m={m} k={k} n={n}")
     # check only: k above the former 13,952 cap (qwen1.5-32b's down
@@ -1149,23 +1193,17 @@ def _dev_us(evt) -> float:
     return 0.0
 
 
-def steady_phase(torch, np, engine, reqs, card) -> dict:
-    """Clean timings outside the serve run: a decode step over 4 active
-    lanes with no prefill in flight, one 128-token prefill chunk at the end
-    of a 1536-token prompt, a whole-prompt prefill, and a profiler
-    breakdown of decode steps (device time by kernel, busy share)."""
-    decode_ms, sched = decode_step_ms(torch, np, engine, reqs)
-
+def profiled(torch, fn):
+    """Run ``fn`` under torch.profiler. → (device µs by kernel name, device
+    µs in all, wall µs up to a synchronize)."""
     from torch.profiler import ProfilerActivity, profile
-    n_prof = 4
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_prof):
-            sched.step()
+        fn()
         torch.cuda.synchronize()
-        prof_wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
     for evt in prof.key_averages():
         # device-side events only (kernels, memcpys); the aten ops that
@@ -1175,7 +1213,20 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
         us = _dev_us(evt)
         if us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
-    dev_us = sum(by_name.values())
+    return by_name, sum(by_name.values()), wall_us
+
+
+def steady_phase(torch, np, engine, reqs, card) -> dict:
+    """Clean timings outside the serve run: a decode step over 4 active
+    lanes with no prefill in flight, one 128-token prefill chunk at the end
+    of a 1536-token prompt, a whole-prompt prefill, and a profiler
+    breakdown of decode steps and of one chunk (device time by kernel,
+    busy share)."""
+    decode_ms, sched = decode_step_ms(torch, np, engine, reqs)
+
+    n_prof = 4
+    by_name, dev_us, prof_wall_us = profiled(
+        torch, lambda: [sched.step() for _ in range(n_prof)])
     log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP greedy: "
         f"p50 {decode_ms:.2f} ms over 10 steps [{card}]")
     if dev_us:
@@ -1199,6 +1250,14 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
     chunk_ms = float(np.median(chunk_s[1:]) * 1e3)
+    by_name, chunk_dev_us, chunk_wall_us = profiled(
+        torch, lambda: engine.prefill_chunk(pool, 0, chunk, 1408, 1536, True))
+    if chunk_dev_us:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"  profiler, one prefill chunk: device busy "
+            f"{chunk_dev_us / 1e3:.2f} ms of {chunk_wall_us / 1e3:.2f} ms wall"
+            f" ({100 * chunk_dev_us / chunk_wall_us:.1f}%, profiler on); top: "
+            + "; ".join(f"{us / 1e3:.3f} ms {key[:60]}" for key, us in top))
     prompt = reqs[0].prompt
     torch.cuda.synchronize()
     t0 = time.perf_counter()

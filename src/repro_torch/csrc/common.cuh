@@ -86,20 +86,6 @@ __device__ int block_max_int(int v, int* red) {
   return r;
 }
 
-// 256-entry table: a byte of four 2-bit ternary codes (code j = bits
-// 2j..2j+1; 1 → +1, 2 → −1, 0 and 3 → 0) → the four int8 values packed
-// as a char4 word, ready for __dp4a.
-__device__ __forceinline__ int ternary_code_word(int byte) {
-  int v = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = (byte >> (2 * j)) & 3;
-    const int t = (c == 1) ? 1 : ((c == 2) ? -1 : 0);
-    v |= (t & 0xff) << (8 * j);
-  }
-  return v;
-}
-
 // LOP nibble (sgn << 3) | LO → pot value: 0 for LO 7, else ±2^LO.
 __device__ __forceinline__ int nib_pot(int nib) {
   const int lo = nib & 7;

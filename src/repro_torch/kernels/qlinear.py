@@ -1,20 +1,25 @@
-"""CUDA TINT projection and whole-FFN wrappers (``csrc/qlinear.cu``).
+"""CUDA TINT projection and whole-FFN wrappers (``csrc/qlinear.cu``, on the
+ternary tile core ``csrc/ternary_tile.cuh``).
 
 ``fused_qlinear`` replaces the Pallas ``fused_qlinear``: absmax barrier →
-packed-ternary × int8 GEMM → ``(acc·x_scale)·γ`` → bias → act, in one
-launch. ``fused_ffn`` replaces the Pallas ``fused_ffn`` in two launches:
-the gate/up stage writes ``h = act(x·Wg)·(x·Wu)`` as f32 into device
-memory, then the projection kernel runs on ``h`` with the down weights —
-the TPU kept ``h`` in VMEM across a sequential grid, which Hopper's
-unordered CTAs cannot share, and the absmax max is exact, so the hidden
-barrier stays the same function. Both take the E = 1 form only.
+packed-ternary × int8 GEMM → ``(acc·x_scale)·γ`` → bias → act.
+``fused_ffn`` replaces the Pallas ``fused_ffn``: barrier → gate‖up GEMM
+writing ``h = act(x·Wg)·(x·Wu)`` as f32 → the barrier of ``h`` → the
+down GEMM. The TPU kept ``h`` in VMEM across a sequential grid, which
+Hopper's unordered CTAs cannot share; the absmax max is exact, so the
+hidden barrier stays the same function. Each call issues its launches
+(two for the projection, four for the FFN) from one C entry. The
+barrier pass quantizes rows of any k into scratch, so k and f may be any
+multiple of 4. Both take the E = 1 form only.
 
-Each wrapper checks its operands, allocates its output with
-``torch.empty``, launches on the current stream, raises on a CUDA error,
-and counts its calls that launched in ``<fn>.launches``.
+Each wrapper checks its operands, allocates its output and one scratch
+buffer with ``torch.empty``, launches on the current stream, raises on a
+CUDA error, and counts its calls that launched in ``<fn>.launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -48,24 +53,25 @@ def _act_code(act) -> int:
     return ACT_CODES[act]
 
 
-def _check_k(lib, k: int) -> None:
-    if k % 4 or k > lib.repro_qlinear_max_k():
-        raise ValueError(f"k={k} must be a multiple of 4 and at most "
-                         f"{lib.repro_qlinear_max_k()}")
+def _check_k(k: int) -> None:
+    if k <= 0 or k % 4:
+        raise ValueError(f"k={k} must be a positive multiple of 4")
 
 
-def _project(lib, x, packed, gamma, bias, act) -> torch.Tensor:
-    m, k = x.shape
-    n = packed.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m:
-        rc = lib.repro_qlinear(x.data_ptr(), packed.data_ptr(),
-                               gamma.data_ptr(),
-                               None if bias is None else bias.data_ptr(),
-                               out.data_ptr(), m, k, n, _act_code(act),
-                               _stream(x))
-        _build.check(rc, "repro_qlinear")
-    return out
+def _pad16(k: int) -> int:
+    return -(-k // 16) * 16
+
+
+def _scratch(device, sizes):
+    """One ``torch.empty`` byte buffer holding parts of ``sizes`` bytes,
+    each 16-byte aligned. → (the buffer, which the caller keeps until its
+    launches are enqueued, and each part's address)."""
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += _pad16(size)
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + o for o in offsets]
 
 
 def fused_qlinear(x: torch.Tensor, packed: torch.Tensor, gamma: torch.Tensor,
@@ -80,7 +86,7 @@ def fused_qlinear(x: torch.Tensor, packed: torch.Tensor, gamma: torch.Tensor,
     if x.dim() != 2:
         raise ValueError(f"x: expected [m, k], got {tuple(x.shape)}")
     m, k = x.shape
-    _check_k(lib, k)
+    _check_k(k)
     require(packed, "packed", torch.uint8)
     if packed.dim() != 2 or packed.shape[0] * 4 != k:
         raise ValueError(f"packed: expected [{k // 4}, n], got "
@@ -89,8 +95,16 @@ def fused_qlinear(x: torch.Tensor, packed: torch.Tensor, gamma: torch.Tensor,
     require(gamma, "gamma", torch.float32, (n,))
     if bias is not None:
         require(bias, "bias", torch.float32, (n,))
-    out = _project(lib, x, packed, gamma, bias, act)
-    if m:                                  # _project launched the kernel
+    act_code = _act_code(act)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m and n:
+        scratch, (xq, xs) = _scratch(x.device, (m * _pad16(k), 4 * m))
+        rc = lib.repro_qlinear(x.data_ptr(), packed.data_ptr(),
+                               gamma.data_ptr(),
+                               None if bias is None else bias.data_ptr(),
+                               out.data_ptr(), xq, xs, m, k, n, act_code,
+                               _stream(x))
+        _build.check(rc, "repro_qlinear")
         fused_qlinear.launches += 1
     return out
 
@@ -112,30 +126,42 @@ def fused_ffn(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor,
     if x.dim() != 2:
         raise ValueError(f"x: expected [m, k], got {tuple(x.shape)}")
     m, k = x.shape
-    _check_k(lib, k)
+    _check_k(k)
     require(down_packed, "down_packed", torch.uint8)
     if down_packed.dim() != 2:
         raise ValueError("down_packed: expected [f//4, d_out]")
     f = down_packed.shape[0] * 4
-    _check_k(lib, f)
+    _check_k(f)
     d_out = down_packed.shape[1]
     gu_width = 2 * f if gated else f
     require(gu_packed, "gu_packed", torch.uint8, (k // 4, gu_width))
     require(gu_scale, "gu_scale", torch.float32, (gu_width,))
     require(down_scale, "down_scale", torch.float32, (d_out,))
-    if not m:
-        return torch.empty((0, d_out), dtype=torch.float32, device=x.device)
-    if gated:
-        h = torch.empty((m, f), dtype=torch.float32, device=x.device)
-        rc = lib.repro_ffn_gate_up(x.data_ptr(), gu_packed.data_ptr(),
-                                   gu_scale.data_ptr(), h.data_ptr(), m, k, f,
-                                   _act_code(act), _stream(x))
-        _build.check(rc, "repro_ffn_gate_up")
-    else:
-        h = _project(lib, x, gu_packed, gu_scale, None, act)
-    out = _project(lib, h, down_packed, down_scale, None, None)
+    act_code = _act_code(act)
+    out = torch.empty((m, d_out), dtype=torch.float32, device=x.device)
+    if not (m and d_out):
+        return out
+    scratch, (xq, xs, h, hq, hs) = _scratch(
+        x.device, (m * _pad16(k), 4 * m, 4 * m * f, m * _pad16(f), 4 * m))
+    rc = lib.repro_ffn(x.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(),
+                       down_packed.data_ptr(), down_scale.data_ptr(),
+                       out.data_ptr(), xq, xs, h, hq, hs, m, k, f, d_out,
+                       int(gated), act_code, _stream(x))
+    _build.check(rc, "repro_ffn")
     fused_ffn.launches += 1
     return out
 
 
 fused_ffn.launches = 0
+
+
+def launch_shape(m: int, k: int, n: int, *, gated: bool = False) -> dict:
+    """CTAs, warps per CTA, dynamic shared-memory bytes, output tiles and
+    the CTAs each tile's k is split over (``split``) of the GEMM launch of
+    :func:`fused_qlinear` at x [m, k] × [k//4, n] (``gated``: of
+    :func:`fused_ffn`'s gate‖up stage at hidden width n) on the current
+    card."""
+    info = (ctypes.c_int * 5)()
+    _build.check(_build.load("qlinear").repro_qlinear_shape(
+        m, k, n, int(gated), ctypes.addressof(info)), "repro_qlinear_shape")
+    return dict(zip(("ctas", "warps", "smem", "tiles", "split"), info))

@@ -40,7 +40,15 @@ def _dev(rng_arrays, dev):
 @pytest.mark.parametrize("m,k,n,bias,act", [
     (4, 3200, 9600, False, None), (128, 3200, 3200, False, None),
     (4, 8640, 3200, False, None), (1, 64, 48, True, None),
-    (33, 96, 40, True, "silu"), (9, 128, 64, False, "gelu")])
+    (33, 96, 40, True, "silu"), (9, 128, 64, False, "gelu"),
+    # k above the former 12,400 cap
+    (4, 13312, 256, False, None), (128, 13312, 320, True, None),
+    # m at the 16- and 128-row tile edges, and a whole 1326-token prompt
+    (16, 3200, 384, False, None), (17, 256, 200, True, "silu"),
+    (129, 512, 96, False, None), (1326, 3200, 3200, False, None),
+    # odd n (byte copies of the packed rows), k no multiple of 16
+    (5, 256, 13, True, "gelu"), (128, 3200, 9601, False, None),
+    (7, 100, 64, False, None)])
 def test_qlinear_kernel_matches_plain(cuda, m, k, n, bias, act):
     rng = np.random.default_rng(m + k + n)
     x = rng.standard_normal((m, k)).astype(np.float32)
@@ -58,21 +66,92 @@ def test_qlinear_kernel_matches_plain(cuda, m, k, n, bias, act):
         torch.testing.assert_close(got, want, **TOL)
 
 
-@pytest.mark.parametrize("m", [4, 128])
-def test_ffn_kernel_matches_plain(cuda, m):
-    rng = np.random.default_rng(m)
-    d, f = 3200, 8640
+def _ffn_args(rng, m, d, f, gated, every_byte=False):
+    width = 2 * f if gated else f
     x = rng.standard_normal((m, d)).astype(np.float32)
-    gu = rng.integers(0, 256, (d // 4, 2 * f)).astype(np.uint8)
-    gs = rng.uniform(0.01, 0.05, (1, 2 * f)).astype(np.float32)
-    down = rng.integers(0, 256, (f // 4, d)).astype(np.uint8)
+    if every_byte:
+        gu = (np.arange(d // 4 * width) % 256).astype(np.uint8).reshape(
+            d // 4, width)
+        down = (np.arange(f // 4 * d) % 256).astype(np.uint8).reshape(
+            f // 4, d)
+    else:
+        gu = rng.integers(0, 256, (d // 4, width)).astype(np.uint8)
+        down = rng.integers(0, 256, (f // 4, d)).astype(np.uint8)
+    gs = rng.uniform(0.01, 0.05, (1, width)).astype(np.float32)
     ds = np.full((1, 1), 0.02, np.float32)
-    args = _dev((x, gu, gs, down, ds), cuda)
-    got = ops.ffn_fused(*args, gated=True, act="silu")
-    want = plain.ffn_fused_ref(args[0], args[1], args[2], args[3],
-                               args[4].expand(1, d), gated=True, act="silu")
+    return x, gu, gs, down, ds
+
+
+def _ffn_plain(args, d, gated, act):
+    return plain.ffn_fused_ref(args[0], args[1], args[2], args[3],
+                               args[4].expand(1, d), gated=gated, act=act)
+
+
+@pytest.mark.parametrize("m,d,f,gated,act", [
+    (4, 3200, 8640, True, "silu"), (128, 3200, 8640, True, "silu"),
+    # f above the former 12,400 cap (mistral-nemo, qwen1.5-32b) on a
+    # narrow d
+    (4, 256, 14336, True, "silu"), (128, 256, 27392, True, "silu"),
+    # f no multiple of 64 (a partial gate‖up tile; 4-byte copies)
+    (16, 256, 1000, True, "silu"), (17, 512, 1004, True, "silu"),
+    # the ungated gelu FFN; m past the tile edges and a whole prompt
+    (9, 256, 512, False, "gelu"), (129, 320, 640, True, "silu"),
+    (1326, 256, 512, True, "silu")])
+def test_ffn_kernel_matches_plain(cuda, m, d, f, gated, act):
+    rng = np.random.default_rng(m + f)
+    args = _dev(_ffn_args(rng, m, d, f, gated), cuda)
+    got = ops.ffn_fused(*args, gated=gated, act=act)
+    want = _ffn_plain(args, d, gated, act)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_qlinear_ffn_every_code_byte(cuda, m):
+    """Packed streams holding every byte value 0..255, so code 3 (→ 0)
+    meets every other code in every position of a byte, through the
+    projection (bitwise) and the gate‖up and down stages of the FFN."""
+    rng = np.random.default_rng(m)
+    k, n = 3200, 320
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    packed = (np.arange(k // 4 * n) % 256).astype(np.uint8).reshape(k // 4, n)
+    gamma = rng.uniform(0.01, 0.05, (1, n)).astype(np.float32)
+    x, packed, gamma = _dev((x, packed, gamma), cuda)
+    got = ops.qlinear_fused(x, packed, gamma)
+    assert torch.equal(got, plain.qlinear_ref(x, packed, gamma))
+    d, f = 512, 1280
+    args = _dev(_ffn_args(rng, m, d, f, True, every_byte=True), cuda)
+    got = ops.ffn_fused(*args, gated=True, act="silu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _ffn_plain(args, d, True, "silu"), **TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 8640, 3200), (128, 3200, 3200)])
+def test_qlinear_ffn_split_k_deterministic(cuda, m, k, n):
+    """Two calls on the same inputs are bitwise equal where the GEMM
+    splits k over a cluster of CTAs that sum their partial tiles: the
+    projection, and the whole FFN (gate‖up split too at m = 4)."""
+    from repro_torch.kernels.qlinear import launch_shape
+    assert launch_shape(m, k, n)["split"] > 1
+    rng = np.random.default_rng(k + n)
+    x, packed, gamma = _dev((rng.standard_normal((m, k)).astype(np.float32),
+                             rng.integers(0, 256, (k // 4, n)).astype(
+                                 np.uint8),
+                             rng.uniform(0.01, 0.05, (1, n)).astype(
+                                 np.float32)), cuda)
+    first = ops.qlinear_fused(x, packed, gamma)
+    second = ops.qlinear_fused(x, packed, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, plain.qlinear_ref(x, packed, gamma))
+    d, f = 3200, 8640
+    if m == 4:
+        assert launch_shape(m, d, f, gated=True)["split"] > 1
+    args = _dev(_ffn_args(rng, m, d, f, True), cuda)
+    first = ops.ffn_fused(*args, gated=True, act="silu")
+    second = ops.ffn_fused(*args, gated=True, act="silu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _attn(rng, b, h, hkv, c, dh, m):

@@ -104,6 +104,66 @@ def test_ffn_plain_vs_reference(gated, act, m):
         _close(t, p)
 
 
+def _tiled_barrier_integer_stages(x, packed, k):
+    """The barrier (int8 values, scales) and the int32 accumulator of the
+    plain version, bitwise the reference's own functions."""
+    from repro.core.quantization import quantize as jquantize
+    from repro.kernels.ref import ternary_matmul_ref
+    from repro_torch.core.quantization import quantize
+    from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels.ref import int_matmul
+    jq, tq = jquantize(jnp.asarray(x)), quantize(_t(x))
+    np.testing.assert_array_equal(tq.values.numpy(), np.asarray(jq.values))
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
+    np.testing.assert_array_equal(
+        int_matmul(tq.values, unpack_ternary(_t(packed), k)).numpy(),
+        np.asarray(ternary_matmul_ref(jq.values, jnp.asarray(packed), k)))
+
+
+@pytest.mark.parametrize("bias,act", [(False, None), (True, "silu")])
+def test_qlinear_plain_vs_tiled_barrier_reference(bias, act):
+    """At k = 12,800 (above the 12,400 the CUDA projection was once capped
+    at), the plain version — the function the uncapped kernel computes —
+    against the reference kernel's bkq two-pass k-tiled barrier, run in
+    interpret mode."""
+    from repro.kernels.qlinear import fused_qlinear
+    m, k, n = 8, 12800, 128
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    packed, scale = _ternary_node(rng, k, n, per_column=True)
+    b = rng.standard_normal((n,)).astype(np.float32) * 0.1 if bias else None
+    j = fused_qlinear(jnp.asarray(x)[None], jnp.asarray(packed)[None],
+                      jnp.asarray(scale)[None],
+                      None if b is None else jnp.asarray(b)[None, None],
+                      bm=m, bn=n, bkq=512, act=act, interpret=True)[0]
+    t = tops.qlinear_fused(_t(x), _t(packed), _t(scale),
+                           None if b is None else _t(b), act=act)
+    _close(t, j)
+    _tiled_barrier_integer_stages(x, packed, k)
+
+
+@pytest.mark.parametrize("d,f", [(12800, 128), (256, 12800)])
+def test_ffn_plain_vs_tiled_barrier_reference(d, f):
+    """The whole FFN above the former 12,400 cap: d = 12,800 through the
+    reference's bkq k-tiled barrier of x, and f = 12,800 through its
+    barrier of the hidden row, run in interpret mode, against the plain
+    version."""
+    from repro.kernels.qlinear import fused_ffn
+    m = 8
+    rng = np.random.default_rng(d + f)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    gu, gs = _ternary_node(rng, d, 2 * f, per_column=True)
+    down, ds = _ternary_node(rng, f, 128)
+    ds = np.broadcast_to(ds, (1, 128)).copy()
+    args = (x, gu, gs, down, ds)
+    j = fused_ffn(*(jnp.asarray(a)[None] for a in args), bm=m, bf=128,
+                  bn=128, bkq=512 if d > 4096 else 0, act="silu", gated=True,
+                  interpret=True)[0]
+    t = tops.ffn_fused(*map(_t, args), gated=True, act="silu")
+    _close(t, j)
+    _tiled_barrier_integer_stages(x, gu, d)
+
+
 # ---------------------------------------------------------------------------
 # Prefill attention
 # ---------------------------------------------------------------------------
