@@ -17,13 +17,14 @@ printed:
               does), beside the plain version's time, the least time the
               card could take (bound) and, where one PyTorch call computes
               the same function, that call's time; #1 and #2 (on the
-              ternary tile core) also with their calls captured in one
-              CUDA graph (the device's time without the host's), with
-              their GEMM launch shapes and ptxas' registers / static smem
-              / spills, and #2 checked once more at f 14,336 on a narrow
-              d (above the former k cap); for #3 also 12
-              chunks of 128 rows bitwise one whole 1536-row call, a
-              sliding window of 512 against the plain version, and for #3
+              ternary tile core) and #4 and #5 (on the split-lane decode
+              core) also with their calls captured in one CUDA graph (the
+              device's time without the host's), with their launch shapes
+              and ptxas' registers / static smem / spills, and #2
+              checked once more at f 14,336 on a narrow d (above the
+              former k cap); for #3 also 12 chunks of 128 rows bitwise
+              one whole 1536-row call, a sliding window of 512 against
+              the plain version, and for #3
               and #8 (phase 5) the CTAs, warps per CTA, dynamic shared
               memory and ptxas' registers / static smem / spills;
   4. serve    full-width bitnet-3b with seeded random weights: 8 requests
@@ -41,7 +42,8 @@ printed:
   4b. no-LOP  the same 8 requests on a use_lop=False engine sharing the
               weights: the dense decode kernel must launch and the LOP one
               must not; scheduler == lockstep for 2 requests; its steady
-              decode step beside the LOP engine's;
+              decode step beside the LOP engine's, and a torch.profiler
+              breakdown of its decode steps;
   4c. sampled the 8 requests sampled (T 0.8, top-k 50, top-p 0.95, seed =
       + faults rid) on the LOP engine, scheduler == sampled lockstep for 2
               requests and the steady sampled decode step; then on the
@@ -177,6 +179,15 @@ def fmt_shape(shape: dict) -> str:
             f"smem")
 
 
+def fmt_decode_shape(shape: dict) -> str:
+    """One launch of a decode kernel on the split-lane core."""
+    return (f"{shape['ctas']} CTAs x {shape['warps']} warps ({shape['split']}"
+            f" a lane, one cluster; {shape['share']} blocks a CTA), "
+            f"{shape['smem']} B dynamic smem; the card holds "
+            f"{shape['resident_clusters']} such clusters at once, "
+            f"{shape['ctas_per_sm']} CTAs an SM")
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -228,6 +239,8 @@ def kernel_phase(torch, np) -> dict:
     from repro_torch.kernels import ref as plain
     from repro_torch.kernels.decode_attention import (
         fused_decode_attention, fused_dense_decode_attention)
+    from repro_torch.kernels.decode_attention import \
+        launch_shape as decode_launch_shape
     from repro_torch.kernels import _build
     from repro_torch.kernels.prefill_attention import fused_prefill_attention
     from repro_torch.kernels.prefill_attention import \
@@ -431,7 +444,9 @@ def kernel_phase(torch, np) -> dict:
     err = check_close(torch, "fused_decode_attention", got, want)
     if got.reshape(b, h, dh)[1].any():
         raise AssertionError("fused_decode_attention: retired lane not zero")
-    ms = cuda_ms(torch, kern, copies(torch, args), 50)
+    arg_sets = copies(torch, args)
+    ms = cuda_ms(torch, kern, arg_sets, 50)
+    g_ms = graph_ms(torch, kern, arg_sets)
     p_ms = cuda_ms(torch, ref, [args], 3)
     nl = new_len.tolist()
     live_tok = sum(min(n_, k_keep * blk) for n_ in nl if n_)  # ≤ K blocks
@@ -441,8 +456,13 @@ def kernel_phase(torch, np) -> dict:
         + h * sel_blocks * blk * (2 * dh + 8) + bh * dh * 4,
         int8_ops=2.0 * h * (sum(nl) + live_tok) * dh,
         f32_ops=2.0 * h * live_tok * dh)
+    kind = "ILb1EE"                  # the instance <kOne = one query row>
     log(f"  fused_decode_attention B={b} M={m_cap} k_keep={k_keep}: "
-        f"{ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+        f"{ms:.4f} ms, in a CUDA graph {g_ms:.4f} ms (plain {p_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by}; {b_ms / ms:.1%} of bound, "
+        f"{b_ms / g_ms:.1%} in the graph); "
+        f"{fmt_decode_shape(decode_launch_shape(bh, 1, m_cap, dh, blk, k_keep=k_keep))}"
+        f"; {ptxas_summary(_build, 'decode_attention', 'lop_decode_kernel' + kind)}")
     rows["fused_decode_attention"] = dict(
         ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         max_abs_err=err, shape=f"B={b} H=32 M={m_cap} k_keep={k_keep}")
@@ -468,7 +488,9 @@ def kernel_phase(torch, np) -> dict:
     if got.reshape(b, h, dh)[1].any():
         raise AssertionError("fused_dense_decode_attention: retired lane "
                              "not zero")
-    d_ms = cuda_ms(torch, dkern, copies(torch, dargs), 50)
+    arg_sets = copies(torch, dargs)
+    d_ms = cuda_ms(torch, dkern, arg_sets, 50)
+    dg_ms = graph_ms(torch, dkern, arg_sets)
     dp_ms = cuda_ms(torch, dref, [dargs], 3)
     db_ms, db_by = bound_ms(
         nbytes(qi, qsc, new_len) + h * sum(nl) * (2 * dh + 8) + bh * dh * 4,
@@ -487,9 +509,13 @@ def kernel_phase(torch, np) -> dict:
                                                       attn_mask=m_),
                      [(qf, kf, vf, mask)], 20)
     log(f"  fused_dense_decode_attention B={b} M={m_cap} new_len={nl}: "
-        f"{d_ms:.4f} ms (plain {dp_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound "
-        f"{db_ms:.4f} ms by {db_by}); LOP at the same shape: {ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms")
+        f"{d_ms:.4f} ms, in a CUDA graph {dg_ms:.4f} ms (plain {dp_ms:.3f} "
+        f"ms, SDPA {lib_ms:.4f} ms, bound {db_ms:.4f} ms by {db_by}; "
+        f"{db_ms / d_ms:.1%} of bound, {db_ms / dg_ms:.1%} in the graph); "
+        f"{fmt_decode_shape(decode_launch_shape(bh, 1, m_cap, dh, blk, lop=False))}"
+        f"; {ptxas_summary(_build, 'decode_attention', 'dense_decode_kernel' + kind)}"
+        f"; LOP at the same shape: {ms:.4f} ms (graph {g_ms:.4f} ms), bound "
+        f"{b_ms:.4f} ms")
     rows["fused_dense_decode_attention"] = dict(
         ms=d_ms, plain_ms=dp_ms, bound_ms=db_ms, bound_by=db_by,
         library_ms=lib_ms, max_abs_err=derr,
@@ -682,9 +708,10 @@ def nolop_phase(torch, np, engine, reqs, card: str) -> dict:
     check_tokens(engine.cfg, run["results"], GEN, "no-LOP greedy")
     check_lockstep(dense, reqs, run["results"], (0, 1), "no-LOP greedy")
     run.pop("sched")
-    step_ms = decode_step_ms(torch, np, dense, reqs)[0]
+    step_ms, sched = decode_step_ms(torch, np, dense, reqs)
     log(f"  decode step (B={N_SLOTS}, no prefill in flight), no-LOP: "
         f"{step_ms:.2f} ms [{card}]")
+    profile_steps(torch, sched, "no-LOP")
     return dict(dense=dense, counts=run["counts"],
                 tokens_per_s=run["tokens_per_s"],
                 ttft_p50_ms=run["ttft_p50_ms"], decode_step_ms_p50=step_ms)
@@ -1216,21 +1243,14 @@ def profiled(torch, fn):
     return by_name, sum(by_name.values()), wall_us
 
 
-def steady_phase(torch, np, engine, reqs, card) -> dict:
-    """Clean timings outside the serve run: a decode step over 4 active
-    lanes with no prefill in flight, one 128-token prefill chunk at the end
-    of a 1536-token prompt, a whole-prompt prefill, and a profiler
-    breakdown of decode steps and of one chunk (device time by kernel,
-    busy share)."""
-    decode_ms, sched = decode_step_ms(torch, np, engine, reqs)
-
-    n_prof = 4
+def profile_steps(torch, sched, label: str, n_prof: int = 4):
+    """Profile ``n_prof`` decode steps of ``sched`` (4 active lanes) and
+    print the device's busy time and the top kernels a step. → (device µs,
+    wall µs)."""
     by_name, dev_us, prof_wall_us = profiled(
         torch, lambda: [sched.step() for _ in range(n_prof)])
-    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP greedy: "
-        f"p50 {decode_ms:.2f} ms over 10 steps [{card}]")
     if dev_us:
-        log(f"  profiler, {n_prof} decode steps: device busy "
+        log(f"  profiler, {n_prof} decode steps ({label}): device busy "
             f"{dev_us / 1e3:.2f} ms of {prof_wall_us / 1e3:.2f} ms wall "
             f"({100 * dev_us / prof_wall_us:.1f}%, profiler on); top device "
             f"time per step:")
@@ -1238,6 +1258,19 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
             log(f"    {us / n_prof / 1e3:8.3f} ms  {key[:90]}")
     else:
         log("  profiler: no device time recorded (busy share not measured)")
+    return dev_us, prof_wall_us
+
+
+def steady_phase(torch, np, engine, reqs, card) -> dict:
+    """Clean timings outside the serve run: a decode step over 4 active
+    lanes with no prefill in flight, one 128-token prefill chunk at the end
+    of a 1536-token prompt, a whole-prompt prefill, and a profiler
+    breakdown of decode steps and of one chunk (device time by kernel,
+    busy share)."""
+    decode_ms, sched = decode_step_ms(torch, np, engine, reqs)
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP greedy: "
+        f"p50 {decode_ms:.2f} ms over 10 steps [{card}]")
+    dev_us, prof_wall_us = profile_steps(torch, sched, "LOP greedy")
 
     # one 128-token chunk at positions [1408, 1536) of a spare lane
     pool = engine.init_pool(1)

@@ -23,9 +23,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 __device__ __forceinline__ int warp_max_int(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -33,6 +45,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// signed byte k of w as a float, exactly: 2^23 + (b + 128) − (2^23 + 128)
+__device__ __forceinline__ float byte_to_float(unsigned w, int k) {
+  const unsigned x = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 + k);
+  return __fsub_rn(__uint_as_float(x), 8388736.0f);
 }
 
 // Absmax barrier scale: max(amax, 1e-5) / 127.

@@ -111,12 +111,6 @@ struct Slab {
 
 namespace detail {
 
-// signed byte k of w as a float, exactly: 2^23 + (b + 128) − (2^23 + 128)
-__device__ __forceinline__ float byte_to_float(unsigned w, int k) {
-  const unsigned x = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 + k);
-  return __fsub_rn(__uint_as_float(x), 8388736.0f);
-}
-
 // Start the copy of tile j (tokens t0 .. t0 + kTile) into one stage.
 __device__ __forceinline__ void load_tile(const Slab& a, unsigned char* stage,
                                           int j, int lane) {

@@ -1,7 +1,7 @@
-// PTX wrappers shared by the port's tensor-core tile cores (int8_flash.cuh,
-// ternary_tile.cuh): shared-memory addresses, cp.async copies with
-// zero-fill, ldmatrix and the int8 m16n8k32 MMA (sm_80 and later; built
-// for sm_90a).
+// PTX wrappers shared by the port's tile cores (int8_flash.cuh,
+// ternary_tile.cuh, int8_decode.cuh): shared-memory addresses, cp.async
+// copies with zero-fill, ldmatrix and the int8 m16n8k32 MMA (sm_80 and
+// later; built for sm_90a).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -48,10 +48,10 @@ SIGNATURES = {
         "repro_prefill_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "decode_attention": {
+        "repro_decode_plan": ([_I] * 6 + [_P], _I),
+        "repro_decode_occupancy": ([_I] * 6 + [_P], _I),
         "repro_lop_decode_attention": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
-        "repro_decode_smem_bytes": ([_I] * 5, ctypes.c_size_t),
         "repro_dense_decode_attention": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
-        "repro_dense_decode_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
     "ternary_matmul": {
         "repro_ternary_matmul": ([_P] * 3 + [_I] * 3 + [_P], _I),

@@ -221,33 +221,59 @@ def _decode(rng, b, h, hkv, m, dh):
     return arrs
 
 
-@pytest.mark.parametrize("b,h,hkv,m,dh,block,k_keep,window", [
-    (4, 32, 32, 1664, 100, 128, 2, 0), (4, 32, 32, 1664, 100, 128, 2, 300),
-    (3, 8, 2, 128, 32, 16, 3, 0)])
+# bitnet-3b's lane shape, M 1664 and block 128, splits into 7 CTAs a lane
+# (shares of 2 blocks); M 8192 into 8 (shares of 8)
+@pytest.mark.parametrize("b,h,hkv,m,dh,block,k_keep,window,lens", [
+    (4, 32, 32, 1664, 100, 128, 2, 0, None),
+    (4, 32, 32, 1664, 100, 128, 2, 300, None),
+    (3, 8, 2, 128, 32, 16, 3, 0, None),
+    # new_len at the split's edges: 1, block − 1, block, block + 1, one
+    # CTA's whole share (2 blocks), M
+    (6, 8, 8, 1664, 100, 128, 2, 0, (1, 127, 128, 129, 256, 1664)),
+    # more blocks than a CTA's share; 1024 fills exactly one share
+    (4, 8, 8, 8192, 100, 128, 3, 0, (8192, 1024, 1025, 5000)),
+    # G = 4 over hkv 8, as GQA configs call it (d 100 and 128)
+    (3, 32, 8, 1664, 100, 128, 2, 0, (1600, 0, 700)),
+    (3, 32, 8, 1664, 128, 128, 2, 0, (1600, 129, 700)),
+    # window intervals straddling the share boundaries at 256, 512, 1024
+    (4, 8, 8, 1664, 100, 128, 2, 200, (300, 600, 1100, 1664))])
 def test_decode_kernel_matches_plain(cuda, b, h, hkv, m, dh, block, k_keep,
-                                     window):
+                                     window, lens):
     rng = np.random.default_rng(m + dh)
     arrs = _dev(_decode(rng, b, h, hkv, m, dh), cuda)
-    new_len = torch.tensor([m - 64, 0, m // 3, block + 1][:b],
-                           dtype=torch.int32, device=cuda)
+    lens = lens or [m - 64, 0, m // 3, block + 1][:b]
+    new_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
     kw = dict(block=block, k_keep=k_keep, window=window)
+    ops.reset_launch_counts()
     got = ops.decode_attention(*arrs, new_len, **kw)
     want = plain.decode_attention_ref(*arrs, new_len,
                                       softmax_scale=dh ** -0.5, **kw)
     torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_decode_attention"] == 1
     torch.testing.assert_close(got, want, **TOL)
-    assert not got[1].any()                          # retired lane → zero
+    for lane, n in enumerate(lens):
+        if n == 0:
+            assert not got[lane].any()               # retired lane → zero
 
 
-@pytest.mark.parametrize("dh", [32, 100])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("window", [0, 256])
-def test_dense_decode_kernel_matches_plain(cuda, dh, g, window):
-    rng = np.random.default_rng(dh * 10 + g + window)
-    b, hkv, m, block = 4, 8, 1664, 128
+@pytest.mark.parametrize("dh,g,window,m,lens", [
+    (dh, g, window, 1664, None)
+    for dh in (32, 100) for g in (1, 4) for window in (0, 256)] + [
+    # new_len at the split's edges (shares of 2 blocks of 128)
+    (100, 1, 0, 1664, (1, 127, 128, 129)), (100, 4, 0, 1664, (256, 257, 1664, 0)),
+    (128, 4, 0, 1664, (1, 255, 256, 1664)),
+    # more blocks than a CTA's share (M 8192: shares of 8 blocks)
+    (100, 1, 0, 8192, (8192, 1024, 1025, 0)), (100, 4, 0, 8192, (7000, 1, 4095, 8191)),
+    # window intervals straddling the share boundaries
+    (100, 1, 200, 1664, (300, 600, 1100, 1664)),
+    (100, 4, 1000, 8192, (1500, 5000, 8192, 1023))])
+def test_dense_decode_kernel_matches_plain(cuda, dh, g, window, m, lens):
+    # the M 1664 cases keep the seed they had before M was a parameter
+    rng = np.random.default_rng(dh * 10 + g + window + (m - 1664))
+    b, hkv, block = 4, 8, 128
     arrs = _dev(_decode(rng, b, g * hkv, hkv, m, dh), cuda)
-    new_len = torch.tensor([m - 64, 0, 700, block + 1], dtype=torch.int32,
-                           device=cuda)
+    lens = lens or (m - 64, 0, 700, block + 1)
+    new_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
     kw = dict(block=block, k_keep=2, window=window, use_lop=False)
     ops.reset_launch_counts()
     got = ops.decode_attention(*arrs, new_len, **kw)
@@ -257,7 +283,9 @@ def test_dense_decode_kernel_matches_plain(cuda, dh, g, window):
     assert ops.launch_counts()["fused_dense_decode_attention"] == 1
     assert ops.launch_counts()["fused_decode_attention"] == 0
     torch.testing.assert_close(got, want, **TOL)
-    assert not got[1].any()                          # retired lane → zero
+    for lane, n in enumerate(lens):
+        if n == 0:
+            assert not got[lane].any()               # retired lane → zero
 
 
 def test_dense_decode_lanes_independent_bitwise(cuda):
@@ -275,6 +303,65 @@ def test_dense_decode_lanes_independent_bitwise(cuda):
         out = ops.decode_attention(*arrs, alone.to(torch.int32), **kw)
         torch.cuda.synchronize()
         assert torch.equal(out[lane], together[lane]), lane
+
+
+def test_lop_decode_lanes_independent_bitwise(cuda):
+    """#4's twin of the test above: a lane's bits do not depend on the
+    other lanes' new_len, whatever CTA of its cluster each share lands on."""
+    rng = np.random.default_rng(6)
+    b, h, m, dh = 4, 32, 1664, 100
+    arrs = _dev(_decode(rng, b, h, h, m, dh), cuda)
+    full = torch.tensor([1500, 300, 900, 1663], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(block=128, k_keep=2)
+    together = ops.decode_attention(*arrs, full, **kw)
+    for lane in range(b):
+        alone = torch.where(torch.arange(b, device=cuda) == lane, full, 0)
+        out = ops.decode_attention(*arrs, alone.to(torch.int32), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out[lane], together[lane]), lane
+
+
+@pytest.mark.parametrize("use_lop", [True, False])
+@pytest.mark.parametrize("g", [1, 4])
+def test_decode_lane_bitwise_across_batch_sizes(cuda, use_lop, g):
+    """A lane's output in a B = 1 call is bitwise its row in the B = 4
+    call (the scheduler and lockstep decode one request at different B):
+    the split depends on the lane's shape alone."""
+    from repro_torch.kernels.decode_attention import launch_shape
+    rng = np.random.default_rng(7 + g)
+    b, hkv, m, dh, block = 4, 8, 1664, 100, 128
+    arrs = _dev(_decode(rng, b, g * hkv, hkv, m, dh), cuda)
+    lens = torch.tensor([1600, 129, 700, 1200], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(block=block, k_keep=2, use_lop=use_lop)
+    batched = ops.decode_attention(*arrs, lens, **kw)
+    for lane in range(b):
+        one = [a[lane:lane + 1].contiguous() for a in arrs]
+        out = ops.decode_attention(*one, lens[lane:lane + 1].contiguous(),
+                                   **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], batched[lane]), lane
+    shapes = [launch_shape(n * hkv, g, m, dh, block, k_keep=2, lop=use_lop)
+              for n in (1, b)]
+    assert shapes[0]["split"] == shapes[1]["split"] == 7
+    assert shapes[1]["ctas"] == b * shapes[0]["ctas"]
+
+
+@pytest.mark.parametrize("use_lop", [True, False])
+def test_decode_kernel_repeat_bitwise(cuda, use_lop):
+    """Two calls on the same inputs give the same bits (no atomics; the
+    cluster merges its CTAs in a fixed order)."""
+    rng = np.random.default_rng(8)
+    b, h, hkv, m, dh = 4, 32, 8, 8192, 100
+    arrs = _dev(_decode(rng, b, h, hkv, m, dh), cuda)
+    lens = torch.tensor([8000, 1, 4100, 2047], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(block=128, k_keep=3, window=3000, use_lop=use_lop)
+    first = ops.decode_attention(*arrs, lens, **kw)
+    second = ops.decode_attention(*arrs, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("mode", [dict(shared_select=True),
