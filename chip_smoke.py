@@ -57,12 +57,15 @@ printed:
               (lop_scores_kernel), single-head flash prefill and block-sparse
               decode, each held against its plain version (integers
               bitwise, f32 at rtol = atol = 1e-4) and timed as in phase 3
-              beside one PyTorch call for the same function; #7 also with
-              its calls captured in one CUDA graph (the device's time
-              without the host's enqueue time), its launch shape (CTAs,
-              warps, dynamic smem, k split), ptxas' registers / static
-              smem / spills and its share of bound, and bitwise once more
-              at k 27,392 x n 5,120 (above the former k cap); then the paths
+              beside one PyTorch call for the same function; #7, #6 and
+              #9 also with their calls captured in one CUDA graph (the
+              device's time without the host's enqueue time), their launch
+              shapes (CTAs, warps, dynamic smem; #7's k split, #9's
+              cluster), ptxas' registers / static smem / spills and their
+              shares of bound; #7 bitwise once more at k 27,392 x n 5,120
+              (above the former k cap), #9 once more with the TPU kernel's
+              masked cases (a gated empty interval, an all-masked lane, an
+              ungated lane); then the paths
               a user of the kernel API runs, each with the launch counts
               zeroed before and read after: the TINT chain
               (ternary_matmul(quantize(x)) · x_scale · γ, bitwise
@@ -884,7 +887,9 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.int8_attention import (
         flash_prefill_launch_shape, int8_flash_prefill,
-        sparse_decode_attention)
+        sparse_decode_attention, sparse_decode_launch_shape)
+    from repro_torch.kernels.lop_scores import launch_shape as \
+        lop_launch_shape
     from repro_torch.kernels.lop_scores import lop_scores_kernel
     from repro_torch.kernels.ternary_matmul import launch_shape as \
         tint_launch_shape
@@ -968,8 +973,15 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
     row = time_row(torch, lop_scores_kernel,
                    plain.lop_scores_ref, (q_pot, feat), 50, b_ms, b_by,
                    lib=(torch.bmm, (q_f, k_pot)))
+    g_ms = graph_ms(torch, lop_scores_kernel, copies(torch, (q_pot, feat)))
+    shape = lop_launch_shape(n_lanes, 1, m_cap, dh)
     log(f"  lop_scores_kernel lanes={n_lanes} g=1 M={m_cap} d={dh}: "
-        f"{fmt_row(row)} bitwise=True (library: torch.bmm, f32 pot) [{card}]")
+        f"{fmt_row(row)} bitwise=True (library: torch.bmm, f32 pot); in a "
+        f"CUDA graph {g_ms:.4f} ms; {b_ms / row['ms']:.1%} of bound "
+        f"({b_ms / g_ms:.1%} in the graph); {shape['ctas']} CTAs x "
+        f"{shape['warps']} warps ({shape['tiles']} tiles of "
+        f"{shape['tokens']} tokens a lane), {shape['smem']} B dynamic smem; "
+        f"{ptxas_summary(_build, 'lop_scores', 'lop_scores_kernel')} [{card}]")
     rows["lop_scores_kernel"] = dict(row, max_abs_err=err,
                                      shape=f"lanes={n_lanes} g=1 M={m_cap} "
                                            f"d={dh}")
@@ -1051,12 +1063,41 @@ def standalone_kernels(torch, np, lanes, card) -> dict:
     lib9 = (lambda a, b_, c, m_: sdpa(a, b_, c, attn_mask=m_),
             ((q9.float() * qs9)[:, None], kg, vg,
              live_mask.reshape(n_lanes, 1, 1, nb * blk)))
-    row = time_row(torch, lambda *a: sparse_decode_attention(*a, **kw),
+    def kern9(*a):
+        return sparse_decode_attention(*a, **kw)
+    row = time_row(torch, kern9,
                    lambda *a: plain.sparse_decode_attention_ref(*a, **kw),
                    args9, 50, b_ms, b_by, lib=lib9)
+    g_ms = graph_ms(torch, kern9, copies(torch, args9))
+    shape = sparse_decode_launch_shape(n_lanes, 1, dh, blk, nb)
     log(f"  sparse_decode_attention lanes={n_lanes} g=1 K={nb} blocks of "
         f"{blk}, new_len={list(PER_HEAD_LEN)}: {fmt_row(row)} (library: "
-        f"SDPA on the gathered dequantized blocks) [{card}]")
+        f"SDPA on the gathered dequantized blocks); in a CUDA graph "
+        f"{g_ms:.4f} ms; {b_ms / row['ms']:.1%} of bound ({b_ms / g_ms:.1%}"
+        f" in the graph); {fmt_decode_shape(shape)}; "
+        f"{ptxas_summary(_build, 'int8_attention', 'sparse_decode_kernelILb1E')}"
+        f" [{card}]")
+    # the TPU kernel's masking: a gated block with an empty interval
+    # before a live one weighs nothing; a lane whose gated blocks hold no
+    # live token gives the mean of their V; a lane with no gate gives zero
+    gt_m = gt9.clone()
+    gt_m[0, :nb] = 1
+    gt_m[0, nb], gt_m[0, 2 * nb] = 9, 9
+    gt_m[1, :nb] = 1
+    gt_m[1, nb:] = 5
+    gt_m[2, :nb] = 0
+    args_m = args9[:7] + (gt_m,)
+    got = kern9(*args_m)
+    err = max(err, check_close(
+        torch, "sparse_decode_attention[masked intervals]", got,
+        plain.sparse_decode_attention_ref(*args_m, **kw),
+        tol=TOL_STANDALONE))
+    if got[2].any() or not got[1].any():
+        raise AssertionError("sparse_decode_attention: an ungated lane must "
+                             "give zero and an all-masked lane the mean of V")
+    log(f"  sparse_decode_attention: gated empty interval before a live "
+        f"block, an all-masked lane (mean of V) and an ungated lane (zero) "
+        f"agree with the plain version [{card}]")
     rows["sparse_decode_attention"] = dict(
         row, max_abs_err=err,
         shape=f"lanes={n_lanes} g=1 K={nb} block={blk} M={m_cap}")

@@ -104,9 +104,35 @@ __device__ int block_max_int(int v, int* red) {
   return r;
 }
 
-// LOP nibble (sgn << 3) | LO → pot value: 0 for LO 7, else ±2^LO.
-__device__ __forceinline__ int nib_pot(int nib) {
-  const int lo = nib & 7;
-  const int mag = (lo == 7) ? 0 : (1 << lo);
-  return (nib & 8) ? -mag : mag;
+// Four packed LOP nibbles (sgn << 3 | LO, dims 0..3 from the low nibble
+// up) → their pot values as four int8: ±2^LO, 0 for LO 7. Three byte
+// permutes and no table: |pot| from the bytes of 2^LO, −|pot| from their
+// negations, the sign bit of each nibble picking between the two.
+__device__ __forceinline__ int pot4(unsigned h) {
+  const unsigned sel = h & 0x7777u;
+  const unsigned pos = __byte_perm(0x08040201u, 0x00402010u, sel);   // 1 .. 64, 0
+  const unsigned neg = __byte_perm(0xF8FCFEFFu, 0x00C0E0F0u, sel);   // −1 .. −64, 0
+  return static_cast<int>(__byte_perm(pos, neg, 0x3210u | ((h >> 1) & 0x4444u)));
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raise `kernel`'s dynamic shared-memory limit to the card's maximum and
+// prefer the largest shared-memory carveout, once per kernel and device
+// (`done` holds kMaxDevices flags), so no launch after the first pays for
+// it.
+template <class K>
+cudaError_t prepare(K kernel, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             232448);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
 }

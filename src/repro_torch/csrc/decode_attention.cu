@@ -131,15 +131,6 @@ __device__ void rank_row(const float* s, int* rank, int nb, int k) {
   __syncwarp();
 }
 
-// Four packed LOP nibbles (sgn << 3 | LO, dims 0..3 from the low nibble
-// up) → their pot values as four int8: ±2^LO, 0 for LO 7.
-__device__ __forceinline__ int pot4(unsigned h) {
-  const unsigned sel = h & 0x7777u;
-  const unsigned pos = __byte_perm(0x08040201u, 0x00402010u, sel);   // 1 .. 64, 0
-  const unsigned neg = __byte_perm(0xF8FCFEFFu, 0x00C0E0F0u, sel);   // −1 .. −64, 0
-  return static_cast<int>(__byte_perm(pos, neg, 0x3210u | ((h >> 1) & 0x4444u)));
-}
-
 // Screen one staged feature block (item i of this CTA, block j): each
 // warp's max of the live tokens' scores, per row, into wbest.
 __device__ void screen_block(const Lane& ln, unsigned char* smem,

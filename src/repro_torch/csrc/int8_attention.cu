@@ -29,21 +29,36 @@
 // (_sparse_decode_kernel).
 //
 // What it computes, per lane (one query-head group over one kv head):
-// the caller's block_idx blocks are walked in the given order; a block
-// with gate 0 is skipped; inside a block, tokens outside [start, end) get
-// the logit −1e30; the online softmax is the prefill one with the TPU
-// kernel's arithmetic (no p = 0 guard), and the flush divides only where
-// ℓ > 0, so a lane whose gates are all 0 emits exact zero. Lanes are the
-// batch axis a vmap over (batch, kv-head, group) gives the TPU kernel;
-// ``share`` consecutive lanes read the same cache lane, as the vmap
-// broadcasts one kv head's cache over its query heads. A block index is
-// clamped into the cache, as the reference's gather does.
+// the caller's block_idx blocks in the given order; a block with gate 0
+// is skipped; inside a block, tokens outside [start, end) get the logit
+// −1e30; the online softmax is the TPU kernel's (no p = 0 guard: a masked
+// token weighs exp(−1e30 − m'), which is 1 while no live token has been
+// seen), and the flush divides only where ℓ > 0. So a lane with live
+// tokens attends to them alone, a lane whose gated blocks hold no live
+// token emits the mean of their dequantized V, and a lane whose gates are
+// all 0 emits exact zero. Lanes are the batch axis a vmap over (batch,
+// kv-head, group) gives the TPU kernel; `q_per_cache` consecutive lanes
+// read the same cache lane, as the vmap broadcasts one kv head's cache
+// over its query heads. A block index is clamped into the cache, as the
+// reference's gather does.
 //
-// What bounds it: bytes — the selected blocks of int8 K/V and their f32
-// scales (≈ 2·d + 8 bytes a token). Design: one CTA (128 threads) per
-// lane; a block's K/V words are copied into shared memory, a thread per
-// token forms the logit with __dp4a, a thread per output dim the value
-// sum; every reduction has a fixed order.
+// What bounds it: bytes — the gated blocks of int8 K/V and their f32
+// scales (2·d + 8 bytes a token; 128 lanes × 2 blocks of 128 at d 100 are
+// ~5 MB, 1.5 µs at 3.35 TB/s) — and at that size the chain of latencies
+// a lane walks: its list, its blocks' copies, the fold, the merge.
+// Design: the split-lane decode core (int8_decode.cuh) with a list as the
+// block source. A lane's nb entries are cut by position into shares of
+// share_of(nb), one CTA each, split_of(nb) CTAs a lane in one cluster (2
+// at K = 2: one block a CTA, 256 CTAs for 128 lanes, all resident at
+// once). Warp 1 gathers the CTA's gated entries with a ballot while warp
+// 0 loads q; the core's two-stage cp.async ring streams each block's K
+// half and V half; the fold weighs masked tokens as above (the core's
+// kMasked); the cluster merges the CTAs' partial states in rank order
+// through distributed shared memory (m* = max m_c, weights e^{m_c − m*},
+// which keeps the TPU kernel's mean-of-V case across CTAs). The split
+// depends on nb alone, so a lane's output is bitwise the same whatever
+// the other lanes hold.
+#include "int8_decode.cuh"
 #include "int8_flash.cuh"
 
 namespace {
@@ -86,112 +101,56 @@ flash_prefill_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
 // block-sparse decode
 // ---------------------------------------------------------------------------
 
-constexpr int kSdThreads = 128;
-constexpr int kSdWarps = kSdThreads / 32;
-
-// Shared layout: k tile int [block·dw] | v tile int [block·dw] | qw int
-// [G·dw] | ks, vs, p f32 [block] | acc f32 [G·d] | m, l f32 [G] | red
-// [kSdWarps]
-__host__ __device__ inline size_t sparse_smem_bytes(int G, int d, int block) {
-  const int dw = d / 4;
-  return sizeof(int) * (2 * static_cast<size_t>(block) * dw + G * dw)
-       + sizeof(float) * (3 * block + G * d + 2 * G + kSdWarps);
-}
-
-__global__ void __launch_bounds__(kSdThreads)
+// kOne: one_row(G, block), the warps' state in registers and eight CTAs
+// an SM.
+template <bool kOne>
+__global__ void __launch_bounds__(int8_decode::kThreads, kOne ? 8 : 1)
 sparse_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
                      const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
                      const float* __restrict__ ksc, const float* __restrict__ vsc,
                      const int* __restrict__ block_idx,
                      const int* __restrict__ gate_tokens, float* __restrict__ out,
-                     int G, int M, int d, int nb, int share, int block,
+                     int G, int M, int d, int nb, int q_per_cache, int block,
                      float softmax_scale) {
+  using namespace int8_decode;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dw = d / 4;
-  int* k_s = reinterpret_cast<int*>(smem);
-  int* v_w = k_s + block * dw;
-  const int8_t* v_s = reinterpret_cast<const int8_t*>(v_w);
-  int* qw = v_w + block * dw;
-  float* ks_s = reinterpret_cast<float*>(qw + G * dw);
-  float* vs_s = ks_s + block;
-  float* p_s = vs_s + block;
-  float* acc = p_s + block;
-  float* m_s = acc + G * d;
-  float* l_s = m_s + G;
-  float* red = l_s + G;
-
-  const int ln = blockIdx.x, tid = threadIdx.x;
-  const size_t cache_tok = static_cast<size_t>(ln / share) * M;
-  const int* idx = block_idx + static_cast<size_t>(ln) * nb;
-  const int* gt = gate_tokens + static_cast<size_t>(ln) * 3 * nb;
-  const int8_t* q_lane = qi + static_cast<size_t>(ln) * G * d;
-  const int n_blocks = M / block;
-
-  for (int i = tid; i < G * dw; i += kSdThreads)
-    qw[i] = reinterpret_cast<const int*>(q_lane)[i];
-  for (int i = tid; i < G * d; i += kSdThreads) acc[i] = 0.0f;
-  for (int i = tid; i < G; i += kSdThreads) { m_s[i] = REPRO_NEG_INF; l_s[i] = 0.0f; }
-  __syncthreads();
-
-  for (int j = 0; j < nb; ++j) {
-    if (gt[j] <= 0) continue;                        // CTA-uniform
-    const int t0 = min(max(idx[j], 0), n_blocks - 1) * block;
-    const int end = gt[nb + j], start = gt[2 * nb + j];
-    const int* k_src = reinterpret_cast<const int*>(kc + (cache_tok + t0) * d);
-    const int* v_src = reinterpret_cast<const int*>(vc + (cache_tok + t0) * d);
-    for (int i = tid; i < block * dw; i += kSdThreads) {
-      k_s[i] = k_src[i];
-      v_w[i] = v_src[i];
-    }
-    for (int t = tid; t < block; t += kSdThreads) {
-      ks_s[t] = ksc[cache_tok + t0 + t];
-      vs_s[t] = vsc[cache_tok + t0 + t];
-    }
-    __syncthreads();
-    for (int g = 0; g < G; ++g) {
-      const float qs = qsc[static_cast<size_t>(ln) * G + g];
-      const int* qg = qw + g * dw;
-      float lmax = REPRO_NEG_INF;
-      for (int t = tid; t < block; t += kSdThreads) {
-        int dot = 0;
-        for (int w = 0; w < dw; ++w) dot = __dp4a(qg[w], k_s[t * dw + w], dot);
-        float sv = __fmul_rn(__fmul_rn(__fmul_rn(static_cast<float>(dot), qs), ks_s[t]),
-                             softmax_scale);
-        if (t < start || t >= end) sv = REPRO_NEG_INF;
-        p_s[t] = sv;
-        lmax = fmaxf(lmax, sv);
-      }
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, block_max<kSdWarps>(lmax, red));
-      const float alpha = expf(m_prev - m_new);
-      float lsum = 0.0f;
-      for (int t = tid; t < block; t += kSdThreads) {
-        const float p = expf(p_s[t] - m_new);
-        p_s[t] = p;
-        lsum = __fadd_rn(lsum, p);
-      }
-      const float psum = block_sum<kSdWarps>(lsum, red);   // ends in __syncthreads
-      for (int dd = tid; dd < d; dd += kSdThreads) {
-        float part = 0.0f;
-        for (int t = 0; t < block; ++t)
-          part = fmaf(p_s[t], __fmul_rn(static_cast<float>(v_s[t * d + dd]), vs_s[t]), part);
-        acc[g * d + dd] = __fadd_rn(__fmul_rn(acc[g * d + dd], alpha), part);
-      }
-      __syncthreads();
-      if (tid == 0) {
-        l_s[g] = __fadd_rn(__fmul_rn(l_s[g], alpha), psum);
-        m_s[g] = m_new;
-      }
-      __syncthreads();
-    }
-  }
-
-  float* o = out + static_cast<size_t>(ln) * G * d;
-  for (int i = tid; i < G * d; i += kSdThreads) {
-    const float l = l_s[i / d];
-    o[i] = __fdiv_rn(acc[i], l > 0.0f ? l : 1.0f);
-  }
+  const Layout L = layout(G, nb, d, block, 0, false);
+  const int lane = blockIdx.y, per = share_of(nb);
+  const Lane ln = lane_at(qi, qsc, kc, vc, ksc, vsc, out, lane,
+                          lane / q_per_cache, G, M, d, block, softmax_scale);
+  int* list = reinterpret_cast<int*>(smem + L.total);
+  const int i0 = blockIdx.x * per;
+  gather_list(block_idx + static_cast<size_t>(lane) * nb,
+              gate_tokens + static_cast<size_t>(lane) * 3 * nb, nb, i0,
+              min(i0 + per, nb), block, M / block, list);
+  Warp<kOne> st;
+  begin(ln, smem, L, st);                   // its __syncthreads shows the list
+  ring(smem, L.stage, 2 * list[0],
+       [&](int i, unsigned char* stage) {
+         issue_half(ln, stage, list[1 + 3 * (i >> 1)], i & 1);
+       },
+       [] {},
+       [&](int i, unsigned char* stage) {
+         const int* e = list + 1 + 3 * (i >> 1);
+         fold_part<true>(ln, smem, L, stage, i & 1, e[1], e[2], 0, G, st);
+       });
+  finish(ln, smem, L, st);
 }
+
+// [kOne]: cudaFuncSetAttribute done, per device
+bool sparse_ready[2][kMaxDevices];
+
+using SparseKernel = decltype(sparse_decode_kernel<false>);
+SparseKernel* const sparse_kernels[2] = {&sparse_decode_kernel<false>,
+                                         &sparse_decode_kernel<true>};
+
+int sparse_smem(int G, int nb, int d, int block) {
+  return int8_decode::layout(G, nb, d, block, 0, false).total
+       + int8_decode::list_bytes(nb);
+}
+
+// CTAs a lane: the core's split of the list, one CTA for an empty list.
+int sparse_split(int nb) { return nb > 0 ? int8_decode::split_of(nb) : 1; }
 
 }  // namespace
 
@@ -228,31 +187,48 @@ int repro_flash_prefill(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-size_t repro_sparse_decode_smem_bytes(int G, int d, int block) {
-  return sparse_smem_bytes(G, d, block);
+// The launch plan of one call: {CTAs a lane (the cluster size, split),
+// list entries a CTA (share), warps a CTA, dynamic shared-memory bytes}.
+// A function of the lane's shape alone.
+int repro_sparse_decode_plan(int G, int nb, int d, int block, void* info) {
+  int* o = static_cast<int*>(info);
+  o[0] = sparse_split(nb);
+  o[1] = int8_decode::share_of(nb);
+  o[2] = int8_decode::kWarps;
+  o[3] = sparse_smem(G, nb, d, block);
+  return 0;
+}
+
+// What the card holds of that plan's kernel: {resident clusters, CTAs an
+// SM}. Reported only: the plan never depends on it.
+int repro_sparse_decode_occupancy(int G, int nb, int d, int block, void* info) {
+  int* o = static_cast<int*>(info);
+  const int one = int8_decode::one_row(G, block);
+  return static_cast<int>(int8_decode::occupancy(
+      sparse_kernels[one], sparse_ready[one], sparse_split(nb),
+      sparse_smem(G, nb, d, block), &o[0], &o[1]));
 }
 
 // q int8 [L, G, d]; qsc f32 [L, G]; k/v int8 [C, M, d]; k/v scales f32
-// [C, M] with C = L / share; block_idx int32 [L, nb]; gate_tokens int32
-// [L, 3·nb]; out f32 [L, G, d]. d % 4 == 0, M % block == 0, L ≥ 1.
+// [C, M] with C = L / q_per_cache; block_idx int32 [L, nb]; gate_tokens
+// int32 [L, 3·nb]; out f32 [L, G, d]. d % 4 == 0, d ≤ 256, block % 8 ==
+// 0, M % block == 0, L ≥ 1, the caches and their scales 16-byte aligned.
 int repro_sparse_decode(const void* q, const void* qs, const void* k,
                         const void* v, const void* ks, const void* vs,
                         const void* block_idx, const void* gate_tokens,
                         void* out, int L, int G, int M, int d, int nb,
-                        int share, int block, float softmax_scale,
+                        int q_per_cache, int block, float softmax_scale,
                         void* stream) {
-  const size_t smem = sparse_smem_bytes(G, d, block);
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sparse_decode_kernel<<<L, kSdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int one = int8_decode::one_row(G, block);
+  return static_cast<int>(int8_decode::launch(
+      sparse_kernels[one], sparse_ready[one], sparse_split(nb), L,
+      sparse_smem(G, nb, d, block), static_cast<cudaStream_t>(stream),
       static_cast<const int8_t*>(q), static_cast<const float*>(qs),
       static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(block_idx), static_cast<const int*>(gate_tokens),
-      static_cast<float*>(out), G, M, d, nb, share, block, softmax_scale);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(out), G, M, d, nb, q_per_cache, block,
+      softmax_scale));
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
-// The split-lane decode core shared by the port's two decode-attention
+// The split-lane decode core shared by the port's three decode-attention
 // kernels (decode_attention.cu: #4 LOP, folding a lane's K selected blocks
-// in rank order; #5 dense, folding every live block in index order). It
-// folds a list of one lane's K/V blocks, each with its live interval
-// [tstart, end), into per-query-row online-softmax state and merges the
-// lane's CTAs into the output row.
+// in rank order; #5 dense, folding every live block in index order;
+// int8_attention.cu: #9 block-sparse decode, folding a caller-given list
+// of blocks in list order). It folds a list of one lane's K/V blocks, each
+// with its live interval [tstart, end), into per-query-row online-softmax
+// state and merges the lane's CTAs into the output row.
 //
 // What it computes, for query row g of a lane over one block at t0:
 //   s_t = ((dot(q_g, k_t)·q_scale_g)·k_scale_t)·softmax_scale (the int32
@@ -12,6 +13,10 @@
 //   α = exp(m − m'), p = exp(s − m') on live tokens (0 elsewhere),
 //   ℓ = ℓα + Σp, acc = acc·α + Σ_t fmaf(p_t·vs_t, v_t). The flush divides
 //   (IEEE) only where ℓ > 0, so a lane with no live token emits exact zero.
+//   #9 folds with kMasked, the TPU sparse decode kernel's arithmetic: p =
+//   exp(s − m') for every token of a folded block, masked ones too (1
+//   while m is still −1e30, 0 once a live token has set it), so a lane
+//   whose folded blocks hold no live token emits the mean of their V.
 //
 // What bounds it on the H100: bytes, then latency. Per live token it reads
 // 2·d + 8 bytes of int8 K/V and f32 scales against 2·d int8 and 2·d f32
@@ -163,6 +168,33 @@ struct Lane {
   float softmax_scale;
 };
 
+// Lane `lane`'s q, q scales and out, cache lane `cache_lane`'s K/V and
+// their scales; no live tokens yet.
+__device__ inline Lane lane_at(const int8_t* qi, const float* qsc,
+                               const int8_t* kc, const int8_t* vc,
+                               const float* ksc, const float* vsc, float* out,
+                               int lane, int cache_lane, int G, int M, int d,
+                               int block, float softmax_scale) {
+  const size_t tok = static_cast<size_t>(cache_lane) * M;
+  Lane ln;
+  ln.q = qi + static_cast<size_t>(lane) * G * d;
+  ln.qs = qsc + static_cast<size_t>(lane) * G;
+  ln.k = kc + tok * d;
+  ln.v = vc + tok * d;
+  ln.ks = ksc + tok;
+  ln.vs = vsc + tok;
+  ln.out = out + static_cast<size_t>(lane) * G * d;
+  ln.G = G;
+  ln.M = M;
+  ln.d = d;
+  ln.block = block;
+  ln.lo = ln.hi = 0;
+  ln.softmax_scale = softmax_scale;
+  return ln;
+}
+
+// The lane of #4/#5: lane = cache lane = blockIdx.y, live tokens from its
+// sequence's new_len and the window.
 __device__ inline Lane make_lane(const int8_t* qi, const float* qsc,
                                  const int8_t* kc, const int8_t* vc,
                                  const float* ksc, const float* vsc,
@@ -171,22 +203,10 @@ __device__ inline Lane make_lane(const int8_t* qi, const float* qsc,
                                  float softmax_scale) {
   const int bh = blockIdx.y;
   const int nl = new_len[bh / hkv];
-  const size_t tok = static_cast<size_t>(bh) * M;
-  Lane ln;
-  ln.q = qi + static_cast<size_t>(bh) * G * d;
-  ln.qs = qsc + static_cast<size_t>(bh) * G;
-  ln.k = kc + tok * d;
-  ln.v = vc + tok * d;
-  ln.ks = ksc + tok;
-  ln.vs = vsc + tok;
-  ln.out = out + static_cast<size_t>(bh) * G * d;
-  ln.G = G;
-  ln.M = M;
-  ln.d = d;
-  ln.block = block;
+  Lane ln = lane_at(qi, qsc, kc, vc, ksc, vsc, out, bh, bh, G, M, d, block,
+                    softmax_scale);
   ln.lo = window ? max(nl - window, 0) : 0;
   ln.hi = min(nl, M);
-  ln.softmax_scale = softmax_scale;
   return ln;
 }
 
@@ -205,6 +225,42 @@ __device__ __forceinline__ void interval(const Lane& ln, int j, int* tstart, int
   const int t0 = j * ln.block;
   *tstart = min(max(ln.lo - t0, 0), ln.block);
   *end = min(max(ln.hi - t0, 0), ln.block);
+}
+
+// ---- a caller-given block list (#9) ----
+// Entry i of a lane's list of nb names block clamp(idx_i, 0, M/block − 1)
+// with live tokens [start_i, end_i) and is skipped where gate_i ≤ 0
+// (gate_tokens = [gate ‖ end ‖ start]); CTA r of the lane's split_of(nb)
+// folds entries [r·share_of(nb), (r + 1)·share_of(nb)) in order (its lane
+// from lane_at, the interval from the list). A CTA's gathered entries sit
+// after the layout's bytes: their count, then (block, tstart, end) each.
+__host__ __device__ inline int list_bytes(int nb) {
+  return up16(4 * (1 + 3 * share_of(nb)));
+}
+
+// Warp 1 gathers the gated entries among [i0, i1) of a lane's list (idx,
+// gt already offset to the lane) into `list`, in order, clamping block
+// and interval; the caller syncs before reading it. (Warp 1, so that at
+// G = 1 its loads overlap begin()'s load of q, which warp 0 issues.)
+__device__ inline void gather_list(const int* idx, const int* gt, int nb,
+                                   int i0, int i1, int block, int n_blocks,
+                                   int* list) {
+  if ((threadIdx.x >> 5) != 1) return;
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (int base = i0; base < i1; base += 32) {
+    const int i = base + lane;
+    const bool on = i < i1 && gt[i] > 0;
+    const unsigned ball = __ballot_sync(0xffffffffu, on);
+    if (on) {
+      int* e = list + 1 + 3 * (n + __popc(ball & ((1u << lane) - 1u)));
+      e[0] = min(max(idx[i], 0), n_blocks - 1);
+      e[1] = min(max(gt[2 * nb + i], 0), block);
+      e[2] = min(max(gt[nb + i], 0), block);
+    }
+    n += __popc(ball);
+  }
+  if (lane == 0) list[0] = n;
 }
 
 // A warp's online-softmax state: for one_row in registers (s: this
@@ -352,13 +408,18 @@ __device__ __forceinline__ void value_sum(float (&a)[2][4], const unsigned* rows
 }
 
 // One 32-token chunk (c0 .. c0 + n − 1, tokens [lo, hi) live) into a
-// warp's (m, ℓ, a); s is this lane's token's logit.
+// warp's (m, ℓ, a); s is this lane's token's logit (−1e30 where not live).
+// kMasked: every token of the chunk weighs p = exp(s − m'), as the TPU's
+// sparse decode kernel takes it — 0 once a live token has set m, but 1
+// while m is still −1e30 (wiped by α = 0 when a live token comes); else
+// only live tokens weigh (p = 0 elsewhere).
+template <bool kMasked>
 __device__ __forceinline__ void fold_chunk(float s, const unsigned* v_w,
                                            const float* vs, int dw, int c0,
                                            int n, int lo, int hi, float& m,
                                            float& l, float (&a)[2][4]) {
   const int lane = threadIdx.x & 31, t = c0 + lane;
-  const bool live = t >= lo && t < hi;
+  const bool live = kMasked ? lane < n : t >= lo && t < hi;
   // the xor trees give every lane the same m, ℓ
   const float m_new = fmaxf(m, warp_max(live ? s : REPRO_NEG_INF));
   const float alpha = expf(m - m_new);
@@ -378,8 +439,8 @@ __device__ __forceinline__ void fold_chunk(float s, const unsigned* v_w,
 
 // Fold rows [g0, g1) of the block whose V half sits in `stage` into the
 // warps' states: warp w takes the 32-token chunks ≡ w (mod kWarps) that
-// hold live tokens.
-template <bool kOne>
+// hold live tokens (kMasked: every chunk of the block).
+template <bool kMasked, bool kOne>
 __device__ void fold_values(const Lane& ln, unsigned char* smem, const Layout& L,
                             const unsigned char* stage, int g0, int g1,
                             int tstart, int end, Warp<kOne>& st) {
@@ -390,10 +451,10 @@ __device__ void fold_values(const Lane& ln, unsigned char* smem, const Layout& L
   for (int g = g0; g < g1; ++g) {
     for (int c0 = 32 * warp; c0 < block; c0 += 32 * kWarps) {
       const int lo = max(tstart, c0), hi = min(min(end, c0 + 32), block);
-      if (lo >= hi) continue;                        // warp-uniform
+      if (!kMasked && lo >= hi) continue;            // warp-uniform
       const int n = min(32, block - c0);
       if constexpr (kOne) {
-        fold_chunk(st.s, v_w, vs, dw, c0, n, lo, hi, st.m, st.l, st.a);
+        fold_chunk<kMasked>(st.s, v_w, vs, dw, c0, n, lo, hi, st.m, st.l, st.a);
       } else {
         float* wm = reinterpret_cast<float*>(smem + L.wm) + warp * G + g;
         float* wl = reinterpret_cast<float*>(smem + L.wl) + warp * G + g;
@@ -407,8 +468,8 @@ __device__ void fold_values(const Lane& ln, unsigned char* smem, const Layout& L
 #pragma unroll
           for (int e = 0; e < 4; ++e) a[h][e] = w < dw ? acc[4 * w + e] : 0.0f;
         }
-        fold_chunk(t < block ? s_buf[g * block + t] : REPRO_NEG_INF, v_w, vs,
-                   dw, c0, n, lo, hi, m, l, a);
+        fold_chunk<kMasked>(t < block ? s_buf[g * block + t] : REPRO_NEG_INF,
+                            v_w, vs, dw, c0, n, lo, hi, m, l, a);
         __syncwarp();
         *wm = m;
         *wl = l;
@@ -425,7 +486,19 @@ __device__ void fold_values(const Lane& ln, unsigned char* smem, const Layout& L
   }
 }
 
-// Fold one block for rows [g0, g1) as two ring items (K half, V half).
+// Fold one block, live tokens [tstart, end), for rows [g0, g1) as two
+// ring items (K half, V half).
+template <bool kMasked, bool kOne>
+__device__ __forceinline__ void fold_part(const Lane& ln, unsigned char* smem,
+                                          const Layout& L,
+                                          const unsigned char* stage, int part,
+                                          int tstart, int end, int g0, int g1,
+                                          Warp<kOne>& st) {
+  if (part == 0) logits(ln, smem, L, stage, g0, g1, tstart, end, st);
+  else fold_values<kMasked>(ln, smem, L, stage, g0, g1, tstart, end, st);
+}
+
+// The same for block j of a lane whose live tokens are [lo, hi) (#4, #5).
 template <bool kOne>
 __device__ __forceinline__ void fold_half(const Lane& ln, unsigned char* smem,
                                           const Layout& L,
@@ -433,8 +506,7 @@ __device__ __forceinline__ void fold_half(const Lane& ln, unsigned char* smem,
                                           int j, int g0, int g1, Warp<kOne>& st) {
   int tstart, end;
   interval(ln, j, &tstart, &end);
-  if (part == 0) logits(ln, smem, L, stage, g0, g1, tstart, end, st);
-  else fold_values(ln, smem, L, stage, g0, g1, tstart, end, st);
+  fold_part<false>(ln, smem, L, stage, part, tstart, end, g0, g1, st);
 }
 
 // Merge the warps' states in order 0..kWarps−1 into the CTA's partial,
@@ -517,27 +589,6 @@ __device__ void finish(const Lane& ln, unsigned char* smem, const Layout& L,
     ln.out[i] = __fdiv_rn(acc, l > 0.0f ? l : 1.0f);
   }
   if (split > 1) cluster.sync();            // no CTA leaves while read
-}
-
-constexpr int kMaxDevices = 64;
-
-// Raise `kernel`'s dynamic shared-memory limit to the card's maximum and
-// prefer the largest shared-memory carveout, once per kernel and device
-// (`done` holds kMaxDevices flags).
-template <class K>
-cudaError_t prepare(K kernel, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             232448);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) done[dev] = true;
-  return err;
 }
 
 // The launch of a kernel on grid (split, lanes), one cluster of `split`

@@ -59,7 +59,7 @@ SIGNATURES = {
     },
     "lop_scores": {
         "repro_lop_scores": ([_P] * 3 + [_I] * 4 + [_P], _I),
-        "repro_lop_scores_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+        "repro_lop_scores_plan": ([_I] * 2 + [_P], _I),
     },
     "int8_attention": {
         "repro_flash_prefill": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
@@ -68,7 +68,8 @@ SIGNATURES = {
         "repro_flash_prefill_rows": ([], _I),
         "repro_flash_prefill_smem_bytes": ([_I], ctypes.c_size_t),
         "repro_sparse_decode": ([_P] * 9 + [_I] * 7 + [_F, _P], _I),
-        "repro_sparse_decode_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "repro_sparse_decode_plan": ([_I] * 4 + [_P], _I),
+        "repro_sparse_decode_occupancy": ([_I] * 4 + [_P], _I),
     },
 }
 

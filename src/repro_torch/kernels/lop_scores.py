@@ -8,11 +8,33 @@ launch screens every lane.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import _check_smem
 from repro_torch.kernels.qlinear import _stream, require
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(g: int, d: int) -> dict:
+    """The launch plan of one shape (checked once)."""
+    info = (ctypes.c_int * 3)()
+    _build.check(_build.load("lop_scores").repro_lop_scores_plan(
+        g, d, ctypes.addressof(info)), "repro_lop_scores_plan")
+    plan = dict(zip(("tokens", "warps", "smem"), info))
+    _check_smem(plan["smem"])
+    return plan
+
+
+def launch_shape(lanes: int, g: int, m: int, d: int) -> dict:
+    """CTAs (``tiles`` of ``tokens`` tokens a lane), warps per CTA and
+    dynamic shared-memory bytes of one :func:`lop_scores_kernel` call."""
+    plan = _plan(g, d)
+    tiles = -(-m // plan["tokens"])
+    return dict(plan, tiles=tiles, ctas=lanes * tiles)
 
 
 def lop_scores_kernel(q_pot: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
@@ -32,7 +54,7 @@ def lop_scores_kernel(q_pot: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"feat: expected [{lanes}, m, {d // 2}], got "
                          f"{tuple(feat.shape)}")
     m = feat.shape[1]
-    _check_smem(lib.repro_lop_scores_smem_bytes(g, d))
+    _plan(g, d)
     out = torch.empty((lanes, g, m), dtype=torch.int32, device=q_pot.device)
     if lanes and g and m:
         rc = lib.repro_lop_scores(q_pot.data_ptr(), feat.data_ptr(),

@@ -508,6 +508,36 @@ def _pot(q):
     return pot(q)
 
 
+# every packed byte value; m no multiple of the 128-token tile; rows of
+# d/2 bytes (50 at d 100) so tiles and lanes start off 16-byte boundaries,
+# and feat itself at a 4-byte (not 16-byte) offset; g to 40 (passes of 8,
+# 4, 2, 1 rows); d 32 / 64 / 100 / 128
+@pytest.mark.parametrize("lanes,g,m,d,offset", [
+    (3, 1, 77, 100, 0), (5, 3, 1300, 100, 4), (2, 40, 1000, 128, 4),
+    (4, 9, 257, 32, 0), (1, 17, 130, 64, 12), (7, 2, 1664, 100, 8),
+    (2, 15, 129, 100, 0)])
+def test_lop_scores_kernel_every_byte(cuda, lanes, g, m, d, offset):
+    rng = np.random.default_rng(lanes * 1000 + g * 10 + d)
+    q = torch.from_numpy(rng.integers(-127, 128, (lanes, g, d)).astype(
+        np.int8)).to(cuda)
+    n = lanes * m * (d // 2)
+    raw = np.concatenate([np.arange(256, dtype=np.uint8),
+                          rng.integers(0, 256, max(n - 256, 0)).astype(
+                              np.uint8)])[:n]
+    rng.shuffle(raw)
+    flat = torch.zeros(n + offset, dtype=torch.uint8, device=cuda)
+    flat[offset:] = torch.from_numpy(raw).to(cuda)
+    feat = flat[offset:].view(lanes, m, d // 2)
+    assert feat.data_ptr() % 16 == offset % 16
+    with _launched("lop_scores_kernel"):
+        got = ops.lop_screen(q, feat)
+    want = plain.lop_scores_ref(_pot(q), feat)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+
+
 @pytest.mark.parametrize("s,d,causal,window", [
     (1536, 100, True, 0), (512, 64, True, 128), (300, 100, False, 0),
     (257, 128, True, 100),
@@ -566,6 +596,98 @@ def test_sparse_decode_kernel_matches_plain(cuda, lanes, share, g, m, d,
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL_STANDALONE)
     assert not got[-1].any()
+
+
+def sparse_decode_attention(*args, **kw):
+    """The #9 wrapper itself: lanes flat, L a multiple of the C cache
+    lanes (``ops.sparse_decode`` wants the cache lanes as a prefix)."""
+    from repro_torch.kernels.int8_attention import sparse_decode_attention
+    return sparse_decode_attention(*args, **kw)
+
+
+def _sparse_lists(rng, lanes, share, g, m, d, nb):
+    n_cache = lanes // share
+    return [rng.integers(-127, 128, (lanes, g, d)).astype(np.int8),
+            rng.integers(-127, 128, (n_cache, m, d)).astype(np.int8),
+            rng.integers(-127, 128, (n_cache, m, d)).astype(np.int8),
+            rng.uniform(0.001, 0.02, (lanes, g, 1)).astype(np.float32),
+            rng.uniform(0.001, 0.02, (n_cache, m, 1)).astype(np.float32),
+            rng.uniform(0.001, 0.02, (n_cache, m, 1)).astype(np.float32)]
+
+
+# nb 9–16: shares of 2 list entries, 5–8 CTAs a lane, so a CTA folds more
+# than one entry; duplicate indices, indices clamped from below and above,
+# share > 1; lane 1 gated but every interval empty (across its CTAs: the
+# mean of its V), lane 2 every gate 0 (exact zero)
+@pytest.mark.parametrize("lanes,share,g,m,d,block,nb", [
+    (8, 1, 1, 1664, 100, 128, 9), (12, 4, 1, 2048, 100, 128, 16),
+    (6, 3, 4, 1024, 64, 64, 12), (8, 2, 2, 4096, 128, 128, 13),
+    (9, 3, 3, 512, 32, 32, 10)])
+def test_sparse_decode_kernel_long_lists(cuda, lanes, share, g, m, d, block,
+                                         nb):
+    rng = np.random.default_rng(lanes * 100 + nb)
+    arrs = _sparse_lists(rng, lanes, share, g, m, d, nb)
+    bidx = rng.integers(0, m // block, (lanes, nb)).astype(np.int32)
+    bidx[0, 1] = bidx[0, 0]                      # a duplicate
+    bidx[0, 2], bidx[0, 3] = -4, m // block + 9  # clamped to 0 and the last
+    gate = (rng.random((lanes, nb)) < 0.75).astype(np.int32)
+    gate[0] = 1
+    end = rng.integers(1, block + 1, (lanes, nb)).astype(np.int32)
+    start = np.minimum(rng.integers(0, block, (lanes, nb)), end - 1)
+    start[1], end[1], gate[1] = 7, 7, 1          # nothing live: mean of V
+    gate[2] = 0                                  # exact zero
+    gt = np.concatenate([gate, end, start.astype(np.int32)], axis=1)
+    q, kc, vc, qs, ks, vs, bidx, gt = _dev(arrs + [bidx, gt], cuda)
+    kw = dict(block=block, softmax_scale=d ** -0.5)
+    with _launched("sparse_decode_attention"):
+        got = sparse_decode_attention(q, kc, vc, qs, ks, vs, bidx, gt, **kw)
+    want = plain.sparse_decode_attention_ref(q, kc, vc, qs, ks, vs, bidx,
+                                             gt, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL_STANDALONE)
+    assert not got[2].any()
+    # lane 1 = the mean over its gated list entries of the dequantized V
+    rows = torch.cat([torch.arange(b * block, (b + 1) * block, device=cuda)
+                      for b in bidx[1].clamp(0, m // block - 1).tolist()])
+    mean = (vc[1 // share, rows].double() * vs[1 // share, rows]).mean(0)
+    torch.testing.assert_close(got[1].double(), mean.expand(g, d),
+                               **TOL_STANDALONE)
+    shape = _sparse_shape(lanes, g, d, block, nb)
+    assert shape["share"] == 2 and shape["split"] == -(-nb // 2)
+
+
+def _sparse_shape(lanes, g, d, block, nb):
+    from repro_torch.kernels.int8_attention import sparse_decode_launch_shape
+    return sparse_decode_launch_shape(lanes, g, d, block, nb)
+
+
+@pytest.mark.parametrize("g,nb", [(1, 2), (1, 12), (3, 9)])
+def test_sparse_decode_lanes_independent_bitwise(cuda, g, nb):
+    """A lane's output is bitwise the same whatever the other lanes' block
+    lists and gates hold, and from one call to the next."""
+    rng = np.random.default_rng(40 + nb)
+    lanes, share, m, d, block = 16, 2, 1664, 100, 128
+    arrs = _dev(_sparse_lists(rng, lanes, share, g, m, d, nb), cuda)
+    kw = dict(block=block, softmax_scale=d ** -0.5)
+
+    def lists(seed):
+        r = np.random.default_rng(seed)
+        bidx = r.integers(0, m // block, (lanes, nb)).astype(np.int32)
+        end = r.integers(1, block + 1, (lanes, nb))
+        start = np.minimum(r.integers(0, block, (lanes, nb)), end - 1)
+        gate = (r.random((lanes, nb)) < 0.7).astype(np.int32)
+        return bidx, np.concatenate([gate, end, start], axis=1).astype(
+            np.int32)
+    bidx, gt = lists(0)
+    one = sparse_decode_attention(*arrs, *_dev((bidx, gt), cuda), **kw)
+    again = sparse_decode_attention(*arrs, *_dev((bidx, gt), cuda), **kw)
+    other_b, other_g = lists(1)
+    other_b[5], other_g[5] = bidx[5], gt[5]
+    other = sparse_decode_attention(*arrs, *_dev((other_b, other_g), cuda),
+                                    **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one, again)
+    assert torch.equal(one[5], other[5])
 
 
 def test_per_head_pipeline_matches_fused_decode(cuda):

@@ -363,6 +363,37 @@ def test_sparse_decode_empty_lane_is_zero():
     assert np.asarray(_sparse("ref", *arrs, bidx, gt, **kw)).any()
 
 
+@pytest.mark.parametrize("case", ["empty_before_live", "only_empty"])
+def test_sparse_decode_masked_intervals_vs_pallas(case):
+    """Gated blocks whose [start, end) is empty, held against the
+    interpret-mode Pallas kernel: masked tokens weigh exp(−1e30 − m'),
+    1 while no live token has been folded. Before a live block that
+    weight is wiped (α = 0); where no gated block holds a live token the
+    call gives the mean of the gathered, dequantized V, not zero."""
+    rng = np.random.default_rng(13 if case == "only_empty" else 14)
+    g, block, nb = 2, 32, 3
+    m, d = 8 * block, 64
+    arrs = _decode_inputs(rng, g, m, d)
+    bidx = np.array([6, 2, 4], np.int32)
+    gate = np.array([1, 1, 0], np.int32)
+    if case == "empty_before_live":
+        start = np.array([5, 3, 0], np.int32)
+        end = np.array([5, 29, 32], np.int32)
+    else:
+        start = np.array([5, 20, 0], np.int32)
+        end = np.array([5, 11, 32], np.int32)
+    gt = np.concatenate([gate, end, start]).astype(np.int32)
+    kw = dict(block=block, softmax_scale=1.0 / np.sqrt(d))
+    t = _sparse("torch", *arrs, bidx, gt, **kw)
+    _close(t, _sparse("pallas", *arrs, bidx, gt, **kw))
+    if case == "only_empty":
+        vc, vs = arrs[2], arrs[5]
+        rows = np.concatenate([np.arange(b * block, (b + 1) * block)
+                               for b in bidx[gate > 0]])
+        mean = (vc[rows].astype(np.float64) * vs[rows]).mean(0)
+        _close(t, np.broadcast_to(mean, (g, d)))
+
+
 def test_sparse_decode_batched_equals_vmap():
     """[B, Hkv, G] lanes over [B, Hkv] caches in one call == the
     reference's vmap over (B, Hkv, G) with the cache broadcast over G, as
