@@ -38,20 +38,34 @@ printed:
               clean timings: a decode step over 4 active lanes with no
               prefill in flight, one prefill chunk, a whole-prompt prefill,
               and a torch.profiler breakdown of decode steps and of one
-              chunk; every serve run prints a sha256 of its tokens;
+              chunk; every serve run prints a sha256 of its tokens. Every
+              serve run decodes through the engine's CUDA graphs (one
+              replay a step, launch counts counted per replay); the clean
+              decode step is timed and profiled on the graphs and on an
+              eager twin engine sharing the weights, whose tokens must
+              equal the graphs' and whose launch counts must equal 52 /
+              26 / 26 of #1 / #2 / the decode kernel a step on both; the
+              graphs held and the device memory they reserved are
+              printed, and over the fresh caches of the lockstep checks
+              the graphs' private memory pools must grow by exactly what
+              the graphs held grew (an evicted graph gives its memory
+              back) with at most GRAPH_BOUND keys left;
   4b. no-LOP  the same 8 requests on a use_lop=False engine sharing the
               weights: the dense decode kernel must launch and the LOP one
               must not; scheduler == lockstep for 2 requests; its steady
-              decode step beside the LOP engine's, and a torch.profiler
-              breakdown of its decode steps;
+              decode step (graph and eager) beside the LOP engine's, and a
+              torch.profiler breakdown of its decode steps;
   4c. sampled the 8 requests sampled (T 0.8, top-k 50, top-p 0.95, seed =
       + faults rid) on the LOP engine, scheduler == sampled lockstep for 2
-              requests and the steady sampled decode step; then on the
+              requests and the steady sampled decode step (graph and
+              eager); then on the
               no-LOP engine 4 requests clean and under transient NaN
               logits (every fault recovered, every stream bitwise the
               clean one), a sticky NaN lane (reason "fault"), a 1 us
               deadline and a mid-decode cancellation; and the LOP engine
-              under NaN logits, recovering through the dense retry;
+              under NaN logits, recovering through the dense retry (at
+              least 3 retries on one pool, so the retry's graph is
+              captured and replayed);
   5. standalone kernels and the per-head LOP decode, at full width:
               the TINT GEMM (ternary_matmul), the LOP screen
               (lop_scores_kernel), single-head flash prefill and block-sparse
@@ -555,7 +569,7 @@ def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
     wall = time.monotonic() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"  [{label}] launch counts: {counts}")
+    log(f"  [{label}] launch counts (graph replays counted): {counts}")
     if sorted(results) != sorted(r.rid for r in reqs):
         raise AssertionError(f"[{label}] finished rids {sorted(results)}")
     n_tok = sum(len(r.tokens) for r in results.values())
@@ -567,11 +581,19 @@ def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
         f"{np.percentile(ttft, 50) * 1e3:.1f} ms, serve-cycle decode p50 "
         f"{step_ms:.2f} ms over {sched.decode_steps} steps (waits on the "
         f"cycle's prefill chunk), max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB [{card}]")
+        f"{peak / 2**30:.2f} GiB; {graph_memory(engine)} [{card}]")
     return dict(sched=sched, results=results, counts=counts,
                 tokens_per_s=n_tok / wall,
                 ttft_p50_ms=float(np.percentile(ttft, 50) * 1e3),
                 serve_cycle_decode_ms_p50=step_ms, peak_bytes=peak)
+
+
+def graph_memory(engine) -> str:
+    graphs = engine.graphs
+    if graphs is None:
+        return "no CUDA graphs (eager)"
+    return (f"{graphs.count} CUDA graphs held ({len(graphs)} keys), "
+            f"{graphs.nbytes / 2**20:.1f} MiB reserved by their captures")
 
 
 def tokens_digest(results: dict) -> str:
@@ -600,8 +622,23 @@ def check_tokens(cfg, results, gen: int, label: str) -> None:
                                  f"{r.finish_reason} {r.tokens}")
 
 
+def graph_pool_bytes(torch) -> int:
+    """Device memory in the caching allocator's private pools — the CUDA
+    graphs' — once what is free has been released."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
 def check_lockstep(engine, reqs, results, rids, label: str) -> None:
+    import torch
+    from repro_torch.serving.graphs import GRAPH_BOUND
     from repro_torch.serving.scheduler import lockstep_generate
+    graphs = engine.graphs
+    if graphs is None:
+        raise AssertionError(f"[{label}] the engine holds no CUDA graphs")
+    pools, held = graph_pool_bytes(torch), graphs.nbytes
     for rid in rids:
         req = reqs[rid]
         ref = lockstep_generate(engine, req.prompt, req.max_new_tokens,
@@ -609,8 +646,16 @@ def check_lockstep(engine, reqs, results, rids, label: str) -> None:
         if ref != results[rid].tokens:
             raise AssertionError(f"[{label}] rid {rid}: scheduler "
                                  f"{results[rid].tokens} != lockstep {ref}")
+    grew = graph_pool_bytes(torch) - pools
+    if len(graphs) > GRAPH_BOUND or grew != graphs.nbytes - held:
+        raise AssertionError(
+            f"[{label}] graph memory: pools grew {grew} B, held graphs "
+            f"{graphs.nbytes - held} B; {graph_memory(engine)}, bound "
+            f"{GRAPH_BOUND}")
     log(f"  [{label}] scheduler tokens == lockstep tokens for rids "
-        f"{', '.join(map(str, rids))}")
+        f"{', '.join(map(str, rids))} (a fresh cache each; graph pools grew "
+        f"{grew / 2**20:.1f} MiB, as the held graphs did; "
+        f"{graph_memory(engine)}, bound {GRAPH_BOUND})")
 
 
 def serve_phase(torch, np, card: str):
@@ -687,14 +732,70 @@ def decode_step_ms(torch, np, engine, reqs, sampling=None):
         sched.step()
     if sched.n_active != N_SLOTS:
         raise AssertionError(f"{sched.n_active} lanes active, want {N_SLOTS}")
+    from repro_torch.kernels import ops
     step_s = []
+    ops.reset_launch_counts()
     for _ in range(12):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sched.step()
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+    check_step_counts(ops.launch_counts(), engine, len(step_s))
     return float(np.median(step_s[2:]) * 1e3), sched
+
+
+def check_step_counts(counts: dict, engine, steps: int) -> None:
+    """Each decode step launches #1 twice a layer (QKV, O), #2 once and
+    its decode kernel once, and nothing else — counted per graph replay as
+    per eager call."""
+    n = engine.cfg.n_layers
+    attn = "fused_decode_attention" if engine.use_lop else DENSE
+    want = {"fused_qlinear": 2 * n * steps, "fused_ffn": n * steps,
+            attn: n * steps}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{steps} decode steps launched {got}, want "
+                             f"{want}")
+
+
+def decode_arms(torch, np, engine, reqs, label: str, card: str,
+                sampling=None) -> dict:
+    """The clean decode step on an eager twin of ``engine`` (the same
+    weights, ``graphs=False``) and on ``engine``'s CUDA graphs, one after
+    the other: both lanes' tokens must agree. → dict of both p50s and
+    schedulers."""
+    from repro_torch.serving.api import PooledEngine
+
+    eager = PooledEngine(engine.cfg, engine.qp, max_len=engine.max_len,
+                         use_lop=engine.use_lop, device="cuda", graphs=False)
+    eager_ms, eager_sched = decode_step_ms(torch, np, eager, reqs, sampling)
+    graph_ms_, sched = decode_step_ms(torch, np, engine, reqs, sampling)
+    want = [lane.tokens for lane in eager_sched.lanes]
+    if [lane.tokens for lane in sched.lanes] != want:
+        raise AssertionError(f"[{label}] graph decode tokens != eager")
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), {label}: "
+        f"p50 eager {eager_ms:.2f} ms, CUDA graph {graph_ms_:.2f} ms over "
+        f"10 steps each, tokens equal; {graph_memory(engine)} [{card}]")
+    return dict(ms=graph_ms_, eager_ms=eager_ms, sched=sched,
+                eager_sched=eager_sched)
+
+
+def profile_arms(torch, arms: dict, label: str, card: str) -> dict:
+    """Profile 4 decode steps on each arm of :func:`decode_arms`. → device
+    ms a step and busy share of each."""
+    out = {}
+    for arm, sched in (("eager", arms["eager_sched"]),
+                       ("graph", arms["sched"])):
+        dev_us, wall_us = profile_steps(torch, sched, f"{label}, {arm}")
+        out[arm] = ((dev_us / 4e3, dev_us / wall_us) if dev_us
+                    else (None, None))
+    (e_ms, e_busy), (g_ms, g_busy) = out["eager"], out["graph"]
+    if e_ms and g_ms:
+        log(f"  device time a step, {label}: eager {e_ms:.3f} ms, CUDA "
+            f"graph {g_ms:.3f} ms ({g_ms / e_ms - 1:+.1%}); busy eager "
+            f"{e_busy:.1%}, graph {g_busy:.1%} (profiler on) [{card}]")
+    return out
 
 
 def nolop_phase(torch, np, engine, reqs, card: str) -> dict:
@@ -711,13 +812,13 @@ def nolop_phase(torch, np, engine, reqs, card: str) -> dict:
     check_tokens(engine.cfg, run["results"], GEN, "no-LOP greedy")
     check_lockstep(dense, reqs, run["results"], (0, 1), "no-LOP greedy")
     run.pop("sched")
-    step_ms, sched = decode_step_ms(torch, np, dense, reqs)
-    log(f"  decode step (B={N_SLOTS}, no prefill in flight), no-LOP: "
-        f"{step_ms:.2f} ms [{card}]")
-    profile_steps(torch, sched, "no-LOP")
+    arms = decode_arms(torch, np, dense, reqs, "no-LOP greedy", card)
+    prof = profile_arms(torch, arms, "no-LOP greedy", card)
     return dict(dense=dense, counts=run["counts"],
                 tokens_per_s=run["tokens_per_s"],
-                ttft_p50_ms=run["ttft_p50_ms"], decode_step_ms_p50=step_ms)
+                ttft_p50_ms=run["ttft_p50_ms"], decode_step_ms_p50=arms["ms"],
+                eager_decode_step_ms_p50=arms["eager_ms"],
+                device_ms=prof["graph"][0], eager_device_ms=prof["eager"][0])
 
 
 def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
@@ -745,9 +846,11 @@ def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
     check_lockstep(engine, sreqs, run["results"], (0, 1), "LOP sampled")
     sampled_tps = run["tokens_per_s"]
     del run                       # its pool would count in later peaks
-    sampled_ms = decode_step_ms(torch, np, engine, reqs, sampling=sp)[0]
-    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP sampled "
-        f"(T=0.8, top_k=50, top_p=0.95): {sampled_ms:.2f} ms [{card}]")
+    arms = decode_arms(torch, np, engine, reqs,
+                       "LOP sampled (T=0.8, top_k=50, top_p=0.95)", card,
+                       sampling=sp)
+    sampled_ms, sampled_eager_ms = arms["ms"], arms["eager_ms"]
+    del arms                      # their pools would count in later peaks
 
     # 2. transient NaNs on the no-LOP engine recover to the clean streams
     freqs = [replace(r, max_new_tokens=16) for r in reqs[:N_SLOTS]]
@@ -805,10 +908,11 @@ def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
     log("  sticky lane -> fault; 1 us deadline -> deadline, no tokens; "
         "cancel after the 3rd token -> cancelled with 3 tokens")
 
-    # 5. the production shape: a LOP server whose retry runs dense
+    # 5. the production shape: a LOP server whose retry runs dense; enough
+    #    events on one pool that the retry's graph is captured and replayed
     ops.reset_launch_counts()
-    with faults.inject(faults.FaultPlan(nan_logits=frozenset({(3, 0),
-                                                              (7, 2)}))):
+    with faults.inject(faults.FaultPlan(nan_logits=frozenset({
+            (3, 0), (7, 2), (12, 1), (20, 2), (28, 3)}))):
         lop_faults = Scheduler(engine, n_slots=N_SLOTS, check_invariants=True)
         for r in freqs:
             lop_faults.submit(replace(r, arrival=None))
@@ -823,14 +927,19 @@ def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
     if any(r.finish_reason != "length" for r in lres):
         raise AssertionError("LOP fault run: a request did not finish")
     retries = lop_faults.fault_events
+    if retries < 3:
+        raise AssertionError(f"LOP fault run: {retries} retries, want >= 3 "
+                             f"(warm-up, capture, replays)")
     if counts[DENSE] != cfg.n_layers * retries:
         raise AssertionError(f"dense launches {counts[DENSE]} != "
                              f"{cfg.n_layers} x {retries} retries")
     log(f"  LOP engine under NaN faults: {lop_faults.fault_events} events, "
         f"all recovered through the dense retry ({counts[DENSE]} dense "
-        f"launches = {cfg.n_layers} layers x {retries} retries)")
+        f"launches = {cfg.n_layers} layers x {retries} retries; the "
+        f"retry's graph warmed once, then captured and replayed)")
     return dict(sampled_tokens_per_s=sampled_tps,
                 sampled_decode_step_ms_p50=sampled_ms,
+                sampled_eager_decode_step_ms_p50=sampled_eager_ms,
                 dense_launches=dense_launches)
 
 
@@ -1308,10 +1417,10 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
     of a 1536-token prompt, a whole-prompt prefill, and a profiler
     breakdown of decode steps and of one chunk (device time by kernel,
     busy share)."""
-    decode_ms, sched = decode_step_ms(torch, np, engine, reqs)
-    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP greedy: "
-        f"p50 {decode_ms:.2f} ms over 10 steps [{card}]")
-    dev_us, prof_wall_us = profile_steps(torch, sched, "LOP greedy")
+    arms = decode_arms(torch, np, engine, reqs, "LOP greedy", card)
+    prof = profile_arms(torch, arms, "LOP greedy", card)
+    decode_ms, eager_ms = arms["ms"], arms["eager_ms"]
+    del arms                      # their pools would count in later peaks
 
     # one 128-token chunk at positions [1408, 1536) of a spare lane
     pool = engine.init_pool(1)
@@ -1343,8 +1452,9 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
         f"[{card}]")
     del pool, logits
     return dict(decode_step_ms_p50=decode_ms, prefill_chunk_ms=chunk_ms,
-                whole_prefill_ms=whole_ms,
-                profile_device_busy=dev_us / prof_wall_us if dev_us else None)
+                eager_decode_step_ms_p50=eager_ms, whole_prefill_ms=whole_ms,
+                device_ms=prof["graph"][0], eager_device_ms=prof["eager"][0],
+                profile_device_busy=prof["graph"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -1402,16 +1512,20 @@ def main() -> int:
     log(f"[serve no-LOP] the same {N_REQUESTS} requests on a use_lop=False "
         f"engine sharing the weights [{smi}]")
     nolop = nolop_phase(torch, np, engine, reqs, smi)
-    log(f"  decode step (B={N_SLOTS}, no prefill in flight): LOP "
-        f"{serve['decode_step_ms_p50']:.2f} ms, no-LOP "
-        f"{nolop['decode_step_ms_p50']:.2f} ms [{smi}]")
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), CUDA graph "
+        f"(eager): LOP {serve['decode_step_ms_p50']:.2f} "
+        f"({serve['eager_decode_step_ms_p50']:.2f}) ms, no-LOP "
+        f"{nolop['decode_step_ms_p50']:.2f} "
+        f"({nolop['eager_decode_step_ms_p50']:.2f}) ms [{smi}]")
 
     # ---- 4c. sampled serve and faults ----
     log(f"[serve sampled + faults] [{smi}]")
     sampled = sampled_fault_phase(torch, np, engine, nolop["dense"], reqs, smi)
-    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP: greedy "
-        f"{serve['decode_step_ms_p50']:.2f} ms, sampled "
-        f"{sampled['sampled_decode_step_ms_p50']:.2f} ms [{smi}]")
+    log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP, CUDA "
+        f"graph (eager): greedy {serve['decode_step_ms_p50']:.2f} "
+        f"({serve['eager_decode_step_ms_p50']:.2f}) ms, sampled "
+        f"{sampled['sampled_decode_step_ms_p50']:.2f} "
+        f"({sampled['sampled_eager_decode_step_ms_p50']:.2f}) ms [{smi}]")
     launches = dict(serve["counts"])
     launches[DENSE] = nolop["counts"][DENSE] + sampled["dense_launches"]
 

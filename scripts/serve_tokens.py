@@ -19,8 +19,9 @@ and the gap between the two largest logits there on this build (the
 request replayed alone through ``lockstep_generate``, which the scheduler
 matches bitwise): a gap at the rounding level shows a near-tie, not a
 fault. ``--plain-decode`` serves with the plain PyTorch decode attention
-(``kernels/ref.py``) on the card in place of the two decode kernels, as a
-third stream that both builds' streams can be held against.
+(``kernels/ref.py``) on the card in place of the two decode kernels,
+eagerly (no CUDA graphs), as a third stream that both builds' streams can
+be held against.
 ``--profile`` then times a decode step over 4 active lanes (no prefill in
 flight) on the LOP and the dense engine and profiles 4 such steps each
 (``chip_smoke.profile_steps``: device time a step, by kernel), so two
@@ -53,10 +54,16 @@ def first_difference(mine: dict, theirs: dict):
 
 
 def top2_gaps(torch, engine, req) -> tuple[list, list]:
-    """Replay ``req`` alone through ``lockstep_generate``. → (its tokens,
-    the gap between the two largest logits at each token)."""
+    """Replay ``req`` alone through ``lockstep_generate`` on an eager twin
+    of ``engine`` (the same weights; its steps run the Python that a CUDA
+    graph only records, bitwise the graphs' tokens). → (its tokens, the
+    gap between the two largest logits at each token)."""
+    from repro_torch.serving.api import PooledEngine
     from repro_torch.serving.scheduler import lockstep_generate
 
+    engine = PooledEngine(engine.cfg, engine.qp, max_len=engine.max_len,
+                          use_lop=engine.use_lop, device=engine.device,
+                          graphs=False)
     gaps = []
     pick, first = engine._pick, engine.sample_first
 
@@ -73,11 +80,8 @@ def top2_gaps(torch, engine, req) -> tuple[list, list]:
         return first(logits, *a, **kw)
 
     engine._pick, engine.sample_first = _pick, _first
-    try:
-        toks = lockstep_generate(engine, req.prompt, req.max_new_tokens,
-                                 eos_id=req.eos_id, sampling=req.sampling)
-    finally:
-        del engine._pick, engine.sample_first
+    toks = lockstep_generate(engine, req.prompt, req.max_new_tokens,
+                             eos_id=req.eos_id, sampling=req.sampling)
     return toks, gaps
 
 
@@ -119,13 +123,15 @@ def main() -> int:
     cfg = get_config("bitnet-3b")
     engine = PooledEngine.from_seed(cfg, seed=smoke.SEED,
                                     max_len=smoke.MAX_PROMPT + smoke.GEN,
-                                    device="cuda")
+                                    device="cuda",
+                                    graphs=not args.plain_decode)
     reqs = make_requests(cfg, n_requests=smoke.N_REQUESTS,
                          min_prompt=smoke.MIN_PROMPT,
                          max_prompt=smoke.MAX_PROMPT, gen=smoke.GEN,
                          seed=smoke.SEED)
     dense = PooledEngine(cfg, engine.qp, max_len=engine.max_len,
-                         use_lop=False, device="cuda")
+                         use_lop=False, device="cuda",
+                         graphs=not args.plain_decode)
     sampled = [replace(r, sampling=SamplingParams(
         temperature=0.8, top_k=50, top_p=0.95, seed=r.rid)) for r in reqs]
     runs = (("LOP greedy", engine, reqs), ("no-LOP greedy", dense, reqs),

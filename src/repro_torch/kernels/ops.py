@@ -7,7 +7,9 @@ the hand-written CUDA kernel, or the call raises. Nothing sends a CUDA
 tensor to the plain version.
 
 Every kernel counts the calls that launched it (``KERNELS[name].launches``);
-:func:`reset_launch_counts` and :func:`launch_counts` read them around a run.
+:func:`reset_launch_counts` and :func:`launch_counts` read them around a run,
+and :func:`add_launches` adds the launches a CUDA graph's replay makes,
+which no wrapper sees.
 """
 
 from __future__ import annotations
@@ -48,6 +50,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (kernel name → launches, negative to take back the
+    calls a graph capture counted but did not launch) to the counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

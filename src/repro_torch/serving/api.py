@@ -21,6 +21,13 @@ the lane. After every ``decode_step`` the engine publishes ``last_ok``
 recomputes one quarantined lane with the LOP screen off (the dense decode
 kernel) against a pool already rewound by ``rollback``. Prefix caching and
 speculative decoding are not ported yet.
+
+Like the reference's four compiled decode functions, ``decode_step`` and
+``retry_step`` run one of four entries (greedy or sampled decode, greedy
+or sampled retry), each one function of device tensors alone
+(``PooledEngine._step``). On a card each entry replays a CUDA graph of
+the whole step (:mod:`repro_torch.serving.graphs`); on the CPU it runs
+eagerly on the plain kernel versions.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from repro_torch.serving import cache as _cache
 from repro_torch.serving import faults as _faults
 from repro_torch.serving.engine import (guard_logits, prefill, prefill_chunk,
                                         serve_step)
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.quantize import quantize_params
 from repro_torch.serving.sampling import sample_with_seed
 
@@ -160,16 +168,53 @@ def _int32(x: int) -> int:
     return (int(x) + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
+def _f32_bits(values, n: int) -> np.ndarray:
+    return np.broadcast_to(np.asarray(values, np.float32), (n,)).view(
+        np.int32)
+
+
+def step_inputs(tokens, fault_add, temperature, top_k, top_p,
+                slot: int = 0) -> np.ndarray:
+    """A decode entry's host inputs as one int32 [6, B] array, uploaded in
+    one copy: the tokens, the fault add (zeros without a plan), the
+    temperature, top-k, top-p (f32 rows as their bits) and the retry's
+    slot (row 5, every column)."""
+    tokens = np.asarray(tokens, np.int32).reshape(-1)
+    n = tokens.shape[0]
+    host = np.empty((6, n), np.int32)
+    host[0] = tokens
+    host[1] = _f32_bits(0.0 if fault_add is None else fault_add, n)
+    host[2] = _f32_bits(temperature, n)
+    host[3] = np.asarray(top_k, np.int32)
+    host[4] = _f32_bits(top_p, n)
+    host[5] = slot
+    return host
+
+
+def _unpack(inp: torch.Tensor):
+    """Device views of :func:`step_inputs`' rows. → (tokens int64 [B, 1],
+    fault add, temperature, top-k, top-p, slot (a 0-d int32))."""
+    f32 = torch.float32
+    return (inp[0].to(torch.int64)[:, None], inp[1].view(f32),
+            inp[2].view(f32), inp[3], inp[4].view(f32), inp[5, 0])
+
+
 class PooledEngine:
     """The slot-paged serving stack for one model on one device.
 
     ``device`` defaults to the CUDA card (raising when there is none);
     tests pass ``device="cpu"`` to run the plain kernel versions. Pool
     operations update the pool in place and return it.
+
+    On a card the decode entries replay CUDA graphs
+    (:class:`repro_torch.serving.graphs.StepGraphs`, ``self.graphs``);
+    ``graphs=False`` runs them eagerly instead, which only a caller holding
+    the graphs to the eager step (or timing the two) asks for. The CPU
+    builds no graph.
     """
 
     def __init__(self, cfg, qp, *, max_len: int, use_lop: bool = True,
-                 device=None):
+                 device=None, graphs: bool = True):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the f32 head matmul (outside any kernel) runs in full f32
@@ -182,6 +227,8 @@ class PooledEngine:
         self.chunk_tokens = cfg.lop_block
         self.supports_chunked = cfg.family == "dense"
         self.last_ok = None            # np bool [B] after each decode_step
+        self.graphs = (StepGraphs(self.device)
+                       if graphs and self.device.type == "cuda" else None)
 
     @classmethod
     def from_seed(cls, cfg, *, seed: int, max_len: int, device=None, **kw):
@@ -232,33 +279,57 @@ class PooledEngine:
     def _vec(self, values, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, dtype), device=self.device)
 
-    def _fault_add(self, add):
-        return None if add is None else self._vec(add, np.float32)
-
-    def _sample(self, logits, seeds, steps, temperature, top_k, top_p):
-        return sample_with_seed(logits, seeds, steps,
-                                self._vec(temperature, np.float32),
-                                self._vec(top_k, np.int32),
-                                self._vec(top_p, np.float32))
-
-    def _pick(self, logits, pool, advance, temperature, top_k, top_p):
-        """Argmax when every lane is greedy (``sample_step`` stays put);
-        otherwise each lane samples under its in-pool key schedule and
-        ``sample_step`` moves by ``advance``."""
-        if np.all(np.asarray(temperature) <= 0.0):
+    def _pick(self, logits, pool, active, sampled: bool, temperature, top_k,
+              top_p):
+        """Argmax (``sample_step`` stays put), or each lane's sample under
+        its in-pool key schedule, after which ``sample_step`` moves in
+        place by ``active`` (by 1 in a cache without one)."""
+        if not sampled:
             return torch.argmax(logits, dim=-1)
         steps = pool["sample_step"]
-        toks = self._sample(logits, pool["seed"], steps, temperature, top_k,
-                            top_p)
-        pool["sample_step"] = steps + advance
+        toks = sample_with_seed(logits, pool["seed"], steps, temperature,
+                                top_k, top_p)
+        steps.add_(1 if active is None else active.to(torch.int32))
         return toks
 
-    @staticmethod
-    def _read(toks, ok):
-        """One host transfer for the tokens and the finiteness mask."""
-        both = torch.stack([toks.to(torch.int32), ok.to(torch.int32)])
-        both = both.cpu().numpy()
+    def _step(self, pool, inp, entry: str) -> torch.Tensor:
+        """One decode entry — ``"greedy"``, ``"sampled"``,
+        ``"retry_greedy"`` or ``"retry_sampled"`` — on device tensors
+        alone: ``inp`` is :func:`step_inputs` on the device. The step,
+        the fault add, the finiteness guard, the argmax or sampler and the
+        pool updates, all in place. → int32 [2, B]: tokens, finiteness."""
+        tokens, fadd, temperature, top_k, top_p, slot = _unpack(inp)
+        retry = entry.startswith("retry")
+        active = pool.get("active")
+        if retry:
+            lanes = torch.arange(active.shape[0], device=active.device)
+            active = active & (lanes == slot)
+        logits, pool = serve_step(self.cfg, self.qp, pool, tokens,
+                                  use_lop=self.use_lop and not retry,
+                                  active=active)
+        logits, ok = guard_logits(logits, fadd)
+        toks = self._pick(logits, pool, active, entry.endswith("sampled"),
+                          temperature, top_k, top_p)
+        return torch.stack([toks.to(torch.int32), ok.to(torch.int32)])
+
+    def _run(self, entry: str, pool, host):
+        """``_step`` through the entry's graph on a card (eagerly with
+        ``graphs=False`` and on the CPU), then the step's one host
+        transfer. → (tokens np.int32 [B], ok np.bool [B])."""
+        if self.graphs is not None:
+            out = self.graphs.run(self._step, entry, pool, host)
+        else:
+            inp = torch.from_numpy(host).to(self.device, non_blocking=True)
+            out = self._step(pool, inp, entry)
+        both = out.cpu().numpy()
         return both[0], both[1].astype(bool)
+
+    @staticmethod
+    def _entry(temperature, retry: bool = False) -> str:
+        """The host-side choice: greedy when every lane is greedy."""
+        mode = ("greedy" if np.all(np.asarray(temperature) <= 0.0)
+                else "sampled")
+        return f"retry_{mode}" if retry else mode
 
     def decode_step(self, pool, tokens, temperature, top_k, top_p):
         """Advance every active lane one token and sample it.
@@ -270,36 +341,25 @@ class PooledEngine:
         active lanes' ``sample_step`` advances. An active
         :mod:`repro_torch.serving.faults` plan injects here."""
         n = np.asarray(tokens).shape[0]
-        fadd = self._fault_add(_faults.decode_fault_add(n))
-        logits, pool = serve_step(self.cfg, self.qp, pool,
-                                  self._tokens(tokens), use_lop=self.use_lop)
-        logits, ok = guard_logits(logits, fadd)
-        advance = (pool["active"].to(torch.int32) if "active" in pool
-                   else 1)
-        toks = self._pick(logits, pool, advance, temperature, top_k, top_p)
-        toks, self.last_ok = self._read(toks, ok)
+        host = step_inputs(tokens, _faults.decode_fault_add(n), temperature,
+                           top_k, top_p)
+        toks, self.last_ok = self._run(self._entry(temperature), pool, host)
         return toks, pool
 
     def retry_step(self, pool, slot: int, tokens, temperature, top_k, top_p):
         """Recovery step for ONE quarantined lane whose faulted append was
         rewound (``rollback``): the lane recomputes its token with the LOP
         screen off — the dense decode kernel — while every other lane is
-        masked inactive (its lengths, K/V and key schedule do not move).
-        ``sample_step`` advances only on the sampled path.
+        masked inactive (its lengths, K/V and key schedule do not move;
+        ``pool["active"]`` is read, never written). ``sample_step``
+        advances only on the sampled path.
         → (np.int32 [B], np.bool [B], pool); only row ``slot`` means
         anything. A sticky injected fault still poisons the retry."""
         n = np.asarray(tokens).shape[0]
-        fadd = self._fault_add(_faults.retry_fault_add(n))
-        act = pool["active"]
-        only = act & (torch.arange(act.shape[0], device=act.device) == slot)
-        pool["active"] = only
-        logits, pool = serve_step(self.cfg, self.qp, pool,
-                                  self._tokens(tokens), use_lop=False)
-        logits, ok = guard_logits(logits, fadd)
-        toks = self._pick(logits, pool, only.to(torch.int32), temperature,
-                          top_k, top_p)
-        pool["active"] = act
-        toks, ok = self._read(toks, ok)
+        host = step_inputs(tokens, _faults.retry_fault_add(n), temperature,
+                           top_k, top_p, slot=slot)
+        toks, ok = self._run(self._entry(temperature, retry=True), pool,
+                             host)
         return toks, ok, pool
 
     def rollback(self, pool, slot: int, n: int) -> dict:
@@ -322,7 +382,10 @@ class PooledEngine:
         sp = sampling or GREEDY
         if sp.greedy:
             return int(torch.argmax(logits[0]).item())
-        tok = self._sample(logits[:1], self._vec([_int32(sp.seed)], np.int32),
-                           self._vec([seed_step], np.int32),
-                           [sp.temperature], [sp.top_k], [sp.top_p])
+        tok = sample_with_seed(logits[:1],
+                               self._vec([_int32(sp.seed)], np.int32),
+                               self._vec([seed_step], np.int32),
+                               self._vec([sp.temperature], np.float32),
+                               self._vec([sp.top_k], np.int32),
+                               self._vec([sp.top_p], np.float32))
         return int(tok[0].item())

@@ -211,17 +211,20 @@ def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int):
     return _logits(cfg, qp, x[:, idx]), cache
 
 
-def serve_step(cfg, qp, cache, tokens, *, use_lop=True):
+def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None):
     """One decode step. tokens [B, 1] → (logits [B, V], cache).
 
-    A pool (``"active"`` in the cache) decodes only its live lanes: the
+    Only the lanes of ``active`` (bool [B]; by default the pool's own
+    ``"active"`` mask, and every lane of a cache without one) decode: the
     others write nothing and keep their lengths. The cache is updated in
-    place.
+    place and no entry of it is rebound, so a CUDA graph of the step stays
+    valid for the same cache.
     """
     cfg = resolve_decode_flags(cfg)
     _check_dense(cfg)
     lengths = cache["lengths"]
-    active = cache.get("active")
+    if active is None:
+        active = cache.get("active")
     x = embedding_apply(qp["embed"], tokens)
     for i in range(cfg.n_layers):
         lp = layer_slice(qp["layers"], i)
@@ -230,19 +233,17 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True):
                             norm_apply(lp["ln1"], x, cfg.norm), cl, lengths,
                             use_lop=use_lop, active=active)
         x = _mlp(cfg, lp, x)
-    cache["lengths"] = lengths + (1 if active is None
-                                  else active.to(torch.int32))
+    lengths.add_(1 if active is None else active.to(torch.int32))
     return _logits(cfg, qp, x[:, -1]), cache
 
 
-
-def guard_logits(logits, fault_add=None):
+def guard_logits(logits, fault_add):
     """Fault-injection and detection point of the decode step: adds the
     per-lane offset ``fault_add`` f32 [B] (NaN rows when a
-    :mod:`repro_torch.serving.faults` plan injects; None in production)
-    and computes each lane's finiteness on the logits' device — one
-    reduction, no [B, V] host transfer. → (logits [B, V], ok bool [B]).
-    A lane with ``ok`` False must not emit its sampled token."""
-    if fault_add is not None:
-        logits = logits + fault_add[:, None]
+    :mod:`repro_torch.serving.faults` plan injects; zeros in production,
+    as the reference passes) and computes each lane's finiteness on the
+    logits' device — one reduction, no [B, V] host transfer. → (logits
+    [B, V], ok bool [B]). A lane with ``ok`` False must not emit its
+    sampled token."""
+    logits = logits + fault_add[:, None]
     return logits, torch.isfinite(logits).all(dim=-1)

@@ -95,8 +95,10 @@ def uniform(keys, n: int, minval: float = 0.0,
     bits = random_bits(keys, n)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     floats = floats - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    # filled on the device: no host-to-device copy, which a CUDA graph's
+    # capture forbids
+    lo = torch.full((), minval, dtype=torch.float32, device=keys.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=keys.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -714,3 +714,105 @@ def test_per_head_pipeline_matches_fused_decode(cuda):
         "sparse_decode_attention"] == 1
     torch.testing.assert_close(per_head.reshape(b, h, dh), fused,
                                **TOL_STANDALONE)
+
+
+# ---------------------------------------------------------------------------
+# the engine's decode entries as CUDA graphs, held to the eager arm
+# ---------------------------------------------------------------------------
+
+GRAPH_MAX_LEN = 63
+NAN_CALLS = frozenset({(1, 0), (3, 1), (4, 2), (6, 0), (8, 1)})
+
+
+def _graph_requests(sampled: bool):
+    from repro_torch.serving.api import GenerateRequest, SamplingParams
+    rng = np.random.default_rng(31)
+    reqs = []
+    for rid, n in enumerate((9, 40, 23, 51, 5)):
+        sp = (SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=rid)
+              if sampled else None)
+        reqs.append(GenerateRequest(
+            rid=rid, prompt=rng.integers(0, 512, n).astype(np.int32),
+            max_new_tokens=14 - rid, **({} if sp is None
+                                        else dict(sampling=sp))))
+    return reqs
+
+
+def _serve_arm(eng, reqs, nan=frozenset()):
+    """Serve ``reqs`` on 3 slots under a fault plan. → (tokens by rid,
+    every pool tensor, launch counts, scheduler)."""
+    from repro_torch.serving import faults
+    from repro_torch.serving.scheduler import Scheduler
+    ops.reset_launch_counts()
+    with faults.inject(faults.FaultPlan(nan_logits=nan)):
+        sched = Scheduler(eng, n_slots=3, check_invariants=True)
+        for r in reqs:
+            sched.submit(r)
+        res = {r.rid: r.tokens for r in sched.run_to_completion()}
+    torch.cuda.synchronize()
+    pool = sched.pool
+    leaves = {k: v.clone() for k, v in pool.items() if k != "layers"}
+    leaves.update({f"layers.{k}": v.clone()
+                   for k, v in pool["layers"].items()})
+    return res, leaves, ops.launch_counts(), sched
+
+
+@pytest.mark.parametrize("use_lop,sampled,nan", [
+    (True, False, frozenset()), (False, False, frozenset()),
+    (True, True, frozenset()), (True, False, NAN_CALLS),
+    (True, True, NAN_CALLS)],
+    ids=["lop-greedy", "nolop-greedy", "lop-sampled", "lop-greedy-faults",
+         "lop-sampled-faults"])
+def test_graph_entries_bitwise_eager(cuda, use_lop, sampled, nan):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import PooledEngine
+    cfg = get_config("bitnet-3b-reduced")
+    eager = PooledEngine.from_seed(cfg, seed=0, max_len=GRAPH_MAX_LEN,
+                                   use_lop=use_lop, device=cuda, graphs=False)
+    graph = PooledEngine(cfg, eager.qp, max_len=GRAPH_MAX_LEN,
+                         use_lop=use_lop, device=cuda)
+    assert eager.graphs is None and graph.graphs is not None
+    reqs = _graph_requests(sampled)
+    want, want_pool, want_counts, esched = _serve_arm(eager, reqs, nan)
+    got, got_pool, got_counts, gsched = _serve_arm(graph, reqs, nan)
+    assert got == want
+    assert got_counts == want_counts
+    for name, leaf in want_pool.items():
+        assert torch.equal(got_pool[name], leaf), name
+    if nan:
+        assert gsched.fault_recoveries == esched.fault_recoveries >= 3
+    held = graph.graphs.count
+    assert held >= (2 if nan else 1)
+    # a second pool on the same engine gets graphs of its own
+    again, _, _, _ = _serve_arm(graph, reqs, nan)
+    assert again == want
+    assert graph.graphs.count > held and graph.graphs.nbytes > 0
+
+
+def test_graph_capture_failure_raises(cuda):
+    """A step that fails while captured raises; nothing runs it eagerly
+    in its place, the launches counted during the failed capture are
+    taken back, and the key is captured again on the next call."""
+    from repro_torch.serving.graphs import StepGraphs
+    pool = {"lengths": torch.zeros(2, dtype=torch.int32, device=cuda)}
+    calls = []
+    kernel = sorted(ops.launch_counts())[0]
+
+    def step(pool_, inp, entry):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            ops.add_launches({kernel: 1})     # as a wrapper counts a launch
+            raise RuntimeError("no capture")
+        pool_["lengths"].add_(inp[0])
+        return pool_["lengths"] * 1
+
+    graphs = StepGraphs(cuda)
+    host = np.ones((1, 2), np.int32)
+    assert graphs.run(step, "greedy", pool, host).tolist() == [1, 1]
+    counts = ops.launch_counts()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no capture"):
+            graphs.run(step, "greedy", pool, host)
+    assert calls == [False, True, True] and graphs.count == 0
+    assert pool["lengths"].tolist() == [1, 1]
+    assert ops.launch_counts() == counts
