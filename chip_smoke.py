@@ -49,7 +49,9 @@ printed:
               printed, and over the fresh caches of the lockstep checks
               the graphs' private memory pools must grow by exactly what
               the graphs held grew (an evicted graph gives its memory
-              back) with at most GRAPH_BOUND keys left;
+              back) with at most GRAPH_BOUND keys left; the same traffic
+              once more with the prefix cache off (tokens bitwise the
+              cache-on run's: what interning costs);
   4b. no-LOP  the same 8 requests on a use_lop=False engine sharing the
               weights: the dense decode kernel must launch and the LOP one
               must not; scheduler == lockstep for 2 requests; its steady
@@ -66,6 +68,29 @@ printed:
               under NaN logits, recovering through the dense retry (at
               least 3 retries on one pool, so the retry's graph is
               captured and replayed);
+  4d. prefix  8 requests (numpy default_rng(1)) of one shared 1024-token
+      + spec  prefix and a unique 64–512-token suffix, 32 new tokens,
+              greedy, LOP, with the prefix cache on and off (tokens
+              bitwise; the first sweep's 4 requests miss, the next 4 hit
+              1024 tokens; hits, prefill tokens computed against served,
+              TTFT, tokens/s, the store's bytes and the time of one match
+              and one intern), then on under a flipped page bit and a
+              store outage (each detected, tokens unchanged); then 4 of
+              phase 4's requests speculatively (γ 4, the draft 13 of 26
+              layers at k_keep 1, no watchdog): no-LOP greedy and sampled
+              against plain decode of the same requests (equal, or a
+              first divergence where the decode and chunk kernels round
+              apart: that lane's pages in the two runs bitwise over the
+              prompt and at layer 0, the speculative pages bitwise what
+              one prefill chunk of the same tokens writes, the rows
+              recomputed from each run's pages making its choice, the
+              plain choice's margin below the change of the two tokens'
+              gap; the pages' differences printed by layer), LOP
+              greedy completing with #4 in its draft; launch counts
+              zeroed before each run: #3 launches for every chunk and
+              verify, the draft entry replays its CUDA graph; rounds,
+              acceptance, the draft step's and the verify chunk's wall
+              time and tokens/s against plain;
   5. standalone kernels and the per-head LOP decode, at full width:
               the TINT GEMM (ternary_matmul), the LOP screen
               (lop_scores_kernel), single-head flash prefill and block-sparse
@@ -96,6 +121,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -575,13 +601,22 @@ def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
     n_tok = sum(len(r.tokens) for r in results.values())
     log(f"  [{label}] tokens sha256 {tokens_digest(results)}")
     ttft = [r.ttft for r in results.values()]
-    step_ms = float(np.percentile(sched.decode_seconds, 50) * 1e3)
+    step_ms = (float(np.percentile(sched.decode_seconds, 50) * 1e3)
+               if sched.decode_seconds else float("nan"))
+    store = sched.prefix_store
+    prefix = ("prefix cache off" if store is None else
+              f"prefix cache: {sched.prefix_hits} hits, prefill tokens "
+              f"computed/served {sched.prefill_tokens_computed}/"
+              f"{sched.prefill_tokens_served}, store "
+              f"{store.cached_tokens} tokens = {store.nbytes / 2**20:.1f} "
+              f"MiB")
     log(f"  [{label}] served {len(reqs)} requests, {n_tok} tokens in "
         f"{wall:.3f} s: {n_tok / wall:.2f} tok/s, TTFT p50 "
         f"{np.percentile(ttft, 50) * 1e3:.1f} ms, serve-cycle decode p50 "
-        f"{step_ms:.2f} ms over {sched.decode_steps} steps (waits on the "
-        f"cycle's prefill chunk), max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB; {graph_memory(engine)} [{card}]")
+        f"{step_ms:.2f} ms over {sched.decode_launches} steps (waits on "
+        f"the cycle's prefill chunk), max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; {prefix}; {graph_memory(engine)} "
+        f"[{card}]")
     return dict(sched=sched, results=results, counts=counts,
                 tokens_per_s=n_tok / wall,
                 ttft_p50_ms=float(np.percentile(ttft, 50) * 1e3),
@@ -687,6 +722,16 @@ def serve_phase(torch, np, card: str):
     check_counts(run["counts"], "LOP greedy", LOP_PATH, idle=(DENSE,))
     check_tokens(cfg, run["results"], GEN, "LOP greedy")
     check_lockstep(engine, reqs, run["results"], (0, 1), "LOP greedy")
+    # the same traffic with the prefix cache off: what interning costs (the
+    # cache-on run's store goes first, so the two peaks compare)
+    run.pop("sched")
+    off = serve_run(torch, np, engine, reqs, "LOP greedy, prefix cache off",
+                    card, prefix_cache=False)
+    if tokens_digest(off["results"]) != tokens_digest(run["results"]):
+        raise AssertionError("prefix cache off changed phase 4's tokens")
+    run["cache_off"] = {k: off[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                            "peak_bytes")}
+    del off
 
     # chunked prefill vs whole-prompt prefill, bitwise
     prompt = max((r.prompt for r in reqs), key=len)
@@ -717,12 +762,13 @@ def serve_phase(torch, np, card: str):
 
 def decode_step_ms(torch, np, engine, reqs, sampling=None):
     """p50 of 10 decode steps over 4 active lanes with no prefill in flight
-    (host clock around work that ends in a synchronize). → (ms, sched)."""
+    (host clock around work that ends in a synchronize), the prefix store
+    off: the steps read none of its pages. → (ms, sched)."""
     from dataclasses import replace
 
     from repro_torch.serving.scheduler import Scheduler
 
-    sched = Scheduler(engine, n_slots=N_SLOTS)
+    sched = Scheduler(engine, n_slots=N_SLOTS, prefix_cache=False)
     for r in reqs[:N_SLOTS]:
         sched.submit(replace(r, max_new_tokens=96, arrival=None,
                              **({} if sampling is None
@@ -811,10 +857,11 @@ def nolop_phase(torch, np, engine, reqs, card: str) -> dict:
                   DENSE), idle=("fused_decode_attention",))
     check_tokens(engine.cfg, run["results"], GEN, "no-LOP greedy")
     check_lockstep(dense, reqs, run["results"], (0, 1), "no-LOP greedy")
+    plain = {rid: r.tokens for rid, r in run.pop("results").items()}
     run.pop("sched")
     arms = decode_arms(torch, np, dense, reqs, "no-LOP greedy", card)
     prof = profile_arms(torch, arms, "no-LOP greedy", card)
-    return dict(dense=dense, counts=run["counts"],
+    return dict(dense=dense, counts=run["counts"], tokens=plain,
                 tokens_per_s=run["tokens_per_s"],
                 ttft_p50_ms=run["ttft_p50_ms"], decode_step_ms_p50=arms["ms"],
                 eager_decode_step_ms_p50=arms["eager_ms"],
@@ -941,6 +988,459 @@ def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
                 sampled_decode_step_ms_p50=sampled_ms,
                 sampled_eager_decode_step_ms_p50=sampled_eager_ms,
                 dense_launches=dense_launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: prefix caching and speculative decoding
+# ---------------------------------------------------------------------------
+
+SHARED_PREFIX, MIN_SUFFIX, MAX_SUFFIX = 1024, 64, 512
+GAMMA = 4
+NO_WATCHDOG = 10 ** 6       # random weights accept little: every cycle drafts
+
+
+def timed_ms(torch, fn):
+    """Host ms of ``fn()`` between two synchronizes. → (ms, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def prefix_phase(torch, np, engine, card) -> dict:
+    """Phase 4d, prefix traffic: 8 requests of one shared 1024-token prefix
+    and a unique 64–512-token suffix, greedy, LOP; the cache on, then off
+    (tokens bitwise), then on under page bit flips and a lookup outage."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import cache as _cache
+    from repro_torch.serving import faults
+
+    cfg = engine.cfg
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_SUFFIX,
+                         max_prompt=MAX_SUFFIX, gen=GEN, seed=1,
+                         shared_prefix_tokens=SHARED_PREFIX)
+    log("  prompt lengths: " + ", ".join(str(len(r.prompt)) for r in reqs))
+    on = serve_run(torch, np, engine, reqs, "prefix on", card)
+    check_counts(on["counts"], "prefix on", LOP_PATH, idle=(DENSE,))
+    check_tokens(cfg, on["results"], GEN, "prefix on")
+    sched = on["sched"]
+    # the first sweep's 4 requests miss an empty store; the 4 admitted
+    # after them hit the whole shared prefix
+    if (sched.prefix_hits, sched.prefill_tokens_served
+            - sched.prefill_tokens_computed) != (4, 4 * SHARED_PREFIX):
+        raise AssertionError(f"prefix on: {sched.prefix_hits} hits, "
+                             f"{sched.prefill_tokens_computed} of "
+                             f"{sched.prefill_tokens_served} computed")
+    hit = [r.cached_len for r in on["results"].values()]
+    store = sched.prefix_store
+    prompt = reqs[-1].prompt
+    match_ms, (n, _) = timed_ms(torch, lambda: store.match(prompt))
+    aligned = len(prompt) // store.block * store.block
+    # into fresh stores, three times: the first may grow the allocator
+    interns = [timed_ms(torch, lambda: _cache.PrefixStore(store.block).insert(
+        prompt[:aligned], _cache.extract_slot(sched.pool, 0)))[0]
+        for _ in range(3)]
+    intern_ms = interns[-1]
+    log(f"  cached lengths by rid: {hit}; store {store.cached_tokens} "
+        f"tokens, {store.nbytes / 2**20:.1f} MiB on the card; match of a "
+        f"{len(prompt)}-token prompt ({n // store.block} nodes, checksums "
+        f"verified): {match_ms:.2f} ms; intern of {aligned} tokens "
+        f"({aligned // store.block} nodes cloned and checksummed), three "
+        f"times: {', '.join(f'{t:.2f}' for t in interns)} ms [{card}]")
+    digest = tokens_digest(on["results"])
+    stats = dict(on_tokens_per_s=on["tokens_per_s"],
+                 on_ttft_p50_ms=on["ttft_p50_ms"],
+                 store_bytes=store.nbytes, match_ms=match_ms,
+                 intern_ms=intern_ms, peak_bytes=on["peak_bytes"])
+    del on, sched, store
+
+    off = serve_run(torch, np, engine, reqs, "prefix off", card,
+                    prefix_cache=False)
+    if tokens_digest(off["results"]) != digest:
+        raise AssertionError("prefix on != prefix off tokens")
+    stats.update(off_tokens_per_s=off["tokens_per_s"],
+                 off_ttft_p50_ms=off["ttft_p50_ms"])
+    del off
+    log(f"  prefix on == prefix off, bitwise: tok/s "
+        f"{stats['on_tokens_per_s']:.2f} vs {stats['off_tokens_per_s']:.2f}, "
+        f"TTFT p50 "
+        f"{stats['on_ttft_p50_ms']:.1f} vs {stats['off_ttft_p50_ms']:.1f} ms "
+        f"[{card}]")
+
+    # a flip in the 3rd shared block (the first request's 3rd intern),
+    # caught at the 6th match; the 5th match fails outright
+    plan = faults.FaultPlan(seed=5, page_bitflips=frozenset({2}),
+                            lookup_failures=frozenset({4}))
+    with faults.inject(plan) as st:
+        frun = serve_run(torch, np, engine, reqs, "prefix on, faults", card,
+                         check_invariants=True)
+    fs = frun["sched"]
+    if not (st.injected_flips == fs.prefix_store.checksum_failures == 1
+            and st.injected_lookup_failures == fs.prefix_lookup_failures
+            == 1):
+        raise AssertionError(
+            f"faults: {st.injected_flips} flips, "
+            f"{fs.prefix_store.checksum_failures} checksum failures, "
+            f"{st.injected_lookup_failures} outages, "
+            f"{fs.prefix_lookup_failures} lookup failures")
+    if tokens_digest(frun["results"]) != digest:
+        raise AssertionError("faulted prefix run changed the tokens")
+    log(f"  under faults: {st.injected_flips} flipped page bit -> "
+        f"{fs.prefix_store.checksum_failures} checksum failure, "
+        f"{st.injected_lookup_failures} store outage -> "
+        f"{fs.prefix_lookup_failures} cold prefill; {fs.prefix_hits} hits, "
+        f"cached lengths {[r.cached_len for r in frun['results'].values()]};"
+        f" tokens bitwise the clean run's")
+    return stats
+
+
+@contextlib.contextmanager
+def kept_lanes():
+    """While open, every lane a Scheduler retires is copied just before
+    its eviction. → dict rid -> batch-1 copy of the lane's pages."""
+    from repro_torch.serving.scheduler import Scheduler
+
+    kept: dict = {}
+    finish = Scheduler._finish
+
+    def keep(self, slot, reason):
+        kept[self.lanes[slot].req.rid] = self.engine.extract(self.pool, slot)
+        return finish(self, slot, reason)
+
+    Scheduler._finish = keep
+    try:
+        yield kept
+    finally:
+        Scheduler._finish = finish
+
+
+def lane_diff(torch, plain, spec, prompt_len: int, end: int) -> dict:
+    """Two runs' copies of one request's lane. [0, prompt_len) was written
+    by the same prefill chunks and must be bitwise equal; [prompt_len, end)
+    the plain run wrote by decode steps (#5) and the speculative run by
+    verify chunks (#3). → over the latter: int8 K and V elements that
+    differ and the largest |difference| in int8 steps, the largest
+    relative scale difference, feature nibbles that differ, and whether
+    each copy's features are its own int8 K's."""
+    from repro_torch.core.lop import lop_features, pack_features, \
+        unpack_features
+
+    a, b = plain["layers"], spec["layers"]
+    out = dict(prompt_bitwise=all(
+        torch.equal(a[k][:, :, :, :prompt_len], b[k][:, :, :, :prompt_len])
+        for k in a))
+    x = {k: a[k][:, :, :, prompt_len:end] for k in a}
+    y = {k: b[k][:, :, :, prompt_len:end] for k in b}
+    out["bitwise"] = all(torch.equal(x[k], y[k]) for k in x)
+    for k in ("k", "v"):
+        d = (x[k].to(torch.int32) - y[k].to(torch.int32)).abs()
+        out[f"{k}_differ"] = int((d > 0).sum())
+        out[f"{k}_elements"] = d.numel()
+        out[f"{k}_max_steps"] = int(d.max())
+        per = d.reshape(d.shape[0], -1)
+        out[f"{k}_max_steps_by_layer"] = per.max(dim=1).values.tolist()
+        out[f"{k}_share_by_layer"] = [
+            round(float(v), 4) for v in (per > 0).float().mean(dim=1)]
+    for k in ("k_scale", "v_scale"):
+        rel = (x[k] - y[k]).abs() / x[k].abs().clamp_min(1e-30)
+        out[f"{k}_max_rel"] = float(rel.max())
+    out["feat_differ"] = int((unpack_features(x["feat"])
+                              != unpack_features(y["feat"])).sum())
+    out["feat_follow_k"] = all(
+        torch.equal(t["feat"], pack_features(lop_features(t["k"])))
+        for t in (x, y))
+    return out
+
+
+def explain_divergence(torch, np, engine, req, plain_toks, spec_toks, p,
+                       chunks, plain_lane, spec_lane, sampled) -> dict:
+    """Where a speculative stream first parts from the plain one, at token
+    ``p`` (plain ``a``, speculative ``b``). Three rows score token ``p``:
+    the plain run's decode row, recomputed on the plain run's own pages;
+    the verify row the speculative run chose from (``chunks``: its (start,
+    logits [w, V]) in order); and that verify chunk replayed on the plain
+    run's pages (same start, width and row, the plain stream's tokens).
+    Scores are the logits for a greedy lane and, for a sampled one, the
+    sampler's after its filters and noise. The control writes the plain
+    stream's tokens [0, p) by one prefill chunk (#3) onto the plain run's
+    prompt pages, with no speculation. → the margin of the plain choice
+    (its top-2 score gap), the gap s[a] − s[b] on each row, and
+    :func:`lane_diff` over [prompt, prompt + p) of the speculative lane
+    against the plain one, at the first generated position alone, and
+    against the control."""
+    from repro_torch.serving import sampling as smp
+    from repro_torch.serving.engine import prefill_chunk, serve_step
+
+    cfg, qp, dev = engine.cfg, engine.qp, engine.device
+    plen = len(req.prompt)
+    pos = plen + p - 1                  # the position whose row picks token p
+    start, logits = next((st, lg) for st, lg in reversed(chunks)
+                         if st <= pos < st + lg.shape[0])
+    i = pos - start
+    width = logits.shape[0]
+
+    def lane_at(n):
+        """A fresh copy of the plain lane, cut back to length ``n``."""
+        return {"lengths": torch.full((1,), n, dtype=torch.int32, device=dev),
+                "layers": {k: v.clone()
+                           for k, v in plain_lane["layers"].items()}}
+
+    tok = torch.tensor([[int(plain_toks[p - 1])]], dtype=torch.int64,
+                       device=dev)
+    drow, _ = serve_step(cfg, qp, lane_at(pos), tok, use_lop=engine.use_lop)
+    block = np.zeros((1, width), np.int64)
+    tail = plain_toks[start - plen:start - plen + width]
+    block[0, :len(tail)] = tail
+    vrows, _ = prefill_chunk(cfg, qp, torch.as_tensor(block, device=dev),
+                             lane_at(start), start=start,
+                             seq_end=start + width, all_logits=True)
+    rows = dict(decode=drow[0], same=vrows[0, i], spec=logits[i])
+    ctl = lane_at(plen)
+    prefill_chunk(cfg, qp, torch.as_tensor(
+        np.asarray(plain_toks[:p], np.int64)[None], device=dev), ctl,
+        start=plen, seq_end=plen + p)
+
+    def scores(row):
+        if not sampled:
+            return row
+        sp = req.sampling
+        one = row[None] / torch.clamp_min(
+            torch.full((1,), sp.temperature, device=dev), 1e-6)[:, None]
+        one = smp._mask_top_k(one, torch.full((1,), sp.top_k,
+                                              dtype=torch.int32, device=dev))
+        one = smp._mask_top_p(one, torch.full((1,), sp.top_p, device=dev))
+        keys = smp.lane_keys(
+            torch.tensor([sp.seed], dtype=torch.int32, device=dev),
+            torch.tensor([p], dtype=torch.int32, device=dev))
+        return (smp.gumbel(keys, one.shape[-1]) + one)[0]
+
+    a, b = int(plain_toks[p]), int(spec_toks[p])
+    sc = {k: scores(r) for k, r in rows.items()}
+    top2 = torch.topk(sc["decode"], 2).values
+    out = dict(rid=req.rid, token=p, plain=a, spec=b, chunk_start=start,
+               row=i, margin=float(top2[0] - top2[1]),
+               decode_picks=int(torch.argmax(sc["decode"])),
+               spec_picks=int(torch.argmax(sc["spec"])),
+               same_row_bitwise=torch.equal(rows["same"], rows["spec"]))
+    for k, s_ in sc.items():
+        out[f"gap_{k}"] = float(s_[a] - s_[b])
+    out.update(lane_diff(torch, plain_lane, spec_lane, plen, plen + p))
+    out["first"] = lane_diff(torch, plain_lane, spec_lane, plen, plen + 1)
+    out["spec_vs_control"] = lane_diff(torch, ctl, spec_lane, plen, plen + p)
+    return out
+
+
+def rounding_verdict(d: dict) -> str | None:
+    """None when a divergence comes from the decode kernel (#5) and the
+    chunk kernel (#3) rounding apart, else why not. The speculative run
+    writes its tokens' pages by verify chunks, the plain run by decode
+    steps. So the prompt's pages must be bitwise equal; layer 0's K/V,
+    a projection of the token at its position alone, too; the speculative
+    pages must be bitwise what one prefill chunk of the same tokens writes
+    (the control: any verify fault — a wrong token, position or row, a
+    draft row left behind — parts from it); each copy's features are its
+    own K's; the rows recomputed from each run's pages make that run's
+    choice; equal pages leave the verify row bitwise its replay; and the
+    plain margin is below the change of the two tokens' gap."""
+    if not d["prompt_bitwise"]:
+        return "the prompt's pages differ"
+    if d["k_max_steps_by_layer"][0] or d["v_max_steps_by_layer"][0]:
+        return "layer 0's K/V differ"
+    if not d["spec_vs_control"]["bitwise"]:
+        return "the speculative pages are not one prefill chunk's"
+    if not d["feat_follow_k"]:
+        return "features are not the lanes' own K's"
+    if (d["decode_picks"], d["spec_picks"]) != (d["plain"], d["spec"]):
+        return "the recomputed rows do not make the runs' choices"
+    if d["bitwise"] and not d["same_row_bitwise"]:
+        return "equal pages, yet the verify row differs from its replay"
+    if not d["margin"] < abs(d["gap_spec"] - d["gap_decode"]):
+        return "the margin is not below the change of the gap"
+    return None
+
+
+def compare_streams(torch, np, engine, reqs, spec, plain, label, card,
+                    sampled=False) -> list:
+    """``spec``'s tokens == ``plain``'s for every request, or its first
+    divergence a near-tie of rounding (:func:`rounding_verdict`, logged
+    with the numbers it reads); anything else fails, after every request
+    is logged. → the near-ties."""
+    ties, bad = [], []
+    for req in reqs:
+        a, b = plain["tokens"][req.rid], spec["tokens"][req.rid]
+        if a == b:
+            continue
+        p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        d = explain_divergence(torch, np, engine, req, a, b, p,
+                               spec["verify_rows"][req.rid],
+                               plain["lanes"][req.rid],
+                               spec["lanes"][req.rid], sampled)
+        why = rounding_verdict(d)
+        log(f"  [{label}] rid {req.rid} parts from plain decode at token "
+            f"{p} ({d['spec']} vs {d['plain']}; verify chunk at "
+            f"{d['chunk_start']}, row {d['row']}): margin of the plain "
+            f"choice {d['margin']:.3e}; gap s[plain]-s[spec] on the decode "
+            f"row {d['gap_decode']:.3e}, on the verify chunk replayed on the"
+            f" plain pages {d['gap_same']:.3e}, on the speculative verify "
+            f"row {d['gap_spec']:.3e}. Pages [prompt, prompt+{p}) against "
+            f"the plain run's: prompt bitwise {d['prompt_bitwise']}, "
+            f"K {d['k_differ']}/{d['k_elements']} int8 differ (max "
+            f"{d['k_max_steps']} step), V {d['v_differ']}/{d['v_elements']}"
+            f" (max {d['v_max_steps']}), scales max rel "
+            f"{d['k_scale_max_rel']:.2e} / {d['v_scale_max_rel']:.2e}, "
+            f"feature nibbles {d['feat_differ']} differ (features follow K:"
+            f" {d['feat_follow_k']}); the speculative pages bitwise one "
+            f"prefill chunk's of the plain tokens: "
+            f"{d['spec_vs_control']['bitwise']} -> "
+            f"{'rounding' if why is None else 'FAULT: ' + why} [{card}]")
+        for name, e in (("by layer", d),
+                        ("the first generated position alone", d["first"])):
+            log(f"    {name}: K {e['k_differ']}/{e['k_elements']} differ, "
+                f"max step by layer {e['k_max_steps_by_layer']}, share by "
+                f"layer {e['k_share_by_layer']}; V {e['v_differ']}, max "
+                f"step by layer {e['v_max_steps_by_layer']}; scales max rel"
+                f" {e['k_scale_max_rel']:.2e} / {e['v_scale_max_rel']:.2e}")
+        if why is None:
+            ties.append(d)
+        else:
+            bad.append(f"rid {req.rid} token {p}: {why}")
+    if bad:
+        raise AssertionError(f"[{label}] divergences that are no near-tie: "
+                             + "; ".join(bad))
+    return ties
+
+
+def spec_run(torch, np, engine, reqs, label, card) -> dict:
+    """Serve ``reqs`` speculatively (γ 4, no watchdog) with the launch
+    counts zeroed before and read after: #3 must launch for every chunk
+    and every verify, the draft entry must replay a CUDA graph. → dict."""
+    import math
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = engine.cfg
+    sched = Scheduler(engine, n_slots=N_SLOTS, spec_decode=True, gamma=GAMMA,
+                      spec_watchdog=NO_WATCHDOG)
+    # keep each verify chunk's logits, for a divergence's diagnosis
+    rows: dict = {}
+    verify = engine.verify_chunk
+
+    def record(pool, slot, tokens, start):
+        logits, pool = verify(pool, slot, tokens, start)
+        rows.setdefault(sched.lanes[slot].req.rid, []).append(
+            (start, logits[0].clone()))
+        return logits, pool
+
+    engine.verify_chunk = record
+    replays = engine.graphs.replays
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        for r in reqs:
+            sched.submit(r)
+        results = {r.rid: r for r in sched.run_to_completion()}
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        del engine.verify_chunk
+    counts = ops.launch_counts()
+    replays = engine.graphs.replays - replays
+    n_tok = sum(len(r.tokens) for r in results.values())
+    chunks = sum(math.ceil((r.prompt_len - r.cached_len)
+                           / engine.chunk_tokens) for r in results.values())
+    want3 = cfg.n_layers * (chunks + sched.spec_verify_launches)
+    attn = "fused_decode_attention" if engine.use_lop else DENSE
+    want_attn = (engine.draft_layers * sched.draft_launches
+                 + cfg.n_layers * sched.decode_launches)
+    log(f"  [{label}] launch counts: {counts}; graph replays {replays}")
+    if not (sched.spec_rounds > 0 and counts["fused_prefill_attention"]
+            == want3 and counts[attn] == want_attn):
+        raise AssertionError(f"[{label}] #3 {counts['fused_prefill_attention']}"
+                             f" != {want3} or {attn} {counts[attn]} != "
+                             f"{want_attn} ({sched.spec_rounds} rounds)")
+    if replays < sched.draft_launches - 1 + max(sched.decode_launches - 1, 0):
+        raise AssertionError(f"[{label}] {replays} graph replays for "
+                             f"{sched.draft_launches} draft steps")
+    check_tokens(cfg, results, GEN, label)
+    draft_ms = float(np.percentile(sched.draft_seconds, 50) * 1e3)
+    verify_ms = float(np.percentile(sched.verify_seconds, 50) * 1e3)
+    rate = sched.spec_accepted / max(1, sched.spec_drafted)
+    log(f"  [{label}] {sched.spec_rounds} rounds, {sched.spec_accepted}/"
+        f"{sched.spec_drafted} drafts accepted ({rate:.3f}), "
+        f"{sched.spec_emitted} tokens from rounds, "
+        f"{sched.spec_verify_launches} verify chunks (#3 launched "
+        f"{counts['fused_prefill_attention']} = {cfg.n_layers} x ({chunks} "
+        f"chunks + verifies)), {sched.draft_launches} draft steps of "
+        f"{engine.draft_layers} layers at k_keep {engine.draft_k} ({attn} "
+        f"{counts[attn]}), {sched.decode_launches} plain steps; draft step "
+        f"p50 {draft_ms:.2f} ms (CUDA graph), verify chunk p50 "
+        f"{verify_ms:.2f} ms (eager, {GAMMA + 1} rows); {n_tok} tokens in "
+        f"{wall:.3f} s = {n_tok / wall:.2f} tok/s [{card}]")
+    return dict(tokens={rid: r.tokens for rid, r in results.items()},
+                verify_rows=rows,
+                counts=counts, tokens_per_s=n_tok / wall, draft_ms=draft_ms,
+                verify_ms=verify_ms, accept_rate=rate,
+                rounds=sched.spec_rounds)
+
+
+def spec_phase(torch, np, engine, dense, reqs, card) -> dict:
+    """Phase 4d, speculative traffic: 4 of phase 4's requests, γ 4, the
+    draft 13 of 26 layers at k_keep 1. No-LOP greedy and sampled against
+    plain decode of the same requests (equal, or a near-tie); LOP greedy
+    completes with #4 in its draft."""
+    from dataclasses import replace
+
+    from repro_torch.serving.api import SamplingParams
+
+    sreqs = [replace(r, arrival=None) for r in reqs[:N_SLOTS]]
+    out, ties = {}, []
+
+    def pair(kind, rs):
+        """Plain then speculative no-LOP runs of ``rs``, each lane kept at
+        its retirement for a divergence's diagnosis."""
+        with kept_lanes() as lanes:
+            plain = serve_run(torch, np, dense, rs, f"plain no-LOP {kind}",
+                              card)
+        plain = dict(plain, lanes=lanes,
+                     tokens={rid: r.tokens
+                             for rid, r in plain["results"].items()})
+        with kept_lanes() as lanes:
+            spec = dict(spec_run(torch, np, dense, rs, f"spec no-LOP {kind}",
+                                 card), lanes=lanes)
+        ties.extend(compare_streams(torch, np, dense, rs, spec, plain,
+                                    f"spec no-LOP {kind}", card,
+                                    sampled=kind == "sampled"))
+        return dict(spec_tokens_per_s=spec["tokens_per_s"],
+                    plain_tokens_per_s=plain["tokens_per_s"],
+                    **{k: spec[k] for k in ("draft_ms", "verify_ms",
+                                            "accept_rate", "rounds")})
+
+    def sp(rid):
+        return SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                              seed=rid)
+
+    out["greedy"] = pair("greedy", sreqs)
+    out["sampled"] = pair("sampled", [replace(r, sampling=sp(r.rid))
+                                      for r in sreqs])
+
+    spec = spec_run(torch, np, engine, sreqs, "spec LOP greedy", card)
+    if spec["counts"]["fused_decode_attention"] <= 0:
+        raise AssertionError("spec LOP greedy: the draft never launched #4")
+    out["lop"] = {k: spec[k] for k in ("tokens_per_s", "draft_ms",
+                                       "verify_ms", "accept_rate", "rounds")}
+    out["near_ties"] = ties
+    log(f"  speculative vs plain (4 requests, no-LOP): greedy "
+        f"{out['greedy']['spec_tokens_per_s']:.2f} vs "
+        f"{out['greedy']['plain_tokens_per_s']:.2f} tok/s, sampled "
+        f"{out['sampled']['spec_tokens_per_s']:.2f} vs "
+        f"{out['sampled']['plain_tokens_per_s']:.2f} tok/s; LOP greedy spec "
+        f"{out['lop']['tokens_per_s']:.2f} tok/s; near-ties {len(ties)}; "
+        f"{graph_memory(engine)}; no-LOP engine: {graph_memory(dense)} "
+        f"[{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1528,6 +2028,15 @@ def main() -> int:
         f"({sampled['sampled_eager_decode_step_ms_p50']:.2f}) ms [{smi}]")
     launches = dict(serve["counts"])
     launches[DENSE] = nolop["counts"][DENSE] + sampled["dense_launches"]
+
+    # ---- 4d. prefix caching and speculative decoding ----
+    log(f"[serve prefix + speculative] prefix traffic ({N_REQUESTS} "
+        f"requests: a shared {SHARED_PREFIX}-token prefix + {MIN_SUFFIX}-"
+        f"{MAX_SUFFIX} unique tokens, greedy, LOP), then speculative traffic"
+        f" (γ {GAMMA}, draft {engine.draft_layers} of {engine.cfg.n_layers}"
+        f" layers at k_keep {engine.draft_k}) [{smi}]")
+    prefix_phase(torch, np, engine, smi)
+    spec_phase(torch, np, engine, nolop["dense"], reqs, smi)
 
     # ---- 5. standalone kernels and the per-head LOP decode ----
     log(f"[standalone kernels + per-head LOP decode] full width (d 3200, "

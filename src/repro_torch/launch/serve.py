@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-3b \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
+        [--shared-prefix-tokens N --prefix-reuse-frac F] [--no-prefix-cache] \\
+        [--spec-decode --gamma G --draft-layers L --draft-k K] \\
         [--max-queue N] [--deadline-ms MS] [--stream] [--verify]
 
 Builds a seeded model on the device (the CUDA card unless ``--device cpu``),
@@ -14,6 +16,15 @@ of a serve cycle's decode call and, last, the modeled K/V traffic per
 head and query, dense against LOP. ``--no-lop`` decodes with dense attention
 (the LOP ablation arm); the sampling flags give every request the same
 policy, request ``rid`` sampling under seed ``sample_seed + rid``.
+``--shared-prefix-tokens N --prefix-reuse-frac F`` prepends one common
+N-token prefix (a shared system prompt) to the first F of the requests;
+the scheduler's prefix cache (on unless ``--no-prefix-cache``) serves its
+blocks from interned pages, and the run prints hits, prefill tokens
+computed against served, and TTFT of hits against misses.
+``--spec-decode`` drafts ``--gamma`` tokens a round with the first
+``--draft-layers`` layers and ``--draft-k`` LOP blocks, and verifies the
+γ+1 positions in one chunk; the run prints rounds, acceptance and
+full-model launches per token.
 ``--max-queue`` sheds submits past that queue depth and ``--deadline-ms``
 gives every request that latency budget. ``--verify`` replays every
 request that finished naturally (eos, stop, length; no fault recovery
@@ -40,18 +51,29 @@ from repro_torch.serving.scheduler import Scheduler, lockstep_generate
 def make_requests(cfg, *, n_requests: int, min_prompt: int, max_prompt: int,
                   gen: int, seed: int = 0,
                   sampling: SamplingParams | None = None,
+                  shared_prefix_tokens: int = 0,
+                  prefix_reuse_frac: float = 1.0,
                   deadline_ms: float | None = None, on_token=None) -> list:
     """Prompts of ``[min_prompt, max_prompt]`` random tokens, FIFO order.
     With ``sampling`` given, request ``rid`` samples under seed
-    ``sampling.seed + rid``."""
+    ``sampling.seed + rid``. ``shared_prefix_tokens > 0`` prepends ONE
+    common prefix of that many tokens to the first
+    ``round(prefix_reuse_frac * n_requests)`` prompts (the reference's
+    draws, in its order)."""
     if not 0 < min_prompt <= max_prompt:
         raise ValueError(f"need 0 < min_prompt <= max_prompt, got "
                          f"{min_prompt}..{max_prompt}")
     rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab,
+                          (shared_prefix_tokens,)).astype(np.int32)
+    n_sharers = (round(prefix_reuse_frac * n_requests)
+                 if shared_prefix_tokens else 0)
     reqs = []
     for rid in range(n_requests):
         plen = int(rng.integers(min_prompt, max_prompt + 1))
         prompt = rng.integers(0, cfg.vocab, (plen,)).astype(np.int32)
+        if rid < n_sharers:
+            prompt = np.concatenate([shared, prompt])
         sp = SamplingParams() if sampling is None else \
             replace(sampling, seed=sampling.seed + rid)
         reqs.append(GenerateRequest(rid=rid, prompt=prompt,
@@ -67,9 +89,13 @@ def _sync(device: torch.device) -> None:
 
 
 def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
-               max_queue: int | None = None, verify: bool = False) -> dict:
+               max_queue: int | None = None, verify: bool = False,
+               prefix_cache: bool = True, spec_decode: bool = False,
+               gamma: int = 4) -> dict:
     """Serve ``reqs`` (all arriving at t0) → stats dict."""
-    sched = Scheduler(engine, n_slots=n_slots, max_queue=max_queue)
+    sched = Scheduler(engine, n_slots=n_slots, max_queue=max_queue,
+                      prefix_cache=prefix_cache, spec_decode=spec_decode,
+                      gamma=gamma)
     _sync(engine.device)
     t0 = time.monotonic()
     for req in reqs:
@@ -79,18 +105,49 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
     wall = time.monotonic() - t0
     n_tok = sum(len(r.tokens) for r in results)
     ttft = [r.ttft for r in results if r.tokens] or [float("nan")]
+    ttft_hit = [r.ttft for r in results if r.tokens and r.cached_len] \
+        or [float("nan")]
+    ttft_miss = [r.ttft for r in results if r.tokens and not r.cached_len] \
+        or [float("nan")]
+    total = sum(len(r.tokens) for r in results)
     out = {
         "results": results,
         "tokens": {r.rid: list(r.tokens) for r in results},
         "wall_s": wall,
         "tokens_per_s": n_tok / max(wall, 1e-9),
         "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_hit_p50_s": float(np.percentile(ttft_hit, 50)),
+        "ttft_miss_p50_s": float(np.percentile(ttft_miss, 50)),
         "latency_p50_s": float(np.percentile([r.latency for r in results],
                                              50)),
         "serve_cycle_decode_ms_p50": float(np.percentile(
             sched.decode_seconds, 50) * 1e3) if sched.decode_seconds
         else float("nan"),
-        "decode_steps": sched.decode_steps,
+        "decode_launches": sched.decode_launches,
+        "prefix_cache": sched.prefix_store is not None,
+        "prefix_hits": sched.prefix_hits,
+        "prefix_hit_tokens": sched.prefix_hit_tokens,
+        "prefill_tokens_computed": sched.prefill_tokens_computed,
+        "prefill_tokens_served": sched.prefill_tokens_served,
+        "spec_decode": sched.spec,
+        "spec_rounds": sched.spec_rounds,
+        "spec_drafted": sched.spec_drafted,
+        "spec_accepted": sched.spec_accepted,
+        "spec_emitted": sched.spec_emitted,
+        "spec_verify_launches": sched.spec_verify_launches,
+        "draft_launches": sched.draft_launches,
+        "spec_accept_rate": sched.spec_accepted / max(1, sched.spec_drafted),
+        "spec_tokens_per_verify": (sched.spec_emitted
+                                   / max(1, sched.spec_verify_launches)),
+        # full-model launches (plain decode + verify) a generated token:
+        # below 1 is what speculation buys
+        "full_launches_per_token": ((sched.decode_launches
+                                     + sched.spec_verify_launches)
+                                    / max(1, total)),
+        "prefix_lookup_failures": sched.prefix_lookup_failures,
+        "checksum_failures": (sched.prefix_store.checksum_failures
+                              if sched.prefix_store is not None else 0),
+        "spec_watchdog_trips": sched.spec_watchdog_trips,
         "shed_count": sched.shed_count,
         "deadline_count": sched.deadline_count,
         "fault_events": sched.fault_events,
@@ -140,6 +197,26 @@ def main(argv=None) -> int:
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="base PRNG seed; request rid samples under "
                          "seed+rid")
+    ap.add_argument("--shared-prefix-tokens", type=int, default=0,
+                    help="length of ONE common prompt prefix (a shared "
+                         "system prompt) prepended to sharing requests")
+    ap.add_argument("--prefix-reuse-frac", type=float, default=1.0,
+                    help="fraction of requests sharing the common prefix")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="turn the scheduler's prefix store off (every "
+                         "prompt prefills cold)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="self-speculative decoding: draft with a layer "
+                         "prefix and a pinched LOP budget, verify γ+1 "
+                         "positions in one chunk, accept the agreeing "
+                         "prefix")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="speculative draft length a round")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="decoder layers the draft runs (default: "
+                         "n_layers // 2)")
+    ap.add_argument("--draft-k", type=int, default=None,
+                    help="LOP blocks the draft attention keeps (default 1)")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="admission bound: submits past this queue depth "
                          "are shed (reason \"shed\")")
@@ -155,10 +232,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = resolve_config(args.arch, args.reduced)
-    max_len = args.max_prompt + args.gen
+    max_len = args.max_prompt + args.gen + args.shared_prefix_tokens
     engine = PooledEngine.from_seed(cfg, seed=args.seed, max_len=max_len,
                                     device=args.device,
-                                    use_lop=not args.no_lop)
+                                    use_lop=not args.no_lop,
+                                    draft_layers=args.draft_layers,
+                                    draft_k=args.draft_k)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p, seed=args.sample_seed)
     on_token = None
@@ -172,6 +251,8 @@ def main(argv=None) -> int:
                          max_prompt=args.max_prompt, gen=args.gen,
                          seed=args.seed + 1,
                          sampling=None if sampling.greedy else sampling,
+                         shared_prefix_tokens=args.shared_prefix_tokens,
+                         prefix_reuse_frac=args.prefix_reuse_frac,
                          deadline_ms=args.deadline_ms, on_token=on_token)
     mode = "greedy" if sampling.greedy else (
         f"T={sampling.temperature} top_k={sampling.top_k} "
@@ -181,23 +262,48 @@ def main(argv=None) -> int:
           f"{args.max_prompt}, gen {args.gen}), lop="
           f"{'off' if args.no_lop else 'on'}, sampling {mode}")
     out = serve_loop(engine, reqs, n_slots=args.slots,
-                     max_queue=args.max_queue, verify=args.verify)
+                     max_queue=args.max_queue, verify=args.verify,
+                     prefix_cache=not args.no_prefix_cache,
+                     spec_decode=args.spec_decode, gamma=args.gamma)
     for r in out["results"]:
-        print(f"rid {r.rid:>3} prompt {r.prompt_len:>5} tokens "
-              f"{len(r.tokens):>4} ttft {r.ttft * 1e3:9.1f} ms latency "
-              f"{r.latency * 1e3:9.1f} ms  {r.finish_reason}")
+        print(f"rid {r.rid:>3} prompt {r.prompt_len:>5} cached "
+              f"{r.cached_len:>5} tokens {len(r.tokens):>4} ttft "
+              f"{r.ttft * 1e3:9.1f} ms latency {r.latency * 1e3:9.1f} ms  "
+              f"{r.finish_reason}")
     print(f"wall {out['wall_s']:.3f} s, {out['tokens_per_s']:.1f} tok/s, "
           f"ttft p50 {out['ttft_p50_s'] * 1e3:.1f} ms, latency p50 "
           f"{out['latency_p50_s'] * 1e3:.1f} ms, serve-cycle decode "
           f"p50 {out['serve_cycle_decode_ms_p50']:.2f} ms (waits on the "
           f"cycle's prefill chunk)")
+    if out["spec_decode"]:
+        print(f"speculative decode: {out['spec_rounds']} rounds, accept "
+              f"rate {out['spec_accept_rate']:.2f} ({out['spec_accepted']}/"
+              f"{out['spec_drafted']} drafts), "
+              f"{out['spec_tokens_per_verify']:.2f} tokens/verify launch, "
+              f"{out['full_launches_per_token']:.2f} full-model launches "
+              f"per token ({out['decode_launches']} decode + "
+              f"{out['spec_verify_launches']} verify; "
+              f"{out['draft_launches']} draft steps of "
+              f"{engine.draft_layers} layers, draft_k {engine.draft_k})")
+    if out["prefix_cache"]:
+        print(f"prefix cache: {out['prefix_hits']} hits "
+              f"({out['prefix_hit_tokens']} tokens served from interned "
+              f"pages), prefill tokens computed/served: "
+              f"{out['prefill_tokens_computed']}/"
+              f"{out['prefill_tokens_served']}; ttft p50 hit/miss: "
+              f"{out['ttft_hit_p50_s'] * 1e3:.1f} / "
+              f"{out['ttft_miss_p50_s'] * 1e3:.1f} ms")
     if args.max_queue is not None or args.deadline_ms is not None \
-            or out["fault_events"]:
+            or out["fault_events"] or out["prefix_lookup_failures"] \
+            or out["checksum_failures"] or out["spec_watchdog_trips"]:
         print(f"robustness: {out['shed_count']} shed, "
               f"{out['deadline_count']} deadline-expired, "
               f"{out['fault_events']} fault events "
               f"({out['fault_recoveries']} recovered, "
-              f"{out['fault_finishes']} gave up)")
+              f"{out['fault_finishes']} gave up), "
+              f"{out['prefix_lookup_failures']} prefix-lookup failures, "
+              f"{out['checksum_failures']} checksum failures, "
+              f"{out['spec_watchdog_trips']} spec-watchdog trips")
     if args.verify:
         status = ("OK" if out["verified"]
                   else f"MISMATCH rids={out['mismatched_rids']}")

@@ -9,9 +9,11 @@ pooled engine.
   ``deadline_ms`` latency budget.
 * :class:`StepResult` — one streamed token; :class:`FinishedRequest` — the
   completed request with its finish reason and latency breakdown.
+* :class:`ExistingPrefix` — interned prefix pages to resume a prompt from.
 * :class:`PooledEngine` — the lifecycle the scheduler speaks:
   ``init_pool`` / ``prefill`` / ``prefill_chunk`` / ``insert`` /
-  ``extract`` / ``decode_step`` / ``retry_step`` / ``rollback`` /
+  ``bulk_insert`` / ``extract`` / ``decode_step`` / ``retry_step`` /
+  ``draft`` / ``verify_chunk`` / ``sample_block`` / ``rollback`` /
   ``evict`` / ``sample_first`` / ``set_sampling_state``.
 
 Sampling state lives in the pool (``seed`` / ``sample_step``):
@@ -19,15 +21,15 @@ Sampling state lives in the pool (``seed`` / ``sample_step``):
 the lane. After every ``decode_step`` the engine publishes ``last_ok``
 (np bool [B]), each lane's logit finiteness for that step; ``retry_step``
 recomputes one quarantined lane with the LOP screen off (the dense decode
-kernel) against a pool already rewound by ``rollback``. Prefix caching and
-speculative decoding are not ported yet.
+kernel) against a pool already rewound by ``rollback``.
 
-Like the reference's four compiled decode functions, ``decode_step`` and
-``retry_step`` run one of four entries (greedy or sampled decode, greedy
-or sampled retry), each one function of device tensors alone
-(``PooledEngine._step``). On a card each entry replays a CUDA graph of
-the whole step (:mod:`repro_torch.serving.graphs`); on the CPU it runs
-eagerly on the plain kernel versions.
+Like the reference's six compiled step functions, ``decode_step``,
+``retry_step`` and ``draft`` run one of six entries (greedy or sampled
+decode, retry and speculative draft), each one function of device tensors
+alone (``PooledEngine._step``). On a card each entry replays a CUDA graph
+of the whole step (:mod:`repro_torch.serving.graphs`); on the CPU it runs
+eagerly on the plain kernel versions. ``verify_chunk`` (a γ+1-row chunk
+scored exactly) runs eagerly, like ``prefill_chunk``.
 """
 
 from __future__ import annotations
@@ -148,6 +150,8 @@ class FinishedRequest:
     t_first: float = 0.0
     t_done: float = 0.0
     token_times: list = field(default_factory=list)
+    cached_len: int = 0                # prompt tokens served from the
+    #                                    prefix cache (0 = cold prefill)
 
     @property
     def ttft(self) -> float:
@@ -161,6 +165,19 @@ class FinishedRequest:
     def itl(self) -> list:
         """Inter-token latencies (seconds), one per token after the first."""
         return [b - a for a, b in zip(self.token_times, self.token_times[1:])]
+
+
+@dataclass(frozen=True)
+class ExistingPrefix:
+    """A computed prefill prefix to resume from: ``cache`` is a batch-1
+    tree of block-aligned prefix pages (K/V, scales and packed LOP feature
+    rows for the first ``common_len`` positions, ``lengths ==
+    [common_len]``), as :meth:`repro_torch.serving.cache.PrefixStore.
+    assemble` builds it. ``PooledEngine.bulk_insert`` clones it into many
+    lanes; each resumes chunked prefill at ``start = common_len``, so a
+    hit decodes token-identically to a cold prefill."""
+    cache: dict
+    common_len: int
 
 
 def _int32(x: int) -> int:
@@ -206,15 +223,18 @@ class PooledEngine:
     tests pass ``device="cpu"`` to run the plain kernel versions. Pool
     operations update the pool in place and return it.
 
-    On a card the decode entries replay CUDA graphs
+    On a card the step entries (decode, retry, draft) replay CUDA graphs
     (:class:`repro_torch.serving.graphs.StepGraphs`, ``self.graphs``);
     ``graphs=False`` runs them eagerly instead, which only a caller holding
     the graphs to the eager step (or timing the two) asks for. The CPU
-    builds no graph.
+    builds no graph. ``draft_layers`` (default ``n_layers // 2``) and
+    ``draft_k`` (default 1) shape the speculative draft.
     """
 
     def __init__(self, cfg, qp, *, max_len: int, use_lop: bool = True,
-                 device=None, graphs: bool = True):
+                 device=None, graphs: bool = True,
+                 draft_layers: int | None = None,
+                 draft_k: int | None = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the f32 head matmul (outside any kernel) runs in full f32
@@ -226,6 +246,16 @@ class PooledEngine:
         self.use_lop = use_lop
         self.chunk_tokens = cfg.lop_block
         self.supports_chunked = cfg.family == "dense"
+        # prefix pages are lop_block-aligned and resume through the chunk
+        # carry; speculation needs rewindable pages and a chunk-shaped
+        # verify: both exist exactly where chunked prefill does
+        self.prefix_block = cfg.lop_block if self.supports_chunked else 0
+        self.supports_speculative = self.supports_chunked
+        # the draft: a layer-stack prefix and a pinched LOP budget
+        self.draft_layers = min(cfg.n_layers, max(1, (
+            draft_layers if draft_layers is not None
+            else cfg.n_layers // 2)))
+        self.draft_k = 1 if draft_k is None else max(1, draft_k)
         self.last_ok = None            # np bool [B] after each decode_step
         self.graphs = (StepGraphs(self.device)
                        if graphs and self.device.type == "cuda" else None)
@@ -247,11 +277,37 @@ class PooledEngine:
         return _cache.init_cache_pool(self.cfg, n_slots, self.max_len,
                                       self.device)
 
+    def prefix_len(self, req: GenerateRequest) -> int:
+        """Cache positions a request holds before its text tokens (an
+        image prefix; none in the dense family)."""
+        return 0
+
     def insert(self, pool, slot: int, req_cache) -> dict:
         return _cache.insert_slot(pool, slot, req_cache)
 
+    def bulk_insert(self, pool, slots, prefix: ExistingPrefix,
+                    active: bool = False, start: int = 0) -> dict:
+        """Clone one :class:`ExistingPrefix` into lanes ``slots`` (in
+        place, one write a leaf). Lanes land inactive with length
+        ``prefix.common_len``: they resume chunked prefill there. With
+        ``start`` > 0 ``prefix.cache`` holds the positions ``[start,
+        common_len)`` only — one store node of a chain whose earlier nodes
+        went in before it."""
+        pool = _cache.bulk_insert(pool, slots, prefix.cache, active=active,
+                                  start=start)
+        pool["lengths"][list(slots)] = prefix.common_len
+        return pool
+
     def extract(self, pool, slot: int) -> dict:
-        return _cache.extract_slot(pool, slot)
+        """A batch-1 *copy* of lane ``slot`` (lengths, pages and key
+        schedule): nothing done to the pool later reaches it."""
+        lane = _cache.extract_slot(pool, slot)
+        out = {"lengths": lane["lengths"].clone(),
+               "layers": {k: v.clone() for k, v in lane["layers"].items()}}
+        for key in ("seed", "sample_step"):
+            if key in pool:
+                out[key] = pool[key][slot:slot + 1].clone()
+        return out
 
     def evict(self, pool, slot: int) -> dict:
         return _cache.evict_slot(pool, slot)
@@ -293,21 +349,31 @@ class PooledEngine:
         return toks
 
     def _step(self, pool, inp, entry: str) -> torch.Tensor:
-        """One decode entry — ``"greedy"``, ``"sampled"``,
-        ``"retry_greedy"`` or ``"retry_sampled"`` — on device tensors
-        alone: ``inp`` is :func:`step_inputs` on the device. The step,
-        the fault add, the finiteness guard, the argmax or sampler and the
-        pool updates, all in place. → int32 [2, B]: tokens, finiteness."""
+        """One step entry — ``"greedy"``, ``"sampled"``,
+        ``"retry_greedy"``, ``"retry_sampled"``, ``"draft_greedy"`` or
+        ``"draft_sampled"`` — on device tensors alone: ``inp`` is
+        :func:`step_inputs` on the device. The step, the fault add and the
+        finiteness guard (not in a draft, as in the reference), the argmax
+        or sampler and the pool updates, all in place. → int32 [2, B]:
+        tokens, finiteness."""
         tokens, fadd, temperature, top_k, top_p, slot = _unpack(inp)
         retry = entry.startswith("retry")
         active = pool.get("active")
         if retry:
             lanes = torch.arange(active.shape[0], device=active.device)
             active = active & (lanes == slot)
-        logits, pool = serve_step(self.cfg, self.qp, pool, tokens,
-                                  use_lop=self.use_lop and not retry,
-                                  active=active)
-        logits, ok = guard_logits(logits, fadd)
+        if entry.startswith("draft"):
+            logits, pool = serve_step(
+                self.cfg, self.qp, pool, tokens, use_lop=self.use_lop,
+                active=active, n_layers=self.draft_layers,
+                k_keep=self.draft_k)
+            ok = torch.ones(logits.shape[0], dtype=torch.bool,
+                            device=logits.device)
+        else:
+            logits, pool = serve_step(self.cfg, self.qp, pool, tokens,
+                                      use_lop=self.use_lop and not retry,
+                                      active=active)
+            logits, ok = guard_logits(logits, fadd)
         toks = self._pick(logits, pool, active, entry.endswith("sampled"),
                           temperature, top_k, top_p)
         return torch.stack([toks.to(torch.int32), ok.to(torch.int32)])
@@ -325,11 +391,12 @@ class PooledEngine:
         return both[0], both[1].astype(bool)
 
     @staticmethod
-    def _entry(temperature, retry: bool = False) -> str:
-        """The host-side choice: greedy when every lane is greedy."""
+    def _entry(temperature, kind: str = "") -> str:
+        """The host-side choice: greedy when every lane is greedy; ``kind``
+        ``"retry"`` or ``"draft"`` names the retry's or the draft's twin."""
         mode = ("greedy" if np.all(np.asarray(temperature) <= 0.0)
                 else "sampled")
-        return f"retry_{mode}" if retry else mode
+        return f"{kind}_{mode}" if kind else mode
 
     def decode_step(self, pool, tokens, temperature, top_k, top_p):
         """Advance every active lane one token and sample it.
@@ -358,9 +425,57 @@ class PooledEngine:
         n = np.asarray(tokens).shape[0]
         host = step_inputs(tokens, _faults.retry_fault_add(n), temperature,
                            top_k, top_p, slot=slot)
-        toks, ok = self._run(self._entry(temperature, retry=True), pool,
-                             host)
+        toks, ok = self._run(self._entry(temperature, "retry"), pool, host)
         return toks, ok, pool
+
+    # ---------------- speculative decoding ----------------
+
+    def draft(self, pool, tokens, temperature, top_k, top_p):
+        """One draft step over every active lane — the speculative
+        proposer (``draft_layers`` layers, LOP budget ``draft_k``),
+        batched like :meth:`decode_step` and sampled under the same
+        in-pool key schedule (a sampled lane's ``sample_step`` advances).
+        Its cache rows are provisional: verify overwrites them,
+        ``rollback`` rewinds the rejected tail. No fault is injected here.
+        → (np.int32 [B], pool)."""
+        host = step_inputs(tokens, None, temperature, top_k, top_p)
+        toks, _ = self._run(self._entry(temperature, "draft"), pool, host)
+        return toks, pool
+
+    def verify_chunk(self, pool, slot: int, tokens, start: int):
+        """Score γ+1 positions of lane ``slot`` exactly in one chunk:
+        ``tokens`` [1, γ+1] = [t_last, d_1..d_γ] at positions [start,
+        start+γ+1), whose K/V are (re)written for every layer over the
+        draft's provisional rows; the lane's length lands at start+γ+1 and
+        its ``sample_step`` moves by 1 (with the γ draft advances and the
+        rollback of γ−j rejected tokens, a lane that accepts j drafts nets
+        j+1, its emissions). Runs eagerly. → (logits [1, γ+1, V] on the
+        device, row i the target after position start+i; pool)."""
+        width = np.asarray(tokens).shape[1]
+        lane = _cache.extract_slot(pool, slot)
+        logits, lane = prefill_chunk(self.cfg, self.qp, self._tokens(tokens),
+                                     lane, start=start, seq_end=start + width,
+                                     all_logits=True)
+        pool = _cache.insert_slot(pool, slot, lane, active=True)
+        pool["sample_step"][slot:slot + 1].add_(1)
+        return logits, pool
+
+    def sample_block(self, logits, sampling: SamplingParams | None,
+                     first_step: int) -> np.ndarray:
+        """Every row of verify logits [C, V] (or [1, C, V]) under one
+        request's policy, row i at key-schedule step ``first_step + i`` —
+        the keys the lane's decode steps would use, so the accepted sampled
+        stream is the non-speculative one. → np.int32 [C]."""
+        sp = sampling or GREEDY
+        rows = logits[0] if logits.dim() == 3 else logits
+        c = rows.shape[0]
+        toks = sample_with_seed(
+            rows, self._vec(np.full(c, _int32(sp.seed)), np.int32),
+            self._vec(first_step + np.arange(c), np.int32),
+            self._vec(np.full(c, sp.temperature), np.float32),
+            self._vec(np.full(c, sp.top_k), np.int32),
+            self._vec(np.full(c, sp.top_p), np.float32))
+        return toks.cpu().numpy()
 
     def rollback(self, pool, slot: int, n: int) -> dict:
         """Rewind lane ``slot`` by ``n`` appends

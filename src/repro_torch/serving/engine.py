@@ -11,7 +11,11 @@ the layer-stacked weights.
 The cache is written in place: prefill writes each layer's K/V/features
 into a preallocated capacity-padded cache, a chunk writes its rows at
 ``[start, start + C)`` of the lane it was given (a view into the pool), and
-a decode step appends one token per active lane.
+a decode step appends one token per active lane. Self-speculative decoding
+(DESIGN.md §Speculative-decoding) adds the draft step — the first
+``draft_layers`` layers with the LOP budget pinched to ``draft_k`` blocks,
+then the shared head — and the verify chunk, :func:`prefill_chunk` with
+``all_logits=True``.
 """
 
 from __future__ import annotations
@@ -109,11 +113,14 @@ def attn_prefill_chunk(cfg, lp, h, cl, *, start: int, kv_len):
 
 
 def lop_decode_attention(cfg, qi, qsc, cl, new_len, *, window: int,
-                         use_lop: bool = True):
-    """qi int8 [B, H, dh]; qsc f32 [B, H, 1] → f32 [B, H, dh]."""
+                         use_lop: bool = True, k_keep: int | None = None):
+    """qi int8 [B, H, dh]; qsc f32 [B, H, 1] → f32 [B, H, dh].
+    ``k_keep`` overrides the config's kept-block budget (the speculative
+    draft's pinched budget); None is the config's policy."""
     cfg = resolve_decode_flags(cfg)
     m = cl["k"].shape[2]
-    k_keep = k_keep_blocks(cfg, m)
+    if k_keep is None:
+        k_keep = k_keep_blocks(cfg, m)
     return ops.decode_attention(
         qi, qsc, cl["k"], cl["v"], cl["k_scale"], cl["v_scale"], cl["feat"],
         new_len, block=cfg.lop_block,
@@ -135,7 +142,8 @@ def _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active=None) -> None:
         cl[key][lanes, :, pos] = val
 
 
-def attn_decode(cfg, lp, h, cl, lengths, *, use_lop=True, active=None):
+def attn_decode(cfg, lp, h, cl, lengths, *, use_lop=True, active=None,
+                k_keep=None):
     """One-token self-attention with cache append. h [B, 1, D]."""
     b = h.shape[0]
     q, k, v = _project_qkv(cfg, lp, h)
@@ -152,7 +160,8 @@ def attn_decode(cfg, lp, h, cl, lengths, *, use_lop=True, active=None):
     _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active)
     out = lop_decode_attention(cfg, qi, qsc, cl, new_len,
                                window=cfg.swa_window,
-                               use_lop=use_lop and cfg.use_lop)
+                               use_lop=use_lop and cfg.use_lop,
+                               k_keep=k_keep)
     if active is not None:
         out = torch.where(active[:, None, None], out, 0.0)
     return qlinear(lp["wo"], out.reshape(b, 1, cfg.q_dim))
@@ -188,11 +197,18 @@ def prefill(cfg, qp, tokens, *, max_len=None):
     return _logits(cfg, qp, x[:, -1]), cache
 
 
-def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int):
+def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int,
+                  all_logits: bool = False):
     """One chunk of chunked prefill. tokens [B, C] at positions
     [start, start + C); ``cache`` holds [0, start) and is written in place
     at [start, start + C) with ``lengths = seq_end``. → (logits [B, V] at
-    position ``seq_end - 1``, cache)."""
+    position ``seq_end - 1``, cache).
+
+    ``start`` may be any block multiple on a lane's first chunk: a prefix
+    hit resumes past cloned pages with the same carry as any later chunk.
+    With ``all_logits=True`` the logits are [B, C, V], one row a chunk
+    position — the speculative verify call, whose row i is the target for
+    the token after position ``start + i``."""
     cfg = resolve_decode_flags(cfg)
     _check_dense(cfg)
     b, c = tokens.shape
@@ -207,11 +223,14 @@ def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int):
                                    start=start, kv_len=kv_len)
         x = _mlp(cfg, lp, x)
     cache["lengths"].fill_(seq_end)
+    if all_logits:
+        return _logits(cfg, qp, x), cache
     idx = min(max(seq_end - 1 - start, 0), c - 1)
     return _logits(cfg, qp, x[:, idx]), cache
 
 
-def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None):
+def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
+               n_layers: int | None = None, k_keep: int | None = None):
     """One decode step. tokens [B, 1] → (logits [B, V], cache).
 
     Only the lanes of ``active`` (bool [B]; by default the pool's own
@@ -219,6 +238,13 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None):
     others write nothing and keep their lengths. The cache is updated in
     place and no entry of it is rebound, so a CUDA graph of the step stays
     valid for the same cache.
+
+    The self-speculative draft step is the same step cut short: the first
+    ``n_layers`` decoder layers (views of the pool's layer axis) with the
+    LOP budget pinched to ``k_keep`` kept blocks, then the shared head. Its
+    rows land in those layers only and ``lengths`` moves as in a full
+    step: provisional state that the verify chunk overwrites for every
+    layer and ``rollback_slot`` rewinds for rejected tokens.
     """
     cfg = resolve_decode_flags(cfg)
     _check_dense(cfg)
@@ -226,12 +252,12 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None):
     if active is None:
         active = cache.get("active")
     x = embedding_apply(qp["embed"], tokens)
-    for i in range(cfg.n_layers):
+    for i in range(cfg.n_layers if n_layers is None else n_layers):
         lp = layer_slice(qp["layers"], i)
         cl = layer_slice(cache["layers"], i)
         x = x + attn_decode(cfg, lp["attn"],
                             norm_apply(lp["ln1"], x, cfg.norm), cl, lengths,
-                            use_lop=use_lop, active=active)
+                            use_lop=use_lop, active=active, k_keep=k_keep)
         x = _mlp(cfg, lp, x)
     lengths.add_(1 if active is None else active.to(torch.int32))
     return _logits(cfg, qp, x[:, -1]), cache

@@ -2,15 +2,18 @@
 
 A frozen, seeded :class:`FaultPlan` names which engine call and lane
 misbehaves, and :func:`inject` activates it for a scoped region of code.
-Injection is keyed by call counters (the N-th ``decode_step`` dispatch),
-not wall time, so two runs of one request trace under one plan inject at
-the same points. The detection and recovery it exercises live in the
-scheduler (NaN guard → ``rollback_slot`` → no-LOP retry).
+Injection is keyed by call counters (the N-th ``decode_step`` dispatch,
+the N-th prefix-store insert, the N-th store lookup), not wall time, so
+two runs of one request trace under one plan inject at the same points.
+The detection and recovery it exercises live in the scheduler (NaN guard
+→ ``rollback_slot`` → no-LOP retry; a lookup outage → cold prefill) and
+in :class:`repro_torch.serving.cache.PrefixStore` (page checksums → a
+shorter match or a cold prefill).
 
 The plan is the reference's whole (``FaultPlan.random`` draws the same
-plan for the same seed); the prefix-store injection points
-(``page_bitflips``, ``lookup_failures``) are carried in the plan but
-nothing reads them until the prefix store is ported.
+plan for the same seed), and a flipped page bit is drawn from the same
+seeded generator in the same order, so it lands on the reference's leaf,
+byte and bit.
 
 No plan active (the default) costs one ``is None`` check per injection
 point.
@@ -25,6 +28,11 @@ from dataclasses import dataclass
 import numpy as np
 
 
+class PrefixLookupError(RuntimeError):
+    """An injected prefix-store lookup failure (a store outage). The
+    scheduler degrades the request to a cold prefill and counts it."""
+
+
 @dataclass(frozen=True)
 class FaultPlan:
     """One deterministic failure schedule.
@@ -34,9 +42,12 @@ class FaultPlan:
                          no-LOP retry recomputes it cleanly).
     ``sticky_nan_lanes`` {lane}: non-finite on EVERY dispatch including
                          the retry, so the lane finishes with ``"fault"``.
-    ``page_bitflips``    {insert_call}: prefix-store page rot (prefix store
-                         not ported).
-    ``lookup_failures``  {match_call}: prefix-store outage (not ported).
+    ``page_bitflips``    {insert_call}: the prefix-store node interned by
+                         that ``PrefixStore.insert`` call gets one bit
+                         flipped in its pages after its checksum is taken
+                         (the next match's checksum catches it).
+    ``lookup_failures``  {match_call}: that ``PrefixStore.match`` call
+                         raises :class:`PrefixLookupError`.
     ``slow_steps``       {decode_call}: that dispatch sleeps ``slow_s``
                          seconds first (deadline pressure).
     """
@@ -80,11 +91,15 @@ class FaultPlan:
 
 @dataclass
 class _FaultState:
-    """Mutable per-``inject`` bookkeeping: call counter + telemetry."""
+    """Mutable per-``inject`` bookkeeping: call counters + telemetry."""
     plan: FaultPlan
     decode_calls: int = 0
+    insert_calls: int = 0
+    match_calls: int = 0
     injected_nan: int = 0
     injected_slow: int = 0
+    injected_flips: int = 0
+    injected_lookup_failures: int = 0
 
 
 _STATE: _FaultState | None = None
@@ -150,3 +165,31 @@ def retry_fault_add(n_lanes: int):
         if lane < n_lanes:
             add[lane] = np.nan
     return add
+
+
+def page_corruption_rng():
+    """For the NEXT ``PrefixStore.insert`` call: a seeded Generator to
+    pick the flipped bit with, or None. Advances the insert counter."""
+    st = _STATE
+    if st is None:
+        return None
+    call = st.insert_calls
+    st.insert_calls += 1
+    if call not in st.plan.page_bitflips:
+        return None
+    st.injected_flips += 1
+    return np.random.default_rng((st.plan.seed, call))
+
+
+def lookup_fails() -> bool:
+    """Whether the NEXT ``PrefixStore.match`` call raises
+    :class:`PrefixLookupError`. Advances the match counter."""
+    st = _STATE
+    if st is None:
+        return False
+    call = st.match_calls
+    st.match_calls += 1
+    if call in st.plan.lookup_failures:
+        st.injected_lookup_failures += 1
+        return True
+    return False

@@ -1,7 +1,7 @@
-"""CUDA graphs of the engine's decode entries — the port's counterpart of
-the reference's ``jax.jit(step, donate_argnums=(1,))`` decode functions
+"""CUDA graphs of the engine's step entries — the port's counterpart of
+the reference's ``jax.jit(step, donate_argnums=(1,))`` step functions
 (``src/repro/serving/api.py``: greedy and sampled decode, greedy and
-sampled retry).
+sampled retry, greedy and sampled speculative draft).
 
 A graph replays the kernels it recorded on the addresses it recorded: the
 weights, every pool tensor (which the step updates in place and never
@@ -18,7 +18,9 @@ launch-plan caches and sets up cuBLAS for the f32 head, and its result is
 the step's result; the second call captures (no kernel runs, so the pool
 does not move) and replays; every later call replays. No pool is stepped
 twice. An engine keeps at most :data:`GRAPH_BOUND` (8) keys, warmed or
-captured; the least recently used goes first, with its graph.
+captured; the least recently used goes first, with its graph. One pool
+uses at most the six entries, so a scheduler's pool keeps all of its own
+graphs; keys of pools that are gone age out.
 
 The kernel wrappers count launches on the host, so they count at capture
 and never at replay: the capture's counts are taken back and every replay
@@ -83,6 +85,7 @@ class StepGraphs:
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device)
         self._live: OrderedDict = OrderedDict()   # key → _Graph | None
+        self.replays = 0                          # replays since creation
 
     @property
     def count(self) -> int:
@@ -140,6 +143,7 @@ class StepGraphs:
     def _replay(self, graph: _Graph, host):
         graph.inp.copy_(torch.from_numpy(host), non_blocking=True)
         graph.graph.replay()
+        self.replays += 1
         ops.add_launches(graph.launches)
         return graph.out
 

@@ -6,19 +6,32 @@ A FIFO queue feeds ``n_slots`` persistent decode lanes. Per request:
 
 ``admit`` reserves a free lane and plans the prompt's chunk grid (chunk =
 ``lop_block`` tokens; the last chunk is right-padded to the same width
-unless that would pass the pool capacity). Each ``step`` first retires
-cancelled and deadline-expired requests wherever they are (queued,
+unless that would pass the pool capacity). With the prefix cache on (the
+default) the prompt is first matched against the
+:class:`repro_torch.serving.cache.PrefixStore`: hits are cloned into their
+lanes after the admit sweep — node by node, one ``engine.bulk_insert`` a
+chain node for all the lanes that matched it — and plan chunks for the
+uncached suffix only; a finished prompt's block-aligned pages are interned
+at activation. Each ``step`` first
+retires cancelled and deadline-expired requests wherever they are (queued,
 mid-prefill, decoding), advances ONE chunk of the oldest mid-prefill lane,
 then decodes every active lane by one token under its own
-:class:`SamplingParams`. A lane retires on ``eos_id``, a stop sequence or
-its token budget.
+:class:`SamplingParams` — or, with ``spec_decode``, runs one speculative
+round (γ batched draft steps, then one γ+1-row verify chunk a lane; the
+agreeing drafts and the verifier's next token are emitted, the rejected
+tail rewound). A lane retires on ``eos_id``, a stop sequence or its token
+budget.
 
 Fault tolerance: ``max_queue`` bounds the queue (a submit past it is shed
 at once, reason ``"shed"``); a lane whose decode logits go non-finite is
 rewound bitwise (``engine.rollback``) and retried once through the
 engine's single-lane no-LOP step, and gives up with reason ``"fault"``
-only if the retry fails too. ``check_invariants=True`` cross-checks the
-host bookkeeping against the pool after every step.
+only if the retry fails too (a faulted lane drafts no more); a store
+outage degrades to a cold prefill and a corrupt interned page to a shorter
+match; a lane whose drafts are never accepted stops drafting after
+``spec_watchdog`` rounds. ``check_invariants=True`` cross-checks the host
+bookkeeping against the pool (and the store's structure) after every
+step.
 
 :func:`lockstep_generate` is the batch-1 reference: whole-prompt prefill
 then one decode step per token, through the same engine and sampler.
@@ -36,9 +49,12 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from repro_torch.serving.api import (GREEDY, FinishedRequest, GenerateRequest,
-                                     PooledEngine, SamplingParams, StepResult)
-from repro_torch.serving.cache import pool_capacity
+from repro_torch.serving import cache as _cache
+from repro_torch.serving.api import (GREEDY, ExistingPrefix, FinishedRequest,
+                                     GenerateRequest, PooledEngine,
+                                     SamplingParams, StepResult)
+from repro_torch.serving.cache import PrefixStore, pool_capacity
+from repro_torch.serving.faults import PrefixLookupError
 
 
 @dataclass
@@ -49,6 +65,9 @@ class _Lane:
     t_admit: float
     t_first: float
     token_times: list
+    cached_len: int = 0                # prompt tokens cloned from the store
+    no_spec: bool = False              # drafting off (watchdog or fault)
+    zero_accept_rounds: int = 0        # consecutive 0-accept spec rounds
 
 
 @dataclass
@@ -60,16 +79,29 @@ class _Prefill:
     seq_ends: list
     t_admit: float
     next_chunk: int = 0
+    cached_len: int = 0                # prefix tokens the lane resumes past
 
 
 class Scheduler:
-    """Continuous batching over a :class:`PooledEngine`."""
+    """Continuous batching over a :class:`PooledEngine`.
+
+    ``prefix_cache`` (on by default) caches prefixes wherever the engine
+    declares a ``prefix_block``; the interned pages are bounded at 4× the
+    pool's token capacity. ``spec_decode`` turns on self-speculative
+    decoding with draft length ``gamma`` where the engine declares
+    ``supports_speculative``; ``spec_watchdog`` is the number of
+    consecutive zero-accept rounds after which a lane drafts no more.
+    """
 
     def __init__(self, engine: PooledEngine, *, n_slots: int,
                  max_queue: int | None = None, check_invariants: bool = False,
-                 clock=time.monotonic):
+                 prefix_cache: bool = True,
+                 spec_decode: bool = False, gamma: int = 4,
+                 spec_watchdog: int = 3, clock=time.monotonic):
         if not engine.supports_chunked:
             raise NotImplementedError("only chunked prefill is ported")
+        if spec_decode and gamma < 1:
+            raise ValueError(f"spec_decode needs gamma >= 1, got {gamma}")
         self.engine = engine
         self.n_slots = n_slots
         self.max_queue = max_queue
@@ -78,14 +110,43 @@ class Scheduler:
         self.pool = self.engine.init_pool(n_slots)
         self.capacity = pool_capacity(self.pool)
         self.chunk_tokens = self.engine.chunk_tokens
+        # an engine without rewindable pages or a chunked verify serves
+        # plain decode
+        self.spec = spec_decode and self.engine.supports_speculative
+        self.gamma = gamma
+        self.spec_watchdog = spec_watchdog
+        self.prefix_store: PrefixStore | None = None
+        if prefix_cache and self.engine.prefix_block:
+            self.prefix_store = PrefixStore(self.engine.prefix_block,
+                                            max_tokens=4 * self.capacity)
         self.queue: deque[GenerateRequest] = deque()
         self.lanes: list[_Lane | None] = [None] * n_slots
         self._free: deque[int] = deque(range(n_slots))
         self._prefilling: deque[_Prefill] = deque()
         self._next_tok = np.zeros((n_slots, 1), np.int32)
         self.results: list[FinishedRequest] = []
-        self.decode_steps = 0
+        # host seconds of each plain decode step, draft step and verify
+        # chunk (each ends in its one host transfer)
         self.decode_seconds: list[float] = []
+        self.draft_seconds: list[float] = []
+        self.verify_seconds: list[float] = []
+        # prefix-cache telemetry: hits, and prompt tokens served from
+        # interned pages against those actually computed
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefill_tokens_computed = 0
+        self.prefill_tokens_served = 0
+        # speculative telemetry: full-model launches are decode_launches
+        # + spec_verify_launches; draft_launches are the proposer's steps
+        self.spec_rounds = 0
+        self.spec_drafted = 0          # draft tokens proposed
+        self.spec_accepted = 0         # drafts that matched verify
+        self.spec_emitted = 0          # tokens emitted by spec rounds
+        self.spec_verify_launches = 0
+        self.draft_launches = 0
+        self.decode_launches = 0       # plain decode steps
+        self.prefix_lookup_failures = 0
+        self.spec_watchdog_trips = 0
         self.shed_count = 0            # submits rejected at the bound
         self.queue_depth_peak = 0
         self.deadline_count = 0        # requests retired past deadline
@@ -126,13 +187,16 @@ class Scheduler:
 
     # ---------------- admit / prefill ----------------
 
-    def _plan_chunks(self, req: GenerateRequest):
-        """Fixed-width chunk grid of one prompt; the final chunk is padded
-        to the same width unless that would pass the pool capacity."""
+    def _plan_chunks(self, req: GenerateRequest, skip: int = 0):
+        """Fixed-width chunk grid of one prompt's suffix ``[skip, plen)``
+        (``skip``: block-aligned tokens a prefix hit already holds, so the
+        first chunk starts at the cached boundary); the final chunk is
+        padded to the same width unless that would pass the pool
+        capacity."""
         plen = len(req.prompt)
         c = self.chunk_tokens
         chunks, starts, seq_ends = [], [], []
-        for lo in range(0, max(plen, 1), c):
+        for lo in range(skip, max(plen, skip + 1), c):
             hi = min(plen, lo + c)
             width = c if lo + c <= self.capacity else hi - lo
             buf = np.zeros((1, width), np.int32)
@@ -142,11 +206,26 @@ class Scheduler:
             seq_ends.append(hi)
         return chunks, starts, seq_ends
 
+    def _match(self, req: GenerateRequest):
+        """The prompt's longest interned prefix → (tokens, node); a store
+        outage is a miss, counted."""
+        if self.prefix_store is None or self.engine.prefix_len(req):
+            return 0, None
+        try:
+            return self.prefix_store.match(req.prompt)
+        except PrefixLookupError:
+            self.prefix_lookup_failures += 1
+            return 0, None
+
     def admit(self) -> int:
         """Reserve free lanes for queued requests. → number admitted. A
         queued request that was cancelled or expired retires here without
-        taking a lane."""
+        taking a lane. Prefix hits plan their uncached suffix only; their
+        pages are cloned after the sweep: for each matched node, every lane
+        that hit it takes the chain node by node (one ``bulk_insert`` a
+        chain node, at its own token offset)."""
         n = 0
+        clones: dict = {}          # prefix node key -> (node, [slots])
         while self.queue and self._free:
             req = self.queue.popleft()
             reason = self._abort_reason(req)
@@ -156,11 +235,39 @@ class Scheduler:
                 self._record_abort(req, reason=reason)
                 continue
             slot = self._free.popleft()
-            chunks, starts, seq_ends = self._plan_chunks(req)
+            skip, node = self._match(req)
+            chunks, starts, seq_ends = self._plan_chunks(req, skip)
             self._prefilling.append(_Prefill(slot, req, chunks, starts,
-                                             seq_ends, self.clock()))
+                                             seq_ends, self.clock(),
+                                             cached_len=skip))
+            if node is not None:
+                clones.setdefault(node.key, (node, []))[1].append(slot)
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += skip
+            self.prefill_tokens_computed += len(req.prompt) - skip
+            self.prefill_tokens_served += len(req.prompt)
             n += 1
+        block = self.engine.prefix_block
+        for node, slots in clones.values():
+            for n in self.prefix_store.chain(node):
+                self.pool = self.engine.bulk_insert(
+                    self.pool, slots, ExistingPrefix(n.pages, n.n_tokens),
+                    start=n.n_tokens - block)
         return n
+
+    def _intern_prefix(self, pf: _Prefill) -> None:
+        """Intern a finished prompt's block-aligned pages (at activation,
+        when the lane holds the whole prompt). The store clones them out
+        of the lane's views; the ``missing`` pre-check skips a prefix
+        already interned."""
+        store = self.prefix_store
+        if store is None or self.engine.prefix_len(pf.req):
+            return
+        n = len(pf.req.prompt) // store.block * store.block
+        if not n or not store.missing(pf.req.prompt[:n]):
+            return
+        store.insert(pf.req.prompt[:n], _cache.extract_slot(self.pool,
+                                                            pf.slot))
 
     def _start_lane(self, pf: _Prefill, logits, done: list) -> None:
         """Prefill finished: seed the lane with the prompt's sampled first
@@ -173,7 +280,8 @@ class Scheduler:
         now = self.clock()
         lane = _Lane(req=pf.req, tokens=[first],
                      remaining=pf.req.max_new_tokens - 1, t_admit=pf.t_admit,
-                     t_first=now, token_times=[now])
+                     t_first=now, token_times=[now],
+                     cached_len=pf.cached_len)
         self.lanes[pf.slot] = lane
         self._next_tok[pf.slot, 0] = first
         reason = self._token_reason(lane, first)
@@ -193,6 +301,7 @@ class Scheduler:
         pf.next_chunk += 1
         if final:
             self._prefilling.popleft()
+            self._intern_prefix(pf)
             self._start_lane(pf, logits, done)
         return True
 
@@ -275,9 +384,10 @@ class Scheduler:
 
     # ---------------- decode ----------------
 
-    def _append_token(self, slot: int, tok: int, done: list) -> None:
+    def _append_token(self, slot: int, tok: int, done: list) -> bool:
         """Commit one emitted token to lane ``slot``: record it, stream it,
-        and retire the lane if it hit a finish reason."""
+        and retire the lane if it hit a finish reason. → whether it
+        retired."""
         lane = self.lanes[slot]
         idx = len(lane.tokens)
         lane.tokens.append(tok)
@@ -288,15 +398,18 @@ class Scheduler:
         self._emit(lane, tok, idx, reason)
         if reason is not None:
             done.append(self._finish(slot, reason))
+        return reason is not None
 
     def _recover_lane(self, slot: int, temps, tks, tps, done: list) -> None:
         """Non-finite logits on lane ``slot`` this step: rewind the poisoned
-        append bitwise (K/V, scales, LOP features, key step), recompute
-        the token once through the engine's single-lane no-LOP retry, and
-        retire the lane with reason "fault" only if that fails too."""
+        append bitwise (K/V, scales, LOP features, key step), turn the
+        lane's drafting off for good, recompute the token once through the
+        engine's single-lane no-LOP retry, and retire the lane with reason
+        "fault" only if that fails too."""
         lane = self.lanes[slot]
         self.fault_events += 1
         self.fault_rids.add(lane.req.rid)
+        lane.no_spec = True
         self.pool = self.engine.rollback(self.pool, slot, 1)
         toks, ok, self.pool = self.engine.retry_step(
             self.pool, slot, self._next_tok, temps, tks, tps)
@@ -308,10 +421,124 @@ class Scheduler:
         self.fault_recoveries += 1
         self._append_token(slot, int(toks[slot]), done)
 
+    # ---------------- speculative decoding ----------------
+
+    def _lane_kv_len(self, slot: int) -> int:
+        """Committed cache length of lane ``slot``: positions [0, L) hold
+        written K/V; the pending ``_next_tok`` goes to position L."""
+        lane = self.lanes[slot]
+        return (self.engine.prefix_len(lane.req) + len(lane.req.prompt)
+                + len(lane.tokens) - 1)
+
+    def _spec_gamma(self) -> int:
+        """This round's draft length: ``gamma``, cut to the least over
+        active lanes of the token budget left and the capacity headroom
+        (verify writes γ+1 rows at [L, L+γ+1)). 0 — plain decode for the
+        whole cycle — when any lane drafts no more: the batched draft
+        cannot leave one lane out."""
+        g = self.gamma
+        for slot, lane in enumerate(self.lanes):
+            if lane is None:
+                continue
+            if lane.no_spec:
+                return 0
+            g = min(g, lane.remaining,
+                    self.capacity - 1 - self._lane_kv_len(slot))
+        return max(0, g)
+
+    def _spec_round(self, g: int, temps, tks, tps, done: list) -> None:
+        """One speculative cycle: ``g`` batched draft steps propose tokens
+        for every active lane, then one chunk-shaped verify a lane scores
+        all g+1 positions exactly; the agreeing drafts and the verifier's
+        next token are emitted and the rejected tail is rewound.
+
+        Greedy lanes emit the plain-decode stream of exact attention (the
+        verify rows are the dense decode's logits through the chunk
+        carry); a sampled lane draws draft i and its verify row under the
+        same lane-local key, so it emits the non-speculative same-seed
+        stream. Finish reasons are checked per emitted token: a finish
+        inside the accepted window evicts the lane there, and a
+        cancellation or deadline mid-window keeps what was emitted and
+        rewinds the rest.
+        """
+        self.spec_rounds += 1
+        active = [s for s, lane in enumerate(self.lanes) if lane is not None]
+        base_e = {s: len(self.lanes[s].tokens) for s in active}
+        base_len = {s: self._lane_kv_len(s) for s in active}
+        drafts: dict = {s: [] for s in active}
+        cur = self._next_tok.copy()
+        for _ in range(g):
+            t0 = time.perf_counter()
+            toks, self.pool = self.engine.draft(self.pool, cur, temps, tks,
+                                                tps)
+            self.draft_seconds.append(time.perf_counter() - t0)
+            self.draft_launches += 1
+            for s in active:
+                drafts[s].append(int(toks[s]))
+                cur[s, 0] = toks[s]
+        self.spec_drafted += g * len(active)
+
+        for slot in active:
+            lane = self.lanes[slot]
+            start = base_len[slot]
+            if start + g + 1 > self.capacity:
+                raise AssertionError(f"speculative verify would write past "
+                                     f"capacity ({start}+{g}+1 > "
+                                     f"{self.capacity})")
+            block = np.concatenate([self._next_tok[slot],
+                                    np.asarray(drafts[slot], np.int32)])[None]
+            t0 = time.perf_counter()
+            logits, self.pool = self.engine.verify_chunk(self.pool, slot,
+                                                         block, start)
+            finite = bool(torch.isfinite(logits).all())
+            self.verify_seconds.append(time.perf_counter() - t0)
+            self.spec_verify_launches += 1
+            if not finite:
+                # poisoned verify: rewind the round (g drafts + 1) and stop
+                # the lane's drafting; the next plain decode recomputes the
+                # token through the NaN guard and retry
+                self.pool = self.engine.rollback(self.pool, slot, g + 1)
+                lane.no_spec = True
+                self.fault_events += 1
+                self.fault_rids.add(lane.req.rid)
+                continue
+            sp = lane.req.sampling or GREEDY
+            targets = self.engine.sample_block(logits, sp, base_e[slot])
+            j = 0
+            while j < g and drafts[slot][j] == int(targets[j]):
+                j += 1
+            self.spec_accepted += j
+            if j == 0:
+                lane.zero_accept_rounds += 1
+                if lane.zero_accept_rounds >= self.spec_watchdog:
+                    lane.no_spec = True
+                    self.spec_watchdog_trips += 1
+            else:
+                lane.zero_accept_rounds = 0
+            finished = False
+            for tok in (int(t) for t in targets[:j + 1]):
+                abort = self._abort_reason(lane.req)
+                if abort is not None:
+                    emitted = len(lane.tokens) - base_e[slot]
+                    self.pool = self.engine.rollback(self.pool, slot,
+                                                     g + 1 - emitted)
+                    if abort == "deadline":
+                        self.deadline_count += 1
+                    done.append(self._finish(slot, abort))
+                    finished = True
+                    break
+                self.spec_emitted += 1
+                if self._append_token(slot, tok, done):
+                    finished = True
+                    break
+            if not finished and j < g:
+                # lengths start+g+1 → start+j+1
+                self.pool = self.engine.rollback(self.pool, slot, g - j)
+
     def step(self) -> list[FinishedRequest]:
         """One serve cycle: terminal sweep (cancellations and deadlines),
-        ≤ 1 prefill chunk, then one decode step over every active lane.
-        → the requests that finished."""
+        ≤ 1 prefill chunk, then one decode step over every active lane (or
+        one speculative round). → the requests that finished."""
         done = self._step_inner()
         if self.invariant_checks:
             self.check_invariants()
@@ -331,11 +558,16 @@ class Scheduler:
                 sp = lane.req.sampling or GREEDY
                 temps[slot], tks[slot], tps[slot] = (sp.temperature,
                                                      sp.top_k, sp.top_p)
+        if self.spec:
+            g = self._spec_gamma()
+            if g >= 1:
+                self._spec_round(g, temps, tks, tps, done)
+                return done
         t0 = time.perf_counter()
         toks, self.pool = self.engine.decode_step(self.pool, self._next_tok,
                                                   temps, tks, tps)
         self.decode_seconds.append(time.perf_counter() - t0)
-        self.decode_steps += 1
+        self.decode_launches += 1
         ok = self.engine.last_ok
         for slot, lane in enumerate(self.lanes):
             if lane is None:
@@ -353,7 +585,7 @@ class Scheduler:
             tokens=lane.tokens, finish_reason=reason,
             t_arrival=lane.req.arrival, t_admit=lane.t_admit,
             t_first=lane.t_first, t_done=self.clock(),
-            token_times=lane.token_times)
+            token_times=lane.token_times, cached_len=lane.cached_len)
         self.pool = self.engine.evict(self.pool, slot)
         self.lanes[slot] = None
         self._free.append(slot)
@@ -386,7 +618,8 @@ class Scheduler:
         - lengths stay within capacity, and an occupied lane's length is
           its prompt plus its emissions minus the one pending token;
         - a sampled lane's ``sample_step`` equals its emission count (so
-          rollback and retry net to exactly the tokens delivered).
+          rollback and retry net to exactly the tokens delivered);
+        - the prefix store's own structure holds.
         """
         occupied = {s for s, lane in enumerate(self.lanes) if lane is not None}
         reserved = {pf.slot for pf in self._prefilling}
@@ -414,7 +647,7 @@ class Scheduler:
             raise AssertionError(f"negative sample_step: {steps}")
         for slot in occupied:
             lane = self.lanes[slot]
-            want = len(lane.req.prompt) + len(lane.tokens) - 1
+            want = self._lane_kv_len(slot)
             if int(lengths[slot]) != want:
                 raise AssertionError(f"slot {slot}: length "
                                      f"{int(lengths[slot])} != {want}")
@@ -424,6 +657,8 @@ class Scheduler:
                 raise AssertionError(
                     f"slot {slot}: sample_step {int(steps[slot])} != "
                     f"emissions {len(lane.tokens)}")
+        if self.prefix_store is not None:
+            self.prefix_store.check_invariants()
 
     def run_to_completion(self) -> list[FinishedRequest]:
         """Drain the queue and every lane (all requests already submitted)."""

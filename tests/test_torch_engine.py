@@ -139,6 +139,23 @@ def test_serve_cli_verifies_on_cpu(capsys):
     assert rc == 0 and "token equivalence: OK" in out, out
 
 
+def test_serve_cli_prefix_and_spec_on_cpu(capsys):
+    """The serve CLI with a shared prefix and speculative decoding: hits
+    and rounds happen, and every stream equals its lockstep replay."""
+    import re
+
+    from repro_torch.launch.serve import main
+    rc = main(["--reduced", "--slots", "2", "--requests", "4",
+               "--max-prompt", "24", "--gen", "6", "--device", "cpu",
+               "--no-lop", "--spec-decode", "--shared-prefix-tokens", "64",
+               "--verify"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "token equivalence: OK" in out, out
+    assert int(re.search(r"prefix cache: (\d+) hits", out).group(1)) > 0
+    assert int(re.search(r"speculative decode: (\d+) rounds",
+                         out).group(1)) > 0
+
+
 def test_pool_insert_extract_evict(weights):
     _, tqp = weights
     eng = PooledEngine(CFG, tqp, max_len=MAX_LEN, device="cpu")
@@ -153,4 +170,6 @@ def test_pool_insert_extract_evict(weights):
     pool = eng.evict(pool, 1)
     assert not pool["active"].any() and not pool["lengths"].any()
     assert not pool["layers"]["feat"][:, 1].any()
+    # extract copies: the eviction did not reach the extracted lane
+    assert torch.equal(lane["layers"]["feat"], one["layers"]["feat"])
     assert torch.equal(pool["layers"]["k"][:, 1], one["layers"]["k"][:, 0])

@@ -11,10 +11,14 @@ converted weights, on the CPU:
     recovery reproduces the unfaulted same-seed stream;
   * deadlines fire in the queue, mid-decode and between prefill chunks
     (injected clock), and a bounded queue sheds the newest submit;
-  * ``check_invariants`` runs after every step and catches a desync.
-
-The prefix-store faults (page checksums, lookup outages) wait for the
-prefix store.
+  * ``check_invariants`` runs after every step and catches a desync;
+  * prefix-store faults: the insert and match counters fire where the
+    reference's do, the injected bit flip lands on the reference's leaf,
+    byte and bit, a corrupted interned page fails its checksum at the next
+    match and the request prefills cold, a lookup outage degrades to a
+    cold prefill, and tokens stay the unfaulted streams;
+  * a lane whose drafts are never accepted trips the speculative watchdog
+    and finishes through plain decode, lockstep-exact.
 """
 import dataclasses
 
@@ -34,6 +38,7 @@ from repro_torch.convert import from_numpy_tree
 from repro_torch.serving import faults
 from repro_torch.serving.api import (GenerateRequest, PooledEngine,
                                      SamplingParams)
+from repro_torch.serving import cache
 from repro_torch.serving.cache import rollback_slot
 from repro_torch.serving.scheduler import Scheduler, lockstep_generate
 
@@ -292,3 +297,117 @@ def test_bounded_queue_sheds_newest(engine):
     res = _run(sched)
     assert res[3].finish_reason == "shed" and res[3].tokens == []
     assert all(res[i].finish_reason == "length" for i in range(3))
+
+
+# ---------------------------------------------------------------------------
+# Prefix-store faults: checksums and lookup outages
+# ---------------------------------------------------------------------------
+
+def test_prefix_injection_points_match_reference():
+    plan = dict(seed=4, page_bitflips=frozenset({1, 3}),
+                lookup_failures=frozenset({0, 2}))
+    with faults.inject(faults.FaultPlan(**plan)) as st, \
+            jfaults.inject(jfaults.FaultPlan(**plan)) as jst:
+        for _ in range(5):
+            got, want = faults.page_corruption_rng(), \
+                jfaults.page_corruption_rng()
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert got.integers(0, 2 ** 31, 4).tolist() == \
+                    want.integers(0, 2 ** 31, 4).tolist()
+            assert faults.lookup_fails() == jfaults.lookup_fails()
+        for name in ("insert_calls", "match_calls", "injected_flips",
+                     "injected_lookup_failures"):
+            assert getattr(st, name) == getattr(jst, name) > 0, name
+    assert faults.page_corruption_rng() is None
+    assert not faults.lookup_fails()
+
+
+@pytest.mark.parametrize("seed", [3, 11, 12])
+def test_injected_flip_matches_reference(engine, seed):
+    """The flipped pages of one node equal the reference's
+    ``_flip_one_bit`` on the same pages with the same generator: the same
+    leaf, byte and bit."""
+    (p,) = _prompts([40], seed=seed)
+    _, c = engine.prefill(p[None])
+    pages = cache._slice_pages(c, 0, 32)
+    want = jcache._flip_one_bit(jax.tree.map(
+        lambda t: jnp.asarray(t.numpy()), pages),
+        np.random.default_rng((seed, 0)))
+    clean = {k: v.clone() for k, v in pages["layers"].items()}
+    cache._flip_one_bit(pages, np.random.default_rng((seed, 0)))
+    changed = [k for k in clean if not torch.equal(pages["layers"][k],
+                                                   clean[k])]
+    assert len(changed) == 1
+    for key, leaf in want["layers"].items():
+        assert np.array_equal(pages["layers"][key].numpy(),
+                              np.asarray(leaf)), key
+
+
+def test_corrupted_prefix_page_fails_checksum_and_falls_back(engine):
+    """A bit flipped in an interned page after its checksum is caught at
+    the next match: the corrupt node is dropped, the request prefills
+    cold, the prefix is interned again and serves the next hit cleanly;
+    tokens are never wrong."""
+    (p,) = _prompts([40], seed=13)
+    plan = faults.FaultPlan(seed=3, page_bitflips=frozenset({0}))
+    with faults.inject(plan) as st:
+        sched = _sched(engine, n_slots=1)
+        for rid in range(3):
+            sched.submit(GenerateRequest(rid=rid, prompt=p,
+                                         max_new_tokens=4))
+        res = _run(sched)
+        assert st.injected_flips == 1
+    store = sched.prefix_store
+    assert store.checksum_failures == 1
+    # rid 1 met the corrupt node → cold prefill and intern; rid 2 hits
+    assert sched.prefix_hits == 1
+    assert [res[r].cached_len for r in range(3)] == [0, 0, 32]
+    ref = lockstep_generate(engine, p, 4)
+    for rid in range(3):
+        assert res[rid].tokens == ref, rid
+    store.check_invariants()
+
+
+def test_lookup_failure_degrades_to_cold_prefill(engine):
+    (p,) = _prompts([40], seed=15)
+    with faults.inject(faults.FaultPlan(lookup_failures=frozenset({1}))):
+        sched = _sched(engine, n_slots=1)
+        for rid in range(3):
+            sched.submit(GenerateRequest(rid=rid, prompt=p,
+                                         max_new_tokens=4))
+        res = _run(sched)
+    assert sched.prefix_lookup_failures == 1
+    assert sched.prefix_hits == 1              # rid 2 still hits
+    ref = lockstep_generate(engine, p, 4)
+    for rid in range(3):
+        assert res[rid].tokens == ref, rid
+
+
+# ---------------------------------------------------------------------------
+# Speculative watchdog
+# ---------------------------------------------------------------------------
+
+def test_spec_watchdog_disables_hopeless_drafting(tqp):
+    """A lane whose drafts never match the verifier trips the watchdog
+    after ``spec_watchdog`` zero-accept rounds and finishes through plain
+    decode, lockstep-exact (a round emits the verifier's own tokens)."""
+    (p,) = _prompts([10], seed=25)
+    eng = PooledEngine(CFG, tqp, max_len=MAX_LEN, use_lop=False,
+                       device="cpu")
+    orig = eng.draft
+
+    def bad_draft(pool, tokens, temps, tks, tps):
+        toks, pool = orig(pool, tokens, temps, tks, tps)
+        return (toks + 1) % CFG.vocab, pool     # always-wrong proposals
+
+    eng.draft = bad_draft
+    sched = Scheduler(eng, n_slots=1, spec_decode=True, gamma=3,
+                      spec_watchdog=2, check_invariants=True)
+    sched.submit(GenerateRequest(rid=0, prompt=p, max_new_tokens=10))
+    res = sched.run_to_completion()[0]
+    assert sched.spec_watchdog_trips == 1
+    assert sched.spec_rounds == 2              # the two zero-accept rounds
+    assert sched.spec_accepted == 0
+    assert sched.decode_launches > 0           # the plain-decode tail
+    assert res.tokens == lockstep_generate(eng, p, 10)

@@ -106,6 +106,27 @@ def test_ffn_kernel_matches_plain(cuda, m, d, f, gated, act):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("m", [5, 9])
+def test_verify_width_projections_bitwise(cuda, m):
+    """#1 and #2 at the speculative verify chunk's m = γ+1 (γ 4 and 8), at
+    bitnet-3b's widths, bitwise their plain versions."""
+    rng = np.random.default_rng(m)
+    for k, n in ((3200, 9600), (3200, 3200)):
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        packed = rng.integers(0, 256, (k // 4, n)).astype(np.uint8)
+        gamma = rng.uniform(0.01, 0.05, (1, n)).astype(np.float32)
+        x, packed, gamma = _dev((x, packed, gamma), cuda)
+        got = ops.qlinear_fused(x, packed, gamma)
+        want = plain.qlinear_ref(x, packed, gamma)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (k, n)
+    args = _dev(_ffn_args(rng, m, 3200, 8640, True), cuda)
+    got = ops.ffn_fused(*args, gated=True, act="silu")
+    want = _ffn_plain(args, 3200, True, "silu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("m", [4, 128])
 def test_qlinear_ffn_every_code_byte(cuda, m):
     """Packed streams holding every byte value 0..255, so code 3 (→ 0)
@@ -171,7 +192,11 @@ def _attn(rng, b, h, hkv, c, dh, m):
     (3, 8, 2, 37, 100, 256, 0, True),
     # window 48 at dh 100: late rows' leading key tiles fully masked
     (1, 4, 4, 64, 100, 512, 48, True), (3, 8, 2, 24, 100, 300, 40, True),
-    (2, 4, 2, 13, 64, 96, 0, True), (3, 8, 2, 20, 128, 128, 0, False)])
+    (2, 4, 2, 13, 64, 96, 0, True), (3, 8, 2, 20, 128, 128, 0, False),
+    # the speculative verify chunk: R = γ+1 rows (no multiple of the row
+    # tile) at a start that is no block multiple
+    (1, 32, 32, 2, 100, 1664, 0, True), (1, 32, 32, 5, 100, 1664, 0, True),
+    (1, 32, 32, 9, 100, 1664, 0, True), (2, 32, 32, 5, 100, 1664, 0, True)])
 def test_prefill_kernel_matches_plain(cuda, b, h, hkv, c, dh, m, window,
                                       causal):
     rng = np.random.default_rng(dh + m)
@@ -236,7 +261,10 @@ def _decode(rng, b, h, hkv, m, dh):
     (3, 32, 8, 1664, 100, 128, 2, 0, (1600, 0, 700)),
     (3, 32, 8, 1664, 128, 128, 2, 0, (1600, 129, 700)),
     # window intervals straddling the share boundaries at 256, 512, 1024
-    (4, 8, 8, 1664, 100, 128, 2, 200, (300, 600, 1100, 1664))])
+    (4, 8, 8, 1664, 100, 128, 2, 200, (300, 600, 1100, 1664)),
+    # the speculative draft's pinched budget, k_keep 1
+    (4, 32, 32, 1664, 100, 128, 1, 0, None),
+    (6, 8, 8, 1664, 100, 128, 1, 0, (1, 127, 128, 129, 256, 1664))])
 def test_decode_kernel_matches_plain(cuda, b, h, hkv, m, dh, block, k_keep,
                                      window, lens):
     rng = np.random.default_rng(m + dh)
@@ -816,3 +844,137 @@ def test_graph_capture_failure_raises(cuda):
     assert calls == [False, True, True] and graphs.count == 0
     assert pool["lengths"].tolist() == [1, 1]
     assert ops.launch_counts() == counts
+
+
+# ---------------------------------------------------------------------------
+# prefix caching and speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+def _reduced_engine(cuda, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import PooledEngine
+    return PooledEngine.from_seed(get_config("bitnet-3b-reduced"), seed=0,
+                                  max_len=GRAPH_MAX_LEN, device=cuda, **kw)
+
+
+def _shared_requests(n=6, seed=41):
+    from repro_torch.serving.api import GenerateRequest
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, 512, 32).astype(np.int32)
+    return [GenerateRequest(
+        rid=rid, prompt=np.concatenate(
+            [shared, rng.integers(0, 512, 5 + 3 * rid).astype(np.int32)]),
+        max_new_tokens=8) for rid in range(n)]
+
+
+@pytest.mark.parametrize("use_lop", [True, False])
+def test_prefix_hit_bitwise_miss_on_card(cuda, use_lop):
+    """Hits (cloned pages, suffix chunks from the cached boundary) decode
+    the cache-off run's tokens bitwise, through #3 from a non-zero start;
+    every match verified its checksums clean."""
+    from repro_torch.serving.scheduler import Scheduler
+    eng = _reduced_engine(cuda, use_lop=use_lop)
+    runs = {}
+    for cached in (True, False):
+        sched = Scheduler(eng, n_slots=2, prefix_cache=cached,
+                          check_invariants=True)
+        for r in _shared_requests():
+            sched.submit(r)
+        runs[cached] = ({r.rid: r.tokens for r in sched.run_to_completion()},
+                        sched)
+    on, off = runs[True][1], runs[False][1]
+    assert runs[True][0] == runs[False][0]
+    assert on.prefix_hits == 4 and off.prefix_store is None
+    assert on.prefill_tokens_computed == \
+        off.prefill_tokens_computed - 4 * 32
+    assert on.prefix_store.checksum_failures == 0
+
+
+def test_prefix_store_pages_survive_lane_eviction_on_card(cuda):
+    """The store's pages are the device clones it took: evicting the lane
+    they came from, prefilling another prompt into it and rolling it back
+    leave them bitwise, and the next match verifies clean."""
+    from repro_torch.serving import cache
+    eng = _reduced_engine(cuda)
+    (a,) = _shared_requests(1, seed=42)
+    pool = eng.init_pool(2)
+    _, one = eng.prefill(a.prompt[None])
+    pool = eng.insert(pool, 1, one)
+    store = cache.PrefixStore(eng.prefix_block)
+    store.insert(a.prompt[:32], cache.extract_slot(pool, 1))
+    _, node = store.match(a.prompt)
+    snap = {k: v.clone() for k, v in store.assemble(node)["layers"].items()}
+    pool = eng.evict(pool, 1)
+    other_prompt = np.random.default_rng(7).integers(0, 512, 40)
+    _, other = eng.prefill(other_prompt.astype(np.int32)[None])
+    pool = eng.insert(pool, 1, other)
+    pool = eng.rollback(pool, 1, 10)
+    assert store.match(a.prompt)[0] == 32
+    assert store.checksum_failures == 0
+    for key, leaf in store.assemble(node)["layers"].items():
+        assert torch.equal(leaf, snap[key]), key
+
+
+@pytest.mark.parametrize("use_lop,sampled", [(True, False), (False, True)],
+                         ids=["lop-greedy", "nolop-sampled"])
+def test_spec_draft_graph_bitwise_eager(cuda, use_lop, sampled):
+    """A speculative serve whose draft entries replay CUDA graphs is
+    bitwise the eager engine's: tokens, every counter, launch counts; the
+    verify launches #3."""
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.scheduler import Scheduler
+    eager = _reduced_engine(cuda, use_lop=use_lop, graphs=False)
+    graph = PooledEngine(eager.cfg, eager.qp, max_len=GRAPH_MAX_LEN,
+                         use_lop=use_lop, device=cuda)
+    out = []
+    for eng in (eager, graph):
+        ops.reset_launch_counts()
+        sched = Scheduler(eng, n_slots=3, spec_decode=True, gamma=3,
+                          spec_watchdog=10 ** 6, check_invariants=True)
+        for r in _graph_requests(sampled):
+            sched.submit(r)
+        toks = {r.rid: r.tokens for r in sched.run_to_completion()}
+        torch.cuda.synchronize()
+        out.append((toks, ops.launch_counts(), sched.spec_rounds,
+                    sched.spec_accepted, sched.draft_launches))
+    assert out[0] == out[1]
+    assert out[1][2] > 0 and out[1][1]["fused_prefill_attention"] > 0
+    drafts = [k for k, g in graph.graphs._live.items()
+              if k[0].startswith("draft") and g is not None]
+    assert drafts, "no draft entry was captured"
+
+
+def test_spec_pool_graphs_survive_bulk_insert_and_rollback(cuda):
+    """bulk_insert, rollback and a verify chunk update the pool in place:
+    the pool's graph key does not change, so the next decode and draft
+    replay the graphs they captured instead of warming new keys."""
+    from repro_torch.serving import cache
+    from repro_torch.serving.api import ExistingPrefix
+    from repro_torch.serving.graphs import graph_key
+    eng = _reduced_engine(cuda)
+    a, b = _shared_requests(2, seed=43)
+    pool = eng.init_pool(2)
+    _, one = eng.prefill(a.prompt[None])
+    pool = eng.insert(pool, 0, one)
+    nxt = np.zeros((2, 1), np.int32)
+    params = (np.zeros(2, np.float32), np.zeros(2, np.int32),
+              np.ones(2, np.float32))
+    for _ in range(3):             # warm, capture, replay
+        eng.decode_step(pool, nxt, *params)
+        eng.draft(pool, nxt, *params)
+    keys = {e: graph_key(e, pool) for e in ("greedy", "draft_greedy")}
+    held, n_keys = eng.graphs.count, len(eng.graphs)
+    store = cache.PrefixStore(eng.prefix_block)
+    store.insert(a.prompt[:32], cache.extract_slot(pool, 0))
+    node = store.match(b.prompt)[1]
+    pool = eng.bulk_insert(pool, [1], ExistingPrefix(store.assemble(node),
+                                                     32))
+    pool = eng.rollback(pool, 0, 4)
+    _, pool = eng.verify_chunk(pool, 0, np.zeros((1, 4), np.int32),
+                               int(pool["lengths"][0]))
+    for e, key in keys.items():
+        assert graph_key(e, pool) == key, e
+    eng.decode_step(pool, nxt, *params)
+    eng.draft(pool, nxt, *params)
+    torch.cuda.synchronize()
+    assert (eng.graphs.count, len(eng.graphs)) == (held, n_keys)

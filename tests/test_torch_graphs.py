@@ -1,9 +1,10 @@
-"""The engine's four decode entries as the port captures them, on the CPU
+"""The engine's six step entries as the port captures them, on the CPU
 (``bitnet-3b-reduced``, the reference's converted weights):
 
-  * (a) greedy and sampled decode, greedy and sampled retry update the
+  * (a) greedy and sampled decode, retry and speculative draft update the
     pool in place: every pool tensor keeps its storage, no entry is added
-    or rebound, and the retry leaves ``active`` as it found it;
+    or rebound, the retry leaves ``active`` as it found it, and a draft
+    writes its first ``draft_layers`` layers only;
   * (b) over several steps, one with a NaN lane injected by a fault plan
     and recovered through rollback and the retry, the port's entries are
     bitwise the reference's compiled ones (``repro.serving.api``): tokens,
@@ -35,7 +36,8 @@ torch.set_num_threads(1)
 
 MAX_LEN = 63          # pool capacity 64 with the reduced lop_block of 32
 CFG = get_config("bitnet-3b-reduced")
-ENTRIES = ("greedy", "sampled", "retry_greedy", "retry_sampled")
+ENTRIES = ("greedy", "sampled", "retry_greedy", "retry_sampled",
+           "draft_greedy", "draft_sampled")
 SAMPLED = (0.8, 20, 0.9)        # temperature, top-k, top-p of a sampled lane
 INT_LEAVES = ("k", "v", "feat")
 
@@ -102,6 +104,8 @@ def test_entry_updates_pool_in_place(eng, entry):
     params = _lane_params((0, 2) if entry.endswith("sampled") else (), 3)
     if retry:
         toks, ok, out = eng.retry_step(pool, 2, nxt, *params)
+    elif entry.startswith("draft"):
+        toks, out = eng.draft(pool, nxt, *params)
     else:
         toks, out = eng.decode_step(pool, nxt, *params)
     assert out is pool
@@ -114,10 +118,13 @@ def test_entry_updates_pool_in_place(eng, entry):
     steps = (pool["sample_step"] - before["sample_step"]).tolist()
     assert steps == [int(i in lanes and entry.endswith("sampled"))
                      for i in range(3)]
+    depth = eng.draft_layers if entry.startswith("draft") else CFG.n_layers
     for name in INT_LEAVES:
         changed = (pool["layers"][name] != before[f"layers.{name}"])
         assert changed.flatten(2).any(-1).any(0).tolist() == [
             i in lanes for i in range(3)], name
+        assert changed.flatten(1).any(-1).tolist() == [
+            i < depth for i in range(CFG.n_layers)], name
 
 
 # ---------------------------------------------------------------------------
