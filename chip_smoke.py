@@ -26,7 +26,11 @@ printed:
               one whole 1536-row call, a sliding window of 512 against
               the plain version, and for #3
               and #8 (phase 5) the CTAs, warps per CTA, dynamic shared
-              memory and ptxas' registers / static smem / spills;
+              memory and ptxas' registers / static smem / spills; #1
+              and #2 with the leading expert axis at granite-moe-1b-a400m's
+              widths (E 32, d 1024, f 512) at the decode shape (C 8) and
+              one 1536-token prompt's (C 480), empty capacity rows
+              included (exact zeros), with launch shapes;
   4. serve    full-width bitnet-3b with seeded random weights: 8 requests
               of 128–1536 prompt tokens (numpy default_rng(0)), 32 new
               tokens each, through the continuous-batching Scheduler on 4
@@ -91,6 +95,24 @@ printed:
               verify, the draft entry replays its CUDA graph; rounds,
               acceptance, the draft step's and the verify chunk's wall
               time and tokens/s against plain;
+  4e. moe    full-width granite-moe-1b-a400m (24 layers, d 1024, 16 heads
+              of 64 over 8 KV heads, 32 experts top-8, d_ff 512) with
+              seeded random weights, served run-to-completion (each prompt
+              prefilled whole at its exact length, batch 1): phase 4's 8
+              requests greedy with LOP, on a no-LOP engine sharing the
+              weights, and sampled (T 0.8, top-k 50, top-p 0.95); each
+              run's launch counts (#2 only in its grouped-expert form),
+              scheduler == lockstep for 2 requests; after the greedy run
+              #1 (E 1), #3 (exact-length prompts of 1536 and 1023 tokens
+              over their 128-block roundup), #4 and #5 at granite's
+              shapes (G 2, dh 64) on a layer's served weights and pooled
+              K/V, held against their plain versions (#1 bitwise, f32 at
+              rtol = atol = 2e-5); tokens/s, TTFT, the
+              exact-length prefills and the stalls they caused, peak
+              memory, and the clean decode step on CUDA graphs and eager
+              (tokens equal; 48 / 24 / 24 launches of #1 / #2 with E 32 /
+              the decode kernel a step); one exact-length prefill's time
+              at 128, 512, 1024 and 1536 tokens;
   5. standalone kernels and the per-head LOP decode, at full width:
               the TINT GEMM (ternary_matmul), the LOP screen
               (lop_scores_kernel), single-head flash prefill and block-sparse
@@ -115,7 +137,8 @@ printed:
               lane; 2 launches) against the fused LOP decode kernel (1
               launch) on the K/V of one layer of the serve engine's cache.
 
-The line before the last two is the ``kernels`` JSON (nine entries); the
+The line before the last two is the ``kernels`` JSON (eleven entries:
+the nine TPU kernels, and #1 and #2 once more in their expert form); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -233,6 +256,13 @@ def fmt_decode_shape(shape: dict) -> str:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return nbytes(tree)
 
 
 def ptxas_summary(build, source: str, kernel: str) -> str:
@@ -376,6 +406,7 @@ def kernel_phase(torch, np) -> dict:
             timed = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"m={m} d={d} f={f}")
     rows["fused_ffn"] = dict(timed, max_abs_err=err, library_ms=None)
+    rows.update(expert_kernels(torch, np, rng, t))
 
     # ---- #3 fused_prefill_attention: last chunk of a 1536-token prompt,
     #      and the whole prompt, over the 1664-token capacity ----
@@ -563,6 +594,92 @@ def kernel_phase(torch, np) -> dict:
         ms=d_ms, plain_ms=dp_ms, bound_ms=db_ms, bound_by=db_by,
         library_ms=lib_ms, max_abs_err=derr,
         shape=f"B={b} H=32 M={m_cap} new_len={nl}")
+    return rows
+
+
+MOE_D, MOE_F, MOE_E = 1024, 512, 32        # granite-moe-1b-a400m
+
+
+def expert_kernels(torch, np, rng, t) -> dict:
+    """#1 and #2 with the leading expert axis, E = 32 at granite's widths
+    (d 1024, f 512): x [E, C, d] at the decode shape (C = cap 8 of 4
+    lanes; all but the first row of every expert zero, as the dispatch
+    leaves the empty capacity slots) and at one 1536-token prompt's group
+    (C = cap 480, its last 96 rows of every expert zero), γ per expert and
+    column. Held against the plain versions (#1 bitwise; zero rows exact
+    zeros), timed as the E = 1 forms. No PyTorch call computes a batched
+    packed-ternary product (``torch._int_mm`` has no batch axis), so no
+    library time. → their rows of the kernels line."""
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.qlinear import (fused_ffn_experts,
+                                             fused_qlinear_experts)
+    from repro_torch.kernels.qlinear import \
+        launch_shape as qlinear_launch_shape
+
+    e, d, f = MOE_E, MOE_D, MOE_F
+    rows = {}
+    for name in ("fused_qlinear_experts", "fused_ffn_experts"):
+        err, timed = 0.0, None
+        for c, live in ((8, 1), (480, 384)):
+            x = rng.standard_normal((e, c, d)).astype(np.float32)
+            x[:, live:] = 0.0
+            gs = rng.uniform(0.01, 0.05, (e, 2 * f)).astype(np.float32)
+            gu = t(rng.integers(0, 256, (e, d // 4, 2 * f)).astype(np.uint8))
+            x, gs = t(x), t(gs)
+            if name == "fused_qlinear_experts":
+                args = (x, gu, gs)
+                kern = fused_qlinear_experts
+
+                def ref(x_, gu_, gs_):
+                    return plain.qlinear_ref(x_, gu_, gs_[:, None])
+                n_out, ops_ = 2 * f, 2.0 * e * c * d * 2 * f
+                launch = fmt_shape(qlinear_launch_shape(c, d, 2 * f,
+                                                        experts=e))
+            else:
+                down = t(rng.integers(0, 256, (e, f // 4, d)).astype(
+                    np.uint8))
+                ds = t(np.repeat(rng.uniform(0.01, 0.05, (e, 1)), d,
+                                 1).astype(np.float32))
+                args = (x, gu, gs, down, ds)
+
+                def kern(*a):
+                    return fused_ffn_experts(*a, gated=True, act="silu")
+
+                def ref(x_, gu_, gs_, down_, ds_):
+                    return plain.ffn_fused_ref(x_, gu_, gs_[:, None], down_,
+                                               ds_[:, None], gated=True,
+                                               act="silu")
+                n_out = d
+                ops_ = 2.0 * e * c * (d * 2 * f + f * d)
+                gate_up = qlinear_launch_shape(c, d, f, gated=True,
+                                               experts=e)
+                down_gemm = qlinear_launch_shape(c, f, d, experts=e)
+                launch = (f"gate‖up GEMM {fmt_shape(gate_up)}, down GEMM "
+                          f"{fmt_shape(down_gemm)}")
+            got, want = kern(*args), ref(*args)
+            label = f"{name}[E={e},C={c}]"
+            bitwise = name == "fused_qlinear_experts"
+            err = max(err, check_close(torch, label, got, want,
+                                       bitwise=bitwise))
+            if got[:, live:].any():
+                raise AssertionError(f"{label}: zero rows gave non-zeros")
+            arg_sets = copies(torch, args)
+            ms = cuda_ms(torch, kern, arg_sets, 30)
+            g_ms = graph_ms(torch, kern, arg_sets)
+            p_ms = cuda_ms(torch, ref, [args], 3)
+            b_ms, b_by = bound_ms(nbytes(*args) + e * c * n_out * 4,
+                                  int8_ops=ops_)
+            log(f"  {name} E={e} C={c} d={d} f={f} ({live} live rows an "
+                f"expert): {ms:.4f} ms, in a CUDA graph {g_ms:.4f} ms "
+                f"(plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
+                f"{b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the graph) "
+                f"bitwise={bool(torch.equal(got, want))}, zero rows exact "
+                f"zeros; library: none (no batched packed-ternary call); "
+                f"{launch}")
+            if timed is None:
+                timed = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, shape=f"E={e} C={c} d={d} f={f}")
+        rows[name] = dict(timed, max_abs_err=err, library_ms=None)
     return rows
 
 
@@ -792,17 +909,20 @@ def decode_step_ms(torch, np, engine, reqs, sampling=None):
 
 
 def check_step_counts(counts: dict, engine, steps: int) -> None:
-    """Each decode step launches #1 twice a layer (QKV, O), #2 once and
-    its decode kernel once, and nothing else — counted per graph replay as
-    per eager call."""
+    """Each decode step launches #1 twice a layer (QKV, O), #2 once (for a
+    moe model its grouped-expert form, every expert in the launch) and its
+    decode kernel once, and nothing else — counted per graph replay as per
+    eager call."""
     n = engine.cfg.n_layers
     attn = "fused_decode_attention" if engine.use_lop else DENSE
-    want = {"fused_qlinear": 2 * n * steps, "fused_ffn": n * steps,
-            attn: n * steps}
+    ffn = "fused_ffn_experts" if engine.cfg.family == "moe" else "fused_ffn"
+    want = {"fused_qlinear": 2 * n * steps, ffn: n * steps, attn: n * steps}
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         raise AssertionError(f"{steps} decode steps launched {got}, want "
                              f"{want}")
+    log(f"  launches a decode step ({engine.cfg.name}): "
+        + ", ".join(f"{k} {v // steps}" for k, v in sorted(got.items())))
 
 
 def decode_arms(torch, np, engine, reqs, label: str, card: str,
@@ -1444,6 +1564,249 @@ def spec_phase(torch, np, engine, dense, reqs, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: serve full-width granite-moe-1b-a400m
+# ---------------------------------------------------------------------------
+
+def prefill_ms_by_length(torch, np, engine, lengths) -> dict:
+    """Host ms of one exact-length, batch-1 whole-prompt prefill (ending in
+    a synchronize), the median of 3 after one warm call, by length."""
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for s in lengths:
+        prompt = rng.integers(0, engine.cfg.vocab, (1, s)).astype(np.int32)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.prefill(prompt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[s] = float(np.median(times[1:]) * 1e3)
+    return out
+
+
+def moe_kernel_checks(torch, np, engine, pool, card: str) -> None:
+    """#1 (E = 1), #3, #4 and #5 at granite's shapes, which phase 3 holds
+    only at bitnet-3b's (G = 1, dh 100, d 3200): here G = 2, dh 64, d
+    1024, and #3 over the exact-length prompt's key view round_up(S, 128).
+    Each goes through its ops entry, as the engine calls it, on one
+    layer's served weights and the int8 K/V that the greedy run left in
+    the pool (features recomputed: retiring a lane zeroes them), with
+    seeded activations and queries, and is held against its plain version
+    at phase 3's tolerance (#1 bitwise). Called outside every counted
+    window."""
+    from repro_torch.configs.base import resolve_decode_flags
+    from repro_torch.core.lop import lop_features, pack_features
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.models.moe import route
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving.cache import round_up
+    from repro_torch.serving.lop_select import k_keep_blocks
+
+    cfg = resolve_decode_flags(engine.cfg)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    layer = cfg.n_layers // 2
+    h, hkv, dh, blk = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.lop_block
+    scale = dh ** -0.5
+    errs = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # ---- #1, E = 1: QKV and O at the decode rows and one whole prompt ----
+    lp = layer_slice(engine.qp["layers"]["attn"], layer)
+    for name in ("wqkv", "wo"):
+        node = lp[name]
+        k, n = node["packed"].shape[-2] * 4, node["packed"].shape[-1]
+        for m in (N_SLOTS, MAX_PROMPT):
+            x = t(rng.standard_normal((m, k)).astype(np.float32))
+            got = ops.qlinear_fused(x, node["packed"], node["scale"],
+                                    node.get("b"))
+            want = plain.qlinear_ref(x, node["packed"],
+                                     ops._col_scale(node["scale"], n),
+                                     node.get("b"))
+            errs[f"fused_qlinear {name} m={m} k={k} n={n}"] = check_close(
+                torch, f"fused_qlinear[granite {name}, m={m}]", got, want,
+                bitwise=True)
+
+    # ---- #3: exact-length prompts over their block roundup (one a
+    #      multiple of the block, one not) ----
+    kv = {key: pool["layers"][key][layer] for key in ("k", "v", "k_scale",
+                                                       "v_scale")}
+    for s in (MAX_PROMPT, MAX_PROMPT * 2 // 3 - 1):
+        m_att = min(kv["k"].shape[2], round_up(s, blk))
+        qi = t(rng.integers(-127, 128, (1, h, s, dh)).astype(np.int8))
+        qsc = t((rng.random((1, h, s)) * 0.02 + 0.001).astype(np.float32))
+        view = [kv[key][:1, :, :m_att] for key in ("k", "v", "k_scale",
+                                                   "v_scale")]
+        kv_len = torch.full((1,), s, dtype=torch.int32, device=dev)
+        got = ops.prefill_attention(qi, qsc, *view, kv_len, causal=True,
+                                    window=cfg.swa_window,
+                                    int8_logits=cfg.int8_logits)
+        want = plain.prefill_attention_ref(
+            qi, qsc, *view, kv_len, 0, causal=True, window=cfg.swa_window,
+            softmax_scale=scale, int8_logits=cfg.int8_logits)
+        errs[f"fused_prefill_attention S={s} M={m_att}"] = check_close(
+            torch, f"fused_prefill_attention[granite, S={s}]", got, want)
+
+    # ---- #4 LOP and #5 dense: the pool's lanes, one of them retired ----
+    m = kv["k"].shape[2]
+    k_keep = max(1, min(k_keep_blocks(cfg, m), m // blk))
+    feat = pack_features(lop_features(kv["k"]))
+    new_len = torch.tensor([1600, 0, 700, 1200], dtype=torch.int32,
+                           device=dev)
+    qi = t(rng.integers(-127, 128, (N_SLOTS, h, dh)).astype(np.int8))
+    qsc = t((rng.random((N_SLOTS, h, 1)) * 0.02 + 0.001).astype(np.float32))
+    for name, use_lop in (("fused_decode_attention", True), (DENSE, False)):
+        kw = dict(block=blk, k_keep=k_keep, window=cfg.swa_window,
+                  use_lop=use_lop, shared_select=cfg.gqa_shared_select)
+        args = (qi, qsc, kv["k"], kv["v"], kv["k_scale"], kv["v_scale"],
+                feat, new_len)
+        got = ops.decode_attention(*args, **kw)
+        want = plain.decode_attention_ref(*args, softmax_scale=scale, **kw)
+        errs[f"{name} B={N_SLOTS} M={m} k_keep={k_keep}"] = check_close(
+            torch, f"{name}[granite]", got, want)
+        if got[1].any():
+            raise AssertionError(f"{name}[granite]: retired lane not zero")
+    # the router is formed in float64 (models/moe.py) so that a token's
+    # routing does not depend on how many tokens share the call: shown
+    # here against cuBLAS's f32 product of the same rows
+    router = engine.qp["layers"]["moe"]["router"][layer]
+    x = t(rng.standard_normal((MAX_PROMPT, cfg.d_model)).astype(np.float32))
+    alone, one = route(cfg, router, x[:1]), x[:1] @ router
+    f32_moved = {}
+    for n_tok in (N_SLOTS, 8, MAX_PROMPT):
+        shared = route(cfg, router, x[:n_tok])
+        if not all(torch.equal(a[0], b[0]) for a, b in zip(alone[:4],
+                                                           shared[:4])):
+            raise AssertionError(f"route: token 0 alone differs from token "
+                                 f"0 among {n_tok}")
+        f32_moved[n_tok] = int((one[0] != (x[:n_tok] @ router)[0]).sum())
+    log(f"  router rows (d {cfg.d_model}, E {cfg.n_experts}): the port's "
+        f"route of token 0 bitwise alone and among {N_SLOTS}, 8 and "
+        f"{MAX_PROMPT} tokens; an f32 cuBLAS product would move "
+        + ", ".join(f"{v} of its {cfg.n_experts} logits among {k}"
+                    for k, v in f32_moved.items()) + f" [{card}]")
+    log(f"  kernels at granite's shapes (H {h} over Hkv {hkv}, dh {dh}, "
+        f"layer {layer}'s weights and served K/V), against the plain "
+        f"versions at rtol=atol={TOL['rtol']} (#1 bitwise): "
+        + "; ".join(f"{k_} max |err| {v:.3g}" for k_, v in errs.items())
+        + f" [{card}]")
+
+
+def moe_phase(torch, np, card: str) -> dict:
+    """Phase 4e: granite-moe-1b-a400m at full width and depth (24 layers,
+    d 1024, 16 heads of 64 over 8 KV heads, 32 experts top-8, d_ff 512)
+    through the run-to-completion regime: phase 4's 8 requests greedy with
+    LOP, then on a no-LOP engine sharing the weights, then sampled. Each
+    run: every kernel of its path launched, #2 only in its grouped-expert
+    form, scheduler == lockstep for 2 rids; the decode step in CUDA graphs
+    bitwise its eager twin, 48 / 24 / 24 launches of #1 / #2 (E = 32) /
+    the decode kernel a step. → stats."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.qlinear import \
+        launch_shape as qlinear_launch_shape
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving.api import (GenerateRequest, PooledEngine,
+                                         SamplingParams)
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("granite-moe-1b-a400m")
+    t0 = time.monotonic()
+    engine = PooledEngine.from_seed(cfg, seed=SEED, max_len=MAX_PROMPT + GEN,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    experts = tree_bytes(engine.qp["layers"]["moe"])
+    weights = tree_bytes(engine.qp)
+    pool = tree_bytes(engine.init_pool(N_SLOTS))
+    log(f"  seeded granite-moe-1b-a400m weights ready in "
+        f"{time.monotonic() - t0:.1f} s: serving weights "
+        f"{weights / 2**30:.3f} GiB (experts {experts / 2**20:.1f} MiB), a "
+        f"{N_SLOTS}-slot pool {pool / 2**20:.1f} MiB; the earlier phases "
+        f"keep {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"in all; exact_length_prefill="
+        f"{engine.exact_length_prefill}, supports_chunked="
+        f"{engine.supports_chunked}, prefix_block={engine.prefix_block}")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+                         max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:64],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    c_dec, c_max = capacity(cfg, N_SLOTS), capacity(cfg, MAX_PROMPT)
+    gate_up = qlinear_launch_shape(c_dec, cfg.d_model, cfg.d_ff, gated=True,
+                                   experts=cfg.n_experts)
+    log(f"  #2 per decode step: E={cfg.n_experts} x C={c_dec} rows, gate‖up "
+        f"GEMM {fmt_shape(gate_up)}; a {MAX_PROMPT}-token prompt: "
+        f"C={c_max}")
+
+    out = {}
+    dense = PooledEngine(cfg, engine.qp, max_len=engine.max_len,
+                         use_lop=False, device="cuda")
+
+    def sp(rid):
+        return SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                              seed=rid)
+    arms = (("moe LOP greedy", engine, reqs, None),
+            ("moe no-LOP greedy", dense, reqs, None),
+            ("moe LOP sampled", engine,
+             [replace(r, sampling=sp(r.rid)) for r in reqs], sp))
+    for label, eng, rq, sampling in arms:
+        attn = "fused_decode_attention" if eng.use_lop else DENSE
+        run = serve_run(torch, np, eng, rq, label, card)
+        check_counts(run["counts"], label,
+                     ("fused_qlinear", "fused_ffn_experts",
+                      "fused_prefill_attention", attn),
+                     idle=("fused_ffn", "fused_qlinear_experts",
+                           "fused_decode_attention" if attn == DENSE
+                           else DENSE))
+        check_tokens(cfg, run["results"], GEN, label)
+        check_lockstep(eng, rq, run["results"], (0, 1), label)
+        sched = run.pop("sched")
+        if eng is engine and sampling is None:
+            moe_kernel_checks(torch, np, eng, sched.pool, card)
+        log(f"  [{label}] {len(sched.full_prefill_seconds)} exact-length "
+            f"prefills, p50 "
+            f"{np.percentile(sched.full_prefill_seconds, 50) * 1e3:.1f} ms, "
+            f"{sched.full_prefill_stalls} stalled the decoding lanes "
+            f"(full_prefill_stalls)")
+        step = decode_arms(torch, np, eng, reqs, label, card,
+                           sampling=sampling)
+        if eng is engine and sampling is None:
+            profile_arms(torch, step, label, card)
+        out[label] = dict(
+            counts=run["counts"], tokens=tokens_digest(run["results"]),
+            tokens_per_s=run["tokens_per_s"],
+            ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
+            full_prefill_stalls=sched.full_prefill_stalls,
+            decode_step_ms_p50=step["ms"],
+            eager_decode_step_ms_p50=step["eager_ms"])
+        del run, sched, step
+    by_len = prefill_ms_by_length(torch, np, engine, (128, 512, 1024, 1536))
+    log("  exact-length prefill (batch 1, host ms to a synchronize): "
+        + ", ".join(f"{s} tokens {ms:.1f} ms" for s, ms in by_len.items())
+        + f" [{card}]")
+    g = out["moe LOP greedy"]
+    log(f"  moe decode step (B={N_SLOTS}), CUDA graph (eager): LOP greedy "
+        f"{g['decode_step_ms_p50']:.2f} ({g['eager_decode_step_ms_p50']:.2f})"
+        f" ms, no-LOP "
+        f"{out['moe no-LOP greedy']['decode_step_ms_p50']:.2f} "
+        f"({out['moe no-LOP greedy']['eager_decode_step_ms_p50']:.2f}) ms, "
+        f"sampled {out['moe LOP sampled']['decode_step_ms_p50']:.2f} "
+        f"({out['moe LOP sampled']['eager_decode_step_ms_p50']:.2f}) ms "
+        f"[{card}]")
+    return dict(runs=out, prefill_ms=by_len,
+                launches={k: g["counts"][k] for k in ("fused_ffn_experts",
+                                                      "fused_qlinear_experts")})
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the standalone kernels and the per-head LOP decode
 # ---------------------------------------------------------------------------
 
@@ -1870,9 +2233,10 @@ def _dev_us(evt) -> float:
     return 0.0
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, calls=None):
     """Run ``fn`` under torch.profiler. → (device µs by kernel name, device
-    µs in all, wall µs up to a synchronize)."""
+    µs in all, wall µs up to a synchronize); ``calls``, a dict, also gets
+    the device events' count by name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1890,6 +2254,8 @@ def profiled(torch, fn):
         us = _dev_us(evt)
         if us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+            if calls is not None:
+                calls[evt.key] = calls.get(evt.key, 0) + int(evt.count)
     return by_name, sum(by_name.values()), wall_us
 
 
@@ -1897,13 +2263,15 @@ def profile_steps(torch, sched, label: str, n_prof: int = 4):
     """Profile ``n_prof`` decode steps of ``sched`` (4 active lanes) and
     print the device's busy time and the top kernels a step. → (device µs,
     wall µs)."""
+    calls = {}
     by_name, dev_us, prof_wall_us = profiled(
-        torch, lambda: [sched.step() for _ in range(n_prof)])
+        torch, lambda: [sched.step() for _ in range(n_prof)], calls)
     if dev_us:
         log(f"  profiler, {n_prof} decode steps ({label}): device busy "
             f"{dev_us / 1e3:.2f} ms of {prof_wall_us / 1e3:.2f} ms wall "
-            f"({100 * dev_us / prof_wall_us:.1f}%, profiler on); top device "
-            f"time per step:")
+            f"({100 * dev_us / prof_wall_us:.1f}%, profiler on), "
+            f"{sum(calls.values()) / n_prof:.0f} device events a step; top "
+            f"device time per step:")
         for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"    {us / n_prof / 1e3:8.3f} ms  {key[:90]}")
     else:
@@ -2038,6 +2406,15 @@ def main() -> int:
     prefix_phase(torch, np, engine, smi)
     spec_phase(torch, np, engine, nolop["dense"], reqs, smi)
 
+    # ---- 4e. the MoE family: granite-moe-1b-a400m ----
+    log(f"[serve moe] granite-moe-1b-a400m full width (24 layers, d 1024, "
+        f"32 experts top-8, d_ff 512), {N_SLOTS} slots, {N_REQUESTS} "
+        f"requests, gen {GEN}: greedy LOP, no-LOP, sampled [{smi}]")
+    moe = moe_phase(torch, np, smi)
+    # the serving format fuses the experts into #2, as in the reference:
+    # #1's expert form runs in phase 3 only, so its count here is 0
+    launches.update(moe["launches"])
+
     # ---- 5. standalone kernels and the per-head LOP decode ----
     log(f"[standalone kernels + per-head LOP decode] full width (d 3200, "
         f"32 heads of 100, ffn 8640, capacity 1664, lop_block 128, k_keep "
@@ -2050,6 +2427,10 @@ def main() -> int:
 
     sources = {"fused_qlinear": ("qlinear.cu", "src/repro/kernels/qlinear.py:224"),
                "fused_ffn": ("qlinear.cu", "src/repro/kernels/qlinear.py:368"),
+               "fused_qlinear_experts": (
+                   "qlinear.cu", "src/repro/kernels/qlinear.py:224"),
+               "fused_ffn_experts": (
+                   "qlinear.cu", "src/repro/kernels/qlinear.py:368"),
                "fused_prefill_attention": (
                    "prefill_attention.cu",
                    "src/repro/kernels/prefill_attention.py:217"),

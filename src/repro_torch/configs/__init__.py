@@ -1,6 +1,7 @@
-"""Architecture configs: ``get_config("bitnet-3b")`` and
-``get_config("bitnet-3b-reduced")``."""
+"""Architecture configs: ``get_config("granite-moe-1b-a400m")`` and
+``get_config("granite-moe-1b-a400m-reduced")``, one module an
+architecture."""
 
-from repro_torch.configs.base import (ModelConfig, get_config,  # noqa: F401
-                                      register, resolve_config,
+from repro_torch.configs.base import (ModelConfig, all_configs,  # noqa: F401
+                                      get_config, register, resolve_config,
                                       resolve_decode_flags)

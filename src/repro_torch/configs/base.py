@@ -1,9 +1,10 @@
 """Model configuration: every architecture is a ``ModelConfig``.
 
 A jax-free copy of the reference's config record (same fields, same
-derived properties). Only the dense family is served by this package so
-far; the other families' fields are kept so configs compare field for
-field with the reference.
+derived properties). The dense and moe families are served by this
+package; the other families' configs are mirrored field for field with
+the reference and raise ``NotImplementedError`` where they reach the
+engine.
 """
 
 from __future__ import annotations
@@ -120,8 +121,20 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def all_configs() -> dict[str, ModelConfig]:
+    """Every registered config, full and ``-reduced``."""
+    _load_all()
+    return dict(_REGISTRY)
+
+
 def _load_all() -> None:
-    from repro_torch.configs import bitnet_3b  # noqa: F401  (registers)
+    # importing a config module registers its CONFIG and REDUCED
+    from repro_torch.configs import (bitnet_3b,  # noqa: F401
+                                     granite_moe_1b_a400m,
+                                     jamba_1_5_large_398b, llava_next_34b,
+                                     mistral_nemo_12b, mixtral_8x22b,
+                                     qwen1_5_110b, qwen1_5_32b, rwkv6_1_6b,
+                                     stablelm_1_6b, whisper_small)
 
 
 def resolve_config(arch: str, reduced: bool = False) -> ModelConfig:

@@ -3,8 +3,10 @@
 A packed node is ``{"packed": uint8 [k//4, n], "scale": f32 [1, 1] or
 [1, n]}`` (a per-column γ row when several projections share one packed
 weight, as the fused QKV does); a whole-FFN node carries
-``gu_packed``/``gu_scale``/``down_packed``/``down_scale``. Every packed
-apply goes through :mod:`repro_torch.kernels.ops`.
+``gu_packed``/``gu_scale``/``down_packed``/``down_scale``. Expert-stacked
+nodes carry a leading expert axis on every leaf ([E, k//4, n], γ [E, 1,
+1] or [E, 1, n]) and take x [E, C, k]. Every packed apply goes through
+:mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
@@ -31,9 +33,18 @@ def qlinear_split(node, x: torch.Tensor, widths) -> tuple:
     return tuple(torch.split(y, list(widths), dim=-1))
 
 
+def qlinear_expert(node, x: torch.Tensor) -> torch.Tensor:
+    """Per-expert linear: x [E, C, k] × packed [E, k//4, n] → f32 [E, C,
+    n], the expert a grid axis of one fused launch (barrier + GEMM +
+    dequant), not a loop of launches."""
+    return ops.qlinear_fused(x, node["packed"], node["scale"], node.get("b"))
+
+
 def ffn_node_apply(node, x: torch.Tensor, *, gated: bool,
                    act: str) -> torch.Tensor:
-    """Whole-FFN serving node → act(x·Wg)·(x·Wu) → barrier → ·Wd."""
+    """Whole-FFN serving node → act(x·Wg)·(x·Wu) → barrier → ·Wd.
+    Expert-stacked nodes with x [E, C, d] run every expert in the same
+    launch."""
     return ops.ffn_fused(x, node["gu_packed"], node["gu_scale"],
                          node["down_packed"], node["down_scale"],
                          gated=gated, act=act)

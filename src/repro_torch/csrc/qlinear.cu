@@ -16,6 +16,11 @@
 // the hidden barrier is the same exact absmax function the TPU kernel
 // ran in VMEM.
 //
+// Both take the TPU kernels' leading expert axis: x [E, C, k] against
+// expert stacks packed [E, k/4, n] with γ [E, n] (bias [E, n]), expert e's
+// rows against expert e's weights, all E in the same launches. E = 1 is
+// the plain projection.
+//
 // Launches, all issued by one C entry: #1 barrier → GEMM; #2 barrier(x)
 // → gate‖up GEMM → barrier(h) → down GEMM.
 //  * The barrier pass (barrier_kernel, a CTA a row) reads the f32 row
@@ -31,6 +36,14 @@
 //    128 columns are 64 gate columns from n0 and the matching 64 up
 //    columns from f + n0 (warps 0–1 gate, 2–3 up), which meet in the
 //    epilogue as h = act(g)·u, 64 columns of h a CTA.
+//  * The expert is a grid coordinate: blockIdx.x = e · (tiles of one
+//    expert) + tile, and each CTA offsets its rows, packed weights, γ
+//    (bias) and output by e, so no tile straddles two experts; the tile
+//    (decode 16 rows for C ≤ 16, chunk 128 above) follows the rows of ONE
+//    expert, and the launch plan counts the tiles of all E when it picks
+//    the split-k. The barrier pass runs over the E·C rows as they are.
+//    An all-zero row (an empty capacity slot of a MoE dispatch) gets the
+//    clamped scale EPS/127 and q = 0, so its outputs are exact zeros.
 //
 // What bounds it: at decode (m ≤ 16) the packed 2-bit weight stream,
 // k/4 · n bytes read once (bytes-bound, 3.35 TB/s); at a 128-row chunk
@@ -153,49 +166,59 @@ struct GateUp {
   }
 };
 
-template <class T>
-__device__ __forceinline__ int tile_m0(int m) {
-  return static_cast<int>(blockIdx.x % ((m + T::BM - 1) / T::BM)) * T::BM;
-}
+// The CTA's expert, and its tile among that expert's tiles of BM rows ×
+// `cols` output columns over m rows and n_out columns: blockIdx.x =
+// e · tiles_m · tiles_n + j · tiles_m + (m0 / BM).
+struct ExpertTile {
+  size_t e;
+  int m0, j;
+};
 
 template <class T>
-__device__ __forceinline__ int tile_j(int m) {
-  return static_cast<int>(blockIdx.x / ((m + T::BM - 1) / T::BM));
+__device__ __forceinline__ ExpertTile expert_tile(int m, int n_out, int cols) {
+  const int tiles_m = (m + T::BM - 1) / T::BM;
+  const int per = tiles_m * ((n_out + cols - 1) / cols);
+  const int t = static_cast<int>(blockIdx.x % per);
+  return {blockIdx.x / per, (t % tiles_m) * T::BM, t / tiles_m};
 }
 
-// The barrier's rows as the core's A: k16 % 16 == 0, 16-byte aligned.
-template <class T>
-__device__ __forceinline__ StreamedA barrier_rows(const int8_t* xq, int m, int k16) {
-  return StreamedA{xq, m, k16, tile_m0<T>(m), true};
-}
-
-// Projection: xq [m, k16] × packed [k/4, n] → Dequant.
+// Projection of expert e: xq [E, m, k16] × packed [E, k/4, n] → Dequant
+// into out [E, m, n] (γ, bias [E, n]).
 template <class T>
 __device__ __forceinline__ void project_body(const int8_t* xq, const float* xs,
                                              const uint8_t* packed,
                                              const float* gamma,
                                              const float* bias, float* out,
                                              int m, int k, int n, int act) {
-  const int m0 = tile_m0<T>(m), n0 = tile_j<T>(m) * T::BN;
-  ternary_tile::run_tile<T>(barrier_rows<T>(xq, m, pad16(k)),
-                            ternary_tile::packed_columns<T>(packed, k / 4, n, n0),
-                            pad16(k), min(T::BM, m - m0),
-                            Dequant{out, xs, gamma, bias, m0, n0, n, act});
+  const ExpertTile t = expert_tile<T>(m, n, T::BN);
+  const int k16 = pad16(k), n0 = t.j * T::BN;
+  const size_t rows = t.e * m;
+  ternary_tile::run_tile<T>(
+      StreamedA{xq + rows * k16, m, k16, t.m0, true},
+      ternary_tile::packed_columns<T>(packed + t.e * (k / 4) * n, k / 4, n, n0),
+      k16, min(T::BM, m - t.m0),
+      Dequant{out + rows * n, xs + rows, gamma + t.e * n,
+              bias == nullptr ? nullptr : bias + t.e * n, t.m0, n0, n, act});
 }
 
-// Gate‖up: xq [m, k16] × packed [k/4, 2f] → GateUp, 64 columns of h a tile.
+// Gate‖up of expert e: xq [E, m, k16] × packed [E, k/4, 2f] → GateUp into
+// h [E, m, f] (γ [E, 2f]), 64 columns of h a tile.
 template <class T>
 __device__ __forceinline__ void gate_up_body(const int8_t* xq, const float* xs,
                                              const uint8_t* packed,
                                              const float* gamma, float* h,
                                              int m, int k, int f, int act) {
   constexpr int kHalf = T::BN / 2;
-  const int m0 = tile_m0<T>(m), n0 = tile_j<T>(m) * kHalf;
-  const PackedB b{packed, k / 4, 2 * f, ternary_tile::packed_mode(packed, f),
+  const ExpertTile t = expert_tile<T>(m, f, kHalf);
+  const int k16 = pad16(k), n0 = t.j * kHalf;
+  const size_t rows = t.e * m;
+  const uint8_t* pe = packed + t.e * (k / 4) * (2 * f);
+  const PackedB b{pe, k / 4, 2 * f, ternary_tile::packed_mode(pe, f),
                   n0, f + n0, f, 2 * f};
-  ternary_tile::run_tile<T>(barrier_rows<T>(xq, m, pad16(k)), b, pad16(k),
-                            min(T::BM, m - m0),
-                            GateUp{h, xs, gamma, m0, n0, f, act});
+  ternary_tile::run_tile<T>(StreamedA{xq + rows * k16, m, k16, t.m0, true}, b,
+                            k16, min(T::BM, m - t.m0),
+                            GateUp{h + rows * f, xs + rows,
+                                   gamma + t.e * (2 * f), t.m0, n0, f, act});
 }
 
 __global__ void __launch_bounds__(DecodeTile::kThreads)
@@ -238,46 +261,51 @@ using ProjectKernel = void (*)(const int8_t*, const float*, const uint8_t*,
 using GateUpKernel = void (*)(const int8_t*, const float*, const uint8_t*,
                               const float*, float*, int, int, int, int);
 
-// The launch of the GEMM over m rows and n_out output columns (64 a tile
-// for gate‖up, whose n_out is f), and its kernel.
+// The launch of the GEMM over `experts` × m rows and n_out output columns
+// (64 a tile for gate‖up, whose n_out is f), and its kernel.
 template <class T, class K>
-cudaError_t plan_tiles(K kernel, int m, int k, int n_out, bool paired, Launch* l) {
+cudaError_t plan_tiles(K kernel, int experts, int m, int k, int n_out,
+                       bool paired, Launch* l) {
   const int cols = paired ? T::BN / 2 : T::BN;
-  const long long tiles = static_cast<long long>((m + T::BM - 1) / T::BM)
+  const long long tiles = static_cast<long long>(experts)
+                          * ((m + T::BM - 1) / T::BM)
                           * ((n_out + cols - 1) / cols);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   return ternary_tile::plan<T>(kernel, tiles, pad16(k), l);
 }
 
-cudaError_t plan_project(int m, int k, int n, ProjectKernel* kernel, Launch* l) {
+cudaError_t plan_project(int experts, int m, int k, int n, ProjectKernel* kernel,
+                         Launch* l) {
   if (m <= DecodeTile::BM) {
     *kernel = qlinear_decode_kernel;
-    return plan_tiles<DecodeTile>(*kernel, m, k, n, false, l);
+    return plan_tiles<DecodeTile>(*kernel, experts, m, k, n, false, l);
   }
   *kernel = qlinear_chunk_kernel;
-  return plan_tiles<ChunkTile>(*kernel, m, k, n, false, l);
+  return plan_tiles<ChunkTile>(*kernel, experts, m, k, n, false, l);
 }
 
-cudaError_t plan_gate_up(int m, int k, int f, GateUpKernel* kernel, Launch* l) {
+cudaError_t plan_gate_up(int experts, int m, int k, int f, GateUpKernel* kernel,
+                         Launch* l) {
   if (m <= DecodeTile::BM) {
     *kernel = gate_up_decode_kernel;
-    return plan_tiles<DecodeTile>(*kernel, m, k, f, true, l);
+    return plan_tiles<DecodeTile>(*kernel, experts, m, k, f, true, l);
   }
   *kernel = gate_up_chunk_kernel;
-  return plan_tiles<ChunkTile>(*kernel, m, k, f, true, l);
+  return plan_tiles<ChunkTile>(*kernel, experts, m, k, f, true, l);
 }
 
-cudaError_t barrier(const float* x, int8_t* xq, float* xs, int m, int k,
+cudaError_t barrier(const float* x, int8_t* xq, float* xs, int rows, int k,
                     cudaStream_t s) {
-  barrier_kernel<<<m, 32 * kBarrierWarps, 0, s>>>(x, xq, xs, k, pad16(k));
+  barrier_kernel<<<rows, 32 * kBarrierWarps, 0, s>>>(x, xq, xs, k, pad16(k));
   return cudaGetLastError();
 }
 
 cudaError_t project(const int8_t* xq, const float* xs, const uint8_t* packed,
-                    const float* gamma, const float* bias, float* out, int m,
-                    int k, int n, int act, cudaStream_t s) {
+                    const float* gamma, const float* bias, float* out,
+                    int experts, int m, int k, int n, int act, cudaStream_t s) {
   ProjectKernel kernel;
   Launch l;
-  const cudaError_t err = plan_project(m, k, n, &kernel, &l);
+  const cudaError_t err = plan_project(experts, m, k, n, &kernel, &l);
   if (err != cudaSuccess) return err;
   return ternary_tile::launch(kernel, l, s, xq, xs, packed, gamma, bias, out,
                               m, k, n, act);
@@ -287,54 +315,56 @@ cudaError_t project(const int8_t* xq, const float* xs, const uint8_t* packed,
 
 extern "C" {
 
-// The GEMM launch of a projection x [m, k] × packed [k/4, n] (gated = 0)
-// or of the gate‖up stage of an FFN of hidden width n (gated = 1): info ←
-// {CTAs, warps per CTA, dynamic shared-memory bytes, output tiles, CTAs a
-// tile's k is split over}.
-int repro_qlinear_shape(int m, int k, int n, int gated, void* info) {
+// The GEMM launch of a projection x [E, m, k] × packed [E, k/4, n] (gated =
+// 0) or of the gate‖up stage of an FFN of hidden width n (gated = 1):
+// info ← {CTAs, warps per CTA, dynamic shared-memory bytes, output tiles,
+// CTAs a tile's k is split over}.
+int repro_qlinear_shape(int experts, int m, int k, int n, int gated, void* info) {
   Launch l;
   cudaError_t err;
   if (gated) {
     GateUpKernel kernel;
-    err = plan_gate_up(m, k, n, &kernel, &l);
+    err = plan_gate_up(experts, m, k, n, &kernel, &l);
   } else {
     ProjectKernel kernel;
-    err = plan_project(m, k, n, &kernel, &l);
+    err = plan_project(experts, m, k, n, &kernel, &l);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   ternary_tile::launch_info(l, static_cast<int*>(info));
   return 0;
 }
 
-// y = act(((xq·W)·xs)·γ + bias). x f32 [m, k]; packed uint8 [k/4, n];
-// gamma f32 [n]; bias f32 [n] or null; out f32 [m, n]; scratch: xq int8
-// [m, k rounded up to 16] and xs f32 [m], 16-byte aligned. k % 4 == 0,
-// m ≥ 1, n ≥ 1.
+// y = act(((xq·W)·xs)·γ + bias), expert by expert. x f32 [E, m, k]; packed
+// uint8 [E, k/4, n]; gamma f32 [E, n]; bias f32 [E, n] or null; out f32
+// [E, m, n]; scratch: xq int8 [E·m, k rounded up to 16] and xs f32 [E·m],
+// 16-byte aligned. k % 4 == 0, E ≥ 1, m ≥ 1, n ≥ 1.
 int repro_qlinear(const void* x, const void* packed, const void* gamma,
-                  const void* bias, void* out, void* xq, void* xs, int m,
-                  int k, int n, int act, void* stream) {
+                  const void* bias, void* out, void* xq, void* xs, int experts,
+                  int m, int k, int n, int act, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<int8_t*>(xq);
   auto qs = static_cast<float*>(xs);
-  cudaError_t err = barrier(static_cast<const float*>(x), q, qs, m, k, s);
+  cudaError_t err = barrier(static_cast<const float*>(x), q, qs, experts * m,
+                            k, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = project(q, qs, static_cast<const uint8_t*>(packed),
                 static_cast<const float*>(gamma),
-                static_cast<const float*>(bias), static_cast<float*>(out), m,
-                k, n, act, s);
+                static_cast<const float*>(bias), static_cast<float*>(out),
+                experts, m, k, n, act, s);
   return static_cast<int>(err);
 }
 
-// The whole FFN. x f32 [m, k]; gu_packed uint8 [k/4, 2f] (gate ‖ up; [k/4,
-// f] ungated) with gu_scale f32 [2f] (or [f]); down_packed uint8 [f/4,
-// d_out] with down_scale f32 [d_out]; out f32 [m, d_out]; scratch, 16-byte
-// aligned: xq int8 [m, k16], xs f32 [m], h f32 [m, f], hq int8 [m, f16],
-// hs f32 [m] (k16, f16: rounded up to 16). k % 4 == f % 4 == 0, m ≥ 1,
+// The whole FFN, expert by expert. x f32 [E, m, k]; gu_packed uint8 [E,
+// k/4, 2f] (gate ‖ up; [E, k/4, f] ungated) with gu_scale f32 [E, 2f] (or
+// [E, f]); down_packed uint8 [E, f/4, d_out] with down_scale f32 [E,
+// d_out]; out f32 [E, m, d_out]; scratch, 16-byte aligned: xq int8 [E·m,
+// k16], xs f32 [E·m], h f32 [E·m, f], hq int8 [E·m, f16], hs f32 [E·m]
+// (k16, f16: rounded up to 16). k % 4 == f % 4 == 0, E ≥ 1, m ≥ 1,
 // d_out ≥ 1.
 int repro_ffn(const void* x, const void* gu_packed, const void* gu_scale,
               const void* down_packed, const void* down_scale, void* out,
-              void* xq, void* xs, void* h, void* hq, void* hs, int m, int k,
-              int f, int d_out, int gated, int act, void* stream) {
+              void* xq, void* xs, void* h, void* hq, void* hs, int experts,
+              int m, int k, int f, int d_out, int gated, int act, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<int8_t*>(xq);
   auto qs = static_cast<float*>(xs);
@@ -343,25 +373,26 @@ int repro_ffn(const void* x, const void* gu_packed, const void* gu_scale,
   auto hsc = static_cast<float*>(hs);
   auto gu = static_cast<const uint8_t*>(gu_packed);
   auto gus = static_cast<const float*>(gu_scale);
-  cudaError_t err = barrier(static_cast<const float*>(x), q, qs, m, k, s);
+  const int rows = experts * m;
+  cudaError_t err = barrier(static_cast<const float*>(x), q, qs, rows, k, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (gated) {
     GateUpKernel kernel;
     Launch l;
-    err = plan_gate_up(m, k, f, &kernel, &l);
+    err = plan_gate_up(experts, m, k, f, &kernel, &l);
     if (err == cudaSuccess)
       err = ternary_tile::launch(kernel, l, s, static_cast<const int8_t*>(q),
                                  static_cast<const float*>(qs), gu, gus, hf, m,
                                  k, f, act);
   } else {
-    err = project(q, qs, gu, gus, nullptr, hf, m, k, f, act, s);
+    err = project(q, qs, gu, gus, nullptr, hf, experts, m, k, f, act, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = barrier(hf, hq8, hsc, m, f, s);
+  err = barrier(hf, hq8, hsc, rows, f, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = project(hq8, hsc, static_cast<const uint8_t*>(down_packed),
                 static_cast<const float*>(down_scale), nullptr,
-                static_cast<float*>(out), m, f, d_out, 0, s);
+                static_cast<float*>(out), experts, m, f, d_out, 0, s);
   return static_cast<int>(err);
 }
 

@@ -36,9 +36,9 @@ _F = ctypes.c_float
 # C signatures of every entry point: name → (argtypes, restype)
 SIGNATURES = {
     "qlinear": {
-        "repro_qlinear": ([_P] * 7 + [_I] * 4 + [_P], _I),
-        "repro_ffn": ([_P] * 11 + [_I] * 6 + [_P], _I),
-        "repro_qlinear_shape": ([_I] * 4 + [_P], _I),
+        "repro_qlinear": ([_P] * 7 + [_I] * 5 + [_P], _I),
+        "repro_ffn": ([_P] * 11 + [_I] * 7 + [_P], _I),
+        "repro_qlinear_shape": ([_I] * 5 + [_P], _I),
     },
     "prefill_attention": {
         "repro_prefill_attention": ([_P] * 8 + [_I] * 9 + [_F, _P], _I),

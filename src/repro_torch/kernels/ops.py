@@ -26,13 +26,16 @@ from repro_torch.kernels.int8_attention import (int8_flash_prefill,
                                                 sparse_decode_attention)
 from repro_torch.kernels.lop_scores import lop_scores_kernel
 from repro_torch.kernels.prefill_attention import fused_prefill_attention
-from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
+from repro_torch.kernels.qlinear import (fused_ffn, fused_ffn_experts,
+                                         fused_qlinear, fused_qlinear_experts)
 from repro_torch.kernels.ternary_matmul import (
     ternary_matmul as ternary_matmul_kernel)
 
 KERNELS = {
     "fused_qlinear": fused_qlinear,
     "fused_ffn": fused_ffn,
+    "fused_qlinear_experts": fused_qlinear_experts,
+    "fused_ffn_experts": fused_ffn_experts,
     "fused_prefill_attention": fused_prefill_attention,
     "fused_decode_attention": fused_decode_attention,
     "fused_dense_decode_attention": fused_dense_decode_attention,
@@ -169,15 +172,24 @@ def qlinear_fused(x, packed, scale, bias=None, *, act=None):
 
     The absmax barrier, the packed-ternary GEMM and the dequant/bias/act
     epilogue as one dispatch. A 3-D ``packed`` [E, k//4, n] with x
-    [E, C, k] is the grouped-expert form (plain version only so far).
+    [E, C, k] (scale [E, 1, n] or [E, 1, 1], bias [E, 1, n]) is the
+    grouped-expert form: every expert in the same launch.
     """
     k = packed.shape[-2] * 4
     n = packed.shape[-1]
     scale_row = _col_scale(scale, n)
     if not _on_cuda(x):
         return _ref.qlinear_ref(x, packed, scale_row, bias, act=act)
-    if packed.dim() != 2:
-        raise NotImplementedError("the CUDA projection takes E = 1 only")
+    if packed.dim() == 3:
+        e = packed.shape[0]
+        if x.dim() != 3 or x.shape[0] != e:
+            raise ValueError(f"x {tuple(x.shape)} is not [E={e}, C, k]")
+        return fused_qlinear_experts(
+            x.to(torch.float32).contiguous(), packed.contiguous(),
+            scale_row.reshape(e, n).contiguous(),
+            None if bias is None else
+            bias.to(torch.float32).expand(e, 1, n).reshape(e, n).contiguous(),
+            act=act)
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     out = fused_qlinear(x2, packed.contiguous(),
                         scale_row.reshape(n).contiguous(),
@@ -191,7 +203,10 @@ def ffn_fused(x, gu_packed, gu_scale, down_packed, down_scale, *,
               gated: bool, act: str):
     """The whole FFN — act(x·Wg)·(x·Wu) → absmax barrier → ·Wd.
     x [..., d]; gu_packed [d//4, 2f] (gate ‖ up; [d//4, f] ungated);
-    down_packed [f//4, d_out]. → f32 [..., d_out]."""
+    down_packed [f//4, d_out]. → f32 [..., d_out]. Expert stacks
+    (gu_packed [E, d//4, 2f], gu_scale [E, 1, 2f], down_packed [E, f//4,
+    d_out], down_scale [E, 1, 1]) with x [E, C, d] run every expert in
+    the same launches."""
     k = gu_packed.shape[-2] * 4
     d_out = down_packed.shape[-1]
     gu_row = _col_scale(gu_scale, gu_packed.shape[-1])
@@ -199,8 +214,15 @@ def ffn_fused(x, gu_packed, gu_scale, down_packed, down_scale, *,
     if not _on_cuda(x):
         return _ref.ffn_fused_ref(x, gu_packed, gu_row, down_packed,
                                   down_row, gated=gated, act=act)
-    if gu_packed.dim() != 2:
-        raise NotImplementedError("the CUDA FFN takes E = 1 only")
+    if gu_packed.dim() == 3:
+        e = gu_packed.shape[0]
+        if x.dim() != 3 or x.shape[0] != e:
+            raise ValueError(f"x {tuple(x.shape)} is not [E={e}, C, d]")
+        # γ stays [E, n]: expert e's row is read by expert e's CTAs
+        return fused_ffn_experts(
+            x.to(torch.float32).contiguous(), gu_packed.contiguous(),
+            gu_row.reshape(e, -1).contiguous(), down_packed.contiguous(),
+            down_row.reshape(e, -1).contiguous(), gated=gated, act=act)
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     out = fused_ffn(x2, gu_packed.contiguous(),
                     gu_row.reshape(-1).contiguous(), down_packed.contiguous(),

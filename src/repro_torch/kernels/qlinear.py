@@ -10,7 +10,10 @@ Hopper's unordered CTAs cannot share; the absmax max is exact, so the
 hidden barrier stays the same function. Each call issues its launches
 (two for the projection, four for the FFN) from one C entry. The
 barrier pass quantizes rows of any k into scratch, so k and f may be any
-multiple of 4. Both take the E = 1 form only.
+multiple of 4. ``fused_qlinear_experts`` and ``fused_ffn_experts`` are
+the TPU kernels' leading expert axis: x [E, C, k] against expert stacks,
+the expert a grid coordinate of the same launches (no loop over
+experts); each form counts its own launches.
 
 Each wrapper checks its operands, allocates its output and one scratch
 buffer with ``torch.empty``, launches on the current stream, raises on a
@@ -74,6 +77,36 @@ def _scratch(device, sizes):
     return buf, [buf.data_ptr() + o for o in offsets]
 
 
+def _qlinear(x, packed, gamma, bias, act, counter) -> torch.Tensor:
+    """One launch of ``repro_qlinear`` over x [E, m, k] × packed [E, k//4,
+    n], gamma [E, n], bias [E, n] or None → f32 [E, m, n]; a launch adds
+    one to ``counter.launches``."""
+    lib = _build.load("qlinear")
+    require(x, "x", torch.float32)
+    e, m, k = x.shape
+    _check_k(k)
+    require(packed, "packed", torch.uint8)
+    if packed.dim() != 3 or packed.shape[:2] != (e, k // 4):
+        raise ValueError(f"packed: expected [{e}, {k // 4}, n], got "
+                         f"{tuple(packed.shape)}")
+    n = packed.shape[2]
+    require(gamma, "gamma", torch.float32, (e, n))
+    if bias is not None:
+        require(bias, "bias", torch.float32, (e, n))
+    act_code = _act_code(act)
+    out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    if e and m and n:
+        scratch, (xq, xs) = _scratch(x.device, (e * m * _pad16(k), 4 * e * m))
+        rc = lib.repro_qlinear(x.data_ptr(), packed.data_ptr(),
+                               gamma.data_ptr(),
+                               None if bias is None else bias.data_ptr(),
+                               out.data_ptr(), xq, xs, e, m, k, n, act_code,
+                               _stream(x))
+        _build.check(rc, "repro_qlinear")
+        counter.launches += 1
+    return out
+
+
 def fused_qlinear(x: torch.Tensor, packed: torch.Tensor, gamma: torch.Tensor,
                   bias: torch.Tensor | None = None, *,
                   act: str | None = None) -> torch.Tensor:
@@ -81,35 +114,61 @@ def fused_qlinear(x: torch.Tensor, packed: torch.Tensor, gamma: torch.Tensor,
 
     ``gamma`` f32 [n] is the per-column γ row; ``bias`` f32 [n] or None.
     """
+    if x.dim() != 2 or packed.dim() != 2:
+        raise ValueError(f"x, packed: expected [m, k] and [k//4, n], got "
+                         f"{tuple(x.shape)} and {tuple(packed.shape)}")
+    return _qlinear(x[None], packed[None], gamma[None],
+                    None if bias is None else bias[None], act,
+                    fused_qlinear)[0]
+
+
+def fused_qlinear_experts(x: torch.Tensor, packed: torch.Tensor,
+                          gamma: torch.Tensor,
+                          bias: torch.Tensor | None = None, *,
+                          act: str | None = None) -> torch.Tensor:
+    """The grouped-expert projection: f32 x [E, C, k] × packed ternary
+    [E, k//4, n] → f32 [E, C, n], expert e's rows against expert e's
+    weights, every expert in one launch. ``gamma`` f32 [E, n]; ``bias``
+    f32 [E, n] or None."""
+    if x.dim() != 3:
+        raise ValueError(f"x: expected [E, C, k], got {tuple(x.shape)}")
+    return _qlinear(x, packed, gamma, bias, act, fused_qlinear_experts)
+
+
+def _ffn(x, gu_packed, gu_scale, down_packed, down_scale, gated, act,
+         counter) -> torch.Tensor:
+    """One launch of ``repro_ffn`` over x [E, m, k] → f32 [E, m, d_out]; a
+    launch adds one to ``counter.launches``."""
     lib = _build.load("qlinear")
     require(x, "x", torch.float32)
-    if x.dim() != 2:
-        raise ValueError(f"x: expected [m, k], got {tuple(x.shape)}")
-    m, k = x.shape
+    e, m, k = x.shape
     _check_k(k)
-    require(packed, "packed", torch.uint8)
-    if packed.dim() != 2 or packed.shape[0] * 4 != k:
-        raise ValueError(f"packed: expected [{k // 4}, n], got "
-                         f"{tuple(packed.shape)}")
-    n = packed.shape[1]
-    require(gamma, "gamma", torch.float32, (n,))
-    if bias is not None:
-        require(bias, "bias", torch.float32, (n,))
+    require(down_packed, "down_packed", torch.uint8)
+    if down_packed.dim() != 3 or down_packed.shape[0] != e:
+        raise ValueError(f"down_packed: expected [{e}, f//4, d_out], got "
+                         f"{tuple(down_packed.shape)}")
+    f = down_packed.shape[1] * 4
+    _check_k(f)
+    d_out = down_packed.shape[2]
+    gu_width = 2 * f if gated else f
+    require(gu_packed, "gu_packed", torch.uint8, (e, k // 4, gu_width))
+    require(gu_scale, "gu_scale", torch.float32, (e, gu_width))
+    require(down_scale, "down_scale", torch.float32, (e, d_out))
     act_code = _act_code(act)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m and n:
-        scratch, (xq, xs) = _scratch(x.device, (m * _pad16(k), 4 * m))
-        rc = lib.repro_qlinear(x.data_ptr(), packed.data_ptr(),
-                               gamma.data_ptr(),
-                               None if bias is None else bias.data_ptr(),
-                               out.data_ptr(), xq, xs, m, k, n, act_code,
-                               _stream(x))
-        _build.check(rc, "repro_qlinear")
-        fused_qlinear.launches += 1
+    out = torch.empty((e, m, d_out), dtype=torch.float32, device=x.device)
+    if not (e and m and d_out):
+        return out
+    rows = e * m
+    scratch, (xq, xs, h, hq, hs) = _scratch(
+        x.device, (rows * _pad16(k), 4 * rows, 4 * rows * f,
+                   rows * _pad16(f), 4 * rows))
+    rc = lib.repro_ffn(x.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(),
+                       down_packed.data_ptr(), down_scale.data_ptr(),
+                       out.data_ptr(), xq, xs, h, hq, hs, e, m, k, f, d_out,
+                       int(gated), act_code, _stream(x))
+    _build.check(rc, "repro_ffn")
+    counter.launches += 1
     return out
-
-
-fused_qlinear.launches = 0
 
 
 def fused_ffn(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor,
@@ -121,47 +180,41 @@ def fused_ffn(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor,
     f32 [2f] (or [f]); down_packed uint8 [f//4, d_out], down_scale f32
     [d_out].
     """
-    lib = _build.load("qlinear")
-    require(x, "x", torch.float32)
-    if x.dim() != 2:
-        raise ValueError(f"x: expected [m, k], got {tuple(x.shape)}")
-    m, k = x.shape
-    _check_k(k)
-    require(down_packed, "down_packed", torch.uint8)
-    if down_packed.dim() != 2:
-        raise ValueError("down_packed: expected [f//4, d_out]")
-    f = down_packed.shape[0] * 4
-    _check_k(f)
-    d_out = down_packed.shape[1]
-    gu_width = 2 * f if gated else f
-    require(gu_packed, "gu_packed", torch.uint8, (k // 4, gu_width))
-    require(gu_scale, "gu_scale", torch.float32, (gu_width,))
-    require(down_scale, "down_scale", torch.float32, (d_out,))
-    act_code = _act_code(act)
-    out = torch.empty((m, d_out), dtype=torch.float32, device=x.device)
-    if not (m and d_out):
-        return out
-    scratch, (xq, xs, h, hq, hs) = _scratch(
-        x.device, (m * _pad16(k), 4 * m, 4 * m * f, m * _pad16(f), 4 * m))
-    rc = lib.repro_ffn(x.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(),
-                       down_packed.data_ptr(), down_scale.data_ptr(),
-                       out.data_ptr(), xq, xs, h, hq, hs, m, k, f, d_out,
-                       int(gated), act_code, _stream(x))
-    _build.check(rc, "repro_ffn")
-    fused_ffn.launches += 1
-    return out
+    if x.dim() != 2 or gu_packed.dim() != 2 or down_packed.dim() != 2:
+        raise ValueError("fused_ffn: expected x [m, k] and 2-D weights")
+    return _ffn(x[None], gu_packed[None], gu_scale[None], down_packed[None],
+                down_scale[None], gated, act, fused_ffn)[0]
 
 
+def fused_ffn_experts(x: torch.Tensor, gu_packed: torch.Tensor,
+                      gu_scale: torch.Tensor, down_packed: torch.Tensor,
+                      down_scale: torch.Tensor, *, gated: bool,
+                      act: str) -> torch.Tensor:
+    """The grouped-expert FFN: f32 x [E, C, k] → f32 [E, C, d_out], expert
+    e's rows through expert e's gate‖up [E, k//4, 2f] (γ [E, 2f]) and down
+    [E, f//4, d_out] (γ [E, d_out]) streams, every expert in the same four
+    launches of one C entry."""
+    if x.dim() != 3:
+        raise ValueError(f"x: expected [E, C, k], got {tuple(x.shape)}")
+    return _ffn(x, gu_packed, gu_scale, down_packed, down_scale, gated, act,
+                fused_ffn_experts)
+
+
+fused_qlinear.launches = 0
+fused_qlinear_experts.launches = 0
 fused_ffn.launches = 0
+fused_ffn_experts.launches = 0
 
 
-def launch_shape(m: int, k: int, n: int, *, gated: bool = False) -> dict:
+def launch_shape(m: int, k: int, n: int, *, gated: bool = False,
+                 experts: int = 1) -> dict:
     """CTAs, warps per CTA, dynamic shared-memory bytes, output tiles and
     the CTAs each tile's k is split over (``split``) of the GEMM launch of
     :func:`fused_qlinear` at x [m, k] × [k//4, n] (``gated``: of
-    :func:`fused_ffn`'s gate‖up stage at hidden width n) on the current
-    card."""
+    :func:`fused_ffn`'s gate‖up stage at hidden width n; ``experts``: of
+    the grouped-expert form with m rows an expert) on the current card."""
     info = (ctypes.c_int * 5)()
     _build.check(_build.load("qlinear").repro_qlinear_shape(
-        m, k, n, int(gated), ctypes.addressof(info)), "repro_qlinear_shape")
+        experts, m, k, n, int(gated), ctypes.addressof(info)),
+        "repro_qlinear_shape")
     return dict(zip(("ctas", "warps", "smem", "tiles", "split"), info))

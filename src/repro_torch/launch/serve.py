@@ -1,6 +1,7 @@
 """Continuous-batching serving entry point of the port.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-3b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch {bitnet-3b,granite-moe-1b-a400m} \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
         [--shared-prefix-tokens N --prefix-reuse-frac F] [--no-prefix-cache] \\
@@ -11,7 +12,8 @@ Builds a seeded model on the device (the CUDA card unless ``--device cpu``),
 synthesizes requests with prompt lengths drawn from
 ``numpy.random.default_rng(seed)``, serves them through the
 :class:`repro_torch.serving.scheduler.Scheduler` (chunked prefill
-interleaved with decode) and reports tokens/s, TTFT, latency, the time
+interleaved with decode; whole prompts at their exact length for a moe
+model, which never chunks) and reports tokens/s, TTFT, latency, the time
 of a serve cycle's decode call and, last, the modeled K/V traffic per
 head and query, dense against LOP. ``--no-lop`` decodes with dense attention
 (the LOP ablation arm); the sampling flags give every request the same
@@ -124,6 +126,12 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
             sched.decode_seconds, 50) * 1e3) if sched.decode_seconds
         else float("nan"),
         "decode_launches": sched.decode_launches,
+        "chunked": sched.chunked,
+        "full_prefills": len(sched.full_prefill_seconds),
+        "full_prefill_ms_p50": float(np.percentile(
+            sched.full_prefill_seconds, 50) * 1e3)
+        if sched.full_prefill_seconds else float("nan"),
+        "full_prefill_stalls": sched.full_prefill_stalls,
         "prefix_cache": sched.prefix_store is not None,
         "prefix_hits": sched.prefix_hits,
         "prefix_hit_tokens": sched.prefix_hit_tokens,
@@ -275,6 +283,10 @@ def main(argv=None) -> int:
           f"{out['latency_p50_s'] * 1e3:.1f} ms, serve-cycle decode "
           f"p50 {out['serve_cycle_decode_ms_p50']:.2f} ms (waits on the "
           f"cycle's prefill chunk)")
+    if not out["chunked"]:
+        print(f"full-prompt prefills (exact length, run to completion): "
+              f"{out['full_prefills']}, p50 {out['full_prefill_ms_p50']:.2f}"
+              f" ms, {out['full_prefill_stalls']} stalled decoding lanes")
     if out["spec_decode"]:
         print(f"speculative decode: {out['spec_rounds']} rounds, accept "
               f"rate {out['spec_accept_rate']:.2f} ({out['spec_accepted']}/"

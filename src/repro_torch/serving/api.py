@@ -44,8 +44,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import cache as _cache
 from repro_torch.serving import faults as _faults
-from repro_torch.serving.engine import (guard_logits, prefill, prefill_chunk,
-                                        serve_step)
+from repro_torch.serving.engine import (chunks_prefill, guard_logits,
+                                        prefill, prefill_chunk, serve_step)
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.quantize import quantize_params
 from repro_torch.serving.sampling import sample_with_seed
@@ -245,7 +245,13 @@ class PooledEngine:
         self.max_len = max_len
         self.use_lop = use_lop
         self.chunk_tokens = cfg.lop_block
-        self.supports_chunked = cfg.family == "dense"
+        # ---- capability declarations (family → behaviour, once) ----
+        self.supports_chunked = chunks_prefill(cfg)
+        self.exact_length_prefill = not self.supports_chunked
+        self.state_kind = _cache.STATE_KINDS.get(cfg.family)
+        if self.state_kind is None:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet")
         # prefix pages are lop_block-aligned and resume through the chunk
         # carry; speculation needs rewindable pages and a chunk-shaped
         # verify: both exist exactly where chunked prefill does
@@ -279,7 +285,7 @@ class PooledEngine:
 
     def prefix_len(self, req: GenerateRequest) -> int:
         """Cache positions a request holds before its text tokens (an
-        image prefix; none in the dense family)."""
+        image prefix; none in the dense and moe families)."""
         return 0
 
     def insert(self, pool, slot: int, req_cache) -> dict:
@@ -315,7 +321,8 @@ class PooledEngine:
     # ---------------- prefill ----------------
 
     def prefill(self, tokens):
-        """Whole-prompt prefill of tokens [B, S] → (logits [B, V], cache)."""
+        """Whole-prompt prefill of tokens [B, S] at their exact length →
+        (logits [B, V], cache of the pool's capacity)."""
         return prefill(self.cfg, self.qp, self._tokens(tokens),
                        max_len=self.max_len)
 

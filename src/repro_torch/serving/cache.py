@@ -47,9 +47,14 @@ def capacity_for(cfg, max_len: int) -> int:
     return round_up(max_len + 1, cfg.lop_block)
 
 
+# how each served family keeps its per-sequence state (the reference's
+# ``_STATE_KINDS``): dense and moe layers both keep one paged K/V cache
+STATE_KINDS = {"dense": "paged-kv", "moe": "paged-kv"}
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
     """Zero cache for ``batch`` sequences of up to ``max_len`` tokens."""
-    if cfg.family != "dense":
+    if STATE_KINDS.get(cfg.family) != "paged-kv":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     cap = capacity_for(cfg, max_len)
     lead = (cfg.n_layers, batch, cfg.n_kv_heads, cap)

@@ -1,9 +1,11 @@
-"""Serving engine, dense family: prefill (whole prompt and chunked) and the
-one-token decode step.
+"""Serving engine, dense and moe families: prefill (whole prompt, and
+chunked for dense) and the one-token decode step.
 
 Per decoder layer the path makes four kernel dispatches through
 :mod:`repro_torch.kernels.ops`: the fused QKV projection, prefill or decode
-attention, the O projection, and the whole FFN. Everything between them
+attention, the O projection, and the whole FFN — for a moe layer the
+grouped-expert FFN of every expert in one launch, between the router and
+the combine (:mod:`repro_torch.models.moe`). Everything between them
 (RMSNorm, RoPE, the absmax quantization of q/k/v, LOP features, cache
 writes, the f32 head) is plain tensor code. Layers are a Python loop over
 the layer-stacked weights.
@@ -29,8 +31,9 @@ from repro_torch.core.quantization import quantize
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (embedding_apply, ffn_apply, head_apply,
                                        norm_apply, rope)
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import layer_slice
-from repro_torch.serving.cache import init_cache
+from repro_torch.serving.cache import init_cache, round_up
 from repro_torch.serving.lop_select import k_keep_blocks
 
 
@@ -39,9 +42,18 @@ def _q(x):
     return qt.values, qt.scale
 
 
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+def _check_family(cfg, families=("dense", "moe"), what: str = "") -> None:
+    if cfg.family not in families:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported"
+                                  + (f" for {what}" if what else ""))
+
+
+def chunks_prefill(cfg) -> bool:
+    """Whether ``cfg``'s family prefills in chunks over the full capacity.
+    moe routers rank a group's tokens for expert capacity, so a pad token
+    or a chunk boundary would change who is dropped: moe prefills whole
+    prompts at their exact length and attends only their block roundup."""
+    return cfg.family == "dense"
 
 
 def _project_qkv(cfg, lp, h):
@@ -76,8 +88,10 @@ def _write_rows(cl, ki, vi, ksc, vsc, feat, start: int) -> None:
     cl["feat"][:, :, start:start + s] = feat
 
 
-def _attend_prefill(cfg, lp, h, cl, *, start: int, kv_len):
-    """Shared body of whole-prompt and chunked prefill attention."""
+def _attend_prefill(cfg, lp, h, cl, *, start: int, kv_len,
+                    m_att: int | None = None):
+    """Shared body of whole-prompt and chunked prefill attention; the
+    attention reads cache positions [0, m_att) (all of them by default)."""
     b, s, _ = h.shape
     q, k, v = _project_qkv(cfg, lp, h)
     positions = start + torch.arange(s, device=h.device)[None, :]
@@ -85,9 +99,12 @@ def _attend_prefill(cfg, lp, h, cl, *, start: int, kv_len):
     k = rope(k, positions, cfg.rope_theta)
     qi, qsc = _q(q)
     _write_rows(cl, *_quantize_kv(k, v), start)
+    view = {key: cl[key][:, :, :m_att] for key in ("k", "v", "k_scale",
+                                                   "v_scale")}
     o = ops.prefill_attention(
-        qi.transpose(1, 2), qsc[..., 0].transpose(1, 2), cl["k"], cl["v"],
-        cl["k_scale"], cl["v_scale"], kv_len, q_offset=start, causal=True,
+        qi.transpose(1, 2), qsc[..., 0].transpose(1, 2), view["k"],
+        view["v"], view["k_scale"], view["v_scale"], kv_len, q_offset=start,
+        causal=True,
         window=cfg.swa_window, int8_logits=bool(cfg.int8_logits))
     o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return qlinear(lp["wo"], o)
@@ -99,11 +116,17 @@ def attn_prefill(cfg, lp, h, cl):
     The prompt is one maximal chunk over the full capacity-padded cache
     (``q_offset`` 0, ``kv_len`` S) — the same op and operand shapes as
     :func:`attn_prefill_chunk`, which is what keeps chunked prefill
-    bitwise whole-prompt prefill.
+    bitwise whole-prompt prefill. A family that never chunks (moe) attends
+    only the prompt's block roundup, ``min(capacity, round_up(S,
+    lop_block))``, as the reference does: its cost scales with S, not
+    with the pool's capacity.
     """
     b, s, _ = h.shape
     kv_len = torch.full((b,), s, dtype=torch.int32, device=h.device)
-    return _attend_prefill(cfg, lp, h, cl, start=0, kv_len=kv_len)
+    m_att = None if chunks_prefill(cfg) else min(
+        cl["k"].shape[2], round_up(s, cfg.lop_block))
+    return _attend_prefill(cfg, lp, h, cl, start=0, kv_len=kv_len,
+                           m_att=m_att)
 
 
 def attn_prefill_chunk(cfg, lp, h, cl, *, start: int, kv_len):
@@ -168,7 +191,10 @@ def attn_decode(cfg, lp, h, cl, lengths, *, use_lop=True, active=None,
 
 
 def _mlp(cfg, lp, x):
-    return x + ffn_apply(cfg, lp["ffn"], norm_apply(lp["ln2"], x, cfg.norm))
+    h = norm_apply(lp["ln2"], x, cfg.norm)
+    if "moe" in lp:
+        return x + moe_apply(cfg, lp["moe"], h)
+    return x + ffn_apply(cfg, lp["ffn"], h)
 
 
 def _logits(cfg, qp, x_last):
@@ -182,7 +208,7 @@ def prefill(cfg, qp, tokens, *, max_len=None):
     position, cache with capacity for ``max(max_len, S)`` tokens).
     """
     cfg = resolve_decode_flags(cfg)
-    _check_dense(cfg)
+    _check_family(cfg)
     b, s = tokens.shape
     max_len = max(max_len if max_len is not None else 0, s)
     cache = init_cache(cfg, b, max_len, tokens.device)
@@ -210,7 +236,9 @@ def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int,
     position — the speculative verify call, whose row i is the target for
     the token after position ``start + i``."""
     cfg = resolve_decode_flags(cfg)
-    _check_dense(cfg)
+    # the chunk carry needs routing that does not see other tokens: moe
+    # routers rank a group's tokens for capacity, so moe never chunks
+    _check_family(cfg, ("dense",), "chunked prefill")
     b, c = tokens.shape
     kv_len = torch.full((b,), start + c, dtype=torch.int32,
                         device=tokens.device)
@@ -247,7 +275,9 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
     layer and ``rollback_slot`` rewinds for rejected tokens.
     """
     cfg = resolve_decode_flags(cfg)
-    _check_dense(cfg)
+    _check_family(cfg)
+    if n_layers is not None:
+        _check_family(cfg, ("dense",), "the speculative draft")
     lengths = cache["lengths"]
     if active is None:
         active = cache.get("active")

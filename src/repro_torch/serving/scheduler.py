@@ -4,10 +4,19 @@ A FIFO queue feeds ``n_slots`` persistent decode lanes. Per request:
 
     admit → chunked prefill → activate → decode → evict
 
-``admit`` reserves a free lane and plans the prompt's chunk grid (chunk =
-``lop_block`` tokens; the last chunk is right-padded to the same width
-unless that would pass the pool capacity). With the prefix cache on (the
-default) the prompt is first matched against the
+or, on an engine that does not declare ``supports_chunked`` (moe, whose
+routers rank a group's tokens for expert capacity), the run-to-completion
+regime: ``admit`` prefills the whole prompt at once, batch 1 and at its
+exact length (``engine.prefill`` → ``engine.insert``), and the lane
+decodes from the next step; a prefill that runs while other lanes are
+decoding stalls them and counts in ``full_prefill_stalls``. The prefix
+store is off there (prefix pages resume through the chunk carry).
+
+In the chunked regime ``admit`` reserves a free lane and plans the
+prompt's chunk grid (chunk = ``lop_block`` tokens; the last chunk is
+right-padded to the same width unless that would pass the pool
+capacity). With the prefix cache on (the default) the prompt is first
+matched against the
 :class:`repro_torch.serving.cache.PrefixStore`: hits are cloned into their
 lanes after the admit sweep — node by node, one ``engine.bulk_insert`` a
 chain node for all the lanes that matched it — and plan chunks for the
@@ -98,8 +107,6 @@ class Scheduler:
                  prefix_cache: bool = True,
                  spec_decode: bool = False, gamma: int = 4,
                  spec_watchdog: int = 3, clock=time.monotonic):
-        if not engine.supports_chunked:
-            raise NotImplementedError("only chunked prefill is ported")
         if spec_decode and gamma < 1:
             raise ValueError(f"spec_decode needs gamma >= 1, got {gamma}")
         self.engine = engine
@@ -110,6 +117,7 @@ class Scheduler:
         self.pool = self.engine.init_pool(n_slots)
         self.capacity = pool_capacity(self.pool)
         self.chunk_tokens = self.engine.chunk_tokens
+        self.chunked = self.engine.supports_chunked
         # an engine without rewindable pages or a chunked verify serves
         # plain decode
         self.spec = spec_decode and self.engine.supports_speculative
@@ -136,6 +144,10 @@ class Scheduler:
         self.prefix_hit_tokens = 0
         self.prefill_tokens_computed = 0
         self.prefill_tokens_served = 0
+        # whole-prompt prefills (run-to-completion regime) that ran while
+        # other lanes were decoding, and each one's host seconds
+        self.full_prefill_stalls = 0
+        self.full_prefill_seconds: list[float] = []
         # speculative telemetry: full-model launches are decode_launches
         # + spec_verify_launches; draft_launches are the proposer's steps
         self.spec_rounds = 0
@@ -218,12 +230,16 @@ class Scheduler:
             return 0, None
 
     def admit(self) -> int:
-        """Reserve free lanes for queued requests. → number admitted. A
-        queued request that was cancelled or expired retires here without
-        taking a lane. Prefix hits plan their uncached suffix only; their
-        pages are cloned after the sweep: for each matched node, every lane
-        that hit it takes the chain node by node (one ``bulk_insert`` a
-        chain node, at its own token offset)."""
+        """Fill free lanes from the queue. → number admitted. A queued
+        request that was cancelled or expired retires here without taking
+        a lane. Chunked regime: the lane is reserved and the prompt's chunk
+        grid planned; prefix hits plan their uncached suffix only, and
+        their pages are cloned after the sweep: for each matched node,
+        every lane that hit it takes the chain node by node (one
+        ``bulk_insert`` a chain node, at its own token offset).
+        Run-to-completion regime: the whole prompt prefills here and the
+        lane activates at once (a request that finishes on its first token
+        is in ``results``)."""
         n = 0
         clones: dict = {}          # prefix node key -> (node, [slots])
         while self.queue and self._free:
@@ -235,6 +251,10 @@ class Scheduler:
                 self._record_abort(req, reason=reason)
                 continue
             slot = self._free.popleft()
+            if not self.chunked:
+                self._prefill_whole(slot, req)
+                n += 1
+                continue
             skip, node = self._match(req)
             chunks, starts, seq_ends = self._plan_chunks(req, skip)
             self._prefilling.append(_Prefill(slot, req, chunks, starts,
@@ -268,6 +288,24 @@ class Scheduler:
             return
         store.insert(pf.req.prompt[:n], _cache.extract_slot(self.pool,
                                                             pf.slot))
+
+    def _prefill_whole(self, slot: int, req: GenerateRequest) -> None:
+        """Run-to-completion regime: prefill the whole prompt, batch 1 at
+        its exact length (no padding reaches a router), copy its cache into
+        lane ``slot`` and start the lane."""
+        if self.n_active:
+            self.full_prefill_stalls += 1
+        t_admit = self.clock()
+        plen = len(req.prompt)
+        self.prefill_tokens_computed += plen
+        self.prefill_tokens_served += plen
+        t0 = time.perf_counter()
+        logits, req_cache = self.engine.prefill(
+            np.asarray(req.prompt, np.int32)[None])
+        self.pool = self.engine.insert(self.pool, slot, req_cache)
+        self.full_prefill_seconds.append(time.perf_counter() - t0)
+        self._start_lane(_Prefill(slot, req, [], [], [], t_admit), logits,
+                         [])
 
     def _start_lane(self, pf: _Prefill, logits, done: list) -> None:
         """Prefill finished: seed the lane with the prompt's sampled first

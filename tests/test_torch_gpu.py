@@ -978,3 +978,188 @@ def test_spec_pool_graphs_survive_bulk_insert_and_rollback(cuda):
     eng.draft(pool, nxt, *params)
     torch.cuda.synchronize()
     assert (eng.graphs.count, len(eng.graphs)) == (held, n_keys)
+
+
+# ---------------------------------------------------------------------------
+# the expert axis of #1 and #2, and the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+def _expert_rows(rng, e, c, k, zero_from):
+    """x [E, C, k] whose rows from ``zero_from`` on are all zero in every
+    expert (the empty capacity slots of a MoE dispatch)."""
+    x = rng.standard_normal((e, c, k)).astype(np.float32)
+    x[:, zero_from:] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("e", [1, 2, 32])
+@pytest.mark.parametrize("c", [1, 8, 33, 480])
+def test_expert_qlinear_kernel_matches_plain(cuda, e, c):
+    """#1 with a leading expert axis: one launch, bitwise the plain
+    version (a bias and an activation on one case each), zero rows giving
+    exact zeros."""
+    rng = np.random.default_rng(100 * e + c)
+    k, n = 1024, 512
+    x = _expert_rows(rng, e, c, k, zero_from=c // 2 + 1)
+    packed = rng.integers(0, 256, (e, k // 4, n)).astype(np.uint8)
+    gamma = rng.uniform(0.01, 0.05, (e, 1, n)).astype(np.float32)
+    bias = rng.standard_normal((e, 1, n)).astype(np.float32) * 0.1
+    x, packed, gamma, bias = _dev((x, packed, gamma, bias), cuda)
+    for b, act in ((None, None), (bias, None), (None, "silu")):
+        ops.reset_launch_counts()
+        got = ops.qlinear_fused(x, packed, gamma, b, act=act)
+        assert ops.launch_counts()["fused_qlinear_experts"] == 1
+        want = plain.qlinear_ref(x, packed, gamma, b, act=act)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        if act is None:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, **TOL)
+        if b is None:
+            assert not got[:, c // 2 + 1:].any()
+
+
+@pytest.mark.parametrize("e", [1, 2, 32])
+@pytest.mark.parametrize("c", [1, 8, 33, 480])
+def test_expert_ffn_kernel_matches_plain(cuda, e, c):
+    """#2 with a leading expert axis at granite-moe-1b-a400m's widths (d
+    1024, f 512; γ per expert and column for gate‖up, per expert for
+    down): one launch, within rtol = atol = 2e-5 of the plain version,
+    zero rows giving exact zeros."""
+    rng = np.random.default_rng(1000 * e + c)
+    d, f = 1024, 512
+    x = _expert_rows(rng, e, c, d, zero_from=c // 2 + 1)
+    gu = rng.integers(0, 256, (e, d // 4, 2 * f)).astype(np.uint8)
+    gs = rng.uniform(0.01, 0.05, (e, 1, 2 * f)).astype(np.float32)
+    down = rng.integers(0, 256, (e, f // 4, d)).astype(np.uint8)
+    ds = rng.uniform(0.01, 0.05, (e, 1, 1)).astype(np.float32)
+    args = _dev((x, gu, gs, down, ds), cuda)
+    ops.reset_launch_counts()
+    got = ops.ffn_fused(*args, gated=True, act="silu")
+    assert ops.launch_counts()["fused_ffn_experts"] == 1
+    want = plain.ffn_fused_ref(*args[:4], args[4].expand(e, 1, d),
+                               gated=True, act="silu")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[:, c // 2 + 1:].any()
+
+
+def test_expert_ffn_rows_independent_of_experts(cuda):
+    """Expert e's rows of a 32-expert launch are bitwise the same rows run
+    as a 1-expert launch on expert e's weights: no tile straddles two
+    experts, whatever the tile (C 8 takes the 16-row decode tile)."""
+    rng = np.random.default_rng(7)
+    e, c, d, f = 32, 8, 1024, 512
+    x = _expert_rows(rng, e, c, d, zero_from=3)
+    gu = rng.integers(0, 256, (e, d // 4, 2 * f)).astype(np.uint8)
+    gs = rng.uniform(0.01, 0.05, (e, 1, 2 * f)).astype(np.float32)
+    down = rng.integers(0, 256, (e, f // 4, d)).astype(np.uint8)
+    ds = rng.uniform(0.01, 0.05, (e, 1, 1)).astype(np.float32)
+    args = _dev((x, gu, gs, down, ds), cuda)
+    whole = ops.ffn_fused(*args, gated=True, act="silu")
+    for i in (0, 13, 31):
+        one = ops.ffn_fused(*(a[i:i + 1] for a in args), gated=True,
+                            act="silu")
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], whole[i]), i
+
+
+def _moe_weights():
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.quantize import quantize_params
+    cfg = get_config("granite-moe-1b-a400m-reduced")
+    qp = quantize_params(cfg, init_params(cfg, 0, "cpu"))
+    return cfg, {k: v[0] for k, v in qp["layers"]["moe"].items()}
+
+
+@pytest.mark.parametrize("t", [1, 4, 64, 100])
+def test_moe_apply_on_card_matches_cpu(cuda, t):
+    """The MoE layer on the card (routing, dispatch, #2 with E = 8, the
+    combine) against the same layer on the CPU's plain path: routing
+    integers bitwise, outputs within rtol = atol = 2e-5; t = 100 has a
+    padded tail group and t = 64 a router biased into overflow drops."""
+    from repro_torch.models import moe
+    cfg, p = _moe_weights()
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy(rng.standard_normal((1, t, cfg.d_model)).astype(
+        np.float32))
+    if t == 64:
+        # rows with a common positive part and a router leaning on their
+        # sum: every token picks expert 0, past its capacity
+        p = dict(p, router=p["router"].clone())
+        p["router"][:, 0] += 0.5
+        x += 1.0
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    want = moe.moe_apply(cfg, p, x)
+    got = moe.moe_apply(cfg, pc, x.to(cuda))
+    grp = x[0, :min(t, cfg.moe_group)]
+    r_cpu = moe.route(cfg, p["router"], grp)
+    r_gpu = moe.route(cfg, pc["router"], grp.to(cuda))
+    torch.cuda.synchronize()
+    for a, b in zip(r_cpu[1:4], r_gpu[1:4]):
+        assert torch.equal(a, b.cpu())
+    if t == 64:
+        assert not bool(r_cpu[3].all())           # some choices dropped
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_moe_route_rows_independent_of_the_batch(cuda):
+    """A token's routing on the card (gates, experts, positions, keep)
+    is bitwise the same whether it is routed alone or with 3, 7 or 479
+    other tokens, at granite-moe-1b-a400m's router width (d 1024, E 32):
+    what keeps a lane's tokens independent of the lanes that share its
+    decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m")
+    rng = np.random.default_rng(3)
+    router = torch.from_numpy((rng.standard_normal(
+        (cfg.d_model, cfg.n_experts)) * cfg.d_model ** -0.5).astype(
+            np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((480, cfg.d_model)).astype(
+        np.float32)).to(cuda)
+    alone = moe.route(cfg, router, x[:1])
+    for t in (4, 8, 480):
+        shared = moe.route(cfg, router, x[:t])
+        torch.cuda.synchronize()
+        for a, b in zip(alone[:4], shared[:4]):
+            assert torch.equal(a[0], b[0]), t
+
+
+@pytest.mark.parametrize("use_lop,sampled", [(True, False), (False, False),
+                                             (True, True)],
+                         ids=["lop-greedy", "nolop-greedy", "lop-sampled"])
+def test_moe_graph_entries_bitwise_eager(cuda, use_lop, sampled):
+    """granite-moe-1b-a400m-reduced served through the run-to-completion
+    regime: the decode entries in CUDA graphs bitwise the eager engine
+    (tokens, every pool tensor, launch counts), each decode step one
+    grouped-expert #2 launch a layer, and the scheduler's tokens bitwise
+    the port's lockstep_generate (a lane's tokens do not depend on the
+    other lanes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.scheduler import lockstep_generate
+    cfg = get_config("granite-moe-1b-a400m-reduced")
+    eager = PooledEngine.from_seed(cfg, seed=0, max_len=GRAPH_MAX_LEN,
+                                   use_lop=use_lop, device=cuda, graphs=False)
+    graph = PooledEngine(cfg, eager.qp, max_len=GRAPH_MAX_LEN,
+                         use_lop=use_lop, device=cuda)
+    reqs = _graph_requests(sampled)
+    want, want_pool, want_counts, esched = _serve_arm(eager, reqs)
+    got, got_pool, got_counts, gsched = _serve_arm(graph, reqs)
+    assert got == want
+    assert got_counts == want_counts
+    for name, leaf in want_pool.items():
+        assert torch.equal(got_pool[name], leaf), name
+    assert graph.graphs.count >= 1 and gsched.full_prefill_stalls >= 1
+    # prefill: one grouped launch a layer a prompt; decode: one a step
+    steps = esched.decode_launches
+    assert got_counts["fused_ffn_experts"] == cfg.n_layers * (len(reqs)
+                                                               + steps)
+    assert got_counts["fused_ffn"] == 0
+    for r in reqs:
+        assert lockstep_generate(graph, r.prompt, r.max_new_tokens,
+                                 sampling=r.sampling) == got[r.rid], r.rid
