@@ -30,7 +30,17 @@ printed:
               and #2 with the leading expert axis at granite-moe-1b-a400m's
               widths (E 32, d 1024, f 512) at the decode shape (C 8) and
               one 1536-token prompt's (C 480), empty capacity rows
-              included (exact zeros), with launch shapes;
+              included (exact zeros), with launch shapes; #4 and #5 in
+              the modes of the sequence-parallel path — pos_offset +
+              return_stats on a 2048-slot cache cut into 2 and 4
+              shards, each shard in turn (an empty shard, new_len inside
+              a shard's first and last block; empty rows exactly m =
+              −1e30, ℓ = 0, out 0), the shards' (out, m, ℓ) merged
+              in-process against the plain merge — and #4's
+              shared_select at granite's shapes (G 2, dh 64) beside
+              per-head selection, with the K/V blocks each gathers;
+              shared_select at G 1 bitwise per-head; #1 and #2 with the
+              squared-relu epilogue;
   4. serve    full-width bitnet-3b with seeded random weights: 8 requests
               of 128–1536 prompt tokens (numpy default_rng(0)), 32 new
               tokens each, through the continuous-batching Scheduler on 4
@@ -112,7 +122,10 @@ printed:
               memory, and the clean decode step on CUDA graphs and eager
               (tokens equal; 48 / 24 / 24 launches of #1 / #2 with E 32 /
               the decode kernel a step); one exact-length prefill's time
-              at 128, 512, 1024 and 1536 tokens;
+              at 128, 512, 1024 and 1536 tokens; then a greedy LOP arm
+              with gqa_shared_select=True (one candidate set a kv head)
+              on the same weights, through the same checks, its tokens/s
+              and step ms beside the per-head arm's;
   5. standalone kernels and the per-head LOP decode, at full width:
               the TINT GEMM (ternary_matmul), the LOP screen
               (lop_scores_kernel), single-head flash prefill and block-sparse
@@ -135,16 +148,37 @@ printed:
               predictive-sparse decode (lop_screen over every (batch,
               kv-head) lane → select_blocks → sparse_decode over every
               lane; 2 launches) against the fused LOP decode kernel (1
-              launch) on the K/V of one layer of the serve engine's cache.
+              launch) on the K/V of one layer of the serve engine's cache;
+  4f. sp     (run last, the earlier engines freed) the reference's
+              production decode path: full-width bitnet-3b drawn from the
+              seeded generator, phase 4's first 4 prompts prefilled
+              replicated into a 2048-slot pool, 16 greedy eager
+              serve_step(sp_axes=("model",)) steps, LOP, LOP with f-axis
+              TP of the FFN (use_ffn_tp) and dense; once on a
+              single-process mesh holding both token shards, then in 2
+              processes joined in a gloo group on cuda:0 (spawned after
+              every kernel is built), each holding its shard. Gates: (a)
+              each rank's tokens and cache shard (sha256 of every leaf
+              and layer) bitwise the single-process run, #1 / #2 / the
+              decode kernel 52 / 26 / 26 launches a rank a step; (b) at
+              lop_keep 1 the SP attention on one layer of the pooled K/V
+              within 1e-3 (err/ref) of the local dense decode; (c) each
+              rank's #4 (out, m, ℓ) at the quota on its own shard
+              against its plain version; eager step ms and tokens/s by
+              rank, and where the SP tokens first part from single-card
+              decode (token index, top-2 margins).
 
 The line before the last two is the ``kernels`` JSON (eleven entries:
-the nine TPU kernels, and #1 and #2 once more in their expert form); the
-last line is ``{"ok": true, "device": {...}}``.
+the nine TPU kernels, and #1 and #2 once more in their expert form; the
+two decode entries also list the modes they ran, each with its launches
+on the path that runs it and phase 3's numbers); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import math
@@ -594,7 +628,298 @@ def kernel_phase(torch, np) -> dict:
         ms=d_ms, plain_ms=dp_ms, bound_ms=db_ms, bound_by=db_by,
         library_ms=lib_ms, max_abs_err=derr,
         shape=f"B={b} H=32 M={m_cap} new_len={nl}")
+    modes = decode_modes(torch, np, rng, t)
+    for name, row in modes.items():
+        rows[name]["modes"] = row
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        *(r["max_abs_err"]
+                                          for r in row.values()))
+    squared_relu_check(torch, np, rng, t)
     return rows
+
+
+def selected(torch, qi, feat, new_len, *, b, hkv, g, m, dh, blk, k_keep,
+             shared=False, po=0):
+    """What the LOP selection of the plain version reads on these inputs:
+    (distinct gated blocks over the lanes, Σ live tokens of every (row,
+    candidate) pair — a shared candidate counts for each of the G rows)."""
+    from repro_torch.core.lop import features_to_pot, pot, unpack_features
+    from repro_torch.core.quantization import int_matmul
+    from repro_torch.serving.lop_select import select_blocks
+    qg = qi.reshape(b, hkv, g, dh)
+    kp = features_to_pot(unpack_features(feat.reshape(b, hkv, m, dh // 2)))
+    scores = int_matmul(pot(qg), kp.transpose(-1, -2))
+    if shared:
+        scores = scores.amax(2, keepdim=True)
+    idx, gt = select_blocks(scores, new_len, block=blk, k_keep=k_keep,
+                            block_offset=po // blk)
+    gate = gt[..., :k_keep] > 0
+    live = ((gt[..., k_keep:2 * k_keep] - gt[..., 2 * k_keep:]) * gate).sum()
+    hit = torch.zeros((b, hkv, m // blk), dtype=torch.int32,
+                      device=qi.device)
+    hit.scatter_(-1, idx.reshape(b, hkv, -1).long(),
+                 gate.reshape(b, hkv, -1).to(torch.int32))
+    return int(hit.sum()), int(live) * (g if shared else 1)
+
+
+def decode_modes(torch, np, rng, t) -> dict:
+    """#4 and #5 in the modes the sequence-parallel path and
+    ``gqa_shared_select`` run, each against its plain version (f32 at
+    rtol = atol = 2e-5: a different candidate set would be far off), timed
+    as phase 3 times the kernels: shared_select at granite-moe-1b-a400m's
+    shapes (G 2, dh 64) beside per-head selection on the same inputs;
+    pos_offset + return_stats at bitnet-3b's shapes on a 2048-slot cache
+    cut into 2 and 4 shards, each shard in turn (an empty shard, new_len
+    inside a shard's first and last block, a retired lane), the shards'
+    (out, m, ℓ) merged in-process and held against the plain merge; and
+    shared_select at G 1 bitwise per-head. → {kernel: {mode: row}}."""
+    from repro_torch.core.lop import lop_features, pack_features
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.decode_attention import (
+        fused_decode_attention, fused_dense_decode_attention)
+    from repro_torch.kernels.decode_attention import \
+        launch_shape as decode_launch_shape
+
+    dev = torch.device("cuda")
+    out = {"fused_decode_attention": {}, DENSE: {}}
+    ptx = {one: ptxas_summary(_build, "decode_attention",
+                              f"lop_decode_kernelILb{one}EE")
+           for one in (0, 1)}
+
+    def data(b, h, hkv, m, dh):
+        bh = b * hkv
+        g = h // hkv
+        kd = t(rng.integers(-127, 128, (bh, m, dh)).astype(np.int8))
+        return (t(rng.integers(-127, 128, (bh, g, dh)).astype(np.int8)),
+                t((rng.random((bh, g)) * 0.02 + 0.001).astype(np.float32)),
+                kd, t(rng.integers(-127, 128, (bh, m, dh)).astype(np.int8)),
+                t((rng.random((bh, m)) * 0.02 + 0.001).astype(np.float32)),
+                t((rng.random((bh, m)) * 0.02 + 0.001).astype(np.float32)),
+                pack_features(lop_features(kd)))
+
+    def plain_call(a, new_len, *, b, hkv, blk, k_keep, lop, shared=False,
+                   po=0, stats=False):
+        bh, g, dh = a[0].shape
+        m = a[2].shape[1]
+        res = plain.decode_attention_ref(
+            a[0].reshape(b, hkv * g, dh), a[1].reshape(b, hkv * g, 1),
+            *(x.reshape(b, hkv, m, *x.shape[2:]) for x in a[2:7]), new_len,
+            block=blk, k_keep=k_keep, window=0, softmax_scale=dh ** -0.5,
+            use_lop=lop, shared_select=shared, pos_offset=po,
+            return_stats=stats)
+        if not stats:
+            return res.reshape(bh, g, dh)
+        return (res[0].reshape(bh, g, dh), res[1].reshape(bh, g),
+                res[2].reshape(bh, g))
+
+    # ---- shared_select at granite's shapes, beside per-head ----
+    b, h, hkv, m, dh, blk, k_keep = 4, 16, 8, 1664, 64, 128, 2
+    g = h // hkv
+    a = data(b, h, hkv, m, dh)
+    nl = torch.tensor([1600, 0, 700, 1200], dtype=torch.int32, device=dev)
+    args = (*a, nl)
+    times = {}
+    for shared in (True, False):
+        def kern(*x, shared=shared):
+            return fused_decode_attention(*x, hkv=hkv, block=blk,
+                                          k_keep=k_keep, window=0,
+                                          softmax_scale=dh ** -0.5,
+                                          shared_select=shared)
+
+        def ref(*x, shared=shared):
+            return plain_call(x[:7], x[7], b=b, hkv=hkv, blk=blk,
+                              k_keep=k_keep, lop=True, shared=shared)
+        label = "shared_select" if shared else "per_head"
+        err = check_close(torch, f"fused_decode_attention[{label}, granite]",
+                          kern(*args), ref(*args))
+        if kern(*args).reshape(b, h, dh)[1].any():
+            raise AssertionError(f"[{label}] retired lane not zero")
+        sets = copies(torch, args)
+        ms, g_ms = cuda_ms(torch, kern, sets, 50), graph_ms(torch, kern, sets)
+        p_ms = cuda_ms(torch, ref, [args], 3)
+        blocks, live_sel = selected(torch, a[0], a[6], nl, b=b, hkv=hkv, g=g,
+                                    m=m, dh=dh, blk=blk, k_keep=k_keep,
+                                    shared=shared)
+        live = hkv * int(nl.sum())
+        b_ms, b_by = bound_ms(
+            nbytes(a[0], a[1], nl) + live * dh // 2
+            + blocks * blk * (2 * dh + 8) + b * h * dh * 4,
+            int8_ops=2.0 * g * live * dh + 2.0 * live_sel * dh,
+            f32_ops=2.0 * live_sel * dh)
+        times[label] = dict(ms=ms, graph_ms=g_ms, plain_ms=p_ms,
+                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                            shape=f"B={b} H={h} Hkv={hkv} dh={dh} M={m} "
+                                  f"k_keep={k_keep}, {blocks} blocks "
+                                  f"gathered")
+        log(f"  fused_decode_attention {label} (granite B={b} H={h} over "
+            f"Hkv={hkv}, dh {dh}, M={m}, k_keep={k_keep}; {blocks} K/V "
+            f"blocks gathered): {ms:.4f} ms, in a CUDA graph {g_ms:.4f} ms "
+            f"(plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"{b_ms / g_ms:.1%} of bound in the graph), max |err| {err:.3g};"
+            f" {fmt_decode_shape(decode_launch_shape(b * hkv, g, m, dh, blk, k_keep=k_keep))}"
+            f"; {ptx[0]}")
+    out["fused_decode_attention"]["shared_select"] = times["shared_select"]
+
+    # ---- pos_offset + return_stats at bitnet's shapes, n = 2 and 4 ----
+    b, h, m, dh, blk = 4, 32, 2048, 100, 128
+    a = data(b, h, h, m, dh)
+    lens = [2000, 0, 1025, 1535]
+    nl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for lop, name in ((True, "fused_decode_attention"), (False, DENSE)):
+        row = None
+        for n in (2, 4):
+            m_loc, k_keep = m // n, max(1, -(-2 // n))     # the quota
+            parts, ms, g_ms, p_ms, b_ms, err = [], 0.0, 0.0, 0.0, 0.0, 0.0
+            byb = {}
+            for r in range(n):
+                po = r * m_loc
+                sa = (a[0], a[1], *(x[:, po:po + m_loc].contiguous()
+                                    for x in a[2:]))
+                args = (*sa, nl)
+                if lop:
+                    def kern(*x, po=po, k_keep=k_keep):
+                        return fused_decode_attention(
+                            *x, hkv=h, block=blk, k_keep=k_keep, window=0,
+                            softmax_scale=dh ** -0.5, pos_offset=po,
+                            return_stats=True)
+                else:
+                    def kern(*x, po=po):
+                        return fused_dense_decode_attention(
+                            *x[:6], x[7], hkv=h, block=blk, window=0,
+                            softmax_scale=dh ** -0.5, pos_offset=po,
+                            return_stats=True)
+
+                def ref(*x, po=po, k_keep=k_keep):
+                    return plain_call(x[:7], x[7], b=b, hkv=h, blk=blk,
+                                      k_keep=k_keep, lop=lop, po=po,
+                                      stats=True)
+                got, want = kern(*args), ref(*args)
+                for part, gv, wv in zip(("out", "m", "l"), got, want):
+                    err = max(err, check_close(
+                        torch, f"{name}[n={n}, shard {r}, {part}]", gv, wv))
+                for lane, nlv in enumerate(lens):
+                    if nlv <= po:       # an empty shard of this lane
+                        rows_ = slice(lane * h, (lane + 1) * h)
+                        for x in (got, want):
+                            if (x[0][rows_].any() or x[2][rows_].any()
+                                    or not (x[1][rows_] == -1e30).all()):
+                                raise AssertionError(
+                                    f"{name}[n={n}, shard {r}] lane {lane}:"
+                                    f" empty rows not (m -1e30, ℓ 0, 0)")
+                parts.append((got, want))
+                sets = copies(torch, args)
+                ms += cuda_ms(torch, kern, sets, 30)
+                g_ms += graph_ms(torch, kern, sets)
+                p_ms += cuda_ms(torch, ref, [args], 2)
+                live = h * sum(max(0, min(v, po + m_loc) - po) for v in lens)
+                if lop:
+                    blocks, live_sel = selected(
+                        torch, a[0], sa[6], nl, b=b, hkv=h, g=1, m=m_loc,
+                        dh=dh, blk=blk, k_keep=k_keep, po=po)
+                    nb_, ops_ = (live * dh // 2 + blocks * blk * (2 * dh + 8),
+                                 2.0 * (live + live_sel) * dh)
+                    f_ops = 2.0 * live_sel * dh
+                else:
+                    nb_, ops_, f_ops = (live * (2 * dh + 8), 2.0 * live * dh,
+                                        2.0 * live * dh)
+                bm, by = bound_ms(nbytes(a[0], a[1], nl) + nb_
+                                  + b * h * (dh + 2) * 4, int8_ops=ops_,
+                                  f32_ops=f_ops)
+                b_ms += bm
+                byb[by] = byb.get(by, 0) + 1
+            merged = []
+            for side in (0, 1):
+                o, mx, l = (torch.stack([p[side][i] for p in parts])
+                            for i in range(3))
+                w = torch.exp(mx - mx.amax(0, keepdim=True))
+                lw = (l * w).sum(0)
+                merged.append((o * (l * w)[..., None]).sum(0)
+                              / torch.clamp_min(lw, 1e-20)[..., None])
+            merr = check_close(torch, f"{name}[n={n} merged]", *merged)
+            if merged[0].reshape(b, h, dh)[1].any():
+                raise AssertionError(f"{name}[n={n}]: retired lane not zero")
+            by = max(byb, key=byb.get)
+            log(f"  {name} pos_offset + return_stats, n={n} shards of "
+                f"M={m_loc} (bitnet B={b} H={h} dh {dh}, new_len {lens}, "
+                f"k_keep {k_keep} a shard): all {n} shards {ms:.4f} ms, in "
+                f"CUDA graphs {g_ms:.4f} ms (plain {p_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms by {by}; {b_ms / g_ms:.1%} of bound in the "
+                f"graph); (out, m, ℓ) max |err| {err:.3g}, empty rows exact, "
+                f"merge max |err| {merr:.3g} against the plain merge; "
+                f"{fmt_decode_shape(decode_launch_shape(b * h, 1, m_loc, dh, blk, k_keep=k_keep, lop=lop))}"
+                f"; {ptxas_summary(_build, 'decode_attention', ('lop' if lop else 'dense') + '_decode_kernelILb1EE')}")
+            if row is None:
+                row = dict(ms=ms, graph_ms=g_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=by, max_abs_err=max(err, merr),
+                           shape=f"B={b} H={h} M={m} in {n} shards, "
+                                 f"new_len {lens}, all shards")
+        out[name]["pos_offset+return_stats"] = row
+
+    # ---- G = 1: shared_select bitwise per-head (a shard, stats too) ----
+    sa = (a[0], a[1], *(x[:, m // 2:].contiguous() for x in a[2:]), nl)
+    per = [fused_decode_attention(*sa, hkv=h, block=blk, k_keep=1, window=0,
+                                  softmax_scale=dh ** -0.5, shared_select=sh,
+                                  pos_offset=m // 2, return_stats=True)
+           for sh in (False, True)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(*per)):
+        raise AssertionError("shared_select at G = 1 is not bitwise "
+                             "per-head selection")
+    log("  fused_decode_attention shared_select at G = 1 (bitnet, shard 1 "
+        "of 2, stats): bitwise per-head selection")
+    return out
+
+
+def squared_relu_check(torch, np, rng, t) -> None:
+    """#1 and #2 with the squared-relu epilogue at bitnet-3b's decode
+    shapes (#1 the O projection; #2 gated and ungated) against their plain
+    versions (#1 bitwise), timed eager and in a CUDA graph beside their
+    bounds."""
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
+    d, f, m = 3200, 8640, 4
+    x = t(rng.standard_normal((m, d)).astype(np.float32))
+    packed = t(rng.integers(0, 256, (d // 4, d)).astype(np.uint8))
+    gamma = t(rng.uniform(0.01, 0.05, (d,)).astype(np.float32))
+    check_close(torch, "fused_qlinear[squared_relu]",
+                fused_qlinear(x, packed, gamma, act="squared_relu"),
+                plain.qlinear_ref(x, packed, gamma[None],
+                                  act="squared_relu"), bitwise=True)
+    sets = copies(torch, (x, packed, gamma))
+
+    def proj(*a):
+        return fused_qlinear(*a, act="squared_relu")
+    b_ms, b_by = bound_ms(nbytes(x, packed, gamma) + m * d * 4,
+                          int8_ops=2.0 * m * d * d)
+    parts = [f"fused_qlinear O m={m} k=n={d} bitwise, "
+             f"{cuda_ms(torch, proj, sets, 30):.4f} ms, in a CUDA graph "
+             f"{graph_ms(torch, proj, sets):.4f} ms, bound {b_ms:.4f} ms by "
+             f"{b_by}"]
+    for gated in (True, False):
+        width = 2 * f if gated else f
+        args = (x, t(rng.integers(0, 256, (d // 4, width)).astype(np.uint8)),
+                t(rng.uniform(0.01, 0.05, (width,)).astype(np.float32)),
+                t(rng.integers(0, 256, (f // 4, d)).astype(np.uint8)),
+                t(np.full((d,), 0.02, np.float32)))
+
+        def ffn(*a, gated=gated):
+            return fused_ffn(*a, gated=gated, act="squared_relu")
+        err = check_close(
+            torch, f"fused_ffn[squared_relu, gated={gated}]", ffn(*args),
+            plain.ffn_fused_ref(args[0], args[1], args[2][None], args[3],
+                                args[4][None], gated=gated,
+                                act="squared_relu"))
+        sets = copies(torch, args)
+        b_ms, b_by = bound_ms(nbytes(*args) + m * d * 4,
+                              int8_ops=2.0 * m * d * width
+                              + 2.0 * m * f * d)
+        parts.append(f"fused_ffn {'gated' if gated else 'ungated'} m={m} "
+                     f"d={d} f={f} max |err| {err:.3g}, "
+                     f"{cuda_ms(torch, ffn, sets, 30):.4f} ms, in a CUDA "
+                     f"graph {graph_ms(torch, ffn, sets):.4f} ms, bound "
+                     f"{b_ms:.4f} ms by {b_by}")
+    log("  squared_relu epilogue: " + "; ".join(parts))
 
 
 MOE_D, MOE_F, MOE_E = 1024, 512, 32        # granite-moe-1b-a400m
@@ -1666,7 +1991,8 @@ def moe_kernel_checks(torch, np, engine, pool, card: str) -> None:
                 feat, new_len)
         got = ops.decode_attention(*args, **kw)
         want = plain.decode_attention_ref(*args, softmax_scale=scale, **kw)
-        errs[f"{name} B={N_SLOTS} M={m} k_keep={k_keep}"] = check_close(
+        errs[f"{name} B={N_SLOTS} M={m} k_keep={k_keep} shared_select="
+             f"{bool(cfg.gqa_shared_select)}"] = check_close(
             torch, f"{name}[granite]", got, want)
         if got[1].any():
             raise AssertionError(f"{name}[granite]: retired lane not zero")
@@ -1749,6 +2075,10 @@ def moe_phase(torch, np, card: str) -> dict:
     out = {}
     dense = PooledEngine(cfg, engine.qp, max_len=engine.max_len,
                          use_lop=False, device="cuda")
+    # one LOP candidate set a kv head (G 2): a config field, as a served
+    # config would set it
+    shared = PooledEngine(cfg.replace(gqa_shared_select=True), engine.qp,
+                          max_len=engine.max_len, device="cuda")
 
     def sp(rid):
         return SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
@@ -1756,7 +2086,8 @@ def moe_phase(torch, np, card: str) -> dict:
     arms = (("moe LOP greedy", engine, reqs, None),
             ("moe no-LOP greedy", dense, reqs, None),
             ("moe LOP sampled", engine,
-             [replace(r, sampling=sp(r.rid)) for r in reqs], sp))
+             [replace(r, sampling=sp(r.rid)) for r in reqs], sp),
+            ("moe LOP greedy shared_select", shared, reqs, None))
     for label, eng, rq, sampling in arms:
         attn = "fused_decode_attention" if eng.use_lop else DENSE
         run = serve_run(torch, np, eng, rq, label, card)
@@ -1769,7 +2100,7 @@ def moe_phase(torch, np, card: str) -> dict:
         check_tokens(cfg, run["results"], GEN, label)
         check_lockstep(eng, rq, run["results"], (0, 1), label)
         sched = run.pop("sched")
-        if eng is engine and sampling is None:
+        if eng is not dense and sampling is None:
             moe_kernel_checks(torch, np, eng, sched.pool, card)
         log(f"  [{label}] {len(sched.full_prefill_seconds)} exact-length "
             f"prefills, p50 "
@@ -1801,9 +2132,331 @@ def moe_phase(torch, np, card: str) -> dict:
         f"sampled {out['moe LOP sampled']['decode_step_ms_p50']:.2f} "
         f"({out['moe LOP sampled']['eager_decode_step_ms_p50']:.2f}) ms "
         f"[{card}]")
+    sh = out["moe LOP greedy shared_select"]
+    log(f"  moe LOP greedy, per-head selection / shared_select: "
+        f"{g['tokens_per_s']:.2f} / {sh['tokens_per_s']:.2f} tok/s, decode "
+        f"step (B={N_SLOTS}) CUDA graph {g['decode_step_ms_p50']:.2f} / "
+        f"{sh['decode_step_ms_p50']:.2f} ms, eager "
+        f"{g['eager_decode_step_ms_p50']:.2f} / "
+        f"{sh['eager_decode_step_ms_p50']:.2f} ms; tokens sha256 "
+        f"{g['tokens']} / {sh['tokens']} [{card}]")
     return dict(runs=out, prefill_ms=by_len,
                 launches={k: g["counts"][k] for k in ("fused_ffn_experts",
-                                                      "fused_qlinear_experts")})
+                                                      "fused_qlinear_experts")},
+                shared_launches=sh["counts"]["fused_decode_attention"])
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: sequence-parallel decode over 2 gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+SP_RANKS, SP_CAPACITY, SP_STEPS = 2, 2048, 16
+# arm → (use_lop, f-axis TP of the FFN, sequence-parallel)
+SP_ARMS = {"sp": (True, False, True), "sp-tp": (True, True, True),
+           "sp-dense": (False, False, True), "single": (True, False, False)}
+
+
+def sp_prefill(torch, np, eng, prompts):
+    """Each prompt prefilled alone at its exact length into its own lane
+    of a fresh pool (replicated: every rank does the same). → (pool, the
+    first tokens [B], their top-2 logit margins [B])."""
+    pool = eng.init_pool(len(prompts))
+    first, margin = [], []
+    for slot, prompt in enumerate(prompts):
+        logits, cache = eng.prefill(np.asarray(prompt)[None])
+        eng.insert(pool, slot, cache)
+        top = logits.topk(2, dim=-1).values
+        first.append(logits.argmax(-1))
+        margin.append(top[:, 0] - top[:, 1])
+    return pool, torch.cat(first), torch.cat(margin)
+
+
+def shard_digests(torch, pool, ranks, local: bool) -> dict:
+    """sha256 (16 hex digits) of every layer leaf of each shard this
+    process holds: {rank: {"key/layer": digest}}."""
+    out = {}
+    m = pool["layers"]["k"].shape[3]
+    n_rows = m // len(ranks) if local else m
+    for i, r in enumerate(ranks):
+        rows = slice(i * n_rows, (i + 1) * n_rows) if local else slice(None)
+        out[r] = {f"{key}/{layer}": hashlib.sha256(
+            leaf[layer][:, :, rows].contiguous().cpu().numpy().tobytes()
+        ).hexdigest()[:16] for key, leaf in pool["layers"].items()
+            for layer in range(leaf.shape[0])}
+    return out
+
+
+def sp_gates(torch, np, eng, pool, mesh, ranks) -> dict:
+    """Gates (b) and (c) on one layer of the prefilled pool (this process's
+    shard), seeded queries and a new token: (b) the sequence-parallel
+    attention at lop_keep 1 (and, on a single-process mesh holding the
+    whole layer, the local dense decode it is held against); (c) each
+    shard's kernel (out, m, ℓ) at the quota against its plain version."""
+    from repro_torch.core.lop import lop_features, pack_features
+    from repro_torch.distributed.sp_decode import (_write_token_local,
+                                                   sp_decode_attention)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.serving.engine import lop_decode_attention
+    from repro_torch.serving.lop_select import k_keep_blocks
+
+    cfg = eng.cfg
+    layer = cfg.n_layers // 2
+    dev = pool["lengths"].device
+    rng = np.random.default_rng(SEED + 7)
+    b, h, hkv, dh = pool["lengths"].shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    qi = t(rng.integers(-127, 128, (b, h, dh)).astype(np.int8))
+    qsc = t((rng.random((b, h, 1)) * 0.02 + 0.001).astype(np.float32))
+    ki = t(rng.integers(-127, 128, (b, hkv, dh)).astype(np.int8))
+    vi = t(rng.integers(-127, 128, (b, hkv, dh)).astype(np.int8))
+    ksc = t((rng.random((b, hkv, 1)) * 0.02 + 0.001).astype(np.float32))
+    vsc = t((rng.random((b, hkv, 1)) * 0.02 + 0.001).astype(np.float32))
+    feat = pack_features(lop_features(ki))
+    lengths = pool["lengths"]
+
+    def layer_copy():
+        return {k: v[layer].clone() for k, v in pool["layers"].items()}
+    out = {}
+    keep1 = cfg.replace(lop_keep=1.0)
+    o, _ = sp_decode_attention(keep1, qi, qsc, ki, vi, ksc, vsc, feat,
+                               layer_copy(), lengths, window=0, use_lop=True,
+                               sp_axes=("model",))
+    out["keep1"] = o.cpu().numpy()
+    if mesh.local:
+        whole = layer_copy()
+        _write_token_local(whole, ki, vi, ksc, vsc, feat, lengths, 0,
+                           whole["k"].shape[2])
+        out["dense"] = lop_decode_attention(
+            cfg, qi, qsc, whole, lengths + 1, window=0,
+            use_lop=False).cpu().numpy()
+    n = mesh.size("model")
+    cl = layer_copy()
+    m_loc = cl["k"].shape[2] // (n if mesh.local else 1)
+    quota = max(1, -(-k_keep_blocks(cfg, m_loc * n) // n))
+    err = 0.0
+    for i, r in enumerate(ranks):
+        part = {k: v[:, :, i * m_loc:(i + 1) * m_loc].contiguous()
+                for k, v in cl.items()}
+        _write_token_local(part, ki, vi, ksc, vsc, feat, lengths, r * m_loc,
+                           m_loc)
+        kw = dict(block=cfg.lop_block, k_keep=quota, window=0,
+                  shared_select=bool(cfg.gqa_shared_select),
+                  pos_offset=r * m_loc, return_stats=True)
+        args = (qi, qsc, part["k"], part["v"], part["k_scale"],
+                part["v_scale"], part["feat"], (lengths + 1).to(torch.int32))
+        got = ops.decode_attention(*args, **kw)
+        want = plain.decode_attention_ref(*args, softmax_scale=dh ** -0.5,
+                                          **kw)
+        for name, g_, w_ in zip(("out", "m", "l"), got, want):
+            err = max(err, check_close(torch, f"sp shard {r} {name}", g_, w_))
+    out["quota_err"], out["quota"] = err, quota
+    return out
+
+
+def sp_rank(mesh, prompts, steps: int) -> dict:
+    """One process of phase 4f (a rank of the gloo group, or the
+    single-process mesh holding both shards): full-width bitnet-3b from
+    the seeded generator on the card, the prompts prefilled replicated
+    into a 2048-slot pool, this process's token shard kept, then ``steps``
+    greedy ``serve_step(sp_axes=("model",))`` calls eagerly, per arm of
+    ``SP_ARMS`` (the single-card arm only on the single-process mesh).
+    → numpy results: tokens, margins, step seconds, launch counts, shard
+    digests, the gates' values."""
+    from contextlib import nullcontext
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partitioning import use_mesh
+    from repro_torch.distributed.tp_ffn import use_ffn_tp
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.api import PooledEngine
+
+    cfg = get_config("bitnet-3b")
+    eng = PooledEngine.from_seed(cfg, seed=SEED, max_len=SP_CAPACITY - 1,
+                                 device="cuda")
+    n = mesh.size("model")
+    ranks = list(range(n)) if mesh.local else [mesh.rank("model")]
+    res = {"ranks": ranks}
+    with use_mesh(mesh):
+        for arm, (lop, tp, sp) in SP_ARMS.items():
+            if not (sp or mesh.local):
+                continue
+            pool, tok, margin = sp_prefill(torch, np, eng, prompts)
+            if pool["layers"]["k"].shape[3] != SP_CAPACITY:
+                raise AssertionError("SP pool capacity "
+                                     f"{pool['layers']['k'].shape[3]}")
+            if sp:
+                pool = E.shard_cache(pool)
+            if arm == "sp":
+                res["gates"] = sp_gates(torch, np, eng, pool, mesh, ranks)
+            toks, margins, step_s = [tok], [margin], []
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with use_ffn_tp() if tp else nullcontext():
+                for _ in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, pool = E.serve_step(
+                        cfg, eng.qp, pool, tok[:, None], use_lop=lop,
+                        sp_axes=("model",) if sp else None)
+                    tok = logits.argmax(-1)
+                    top = logits.topk(2, dim=-1).values
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    toks.append(tok)
+                    margins.append(top[:, 0] - top[:, 1])
+            res[arm] = dict(
+                counts=ops.launch_counts(), step_s=step_s,
+                tokens=torch.stack(toks, 1).cpu().numpy(),
+                margins=torch.stack(margins, 1).cpu().numpy(),
+                digests=shard_digests(torch, pool, ranks, mesh.local)
+                if sp else None)
+            del pool
+        if not mesh.local:
+            res["collective_ms"] = collective_ms(torch, np, cfg, mesh,
+                                                 eng.device)
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
+def collective_ms(torch, np, cfg, mesh, device) -> dict:
+    """p50 host ms of one all_reduce (with the synchronize that ends it)
+    of each tensor a decode layer reduces on the card: the merge's max and
+    sum of (m, ℓ) [B, H, 1] and its sum of out [B, H, dh], and the TP FFN's
+    sum [B, 1, d], over 20 calls after 3 warm ones."""
+    from repro_torch.distributed.partitioning import pmax, psum
+    b, h, dh, d = N_SLOTS, cfg.n_heads, cfg.hd, cfg.d_model
+    out = {}
+    for name, shape, op in (("pmax m", (b, h, 1), pmax),
+                            ("psum l", (b, h, 1), psum),
+                            ("psum out", (b, h, dh), psum),
+                            ("psum ffn", (b, 1, d), psum)):
+        x = torch.ones(shape, device=device)
+        times = []
+        for _ in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op(x, ("model",), mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = float(np.median(times[3:]) * 1e3)
+    return out
+
+
+def sp_phase(torch, np, card: str) -> dict:
+    """Phase 4f: the reference's production decode path on one card, 2
+    gloo ranks on cuda:0 (each its token shard of a 2048-slot cache),
+    against the same path on a single-process mesh holding both shards;
+    gates (a) caches and tokens bitwise, (b) lop_keep 1 within 1e-3 of
+    dense, (c) every rank's (out, m, ℓ) against its plain version. →
+    launches of rank 0's sequence-parallel arms."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import local_mesh, spawn_ranks
+    from repro_torch.launch.serve import make_requests
+
+    cfg = get_config("bitnet-3b")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+                         max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
+    prompts = [r.prompt for r in reqs[:N_SLOTS]]
+    log(f"  prompts of {[len(p) for p in prompts]} tokens, capacity "
+        f"{SP_CAPACITY} ({SP_CAPACITY // SP_RANKS} rows a rank), "
+        f"{SP_STEPS} greedy steps an arm; arms {list(SP_ARMS)}")
+    t0 = time.monotonic()
+    local = sp_rank(local_mesh((SP_RANKS,)), prompts, SP_STEPS)
+    log(f"  single-process mesh run: {time.monotonic() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left allocated "
+        f"before the spawn")
+    t0 = time.monotonic()
+    ranks = spawn_ranks("chip_smoke:sp_rank", SP_RANKS, (prompts, SP_STEPS),
+                        timeout=900)
+    log(f"  {SP_RANKS} gloo ranks on cuda:0 ran in "
+        f"{time.monotonic() - t0:.1f} s (spawn, weights, prefill, "
+        f"{len(SP_ARMS) - 1} arms)")
+    n_layers = cfg.n_layers
+    for arm, (lop, tp, sp) in SP_ARMS.items():
+        if not sp:
+            continue
+        attn = "fused_decode_attention" if lop else DENSE
+        want = {"fused_qlinear": 2 * n_layers * SP_STEPS,
+                "fused_ffn": n_layers * SP_STEPS, attn: n_layers * SP_STEPS}
+        for r, res in enumerate(ranks):
+            got = {k: v for k, v in res[arm]["counts"].items() if v}
+            if got != want:
+                raise AssertionError(f"[{arm}] rank {r} launched {got}, "
+                                     f"want {want}")
+            # (a) tokens and the cache shard bitwise the single-process run
+            if not np.array_equal(res[arm]["tokens"], local[arm]["tokens"]):
+                raise AssertionError(f"[{arm}] rank {r} tokens != the "
+                                     f"single-process run's")
+            if res[arm]["digests"][r] != local[arm]["digests"][r]:
+                bad = [k for k, v in res[arm]["digests"][r].items()
+                       if local[arm]["digests"][r][k] != v]
+                raise AssertionError(f"[{arm}] rank {r} cache shard differs "
+                                     f"at {bad[:6]}")
+        steps_ms = [float(np.median(res[arm]["step_s"]) * 1e3)
+                    for res in ranks]
+        tok_s = [N_SLOTS * SP_STEPS / sum(res[arm]["step_s"]) for res in ranks]
+        log(f"  [{arm}] gate (a): {SP_RANKS} ranks' tokens and cache shards "
+            f"(5 leaves x {n_layers} layers each) bitwise the single-process "
+            f"run; launches a rank a step: #1 {2 * n_layers}, #2 {n_layers}, "
+            f"{attn} {n_layers}; eager step p50 "
+            + " / ".join(f"{x:.1f}" for x in steps_ms)
+            + " ms by rank (single-process mesh "
+            f"{np.median(local[arm]['step_s']) * 1e3:.1f} ms), "
+            + " / ".join(f"{x:.2f}" for x in tok_s)
+            + f" tok/s; tokens sha256 "
+            f"{hashlib.sha256(local[arm]['tokens'].tobytes()).hexdigest()[:16]}"
+            f" [{card}]")
+    log("  one all_reduce through gloo on CUDA tensors (p50 host ms with "
+        "its synchronize, by rank): " + "; ".join(
+            f"{k} " + " / ".join(f"{res['collective_ms'][k]:.3f}"
+                                 for res in ranks)
+            for k in ranks[0]["collective_ms"]) + f" [{card}]")
+    # (b) lop_keep 1: the merge is exact attention up to rounding
+    dense = local["gates"]["dense"]
+    for r, res in enumerate(ranks):
+        if not np.array_equal(res["gates"]["keep1"], local["gates"]["keep1"]):
+            raise AssertionError(f"rank {r}: lop_keep 1 output != the "
+                                 f"single-process run's")
+        rel = (float(np.abs(res["gates"]["keep1"] - dense).max())
+               / (float(np.abs(dense).max()) + 1e-9))
+        if not rel < 1e-3:
+            raise AssertionError(f"gate (b): rank {r} err/ref {rel:.3g}")
+    # (c) checked inside each rank (check_close raises)
+    log(f"  gate (b): lop_keep 1 SP attention on layer {n_layers // 2}'s "
+        f"pooled K/V, err/ref {rel:.3g} < 1e-3 against the local dense "
+        f"decode; gate (c): each rank's #4 (out, m, ℓ) at the quota "
+        f"k_keep {ranks[0]['gates']['quota']} on its own shard within "
+        f"rtol=atol={TOL['rtol']} of the plain version (max |err| "
+        + " / ".join(f"{res['gates']['quota_err']:.3g}" for res in ranks)
+        + ")")
+    sp_t, one = local["sp"]["tokens"], local["single"]["tokens"]
+    parts = []
+    for lane in range(sp_t.shape[0]):
+        hit = np.flatnonzero(sp_t[lane] != one[lane])
+        if hit.size:
+            i = int(hit[0])
+            parts.append(f"lane {lane} at token {i} (top-2 margin SP "
+                         f"{local['sp']['margins'][lane, i]:.4f}, single "
+                         f"{local['single']['margins'][lane, i]:.4f})")
+        else:
+            parts.append(f"lane {lane} never")
+    log("  SP (quota selection) vs single-card decode (global top-K), "
+        "where the greedy tokens first part: " + "; ".join(parts)
+        + f" [{card}]")
+    return dict(lop=ranks[0]["sp"]["counts"]["fused_decode_attention"],
+                dense=ranks[0]["sp-dense"]["counts"][DENSE],
+                step_ms={arm: float(np.median(ranks[0][arm]["step_s"]) * 1e3)
+                         for arm in ("sp", "sp-tp", "sp-dense")})
 
 
 # ---------------------------------------------------------------------------
@@ -2425,6 +3078,27 @@ def main() -> int:
         launches[kname] = row["launches"]
     rows.update(standalone)
 
+    # ---- 4f. sequence-parallel decode over 2 gloo ranks (last, with the
+    #      earlier phases' engines freed: each rank draws full-width
+    #      weights) ----
+    del engine, nolop, sampled
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[serve sp] bitnet-3b full width, sequence-parallel decode over "
+        f"{SP_RANKS} gloo ranks on cuda:0 (kernels built above), with and "
+        f"without f-axis TP of the FFN, and dense; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before "
+        f"it [{smi}]")
+    sp = sp_phase(torch, np, smi)
+    mode_launches = {
+        "fused_decode_attention": {
+            "per_head": launches["fused_decode_attention"],
+            "shared_select": moe["shared_launches"],
+            "pos_offset+return_stats": sp["lop"]},
+        DENSE: {"per_head": launches[DENSE],
+                "pos_offset+return_stats": sp["dense"]}}
+
     sources = {"fused_qlinear": ("qlinear.cu", "src/repro/kernels/qlinear.py:224"),
                "fused_ffn": ("qlinear.cu", "src/repro/kernels/qlinear.py:368"),
                "fused_qlinear_experts": (
@@ -2453,14 +3127,21 @@ def main() -> int:
     kernels = []
     for kname, row in rows.items():
         src, replaces = sources[kname]
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
             "launches": launches[kname],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"]}
+        if kname in mode_launches:
+            # each mode the entry ran: its launches on the path that runs
+            # it (phase 4, 4e's shared arm, 4f's rank 0) and phase 3's row
+            entry["modes"] = {
+                mode: dict(row.get("modes", {}).get(mode, {}), launches=n)
+                for mode, n in mode_launches[kname].items()}
+        kernels.append(entry)
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -45,9 +45,9 @@ NO_MERGE = (CORE, "  const int split = gridDim.x, rank = blockIdx.x;\n  cg::clus
             "  if (blockIdx.x) return;\n  const int split = 1, rank = 0;\n  cg::cluster_group")
 NO_PV = (CORE, "  else fold_values<kMasked>(ln, smem, L, stage, g0, g1, tstart, end, st);", "  else {}")
 NO_SCREEN = (KERN, "  ring(smem, L.stage, max(a1 - a0, 0),", "  ring(smem, L.stage, 0,")
-NO_EXACT = (KERN, "  ring(smem, L.stage, 2 * mine[G * k_keep],", "  ring(smem, L.stage, 0,")
-NO_GATHER = (KERN, "  if (split > 1) {\n    cluster.sync();\n    for (int i = threadIdx.x; i < G * nb;",
-             "  if (split > 1 && G < 0) {\n    cluster.sync();\n    for (int i = threadIdx.x; i < G * nb;")
+NO_EXACT = (KERN, "  ring(smem, L.stage, 2 * mine[n_cand],", "  ring(smem, L.stage, 0,")
+NO_GATHER = (KERN, "  if (split > 1) {\n    cluster.sync();\n    for (int i = threadIdx.x; i < R * nb;",
+             "  if (split > 1 && G < 0) {\n    cluster.sync();\n    for (int i = threadIdx.x; i < R * nb;")
 FIRST_K = (KERN, "    rank_row(blk + g * nb, rnk + g * nb, nb, k_keep);",
            "    for (int j = 0; j < nb; ++j) rnk[g * nb + j] = j < k_keep ? j : nb + k_keep + 1;")
 NO_FOLD = (KERN, "  ring(smem, L.stage, 2 * max(a1 - a0, 0),", "  ring(smem, L.stage, 0,")
@@ -257,12 +257,13 @@ def main() -> int:
         ptrs = [x.data_ptr() for x in (qi, qsc, kd, vd, ksd, vsd)]
         if lop:
             rc = lib.repro_lop_decode_attention(
-                *ptrs, feat.data_ptr(), nl.data_ptr(), out.data_ptr(), bh, 1,
-                m, dh, h, blk, k_keep, 0, dh ** -0.5, stream)
+                *ptrs, feat.data_ptr(), nl.data_ptr(), out.data_ptr(), None,
+                None, bh, 1, m, dh, h, blk, k_keep, 0, 0, 0, dh ** -0.5,
+                stream)
         else:
             rc = lib.repro_dense_decode_attention(
-                *ptrs, nl.data_ptr(), out.data_ptr(), bh, 1, m, dh, h, blk, 0,
-                dh ** -0.5, stream)
+                *ptrs, nl.data_ptr(), out.data_ptr(), None, None, bh, 1, m,
+                dh, h, blk, 0, 0, dh ** -0.5, stream)
         if rc:
             raise RuntimeError(f"launch failed with CUDA error {rc}")
         return out

@@ -2,8 +2,9 @@
 the dense and moe families).
 
 The package mirrors the JAX reference's layout (``configs/``, ``core/``,
-``kernels/``, ``models/``, ``serving/``, ``launch/``). Plain tensor code is
-PyTorch; the five kernels of the serving path (TINT projection, whole FFN,
+``kernels/``, ``models/``, ``serving/``, ``distributed/``, ``launch/``).
+Plain tensor code is PyTorch; the five kernels of the serving path (TINT
+projection, whole FFN,
 chunked-prefill attention, LOP-sparse and dense decode attention; the
 projection and the FFN also in their expert-stacked form) are
 hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use

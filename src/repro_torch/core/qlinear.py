@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tp_ffn
 from repro_torch.kernels import ops
 
 
@@ -44,7 +45,12 @@ def ffn_node_apply(node, x: torch.Tensor, *, gated: bool,
                    act: str) -> torch.Tensor:
     """Whole-FFN serving node → act(x·Wg)·(x·Wu) → barrier → ·Wd.
     Expert-stacked nodes with x [E, C, d] run every expert in the same
-    launch."""
+    launch. Under :func:`repro_torch.distributed.tp_ffn.use_ffn_tp` (an
+    active mesh, f divides) the dispatch is f-sharded over the mesh axis:
+    one launch a rank and a sum of the partials."""
+    y = tp_ffn.maybe_shard_f(node, x, gated=gated, act=act)
+    if y is not None:
+        return y
     return ops.ffn_fused(x, node["gu_packed"], node["gu_scale"],
                          node["down_packed"], node["down_scale"],
                          gated=gated, act=act)

@@ -3,19 +3,29 @@
 // the split-lane decode core int8_decode.cuh.
 //
 // ---- #4, LOP mode (lop_decode_kernel) ----
-// Replaces the Pallas body _fused_lop_kernel (LOP mode, pos_offset 0,
-// per-query-head selection, no returned stats). Per (batch·kv-head) lane:
+// Replaces the Pallas body _fused_lop_kernel, every mode. Per
+// (batch·kv-head) lane:
 //   screen  every LOP block's score = max over its live tokens of the
 //           integer dot pot(q)·pot(k), pot(k) decoded from the packed
 //           (sgn‖LO) nibbles; a block with no live token scores −inf;
+//           with shared_select one score a block for the lane: the max
+//           of its G rows' (exact: a max of integer maxima), so the lane
+//           ranks once and all G rows attend the same K candidates;
 //   select  rank_row, one warp a query row: the comparison-free bucketized
 //           rank of src/repro/core/lop.py:comparison_free_rank, bit for bit:
 //           span = max(smax − smin, 1e-9), bucket = trunc(((s − smin) /
 //           span)·64) in IEEE steps, non-finite → −1, cut = highest bucket
 //           whose ≥-count reaches K, ranks in index order above the cut
 //           then at it, rank ≥ K → unselected;
-//   exact   the K candidates of each query row folded on the core, each
-//           over its block's live interval.
+//   exact   the K candidates of each query row (shared_select: of the
+//           lane, each folded for all G rows from one copy of its K/V)
+//           folded on the core, each over its block's live interval.
+// Live tokens are those whose global position pos_offset + t is below
+// the sequence's global new_len (and within the window): the sequence-
+// parallel path passes a cache shard with the global position of its row
+// 0, and a shard whose rows all lie past new_len or before the window is
+// an empty lane. With return_stats the merge of the cluster (below) also
+// writes each row's (m, ℓ), which that path merges across shards.
 // What bounds it: bytes — the packed features of the live tokens (d/2
 // a token, up to 80 KB a lane at new_len 1600) plus K blocks of int8 K/V
 // and scales (53 KB), ~3 µs for a B = 4 step at 3.35 TB/s — and, at that
@@ -34,11 +44,12 @@
 // merges the CTAs in rank order.
 //
 // ---- #5, dense mode (dense_decode_kernel) ----
-// Replaces the Pallas body _fused_dense_kernel (use_lop=False, pos_offset
-// 0, no returned stats): exact attention over every live block. Block j
-// holds live tokens where j·block ≤ t < (j + 1)·block, t < new_len and,
-// with a window, t ≥ new_len − window; a block with none is skipped whole,
-// as the reference's tiles are. What bounds it: bytes — every live token's
+// Replaces the Pallas body _fused_dense_kernel (use_lop=False, every
+// pos_offset, with or without returned stats): exact attention over every
+// live block. Block j holds live tokens where j·block ≤ t < (j + 1)·block,
+// pos_offset + t < new_len and, with a window, pos_offset + t ≥ new_len −
+// window; a block with none is skipped whole, as the reference's tiles
+// are. What bounds it: bytes — every live token's
 // int8 K and V plus their f32 scales (2·d + 8 bytes a token, ~23 MB and
 // ~7 µs for a B = 4 step at new_len [1600, 0, 700, 1200]). One CTA a lane
 // would put 4 warps on an SM and leave the short lanes' SMs idle while
@@ -169,14 +180,18 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
                   const float* __restrict__ ksc, const float* __restrict__ vsc,
                   const uint8_t* __restrict__ feat,
                   const int* __restrict__ new_len, float* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
                   int G, int M, int d, int hkv, int block, int k_keep,
-                  int window, float softmax_scale) {
+                  int window, int pos_offset, int shared,
+                  float softmax_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = M / block, share = share_of(nb);
   const int split = gridDim.x, rank = blockIdx.x;
+  const int R = shared ? 1 : G;              // rows that select
   const Layout L = layout(G, nb, d, block, k_keep, true);
-  const Lane ln = make_lane(qi, qsc, kc, vc, ksc, vsc, new_len, out, G, M, d,
-                            hkv, block, window, softmax_scale);
+  const Lane ln = make_lane(qi, qsc, kc, vc, ksc, vsc, new_len, out, m_out,
+                            l_out, G, M, d, hkv, block, window, pos_offset,
+                            softmax_scale);
   float* blk = reinterpret_cast<float*>(smem + L.blk);
   int* rnk = reinterpret_cast<int*>(smem + L.rank);
   int* cand = reinterpret_cast<int*>(smem + L.cand);
@@ -208,28 +223,30 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
        },
        [&](int i, unsigned char* stage) { screen_block(ln, smem, L, stage, i, a0 + i); });
   const int n_own = j1 - j0;
-  for (int i = threadIdx.x; i < G * n_own; i += kThreads) {
-    const int g = i / n_own, j = j0 + i % n_own;
+  for (int i = threadIdx.x; i < R * n_own; i += kThreads) {
+    const int r = i / n_own, j = j0 + i % n_own;
     float sc = -CUDART_INF_F;
     if (j >= a0 && j < a1) {
       int b = INT_MIN;
-      for (int w = 0; w < kWarps; ++w) b = max(b, wbest[((j - a0) * kWarps + w) * G + g]);
+      const int g0 = shared ? 0 : r, g1 = shared ? G : r + 1;
+      for (int g = g0; g < g1; ++g)
+        for (int w = 0; w < kWarps; ++w) b = max(b, wbest[((j - a0) * kWarps + w) * G + g]);
       sc = static_cast<float>(b);
     }
-    blk[g * nb + j] = sc;
+    blk[r * nb + j] = sc;
   }
 
   // ---- gather the lane's block scores, select on every CTA ----
   cg::cluster_group cluster = cg::this_cluster();
   if (split > 1) {
     cluster.sync();
-    for (int i = threadIdx.x; i < G * nb; i += kThreads) {
+    for (int i = threadIdx.x; i < R * nb; i += kThreads) {
       const int owner = (i % nb) / share;
       if (owner != rank) blk[i] = *cluster.map_shared_rank(blk + i, owner);
     }
   }
   __syncthreads();
-  for (int g = threadIdx.x >> 5; g < G; g += kWarps) {      // a warp a row
+  for (int g = threadIdx.x >> 5; g < R; g += kWarps) {      // a warp a row
     for (int r = threadIdx.x & 31; r < k_keep; r += 32) cand[g * k_keep + r] = -1;
     rank_row(blk + g * nb, rnk + g * nb, nb, k_keep);
     for (int j = threadIdx.x & 31; j < nb; j += 32) {
@@ -238,23 +255,26 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
     }
   }
   __syncthreads();
+  const int n_cand = R * k_keep;
   if (threadIdx.x == 0) {
     int n = 0;
-    for (int c = rank; c < G * k_keep; c += split)
+    for (int c = rank; c < n_cand; c += split)
       if (cand[c] >= 0) mine[n++] = c;
-    mine[G * k_keep] = n;
+    mine[n_cand] = n;
   }
   __syncthreads();
 
-  // ---- exact: this CTA's candidates, K half then V half each ----
-  ring(smem, L.stage, 2 * mine[G * k_keep],
+  // ---- exact: this CTA's candidates, K half then V half each; a shared
+  //      candidate folds every row of the lane ----
+  ring(smem, L.stage, 2 * mine[n_cand],
        [&](int i, unsigned char* stage) {
          issue_half(ln, stage, cand[mine[i >> 1]], i & 1);
        },
        [] {},
        [&](int i, unsigned char* stage) {
          const int c = mine[i >> 1], g = c / k_keep;
-         fold_half(ln, smem, L, stage, i & 1, cand[c], g, g + 1, st);
+         fold_half(ln, smem, L, stage, i & 1, cand[c], shared ? 0 : g,
+                   shared ? G : g + 1, st);
        });
   finish(ln, smem, L, st);
 }
@@ -268,13 +288,15 @@ dense_decode_kernel(const int8_t* __restrict__ qi,
                     const float* __restrict__ ksc,
                     const float* __restrict__ vsc,
                     const int* __restrict__ new_len, float* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
                     int G, int M, int d, int hkv, int block, int window,
-                    float softmax_scale) {
+                    int pos_offset, float softmax_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = M / block, share = share_of(nb), rank = blockIdx.x;
   const Layout L = layout(G, nb, d, block, 0, false);
-  const Lane ln = make_lane(qi, qsc, kc, vc, ksc, vsc, new_len, out, G, M, d,
-                            hkv, block, window, softmax_scale);
+  const Lane ln = make_lane(qi, qsc, kc, vc, ksc, vsc, new_len, out, m_out,
+                            l_out, G, M, d, hkv, block, window, pos_offset,
+                            softmax_scale);
   int jb_lo, jb_hi;
   live_blocks(ln, &jb_lo, &jb_hi);
   const int a0 = max(rank * share, jb_lo);
@@ -333,15 +355,18 @@ int repro_decode_occupancy(int G, int nb, int d, int block, int k_keep,
 }
 
 // qi int8 [BH, G, d]; qsc f32 [BH, G]; k/v int8 [BH, M, d]; k/v scales
-// f32 [BH, M]; feat uint8 [BH, M, d/2]; new_len int32 [B]; out f32
-// [BH, G, d]. d % 4 == 0, d ≤ 256, block % 8 == 0, M % block == 0, every
-// pointer 16-byte aligned.
+// f32 [BH, M]; feat uint8 [BH, M, d/2]; new_len int32 [B] (global
+// lengths); out f32 [BH, G, d]; m_out, l_out f32 [BH, G] or both null
+// (return_stats); pos_offset the global position of cache row 0, a
+// multiple of block; shared != 0: one candidate set a lane. d % 4 == 0,
+// d ≤ 256, block % 8 == 0, M % block == 0, every pointer 16-byte aligned.
 int repro_lop_decode_attention(const void* qi, const void* qsc, const void* k,
                                const void* v, const void* ks, const void* vs,
                                const void* feat, const void* new_len,
-                               void* out, int BH, int G, int M, int d, int hkv,
-                               int block, int k_keep, int window,
-                               float softmax_scale, void* stream) {
+                               void* out, void* m_out, void* l_out, int BH,
+                               int G, int M, int d, int hkv, int block,
+                               int k_keep, int window, int pos_offset,
+                               int shared, float softmax_scale, void* stream) {
   const int nb = M / block, one = one_row(G, block);
   const int smem = layout(G, nb, d, block, k_keep, true).total;
   return static_cast<int>(launch(
@@ -350,18 +375,22 @@ int repro_lop_decode_attention(const void* qi, const void* qsc, const void* k,
       static_cast<const float*>(qsc), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const uint8_t*>(feat),
-      static_cast<const int*>(new_len), static_cast<float*>(out), G, M, d,
-      hkv, block, k_keep, window, softmax_scale));
+      static_cast<const int*>(new_len), static_cast<float*>(out),
+      static_cast<float*>(m_out), static_cast<float*>(l_out), G, M, d, hkv,
+      block, k_keep, window, pos_offset, shared, softmax_scale));
 }
 
 // qi int8 [BH, G, d]; qsc f32 [BH, G]; k/v int8 [BH, M, d]; k/v scales
-// f32 [BH, M]; new_len int32 [B]; out f32 [BH, G, d]. d % 4 == 0,
-// d ≤ 256, block % 8 == 0, M % block == 0, every pointer 16-byte aligned.
+// f32 [BH, M]; new_len int32 [B] (global lengths); out f32 [BH, G, d];
+// m_out, l_out f32 [BH, G] or both null; pos_offset the global position
+// of cache row 0. d % 4 == 0, d ≤ 256, block % 8 == 0, M % block == 0,
+// every pointer 16-byte aligned.
 int repro_dense_decode_attention(const void* qi, const void* qsc,
                                  const void* k, const void* v, const void* ks,
                                  const void* vs, const void* new_len,
-                                 void* out, int BH, int G, int M, int d,
-                                 int hkv, int block, int window,
+                                 void* out, void* m_out, void* l_out, int BH,
+                                 int G, int M, int d, int hkv, int block,
+                                 int window, int pos_offset,
                                  float softmax_scale, void* stream) {
   const int nb = M / block, one = one_row(G, block);
   const int smem = layout(G, nb, d, block, 0, false).total;
@@ -371,7 +400,9 @@ int repro_dense_decode_attention(const void* qi, const void* qsc,
       static_cast<const float*>(qsc), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(new_len),
-      static_cast<float*>(out), G, M, d, hkv, block, window, softmax_scale));
+      static_cast<float*>(out), static_cast<float*>(m_out),
+      static_cast<float*>(l_out), G, M, d, hkv, block, window, pos_offset,
+      softmax_scale));
 }
 
 }  // extern "C"

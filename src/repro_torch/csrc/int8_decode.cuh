@@ -155,7 +155,9 @@ __host__ __device__ inline Layout layout(int G, int nb, int d, int block,
 }
 
 // One lane's operands, already offset to the lane, and its live tokens
-// [lo, hi) (t < new_len, t ≥ new_len − window when window is set, t < M).
+// [lo, hi) in cache rows (row t sits at global position pos_offset + t:
+// live where that is < new_len, ≥ new_len − window when window is set,
+// and t < M).
 struct Lane {
   const int8_t* q;      // [G, d]
   const float* qs;      // [G]
@@ -164,6 +166,8 @@ struct Lane {
   const float* ks;      // [M]
   const float* vs;      // [M]
   float* out;           // [G, d]
+  float* m_out;         // [G] merged running max, or nullptr
+  float* l_out;         // [G] merged ℓ, or nullptr
   int G, M, d, block, lo, hi;
   float softmax_scale;
 };
@@ -184,6 +188,7 @@ __device__ inline Lane lane_at(const int8_t* qi, const float* qsc,
   ln.ks = ksc + tok;
   ln.vs = vsc + tok;
   ln.out = out + static_cast<size_t>(lane) * G * d;
+  ln.m_out = ln.l_out = nullptr;
   ln.G = G;
   ln.M = M;
   ln.d = d;
@@ -194,19 +199,26 @@ __device__ inline Lane lane_at(const int8_t* qi, const float* qsc,
 }
 
 // The lane of #4/#5: lane = cache lane = blockIdx.y, live tokens from its
-// sequence's new_len and the window.
+// sequence's global new_len, the window and the global position of row 0
+// (pos_offset: a cache shard of the sequence-parallel path); the (m, ℓ)
+// stats go to m_out / l_out [lanes, G] where given.
 __device__ inline Lane make_lane(const int8_t* qi, const float* qsc,
                                  const int8_t* kc, const int8_t* vc,
                                  const float* ksc, const float* vsc,
-                                 const int* new_len, float* out, int G, int M,
-                                 int d, int hkv, int block, int window,
+                                 const int* new_len, float* out, float* m_out,
+                                 float* l_out, int G, int M, int d, int hkv,
+                                 int block, int window, int pos_offset,
                                  float softmax_scale) {
   const int bh = blockIdx.y;
-  const int nl = new_len[bh / hkv];
+  const int nl = new_len[bh / hkv] - pos_offset;    // in cache rows
   Lane ln = lane_at(qi, qsc, kc, vc, ksc, vsc, out, bh, bh, G, M, d, block,
                     softmax_scale);
   ln.lo = window ? max(nl - window, 0) : 0;
-  ln.hi = min(nl, M);
+  ln.hi = min(max(nl, 0), M);
+  if (m_out != nullptr) {
+    ln.m_out = m_out + static_cast<size_t>(bh) * G;
+    ln.l_out = l_out + static_cast<size_t>(bh) * G;
+  }
   return ln;
 }
 
@@ -511,8 +523,10 @@ __device__ __forceinline__ void fold_half(const Lane& ln, unsigned char* smem,
 
 // Merge the warps' states in order 0..kWarps−1 into the CTA's partial,
 // then the cluster's partials in rank order, and write the lane's output
-// (each CTA a slice of its G·d values). Every thread of every CTA of the
-// cluster calls it.
+// (each CTA a slice of its G·d values) and, where the lane asks for them,
+// each row's merged (m, ℓ) in natural-log units (the thread that writes
+// the row's first value; an empty row gives m = −1e30, ℓ = 0, out = 0).
+// Every thread of every CTA of the cluster calls it.
 template <bool kOne>
 __device__ void finish(const Lane& ln, unsigned char* smem, const Layout& L,
                        const Warp<kOne>& st) {
@@ -587,6 +601,10 @@ __device__ void finish(const Lane& ln, unsigned char* smem, const Layout& L,
       }
     }
     ln.out[i] = __fdiv_rn(acc, l > 0.0f ? l : 1.0f);
+    if (ln.m_out != nullptr && i == g * d) {
+      ln.m_out[g] = m;
+      ln.l_out[g] = l;
+    }
   }
   if (split > 1) cluster.sync();            // no CTA leaves while read
 }

@@ -70,6 +70,10 @@ __device__ __forceinline__ float act_fn(float y, int act) {
     float inner = c * (y + 0.044715f * (y * y * y));
     return 0.5f * y * (1.0f + tanhf(inner));
   }
+  if (act == 3) {                                                  // squared relu
+    const float r = fmaxf(y, 0.0f);
+    return __fmul_rn(r, r);
+  }
   return y;
 }
 

@@ -50,8 +50,10 @@ SIGNATURES = {
     "decode_attention": {
         "repro_decode_plan": ([_I] * 6 + [_P], _I),
         "repro_decode_occupancy": ([_I] * 6 + [_P], _I),
-        "repro_lop_decode_attention": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
-        "repro_dense_decode_attention": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
+        "repro_lop_decode_attention": ([_P] * 11 + [_I] * 10 + [_F, _P],
+                                       _I),
+        "repro_dense_decode_attention": ([_P] * 10 + [_I] * 8 + [_F, _P],
+                                         _I),
     },
     "ternary_matmul": {
         "repro_ternary_matmul": ([_P] * 3 + [_I] * 3 + [_P], _I),

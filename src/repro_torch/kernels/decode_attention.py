@@ -6,19 +6,26 @@ Two kernels replace the two bodies of the Pallas
 
 * :func:`fused_decode_attention` — the LOP mode the serving path runs:
   LOP screen over the packed feature cache, comparison-free block top-K,
-  exact int8 attention over the selected blocks, with ``window`` and
-  ``pos_offset`` 0;
+  exact int8 attention over the selected blocks; per query head, or with
+  ``shared_select`` one candidate set per kv head (the group max of the
+  screen), whose K blocks every row of the group attends;
 * :func:`fused_dense_decode_attention` — the dense mode
   (``use_lop=False``): exact int8 attention streamed over every valid
   K/V block. The ``--no-lop`` serve and every fault-recovery retry run it.
+
+Both take ``pos_offset`` (the global position of cache row 0, a multiple
+of ``block``: a token shard of the sequence-parallel path, whose
+``new_len`` stays the global length) and ``return_stats`` (also each
+row's merged softmax max ``m`` and sum ``ℓ``, natural-log units, f32
+[BH, G]; an empty row gives m = −1e30, ℓ = 0 and an exact-zero output),
+as the Pallas kernel does.
 
 Each (batch·kv-head) lane runs on a cluster of CTAs whose count depends on
 the lane's shape alone (:func:`launch_shape`), so a lane's output is
 bitwise the same whatever the other lanes hold and at any batch size.
 One call is one launch from one C entry, with no scratch; the launch plan
-is computed once per shape. ``shared_select``, a non-zero ``pos_offset``
-and ``return_stats`` are not ported to CUDA yet: the wrappers raise on
-them (the plain version in ``kernels/ref.py`` implements every mode).
+is computed once per shape. The plain version in ``kernels/ref.py``
+implements the same modes.
 """
 
 from __future__ import annotations
@@ -68,6 +75,25 @@ def _check_aligned(**tensors) -> None:
             raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
+def _check_offset(pos_offset: int, block: int) -> int:
+    po = int(pos_offset)
+    if po < 0 or po % block:
+        raise ValueError(f"pos_offset={po} must be a non-negative multiple "
+                         f"of block={block}")
+    return po
+
+
+def _outputs(bh: int, g: int, d: int, device, return_stats: bool):
+    """out [BH, G, d] and, with ``return_stats``, m and ℓ [BH, G]; →
+    (tensors, their pointers for the C entry: m and ℓ null without)."""
+    out = torch.empty((bh, g, d), dtype=torch.float32, device=device)
+    if not return_stats:
+        return (out,), (out.data_ptr(), None, None)
+    m = torch.empty((bh, g), dtype=torch.float32, device=device)
+    l = torch.empty((bh, g), dtype=torch.float32, device=device)
+    return (out, m, l), (out.data_ptr(), m.data_ptr(), l.data_ptr())
+
+
 def _check_smem(smem: int) -> None:
     if smem > SMEM_LIMIT:
         raise ValueError(f"one CTA needs {smem} B of shared memory "
@@ -108,14 +134,11 @@ def fused_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
                            new_len, *, hkv: int, block: int, k_keep: int,
                            window: int, softmax_scale: float,
                            shared_select: bool = False, pos_offset: int = 0,
-                           return_stats: bool = False) -> torch.Tensor:
+                           return_stats: bool = False):
     """LOP mode. qi int8 [BH, G, d], qsc f32 [BH, G], k/v int8 [BH, M, d],
     k/v scales f32 [BH, M], feat uint8 [BH, M, d/2], new_len int32 [B] →
-    f32 [BH, G, d]; a lane's output depends on that lane's inputs alone."""
-    if shared_select or pos_offset or return_stats:
-        raise NotImplementedError(
-            "the CUDA LOP decode kernel runs shared_select=False, "
-            "pos_offset=0, return_stats=False only")
+    f32 [BH, G, d] (with ``return_stats`` also m, ℓ f32 [BH, G]); a
+    lane's output depends on that lane's inputs alone."""
     lib = _build.load("decode_attention")
     bh, g, m, d = _check_common(qi, qsc, k_cache, v_cache, k_scale, v_scale,
                                 new_len, hkv=hkv, block=block)
@@ -123,17 +146,19 @@ def fused_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
         raise ValueError(f"k_keep={k_keep} must be ≥ 1")
     require(feat, "feat", torch.uint8, (bh, m, d // 2))
     _check_aligned(feat=feat)
+    po = _check_offset(pos_offset, block)
     _plan(g, m // block, d, block, k_keep, True)
-    out = torch.empty((bh, g, d), dtype=torch.float32, device=qi.device)
+    outs, ptrs = _outputs(bh, g, d, qi.device, return_stats)
     if bh:
         rc = lib.repro_lop_decode_attention(
             qi.data_ptr(), qsc.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            feat.data_ptr(), new_len.data_ptr(), out.data_ptr(), bh, g, m, d,
-            hkv, block, k_keep, int(window), float(softmax_scale), _stream(qi))
+            feat.data_ptr(), new_len.data_ptr(), *ptrs, bh, g, m, d, hkv,
+            block, k_keep, int(window), po, int(bool(shared_select)),
+            float(softmax_scale), _stream(qi))
         _build.check(rc, "repro_lop_decode_attention")
         fused_decode_attention.launches += 1
-    return out
+    return outs if return_stats else outs[0]
 
 
 fused_decode_attention.launches = 0
@@ -143,28 +168,26 @@ def fused_dense_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale,
                                  new_len, *, hkv: int, block: int,
                                  window: int, softmax_scale: float,
                                  pos_offset: int = 0,
-                                 return_stats: bool = False) -> torch.Tensor:
+                                 return_stats: bool = False):
     """Dense mode. qi int8 [BH, G, d], qsc f32 [BH, G], k/v int8
     [BH, M, d], k/v scales f32 [BH, M], new_len int32 [B] → f32
-    [BH, G, d]; a lane's output depends on that lane's inputs alone."""
-    if pos_offset or return_stats:
-        raise NotImplementedError(
-            "the CUDA dense decode kernel runs pos_offset=0, "
-            "return_stats=False only")
+    [BH, G, d] (with ``return_stats`` also m, ℓ f32 [BH, G]); a lane's
+    output depends on that lane's inputs alone."""
     lib = _build.load("decode_attention")
     bh, g, m, d = _check_common(qi, qsc, k_cache, v_cache, k_scale, v_scale,
                                 new_len, hkv=hkv, block=block)
+    po = _check_offset(pos_offset, block)
     _plan(g, m // block, d, block, 0, False)
-    out = torch.empty((bh, g, d), dtype=torch.float32, device=qi.device)
+    outs, ptrs = _outputs(bh, g, d, qi.device, return_stats)
     if bh:
         rc = lib.repro_dense_decode_attention(
             qi.data_ptr(), qsc.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            new_len.data_ptr(), out.data_ptr(), bh, g, m, d, hkv, block,
-            int(window), float(softmax_scale), _stream(qi))
+            new_len.data_ptr(), *ptrs, bh, g, m, d, hkv, block, int(window),
+            po, float(softmax_scale), _stream(qi))
         _build.check(rc, "repro_dense_decode_attention")
         fused_dense_decode_attention.launches += 1
-    return out
+    return outs if return_stats else outs[0]
 
 
 fused_dense_decode_attention.launches = 0

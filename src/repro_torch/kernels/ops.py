@@ -278,8 +278,10 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
 
     qi int8 [B, H, dh]; qsc f32 [B, H, 1]; k/v_cache int8 [B, Hkv, M, dh];
     k/v_scale f32 [B, Hkv, M]; feat uint8 [B, Hkv, M, dh//2]; new_len
-    int32 [B] (0 = retired lane, emits exact zero). → f32 [B, H, dh]
-    (or ``(out, m, ℓ)`` with ``return_stats``).
+    int32 [B] (0 = retired lane, emits exact zero); ``pos_offset`` the
+    global position of cache row 0 (a multiple of ``block``; ``new_len``
+    stays global). → f32 [B, H, dh] (or ``(out, m, ℓ)`` with
+    ``return_stats``, m and ℓ f32 [B, H, 1] in natural-log units).
     """
     b, h, dh = qi.shape
     hkv, m = k_cache.shape[1], k_cache.shape[2]
@@ -318,4 +320,8 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
             *lanes, new_len.contiguous(), hkv=hkv, block=block,
             window=window, softmax_scale=softmax_scale, pos_offset=po,
             return_stats=return_stats)
+    if return_stats:
+        out, mx, l = out
+        return (out.reshape(b, h, dh), mx.reshape(b, h, 1),
+                l.reshape(b, h, 1))
     return out.reshape(b, h, dh)

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
+ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "squared_relu": 3}
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -30,13 +30,17 @@ NEG_INF = -1e30
 
 
 def apply_act(y: torch.Tensor, act: str | None) -> torch.Tensor:
-    """Epilogue nonlinearity; ``gelu`` is the tanh form (``jax.nn.gelu``)."""
+    """Epilogue nonlinearity; ``gelu`` is the tanh form (``jax.nn.gelu``),
+    ``squared_relu`` is relu(y)·relu(y)."""
     if act is None:
         return y
     if act == "silu":
         return F.silu(y)
     if act == "gelu":
         return F.gelu(y, approximate="tanh")
+    if act == "squared_relu":
+        r = torch.clamp_min(y, 0.0)
+        return r * r
     raise ValueError(f"unknown activation {act!r}")
 
 

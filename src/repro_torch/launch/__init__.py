@@ -1,1 +1,2 @@
-"""Launch entry points (``python -m repro_torch.launch.serve``)."""
+"""Launch entry points (``python -m repro_torch.launch.serve``) and the
+host's meshes and rank processes (``launch.mesh``)."""

@@ -18,6 +18,14 @@ a decode step appends one token per active lane. Self-speculative decoding
 ``draft_layers`` layers with the LOP budget pinched to ``draft_k`` blocks,
 then the shared head — and the verify chunk, :func:`prefill_chunk` with
 ``all_logits=True``.
+
+With ``sp_axes`` and an active mesh (:mod:`repro_torch.distributed`) the
+decode step runs the sequence-parallel attention of
+:mod:`repro_torch.distributed.sp_decode`, as the reference's production
+path does: the cache's token axis is sharded over the mesh axes
+(:func:`shard_cache` cuts a replicated prefill's cache to a rank's
+shard), each shard calls the same decode kernel with its ``pos_offset``,
+and the softmax stats merge flash-decoding style.
 """
 
 from __future__ import annotations
@@ -165,9 +173,34 @@ def _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active=None) -> None:
         cl[key][lanes, :, pos] = val
 
 
+def shard_cache(cache, sp_axes=("model",)) -> dict:
+    """This rank's token shard of a whole (replicated) cache: rows
+    ``[rank·M/n, (rank + 1)·M/n)`` of every layer leaf, copied, with the
+    other entries kept. A single-process mesh keeps the whole cache (its
+    shards are views of it). The capacity M must cut into whole
+    ``lop_block`` blocks a shard."""
+    from repro_torch.distributed.partitioning import current_mesh
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("shard_cache needs an active mesh")
+    if mesh.local:
+        return cache
+    n, r = mesh.size(sp_axes), mesh.rank(sp_axes)
+    m = cache["layers"]["k"].shape[3]
+    if m % n:
+        raise ValueError(f"capacity {m} does not cut into {n} shards")
+    m_loc = m // n
+    out = dict(cache)
+    out["layers"] = {key: v[:, :, :, r * m_loc:(r + 1) * m_loc].clone()
+                     for key, v in cache["layers"].items()}
+    return out
+
+
 def attn_decode(cfg, lp, h, cl, lengths, *, use_lop=True, active=None,
-                k_keep=None):
-    """One-token self-attention with cache append. h [B, 1, D]."""
+                k_keep=None, sp_axes=None):
+    """One-token self-attention with cache append. h [B, 1, D]. With
+    ``sp_axes`` the cache layer is this rank's token shard and the
+    attention runs sequence-parallel over those mesh axes."""
     b = h.shape[0]
     q, k, v = _project_qkv(cfg, lp, h)
     positions = lengths[:, None]
@@ -180,11 +213,18 @@ def attn_decode(cfg, lp, h, cl, lengths, *, use_lop=True, active=None,
     new_len = lengths + 1
     if active is not None:
         new_len = torch.where(active, new_len, 0)
-    _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active)
-    out = lop_decode_attention(cfg, qi, qsc, cl, new_len,
-                               window=cfg.swa_window,
-                               use_lop=use_lop and cfg.use_lop,
-                               k_keep=k_keep)
+    if sp_axes:
+        from repro_torch.distributed.sp_decode import sp_decode_attention
+        out, _ = sp_decode_attention(
+            cfg, qi, qsc, ki, vi, ksc, vsc, feat, cl, lengths,
+            window=cfg.swa_window, use_lop=use_lop and cfg.use_lop,
+            sp_axes=sp_axes, active=active)
+    else:
+        _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active)
+        out = lop_decode_attention(cfg, qi, qsc, cl, new_len,
+                                   window=cfg.swa_window,
+                                   use_lop=use_lop and cfg.use_lop,
+                                   k_keep=k_keep)
     if active is not None:
         out = torch.where(active[:, None, None], out, 0.0)
     return qlinear(lp["wo"], out.reshape(b, 1, cfg.q_dim))
@@ -258,7 +298,8 @@ def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int,
 
 
 def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
-               n_layers: int | None = None, k_keep: int | None = None):
+               n_layers: int | None = None, k_keep: int | None = None,
+               sp_axes=None):
     """One decode step. tokens [B, 1] → (logits [B, V], cache).
 
     Only the lanes of ``active`` (bool [B]; by default the pool's own
@@ -273,6 +314,10 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
     rows land in those layers only and ``lengths`` moves as in a full
     step: provisional state that the verify chunk overwrites for every
     layer and ``rollback_slot`` rewinds for rejected tokens.
+
+    With ``sp_axes`` (under an active mesh) the cache holds this rank's
+    token shard (:func:`shard_cache`) and every layer's attention runs
+    sequence-parallel; ``lengths`` stay global. It runs eagerly.
     """
     cfg = resolve_decode_flags(cfg)
     _check_family(cfg)
@@ -287,7 +332,8 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
         cl = layer_slice(cache["layers"], i)
         x = x + attn_decode(cfg, lp["attn"],
                             norm_apply(lp["ln1"], x, cfg.norm), cl, lengths,
-                            use_lop=use_lop, active=active, k_keep=k_keep)
+                            use_lop=use_lop, active=active, k_keep=k_keep,
+                            sp_axes=sp_axes)
         x = _mlp(cfg, lp, x)
     lengths.add_(1 if active is None else active.to(torch.int32))
     return _logits(cfg, qp, x[:, -1]), cache

@@ -48,7 +48,10 @@ def _dev(rng_arrays, dev):
     (129, 512, 96, False, None), (1326, 3200, 3200, False, None),
     # odd n (byte copies of the packed rows), k no multiple of 16
     (5, 256, 13, True, "gelu"), (128, 3200, 9601, False, None),
-    (7, 100, 64, False, None)])
+    (7, 100, 64, False, None),
+    # the squared-relu epilogue: relu(y)·relu(y), bitwise in f32
+    (4, 3200, 3200, False, "squared_relu"),
+    (33, 96, 40, True, "squared_relu")])
 def test_qlinear_kernel_matches_plain(cuda, m, k, n, bias, act):
     rng = np.random.default_rng(m + k + n)
     x = rng.standard_normal((m, k)).astype(np.float32)
@@ -60,7 +63,7 @@ def test_qlinear_kernel_matches_plain(cuda, m, k, n, bias, act):
     got = ops.qlinear_fused(x, packed, gamma[None], b, act=act)
     want = plain.qlinear_ref(x, packed, gamma[None], b, act=act)
     torch.cuda.synchronize()
-    if act is None:
+    if act in (None, "squared_relu"):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, **TOL)
@@ -96,7 +99,10 @@ def _ffn_plain(args, d, gated, act):
     (16, 256, 1000, True, "silu"), (17, 512, 1004, True, "silu"),
     # the ungated gelu FFN; m past the tile edges and a whole prompt
     (9, 256, 512, False, "gelu"), (129, 320, 640, True, "silu"),
-    (1326, 256, 512, True, "silu")])
+    (1326, 256, 512, True, "silu"),
+    # the squared-relu epilogue, gated and ungated
+    (4, 3200, 8640, True, "squared_relu"),
+    (17, 256, 512, False, "squared_relu")])
 def test_ffn_kernel_matches_plain(cuda, m, d, f, gated, act):
     rng = np.random.default_rng(m + f)
     args = _dev(_ffn_args(rng, m, d, f, gated), cuda)
@@ -392,15 +398,212 @@ def test_decode_kernel_repeat_bitwise(cuda, use_lop):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("mode", [dict(shared_select=True),
-                                  dict(return_stats=True),
-                                  dict(pos_offset=128)])
-def test_decode_kernel_rejects_unported_modes(cuda, mode):
+# a 2048-slot cache cut into n shards; shard r holds global rows
+# [r·M/n, (r + 1)·M/n); lane 3 retired, lane 1 (new_len 100) leaves every
+# shard past the first empty, lane 2 (1100) ends inside shard 1 of 2
+SHARD_LENS = (2000, 100, 1100, 0)
+
+
+def _shard_call(arrs, lens, n, r, *, m, block=128, k_keep=2, window=0,
+                mode="lop", plain_version=False):
+    new_len = torch.tensor(lens, dtype=torch.int32, device=arrs[0].device)
+    kw = dict(block=block, k_keep=k_keep, window=window,
+              use_lop=mode != "dense", shared_select=mode == "lop-shared",
+              pos_offset=r * (m // n), return_stats=True)
+    if plain_version:
+        return plain.decode_attention_ref(
+            *arrs, new_len, softmax_scale=arrs[0].shape[-1] ** -0.5, **kw)
+    return ops.decode_attention(*arrs, new_len, **kw)
+
+
+@pytest.mark.parametrize("mode", ["lop", "lop-shared", "dense"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("n,r,window", [
+    (1, 0, 0), (2, 0, 0), (2, 1, 0), (4, 1, 0), (4, 3, 0),
+    # a window across shard 0 / shard 1's edge (lane 2: [800, 1100))
+    (2, 0, 300), (2, 1, 300), (4, 2, 300)])
+def test_decode_stats_modes_match_plain(cuda, mode, g, n, r, window):
+    """#4 (per head or one candidate set a kv head) and #5 on one shard of
+    a token-sharded cache (pos_offset), returning (out, m, ℓ): within
+    2e-5 of the plain version (a different candidate set would be far
+    off), and an empty row exactly m = −1e30, ℓ = 0, out = 0."""
+    rng = np.random.default_rng(100 * n + 10 * r + g + window)
+    b, hkv, m, dh = 4, 8, 2048, 100
+    arrs = _dev(_decode(rng, b, g * hkv, hkv, m // n, dh), cuda)
+    ops.reset_launch_counts()
+    got = _shard_call(arrs, SHARD_LENS, n, r, m=m, window=window, mode=mode)
+    want = _shard_call(arrs, SHARD_LENS, n, r, m=m, window=window,
+                       mode=mode, plain_version=True)
+    torch.cuda.synchronize()
+    name = ("fused_dense_decode_attention" if mode == "dense"
+            else "fused_decode_attention")
+    assert ops.launch_counts()[name] == 1
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **TOL)
+    out, mx, l = got
+    assert out.shape == (b, g * hkv, dh) and mx.shape == l.shape == (
+        b, g * hkv, 1)
+    offset = r * (m // n)
+    for lane, nl in enumerate(SHARD_LENS):
+        lo = max(nl - window, 0) if window else 0
+        if nl <= offset or lo >= offset + m // n:
+            assert not out[lane].any() and not l[lane].any(), lane
+            assert (mx[lane] == -1e30).all(), lane
+
+
+@pytest.mark.parametrize("use_lop", [True, False])
+@pytest.mark.parametrize("n", [2, 4])
+def test_decode_stats_shards_merge_to_plain(cuda, use_lop, n):
+    """The n shards' (out, m, ℓ), merged flash-decoding style in-process,
+    equal the plain versions' merge within 2e-5."""
+    rng = np.random.default_rng(40 + n)
+    b, h, m, dh = 4, 32, 2048, 100
+    arrs = _dev(_decode(rng, b, h, h, m, dh), cuda)
+    mode = "lop" if use_lop else "dense"
+    merged = []
+    for plain_version in (False, True):
+        parts = [_shard_call([a if i < 2 else  # q, q scales; then the cache
+                              a[:, :, r * m // n:(r + 1) * m // n]
+                              .contiguous() for i, a in enumerate(arrs)],
+                             SHARD_LENS, n, r, m=m, mode=mode,
+                             plain_version=plain_version)
+                 for r in range(n)]
+        out, mx, l = (torch.stack(t) for t in zip(*parts))
+        w = torch.exp(mx - mx.amax(0, keepdim=True))
+        lw = (l * w).sum(0)
+        merged.append((out * (l * w)).sum(0) / torch.clamp_min(lw, 1e-20))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(merged[0], merged[1], **TOL)
+    assert not merged[0][3].any()                    # the retired lane
+
+
+@pytest.mark.parametrize("use_lop", [True, False])
+def test_shared_select_one_row_bitwise_per_head(cuda, use_lop):
+    """At G = 1 one candidate set a kv head is per-head selection: the
+    same bits, stats included."""
+    rng = np.random.default_rng(12)
+    arrs = _dev(_decode(rng, 4, 32, 32, 1024, 100), cuda)
+    outs = [_shard_call(arrs, SHARD_LENS, 2, 1, m=2048, window=300,
+                        mode=mode if use_lop else "dense")
+            for mode in ("lop", "lop-shared")]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)
+
+
+def test_decode_stats_rejects_unaligned_offset(cuda):
     rng = np.random.default_rng(0)
     arrs = _dev(_decode(rng, 1, 4, 4, 256, 32), cuda)
     new_len = torch.tensor([200], dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError):
-        ops.decode_attention(*arrs, new_len, block=128, k_keep=1, **mode)
+    with pytest.raises(ValueError):
+        ops.decode_attention(*arrs, new_len, block=128, k_keep=1,
+                             pos_offset=64)
+
+
+SP_MAX_LEN = 255             # capacity 256: 4 blocks of 32 a rank
+
+
+def sp_rank_on_card(mesh, inputs, prompts, device="cuda"):
+    """One rank of the 2-rank SP check: its shard of a random cache layer
+    through ``sp_decode_attention``, then 6 greedy steps of
+    ``bitnet-3b-reduced`` (seed 0) with ``serve_step(sp_axes=...)``, with
+    and without ``use_ffn_tp``, all on ``device``. → numpy results."""
+    from contextlib import nullcontext
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partitioning import use_mesh
+    from repro_torch.distributed.sp_decode import sp_decode_attention
+    from repro_torch.distributed.tp_ffn import use_ffn_tp
+    from repro_torch.serving import engine
+    from repro_torch.serving.api import PooledEngine
+    dev = torch.device(device)
+    cfg = get_config("bitnet-3b-reduced")
+    t = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in inputs.items()}
+    m = t["k"].shape[2]
+    n = mesh.size("model")
+    rows = (slice(0, m) if mesh.local else
+            slice(mesh.rank("model") * m // n, (mesh.rank("model") + 1) * m // n))
+    res = {}
+    with use_mesh(mesh):
+        for keep in (1.0, 0.25):
+            cl = {k: t[k][:, :, rows].clone() for k in
+                  ("k", "v", "k_scale", "v_scale", "feat")}
+            out, cl = sp_decode_attention(
+                cfg.replace(lop_keep=keep), t["qi"], t["qsc"], t["ki"],
+                t["vi"], t["ksc"], t["vsc"], t["feat_new"], cl, t["lengths"],
+                window=0, use_lop=True, sp_axes=("model",))
+            res[f"out/{keep}"] = out.cpu().numpy()
+            res[f"k/{keep}"] = cl["k"].cpu().numpy()
+        eng = PooledEngine.from_seed(cfg, seed=0, max_len=SP_MAX_LEN,
+                                     device=dev)
+        for tp in (False, True):
+            logits, cache = eng.prefill(prompts)
+            tok = logits.argmax(-1)
+            toks = [tok]
+            cache = engine.shard_cache(cache)
+            with use_ffn_tp() if tp else nullcontext():
+                for _ in range(5):
+                    logits, cache = engine.serve_step(
+                        cfg, eng.qp, cache, tok[:, None], sp_axes=("model",))
+                    tok = logits.argmax(-1)
+                    toks.append(tok)
+            res[f"tokens/{tp}"] = torch.stack(toks, 1).cpu().numpy()
+    return res
+
+
+def test_sp_decode_two_gloo_ranks_on_card(cuda):
+    """2 ranks in a gloo group on one card (all_reduce on CUDA tensors):
+    the cache shards concatenated and every output bitwise the
+    single-process mesh's run on the card (a sum of two is the same in
+    either order), and at lop_keep 1 within 1e-3 (relative) of the local
+    dense decode, the reference's own bound."""
+    from repro_torch.core.lop import lop_features, pack_features
+    from repro_torch.launch.mesh import local_mesh, spawn_ranks
+    from repro_torch.serving.engine import lop_decode_attention
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(3)
+    b, h, dh, m = 4, 4, 32, 512
+    inputs = dict(
+        qi=rng.integers(-60, 61, (b, h, dh)).astype(np.int8),
+        qsc=rng.uniform(0.005, 0.02, (b, h, 1)).astype(np.float32),
+        ki=rng.integers(-60, 61, (b, h, dh)).astype(np.int8),
+        vi=rng.integers(-60, 61, (b, h, dh)).astype(np.int8),
+        ksc=rng.uniform(0.005, 0.02, (b, h, 1)).astype(np.float32),
+        vsc=rng.uniform(0.005, 0.02, (b, h, 1)).astype(np.float32),
+        k=rng.integers(-60, 61, (b, h, m, dh)).astype(np.int8),
+        v=rng.integers(-60, 61, (b, h, m, dh)).astype(np.int8),
+        k_scale=rng.uniform(0.005, 0.02, (b, h, m)).astype(np.float32),
+        v_scale=rng.uniform(0.005, 0.02, (b, h, m)).astype(np.float32),
+        lengths=np.asarray([472, 100, 300, 511], np.int32))
+    inputs["feat"] = pack_features(lop_features(torch.from_numpy(
+        inputs["k"]))).numpy()
+    inputs["feat_new"] = pack_features(lop_features(torch.from_numpy(
+        inputs["ki"]))).numpy()
+    prompts = rng.integers(0, 512, (2, 100)).astype(np.int32)
+    ranks = spawn_ranks("test_torch_gpu:sp_rank_on_card", 2,
+                        (inputs, prompts), timeout=600)
+    local = sp_rank_on_card(local_mesh((2,)), inputs, prompts)
+    for key, want in local.items():
+        if key.startswith("k/"):                     # the cache shards
+            got = np.concatenate([r[key] for r in ranks], 2)
+            np.testing.assert_array_equal(got, want, err_msg=key)
+        else:
+            for r in ranks:
+                np.testing.assert_array_equal(r[key], want, err_msg=key)
+    # at lop_keep 1 the merge is exact attention up to rounding
+    t = {k: torch.from_numpy(np.array(v)).to(cuda) for k, v in
+         inputs.items()}
+    cl = {k: t[k].clone() for k in ("k", "v", "k_scale", "v_scale", "feat")}
+    lanes = torch.arange(b, device=cuda)
+    pos = t["lengths"].long()
+    for key, val in (("k", t["ki"]), ("v", t["vi"]),
+                     ("k_scale", t["ksc"][..., 0]),
+                     ("v_scale", t["vsc"][..., 0]), ("feat", t["feat_new"])):
+        cl[key][lanes, :, pos] = val
+    dense = lop_decode_attention(get_config("bitnet-3b-reduced"), t["qi"],
+                                 t["qsc"], cl, t["lengths"] + 1, window=0,
+                                 use_lop=False).cpu().numpy()
+    err = np.abs(local["out/1.0"] - dense).max()
+    assert err / np.abs(dense).max() < 1e-3
 
 
 def test_cuda_tensor_never_takes_plain_path(cuda):
@@ -1129,20 +1332,23 @@ def test_moe_route_rows_independent_of_the_batch(cuda):
             assert torch.equal(a[0], b[0]), t
 
 
-@pytest.mark.parametrize("use_lop,sampled", [(True, False), (False, False),
-                                             (True, True)],
-                         ids=["lop-greedy", "nolop-greedy", "lop-sampled"])
-def test_moe_graph_entries_bitwise_eager(cuda, use_lop, sampled):
+@pytest.mark.parametrize("use_lop,sampled,shared", [
+    (True, False, False), (False, False, False), (True, True, False),
+    (True, False, True)],
+    ids=["lop-greedy", "nolop-greedy", "lop-sampled", "lop-greedy-shared"])
+def test_moe_graph_entries_bitwise_eager(cuda, use_lop, sampled, shared):
     """granite-moe-1b-a400m-reduced served through the run-to-completion
     regime: the decode entries in CUDA graphs bitwise the eager engine
     (tokens, every pool tensor, launch counts), each decode step one
     grouped-expert #2 launch a layer, and the scheduler's tokens bitwise
     the port's lockstep_generate (a lane's tokens do not depend on the
-    other lanes)."""
+    other lanes). ``shared``: ``gqa_shared_select=True``, one LOP
+    candidate set a kv head (G = 2)."""
     from repro_torch.configs import get_config
     from repro_torch.serving.api import PooledEngine
     from repro_torch.serving.scheduler import lockstep_generate
-    cfg = get_config("granite-moe-1b-a400m-reduced")
+    cfg = get_config("granite-moe-1b-a400m-reduced").replace(
+        gqa_shared_select=shared)
     eager = PooledEngine.from_seed(cfg, seed=0, max_len=GRAPH_MAX_LEN,
                                    use_lop=use_lop, device=cuda, graphs=False)
     graph = PooledEngine(cfg, eager.qp, max_len=GRAPH_MAX_LEN,

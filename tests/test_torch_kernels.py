@@ -104,6 +104,34 @@ def test_ffn_plain_vs_reference(gated, act, m):
         _close(t, p)
 
 
+@pytest.mark.parametrize("what", ["qlinear", "ffn gated", "ffn ungated"])
+def test_squared_relu_plain_vs_pallas(what):
+    """The ``squared_relu`` epilogue (relu(y)²) of #1 and #2, against the
+    interpret-mode Pallas kernels, gated and ungated."""
+    rng = np.random.default_rng(21)
+    d, f = 128, 256
+    x = rng.standard_normal((4, d)).astype(np.float32)
+    if what == "qlinear":
+        packed, scale = _ternary_node(rng, d, 96, per_column=True)
+        args = (x, packed, scale)
+        j = jops.qlinear_fused(*map(jnp.asarray, args), act="squared_relu",
+                               impl="pallas")
+        t = tops.qlinear_fused(*map(_t, args), act="squared_relu")
+    else:
+        gated = what == "ffn gated"
+        gu = rng.integers(0, 256, (d // 4, 2 * f if gated else f)).astype(
+            np.uint8)
+        gs = rng.uniform(0.01, 0.05, (1, gu.shape[1])).astype(np.float32)
+        down = rng.integers(0, 256, (f // 4, d)).astype(np.uint8)
+        args = (x, gu, gs, down, np.full((1, 1), 0.02, np.float32))
+        j = jops.ffn_fused(*map(jnp.asarray, args), gated=gated,
+                           act="squared_relu", impl="pallas")
+        t = tops.ffn_fused(*map(_t, args), gated=gated, act="squared_relu")
+    _close(t, j)
+    if what == "qlinear":
+        assert (t >= 0).all()
+
+
 def _tiled_barrier_integer_stages(x, packed, k):
     """The barrier (int8 values, scales) and the int32 accumulator of the
     plain version, bitwise the reference's own functions."""

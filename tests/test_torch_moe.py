@@ -285,6 +285,28 @@ def test_scheduler_tokens_match_reference_lockstep(weights, lens, seed, gen):
         assert got[rid] == lockstep_generate(eng, p, gen), rid
 
 
+@pytest.mark.parametrize("lens,seed,gen", [([17, 23], 11, 5),
+                                           ([12, 27, 9, 33, 17], 3, 6)],
+                         ids=["moe-exact-length", "staggered"])
+def test_shared_select_scheduler_matches_reference_lockstep(weights, lens,
+                                                            seed, gen):
+    """The same cases with ``gqa_shared_select=True`` (one LOP candidate
+    set per kv head, G = 2): the scheduler's tokens equal the reference's
+    lockstep and the port's."""
+    jqp, tqp = weights
+    cfg = CFG.replace(gqa_shared_select=True)
+    eng = PooledEngine(cfg, tqp, max_len=MAX_LEN, device="cpu")
+    prompts = _prompts(lens, seed)
+    sched = Scheduler(eng, n_slots=2, check_invariants=True)
+    for rid, p in enumerate(prompts):
+        sched.submit(GenerateRequest(rid=rid, prompt=p, max_new_tokens=gen))
+    got = {r.rid: r.tokens for r in sched.run_to_completion()}
+    jcfg = JCFG.replace(gqa_shared_select=True)
+    for rid, p in enumerate(prompts):
+        assert got[rid] == jlockstep(jcfg, jqp, p, gen, max_len=MAX_LEN), rid
+        assert got[rid] == lockstep_generate(eng, p, gen), rid
+
+
 def test_sampled_scheduler_matches_lockstep(weights):
     _, tqp = weights
     eng = PooledEngine(CFG, tqp, max_len=MAX_LEN, device="cpu")
