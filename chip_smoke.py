@@ -105,6 +105,33 @@ printed:
               verify, the draft entry replays its CUDA graph; rounds,
               acceptance, the draft step's and the verify chunk's wall
               time and tokens/s against plain;
+  4g. http   the port's HTTP front-end (``serving/frontend``) on phase 4's
+      + chaos warm engine: phase 4's 8 requests (rids 0–3 greedy, 4–7
+              sampled as in 4c) straight through a Scheduler, then as 8
+              concurrent SSE streams from stdlib sockets through
+              ``serve_threaded`` on a fresh Scheduler with its own
+              registry: every stream bitwise the direct run, a unary
+              body's tokens and usage, a 504 on an expired deadline
+              (streamed and unary), 400 on invalid bodies with nothing
+              submitted, and a /metrics scrape whose token, outcome,
+              prefill-token and per-route/code HTTP counters equal what
+              the clients saw; each engine histogram's count and p50
+              beside this run's own timing of the same work; HTTP TTFT
+              p50, tokens/s and peak memory beside the direct run's;
+              then a 1-slot server with max_queue 1: a 429 with
+              Retry-After while a stream holds the lane and one waits,
+              and the holder's disconnect cancelling its lane, which the
+              waiter takes and streams bitwise; an exception on the pump
+              thread or a client timeout fails the phase. Then the
+              200-request chaos trace of tests/test_faults.py (seeded
+              FaultPlan.random(31, ...), max_queue 150, 4 slots, the
+              virtual clock, check_invariants) twice on the no-LOP
+              engine, with a 1024-token shared prefix in place of 32
+              tokens (so the store interns 8 blocks and the plan's flip
+              of the 8th fires): every request terminal, 50 shed, >= 1
+              deadline and cancelled, >= 100 length, fault events,
+              recoveries and injected NaNs >= 1, the two runs bitwise
+              alike, the first 8 length-finished streams == lockstep;
   4e. moe    full-width granite-moe-1b-a400m (24 layers, d 1024, 16 heads
               of 64 over 8 KV heads, 32 experts top-8, d_ff 512) with
               seeded random weights, served run-to-completion (each prompt
@@ -1889,6 +1916,510 @@ def spec_phase(torch, np, engine, dense, reqs, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the HTTP front-end, /metrics, and the chaos trace
+# ---------------------------------------------------------------------------
+
+HTTP_TIMEOUT = 120.0        # seconds a client waits on its socket
+CHAOS_SHARED = 1024         # the chaos trace's shared prefix: 8 blocks of 128
+
+
+def http_call(port: int, body=None, path: str = "/v1/completions",
+              method: str = "POST", raw: bytes | None = None) -> dict:
+    """One HTTP/1.1 request over loopback (stdlib sockets), the response
+    read to its close. → status, headers, body, the seconds to the first
+    SSE token frame (None without one) and to the close. A socket timeout
+    raises."""
+    import socket
+    payload = json.dumps(body).encode() if body is not None else b""
+    req = raw if raw is not None else (
+        f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-Length: "
+        f"{len(payload)}\r\n\r\n".encode() + payload)
+    t0 = time.monotonic()
+    got, first = b"", None
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=HTTP_TIMEOUT) as s:
+        s.sendall(req)
+        while chunk := s.recv(65536):
+            got += chunk
+            if first is None and b"data: {" in got:
+                first = time.monotonic() - t0
+    head, _, rest = got.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    return dict(status=int(lines[0].split(" ")[1]), body=rest,
+                headers=dict(ln.split(": ", 1) for ln in lines[1:]
+                             if ": " in ln),
+                ttft=first, wall=time.monotonic() - t0)
+
+
+def sse_frames(body: bytes) -> tuple:
+    """An SSE stream → (token frames' JSON, saw [DONE], error frames)."""
+    frames, done, errors = [], False, []
+    for frame in body.decode().split("\n\n"):
+        lines = frame.split("\n")
+        is_error = "event: error" in lines
+        for line in lines:
+            if line == "data: [DONE]":
+                done = True
+            elif line.startswith("data: "):
+                (errors if is_error else frames).append(json.loads(line[6:]))
+    return frames, done, errors
+
+
+def in_threads(calls: dict) -> dict:
+    """Run each ``name -> callable`` on its own thread, all at once; → the
+    results by name. A thread's exception, or one still running after
+    HTTP_TIMEOUT, raises here."""
+    import threading
+    out, errors = {}, []
+
+    def run(name, fn):
+        try:
+            out[name] = fn()
+        except BaseException as e:                     # noqa: BLE001
+            errors.append((name, e))
+
+    threads = [threading.Thread(target=run, args=kv) for kv in calls.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP client timed out")
+    if errors:
+        raise AssertionError(f"HTTP client {errors[0][0]} failed: "
+                             f"{errors[0][1]!r}") from errors[0][1]
+    return out
+
+
+def body_of(req, stream: bool = True, **extra) -> dict:
+    sp = req.sampling
+    return dict(prompt=[int(t) for t in req.prompt],
+                max_tokens=req.max_new_tokens, stream=stream,
+                temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p,
+                seed=sp.seed, **extra)
+
+
+def scrape(port: int) -> dict:
+    """GET /metrics → {series with its labels: value}."""
+    r = http_call(port, path="/metrics", method="GET")
+    if r["status"] != 200:
+        raise AssertionError(f"/metrics answered {r['status']}")
+    out = {}
+    for line in r["body"].decode().splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            out[series] = float(value)
+    return out
+
+
+@contextlib.contextmanager
+def served(sched, **kw):
+    """``serve_threaded`` over ``sched``; on the way out the server stops
+    and an exception on its pump thread fails the phase."""
+    from repro_torch.serving.frontend import serve_threaded
+    srv = serve_threaded(sched, **kw)
+    try:
+        yield srv
+    finally:
+        srv.close()
+    pump = srv.frontend.pump
+    if pump.error is not None:
+        raise AssertionError(f"scheduler pump failed: {pump.error!r}") \
+            from pump.error
+    if srv.thread.is_alive() or pump.is_alive():
+        raise AssertionError("the HTTP server did not stop")
+
+
+def http_phase(torch, np, engine, reqs, serve, spec, card) -> dict:
+    """Phase 4g, HTTP: phase 4's 8 requests (rids 0–3 greedy, 4–7 sampled
+    as in phase 4c) straight through a Scheduler, then as concurrent SSE
+    streams through the port's server on a fresh Scheduler of the same
+    engine: streams bitwise the direct run; a unary body with usage; a
+    504 on an expired deadline; 400s before the scheduler; /metrics
+    counters against what the clients saw; then a 1-slot server with
+    max_queue 1: a 429 with Retry-After while a stream holds the lane and
+    one waits, and the holder's disconnect cancelling its lane, which the
+    waiting request then takes and streams token-exactly."""
+    import socket
+    import threading
+    from dataclasses import replace
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.metrics import (REGISTRY, MetricsRegistry,
+                                             percentile)
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = engine.cfg
+    mixed = [replace(r, arrival=None, sampling=SamplingParams(
+        temperature=0.8, top_k=50, top_p=0.95, seed=r.rid) if r.rid >= 4
+        else SamplingParams()) for r in reqs]
+    prompt_tokens = sum(len(r.prompt) for r in mixed)
+
+    # ---- the same requests straight through a Scheduler ----
+    # each run's peak is read above what the process holds before it (the
+    # engine, and whatever earlier phases left that gc can free first)
+    gc.collect()
+    direct = Scheduler(engine, n_slots=N_SLOTS, metrics=MetricsRegistry())
+    torch.cuda.synchronize()
+    d_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    for r in mixed:
+        direct.submit(r)
+    dres = {r.rid: r for r in direct.run_to_completion()}
+    torch.cuda.synchronize()
+    d_wall = time.monotonic() - t0
+    d_peak = torch.cuda.max_memory_allocated() - d_base
+    check_tokens(cfg, dres, GEN, "4g direct")
+    want = {rid: r.tokens for rid, r in dres.items()}
+    d_tps = sum(len(t) for t in want.values()) / d_wall
+    d_ttft = percentile([r.ttft for r in dres.values()], 50)
+    log(f"  [direct] {len(mixed)} requests (4 greedy, 4 sampled), "
+        f"{d_tps:.2f} tok/s, TTFT p50 {d_ttft * 1e3:.1f} ms, "
+        f"max_memory_allocated {d_peak / 2**30:.2f} GiB above the "
+        f"{d_base / 2**30:.2f} GiB held before it; tokens sha256 "
+        f"{tokens_digest(dres)} [{card}]")
+    del direct, dres
+    gc.collect()
+
+    # ---- the same requests as concurrent SSE streams ----
+    reg = MetricsRegistry()
+    sched = Scheduler(engine, n_slots=N_SLOTS, metrics=reg)
+    seen = []                               # (route, code) the clients got
+    with served(sched, registry=reg) as srv:
+        port = srv.port
+        torch.cuda.synchronize()                  # the pump is idle
+        h_base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        streams = in_threads({r.rid: (lambda r=r: http_call(
+            port, body_of(r))) for r in mixed})
+        h_wall = time.monotonic() - t0
+        h_peak = torch.cuda.max_memory_allocated() - h_base
+        counts = ops.launch_counts()
+        n_streamed = 0
+        for rid, resp in sorted(streams.items()):
+            frames, done, errors = sse_frames(resp["body"])
+            toks = [f["choices"][0]["token"] for f in frames]
+            seen.append(("/v1/completions", resp["status"]))
+            if resp["status"] != 200 or not done or errors \
+                    or frames[-1]["choices"][0]["finish_reason"] != "length":
+                raise AssertionError(f"[http] rid {rid}: {resp['status']}, "
+                                     f"done {done}, errors {errors}")
+            if toks != want[rid]:
+                raise AssertionError(f"[http] rid {rid}: streamed {toks} != "
+                                     f"direct {want[rid]}")
+            n_streamed += len(toks)
+        check_counts(counts, "4g http", LOP_PATH, idle=(DENSE,))
+        h_tps = n_streamed / h_wall
+        c_ttft = percentile([s["ttft"] for s in streams.values()], 50)
+        s_ttft = percentile([r.ttft for r in sched.results], 50)
+        log(f"  [http] {len(mixed)} concurrent SSE streams bitwise the "
+            f"direct run (4 greedy, 4 sampled); launch counts {counts}")
+        log(f"  [http] {h_tps:.2f} tok/s (direct {d_tps:.2f}), TTFT p50 "
+            f"{c_ttft * 1e3:.1f} ms at the client, {s_ttft * 1e3:.1f} ms in "
+            f"the scheduler (direct {d_ttft * 1e3:.1f}), "
+            f"max_memory_allocated {h_peak / 2**30:.2f} GiB above the "
+            f"{h_base / 2**30:.2f} GiB held before it (direct "
+            f"{d_peak / 2**30:.2f} above {d_base / 2**30:.2f}) [{card}]")
+
+        # a unary body: its tokens and usage
+        r0 = mixed[0]
+        resp = http_call(port, body_of(r0, stream=False))
+        seen.append(("/v1/completions", resp["status"]))
+        obj = json.loads(resp["body"])
+        cached = sched.results[-1].cached_len
+        usage = {"prompt_tokens": len(r0.prompt), "completion_tokens": GEN,
+                 "cached_prompt_tokens": cached}
+        if resp["status"] != 200 or obj["choices"][0]["tokens"] != want[0] \
+                or obj["usage"] != usage:
+            raise AssertionError(f"[http] unary: {resp['status']} {obj}")
+        n_streamed += GEN
+        log(f"  [http] unary completion == direct rid 0, usage {usage} "
+            f"(a prefix hit)")
+
+        # an expired deadline: 504, streamed or not, no hang
+        for stream in (True, False):
+            resp = http_call(port, body_of(r0, stream=stream,
+                                           deadline_ms=1e-3))
+            seen.append(("/v1/completions", resp["status"]))
+            err = json.loads(resp["body"]).get("error", {})
+            if resp["status"] != 504 or err.get("code") != 504:
+                raise AssertionError(f"[http] deadline: {resp['status']} "
+                                     f"{resp['body'][:200]!r}")
+
+        # invalid bodies: 400 before the scheduler sees them
+        n_results = len(sched.results)
+        bad = [{"prompt": "text"}, {"prompt": []},
+               {"prompt": [1, 2], "max_tokens": 0},
+               {"prompt": [1, 2], "max_tokens": 4000},
+               {"prompt": [cfg.vocab]},
+               {"prompt": [1, 2], "temperature": -1.0},
+               {"prompt": [1, 2], "deadline_ms": -5}]
+        for body in bad:
+            resp = http_call(port, body)
+            seen.append(("/v1/completions", resp["status"]))
+            if resp["status"] != 400:
+                raise AssertionError(f"[http] {body}: {resp['status']}")
+        resp = http_call(port, raw=b"NOT HTTP\r\n\r\n")
+        seen.append(("malformed", resp["status"]))
+        if resp["status"] != 400 or len(sched.results) != n_results \
+                or sched.queue:
+            raise AssertionError("[http] an invalid body reached the "
+                                 "scheduler")
+        log(f"  [http] 504 on an expired deadline (stream and unary); "
+            f"{len(bad) + 1} invalid requests -> 400, none submitted")
+
+        # /metrics against what the clients saw
+        got = scrape(port)
+        want_series = {
+            "repro_tokens_generated_total": n_streamed,
+            'repro_requests_total{outcome="length"}': len(mixed) + 1,
+            'repro_requests_total{outcome="deadline"}': 2,
+            "repro_deadline_expired_total": 2,
+            "repro_requests_shed_total": 0}
+        for route, code in set(seen):
+            want_series[f'repro_http_requests_total{{route="{route}",'
+                        f'code="{code}"}}'] = seen.count((route, code))
+        wrong = {k: (got.get(k, 0), v) for k, v in want_series.items()
+                 if got.get(k, 0) != v}
+        extra = [k for k in got if k.startswith(("repro_requests_total{",
+                                                 "repro_http_requests_total{"))
+                 and k not in want_series]
+        prefill = (got.get('repro_prefill_tokens_total{source="computed"}', 0)
+                   + got.get('repro_prefill_tokens_total{source="cached"}', 0))
+        if wrong or extra or prefill != prompt_tokens + len(r0.prompt):
+            raise AssertionError(f"[http] /metrics: {wrong}, unexpected "
+                                 f"{extra}, prefill tokens {prefill} != "
+                                 f"{prompt_tokens + len(r0.prompt)}")
+        log(f"  [http] /metrics: tokens {n_streamed}, outcomes length "
+            f"{len(mixed) + 1} / deadline 2, prefill tokens computed + "
+            f"cached = {prefill:.0f} = the prompts', "
+            f"repro_http_requests_total by route and code = the clients' "
+            f"{len(seen)} responses")
+
+        # each engine histogram beside this run's own timing of the work
+        rows = [("repro_prefill_chunk_seconds", reg,
+                 f"a synchronized 128-token chunk {serve['prefill_chunk_ms']:.2f}"
+                 f" ms (phase 4)"),
+                ("repro_decode_step_seconds", reg,
+                 f"the same samples' exact p50 "
+                 f"{percentile(sched.decode_seconds, 50) * 1e3:.2f} ms; a "
+                 f"synchronized decode step with no chunk in flight "
+                 f"{serve['decode_step_ms_p50']:.2f} ms (phase 4)"),
+                ("repro_spec_draft_seconds", REGISTRY,
+                 "phase 4d's draft step p50s (greedy, sampled, LOP) "
+                 + ", ".join(f"{spec[k]['draft_ms']:.2f}" for k in
+                             ("greedy", "sampled", "lop")) + " ms"),
+                ("repro_spec_verify_seconds", REGISTRY,
+                 "phase 4d's verify p50s through the host's finiteness read"
+                 " (greedy, sampled, LOP) "
+                 + ", ".join(f"{spec[k]['verify_ms']:.2f}" for k in
+                             ("greedy", "sampled", "lop")) + " ms")]
+        hist = {}
+        for name, r, beside in rows:
+            h = r.histogram(name).labels()
+            hist[name] = dict(count=h.count, p50_ms=h.quantile(0.5) * 1e3)
+            where = ("phase 4d's runs, process registry" if r is REGISTRY
+                     else "this run")
+            log(f"  {name}: count {h.count}, p50 {hist[name]['p50_ms']:.2f} "
+                f"ms (bucket estimate, {where}) beside {beside} [{card}]")
+    del sched
+
+    # ---- one lane, a bound of one: 429, then a disconnect frees the lane
+    reg1 = MetricsRegistry()
+    one = Scheduler(engine, n_slots=1, max_queue=1, metrics=reg1)
+    with served(one, registry=reg1) as srv:
+        holder = replace(mixed[2], prompt=mixed[2].prompt[:200],
+                         max_new_tokens=1000, sampling=SamplingParams())
+        s = socket.create_connection(("127.0.0.1", srv.port),
+                                     timeout=HTTP_TIMEOUT)
+        payload = json.dumps(body_of(holder)).encode()
+        s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                  b"Content-Length: %d\r\n\r\n%s" % (len(payload), payload))
+        got = b""
+        while got.count(b"data: {") < 2:
+            chunk = s.recv(4096)
+            if not chunk:
+                raise AssertionError("[1 slot] the holder's stream ended")
+            got += chunk
+        waiter = {}
+        wt = threading.Thread(target=lambda: waiter.update(
+            http_call(srv.port, body_of(mixed[1]))))
+        wt.start()
+        t_end = time.monotonic() + HTTP_TIMEOUT
+        while not one.queue:
+            if time.monotonic() > t_end:
+                raise AssertionError("[1 slot] the waiter never queued")
+            time.sleep(0.005)
+        shed = http_call(srv.port, body_of(mixed[3], stream=False))
+        s.close()                               # the holder walks away
+        wt.join(timeout=HTTP_TIMEOUT)
+        if wt.is_alive():
+            raise AssertionError("[1 slot] the waiter timed out")
+        if shed["status"] != 429 or shed["headers"].get("Retry-After") != "1":
+            raise AssertionError(f"[1 slot] overload: {shed['status']} "
+                                 f"{shed['headers']}")
+        res = {r.rid: r for r in one.results}
+        frames, done, _ = sse_frames(waiter["body"])
+        toks = [f["choices"][0]["token"] for f in frames]
+        cancelled = [r for r in res.values() if r.finish_reason == "cancelled"]
+        if len(cancelled) != 1 or not 2 <= len(cancelled[0].tokens) < 1000 \
+                or waiter["status"] != 200 or not done or toks != want[1] \
+                or reg1.value("repro_http_client_disconnects_total") < 1 \
+                or reg1.value("repro_requests_shed_total") != 1:
+            raise AssertionError(
+                f"[1 slot] disconnect/reuse: {[(r.rid, r.finish_reason, len(r.tokens)) for r in res.values()]}, "
+                f"waiter {waiter['status']} == direct {toks == want[1]}")
+        log(f"  [1 slot, max_queue 1] 429 with Retry-After: 1 while a stream "
+            f"held the lane and one waited; the holder's disconnect after "
+            f"{len(cancelled[0].tokens)} tokens cancelled its lane, and the "
+            f"waiter took it and streamed rid 1 bitwise the direct run")
+    return dict(http_tokens_per_s=h_tps, direct_tokens_per_s=d_tps,
+                http_ttft_p50_ms=c_ttft * 1e3,
+                http_sched_ttft_p50_ms=s_ttft * 1e3,
+                direct_ttft_p50_ms=d_ttft * 1e3, http_peak_bytes=h_peak,
+                direct_peak_bytes=d_peak, histograms=hist)
+
+
+def chaos_trace(np, vocab: int):
+    """``tests/test_faults.py``'s 200-request chaos trace, draw for draw,
+    with one change: the shared prefix is CHAOS_SHARED tokens (8 of
+    bitnet-3b's 128-token blocks), not 32. 32 tokens are less than one
+    block, so at full width the store would intern nothing; and the
+    plan's page flip is drawn for the 8th interned block (insert call 7),
+    so the prefix must span 8 blocks for it to fire. → (requests, cancel
+    tokens by rid)."""
+    from repro_torch.serving.api import CancelToken, GenerateRequest
+    rng = np.random.default_rng(41)
+    shared = rng.integers(0, vocab, (CHAOS_SHARED,)).astype(np.int32)
+    reqs, cancels = [], {}
+    for rid in range(200):
+        plen = int(rng.integers(6, 15))
+        prompt = rng.integers(0, vocab, (plen,)).astype(np.int32)
+        if rid % 10 == 0:
+            prompt = np.concatenate([shared, prompt])
+        tok = CancelToken() if rid % 41 == 3 else None
+        if tok is not None:
+            cancels[rid] = tok
+        reqs.append(GenerateRequest(
+            rid=rid, prompt=prompt, max_new_tokens=3, cancel=tok,
+            deadline_ms=150.0 if rid % 23 == 5 else None))
+    return reqs, cancels
+
+
+def chaos_run(np, dense, label: str) -> dict:
+    """The trace once: 4 slots, a bound of 150, the virtual clock moved
+    10 ms a cycle, ``check_invariants`` after every step,
+    ``FaultPlan.random(31, ...)`` injected; a cancel fires once its lane
+    holds 2 tokens. → dict."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import faults
+    from repro_torch.serving.metrics import MetricsRegistry
+    from repro_torch.serving.scheduler import Scheduler
+
+    reqs, cancels = chaos_trace(np, dense.cfg.vocab)
+    plan = faults.FaultPlan.random(31, n_decode_calls=160, n_lanes=4,
+                                   nan_events=6, page_flips=1,
+                                   lookup_fails=2)
+    t = [0.0]
+    sched = Scheduler(dense, n_slots=N_SLOTS, max_queue=150,
+                      clock=lambda: t[0], check_invariants=True,
+                      metrics=MetricsRegistry())
+    ops.reset_launch_counts()
+    w0 = time.monotonic()
+    with faults.inject(plan) as st:
+        for r in reqs:
+            sched.submit(r)
+        steps = 0
+        while sched.has_work():
+            sched.admit()
+            sched.step()
+            t[0] += 0.01
+            for rid, tok in cancels.items():
+                lane = next((ln for ln in sched.lanes
+                             if ln is not None and ln.req.rid == rid), None)
+                if lane is not None and len(lane.tokens) >= 2:
+                    tok.cancel()
+            steps += 1
+            if steps >= 2000:
+                raise AssertionError(f"[{label}] exceeded its step budget")
+    wall = time.monotonic() - w0
+    counts = ops.launch_counts()
+    check_counts(counts, label, ("fused_qlinear", "fused_ffn",
+                                 "fused_prefill_attention", DENSE),
+                 idle=("fused_decode_attention",))
+    res = {r.rid: r for r in sched.results}
+    reasons = {}
+    for r in res.values():
+        reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+    store = sched.prefix_store
+    log(f"  [{label}] {steps} steps in {wall:.1f} s: {dict(sorted(reasons.items()))}; "
+        f"fault events {sched.fault_events}, recovered "
+        f"{sched.fault_recoveries}, gave up {sched.fault_finishes}; injected "
+        f"NaNs {st.injected_nan}, page flips {st.injected_flips} (checksum "
+        f"failures {store.checksum_failures}), lookup outages "
+        f"{st.injected_lookup_failures}; prefix hits {sched.prefix_hits}; "
+        f"tokens sha256 {tokens_digest(res)}")
+    return dict(reqs=reqs, res=res, reasons=reasons, sched=sched, st=st,
+                store=store, wall=wall)
+
+
+def chaos_phase(torch, np, dense, card) -> dict:
+    """Phase 4g, chaos: the 200-request trace on the no-LOP engine, twice.
+    Gates (the reference test's): every request terminal; exactly 50
+    shed; at least 1 deadline and 1 cancelled; at least 100 length; fault
+    events, recoveries and injected NaNs at least 1; the two runs bitwise
+    alike in every stream, reason and fault count; the first 8
+    length-finished streams each equal their lockstep run."""
+    from repro_torch.serving.scheduler import lockstep_generate
+
+    terminal = {"eos", "stop", "length", "cancelled", "deadline", "shed",
+                "fault"}
+    a = chaos_run(np, dense, "chaos run 1")
+    b = chaos_run(np, dense, "chaos run 2")
+    sa, r = a["sched"], a["reasons"]
+    if len(a["res"]) != 200 or not set(r) <= terminal \
+            or r.get("shed", 0) != 50 or r.get("deadline", 0) < 1 \
+            or r.get("cancelled", 0) < 1 or r.get("length", 0) < 100 \
+            or sa.fault_events < 1 or sa.fault_recoveries < 1 \
+            or a["st"].injected_nan < 1:
+        raise AssertionError(f"chaos gates: {len(a['res'])} results {r}, "
+                             f"fault events {sa.fault_events}, recoveries "
+                             f"{sa.fault_recoveries}, NaNs "
+                             f"{a['st'].injected_nan}")
+    sb = b["sched"]
+    for rid, x in a["res"].items():
+        y = b["res"][rid]
+        if (x.tokens, x.finish_reason) != (y.tokens, y.finish_reason):
+            raise AssertionError(f"chaos rid {rid}: run 1 {x.finish_reason} "
+                                 f"{x.tokens} != run 2 {y.finish_reason} "
+                                 f"{y.tokens}")
+    if (sa.fault_events, sa.fault_recoveries, sa.fault_finishes) != \
+            (sb.fault_events, sb.fault_recoveries, sb.fault_finishes) or \
+            a["st"].injected_nan != b["st"].injected_nan:
+        raise AssertionError("chaos: the two runs' fault counts differ")
+    checked = []
+    for req in a["reqs"]:
+        x = a["res"][req.rid]
+        if x.finish_reason == "length" and len(checked) < 8:
+            ref = lockstep_generate(dense, req.prompt, 3)
+            if ref != x.tokens:
+                raise AssertionError(f"chaos rid {req.rid}: {x.tokens} != "
+                                     f"lockstep {ref}")
+            checked.append(req.rid)
+    log(f"  chaos gates pass, both runs bitwise alike; lockstep-exact rids "
+        f"{checked}; {a['wall']:.1f} + {b['wall']:.1f} s [{card}]")
+    return dict(reasons=r, fault_events=sa.fault_events,
+                recoveries=sa.fault_recoveries,
+                page_flips=a["st"].injected_flips,
+                checksum_failures=a["store"].checksum_failures,
+                walls=(a["wall"], b["wall"]))
+
+
+# ---------------------------------------------------------------------------
 # phase 4e: serve full-width granite-moe-1b-a400m
 # ---------------------------------------------------------------------------
 
@@ -3057,7 +3588,17 @@ def main() -> int:
         f" (γ {GAMMA}, draft {engine.draft_layers} of {engine.cfg.n_layers}"
         f" layers at k_keep {engine.draft_k}) [{smi}]")
     prefix_phase(torch, np, engine, smi)
-    spec_phase(torch, np, engine, nolop["dense"], reqs, smi)
+    spec = spec_phase(torch, np, engine, nolop["dense"], reqs, smi)
+
+    # ---- 4g. the HTTP front-end, /metrics, and the chaos trace ----
+    t4g = time.monotonic()
+    log(f"[serve http + chaos] the port's HTTP server on phase 4's engine "
+        f"({N_REQUESTS} concurrent SSE streams against the direct run, "
+        f"errors, /metrics), then the 200-request chaos trace twice on the "
+        f"no-LOP engine (shared prefix {CHAOS_SHARED} tokens) [{smi}]")
+    http_phase(torch, np, engine, reqs, serve, spec, smi)
+    chaos_phase(torch, np, nolop["dense"], smi)
+    log(f"  phase 4g took {time.monotonic() - t4g:.1f} s")
 
     # ---- 4e. the MoE family: granite-moe-1b-a400m ----
     log(f"[serve moe] granite-moe-1b-a400m full width (24 layers, d 1024, "

@@ -13,9 +13,13 @@ synthesizes requests with prompt lengths drawn from
 ``numpy.random.default_rng(seed)``, serves them through the
 :class:`repro_torch.serving.scheduler.Scheduler` (chunked prefill
 interleaved with decode; whole prompts at their exact length for a moe
-model, which never chunks) and reports tokens/s, TTFT, latency, the time
-of a serve cycle's decode call and, last, the modeled K/V traffic per
-head and query, dense against LOP. ``--no-lop`` decodes with dense attention
+model, which never chunks) and reports tokens/s, latency, TTFT and ITL
+percentiles (through :func:`repro_torch.serving.metrics.summarize`, under
+the reference's ``launch/serve.py`` keys), the time of a serve cycle's
+decode call and, last, the modeled K/V traffic per head and query, dense against LOP. The
+scheduler publishes onto a private registry per run (``out["metrics"]``):
+the series the HTTP server (``repro_torch.launch.server``) exports on
+``/metrics``. ``--no-lop`` decodes with dense attention
 (the LOP ablation arm); the sampling flags give every request the same
 policy, request ``rid`` sampling under seed ``sample_seed + rid``.
 ``--shared-prefix-tokens N --prefix-reuse-frac F`` prepends one common
@@ -47,6 +51,7 @@ from repro_torch.configs import resolve_config
 from repro_torch.core.lop import kv_traffic_bytes
 from repro_torch.serving.api import (GenerateRequest, PooledEngine,
                                      SamplingParams, StepResult)
+from repro_torch.serving.metrics import MetricsRegistry, percentile, summarize
 from repro_torch.serving.scheduler import Scheduler, lockstep_generate
 
 
@@ -94,10 +99,12 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
                max_queue: int | None = None, verify: bool = False,
                prefix_cache: bool = True, spec_decode: bool = False,
                gamma: int = 4) -> dict:
-    """Serve ``reqs`` (all arriving at t0) → stats dict."""
+    """Serve ``reqs`` (all arriving at t0) → stats dict, its counters read
+    back off the run's own registry (``"metrics"``)."""
+    registry = MetricsRegistry()
     sched = Scheduler(engine, n_slots=n_slots, max_queue=max_queue,
                       prefix_cache=prefix_cache, spec_decode=spec_decode,
-                      gamma=gamma)
+                      gamma=gamma, metrics=registry)
     _sync(engine.device)
     t0 = time.monotonic()
     for req in reqs:
@@ -105,32 +112,30 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
     results = sorted(sched.run_to_completion(), key=lambda r: r.rid)
     _sync(engine.device)
     wall = time.monotonic() - t0
-    n_tok = sum(len(r.tokens) for r in results)
-    ttft = [r.ttft for r in results if r.tokens] or [float("nan")]
-    ttft_hit = [r.ttft for r in results if r.tokens and r.cached_len] \
-        or [float("nan")]
-    ttft_miss = [r.ttft for r in results if r.tokens and not r.cached_len] \
-        or [float("nan")]
     total = sum(len(r.tokens) for r in results)
+    lat = [r.latency for r in results]
+    ttft = [r.ttft for r in results]
+    ttft_hit = [r.ttft for r in results if r.cached_len] or [np.nan]
+    ttft_miss = [r.ttft for r in results if not r.cached_len] or [np.nan]
+    itl = [g for r in results for g in r.itl] or [0.0]
     out = {
         "results": results,
         "tokens": {r.rid: list(r.tokens) for r in results},
         "wall_s": wall,
-        "tokens_per_s": n_tok / max(wall, 1e-9),
-        "ttft_p50_s": float(np.percentile(ttft, 50)),
-        "ttft_hit_p50_s": float(np.percentile(ttft_hit, 50)),
-        "ttft_miss_p50_s": float(np.percentile(ttft_miss, 50)),
-        "latency_p50_s": float(np.percentile([r.latency for r in results],
-                                             50)),
-        "serve_cycle_decode_ms_p50": float(np.percentile(
-            sched.decode_seconds, 50) * 1e3) if sched.decode_seconds
-        else float("nan"),
+        "tokens_per_s": total / max(wall, 1e-9),
+        "metrics": registry,
+        **summarize(lat, (50, 90, 99), prefix="latency_"),
+        **summarize(ttft, (50, 90, 99), prefix="ttft_"),
+        **summarize(itl, (50, 99), prefix="itl_"),
+        **summarize(ttft_hit, (50, 99), prefix="ttft_hit_"),
+        **summarize(ttft_miss, (50, 99), prefix="ttft_miss_"),
+        "serve_cycle_decode_ms_p50": percentile(sched.decode_seconds,
+                                                50) * 1e3,
         "decode_launches": sched.decode_launches,
         "chunked": sched.chunked,
         "full_prefills": len(sched.full_prefill_seconds),
-        "full_prefill_ms_p50": float(np.percentile(
-            sched.full_prefill_seconds, 50) * 1e3)
-        if sched.full_prefill_seconds else float("nan"),
+        "full_prefill_ms_p50": percentile(sched.full_prefill_seconds,
+                                          50) * 1e3,
         "full_prefill_stalls": sched.full_prefill_stalls,
         "prefix_cache": sched.prefix_store is not None,
         "prefix_hits": sched.prefix_hits,
@@ -156,11 +161,12 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
         "checksum_failures": (sched.prefix_store.checksum_failures
                               if sched.prefix_store is not None else 0),
         "spec_watchdog_trips": sched.spec_watchdog_trips,
-        "shed_count": sched.shed_count,
-        "deadline_count": sched.deadline_count,
-        "fault_events": sched.fault_events,
-        "fault_recoveries": sched.fault_recoveries,
-        "fault_finishes": sched.fault_finishes,
+        "shed_count": int(registry.value("repro_requests_shed_total")),
+        "deadline_count": int(registry.value("repro_deadline_expired_total")),
+        "fault_events": int(registry.value("repro_fault_events_total")),
+        "fault_recoveries": int(
+            registry.value("repro_fault_recoveries_total")),
+        "fault_finishes": int(registry.value("repro_fault_finishes_total")),
     }
     if verify:
         # only naturally finished requests have a lockstep counterpart
@@ -278,11 +284,14 @@ def main(argv=None) -> int:
               f"{r.cached_len:>5} tokens {len(r.tokens):>4} ttft "
               f"{r.ttft * 1e3:9.1f} ms latency {r.latency * 1e3:9.1f} ms  "
               f"{r.finish_reason}")
-    print(f"wall {out['wall_s']:.3f} s, {out['tokens_per_s']:.1f} tok/s, "
-          f"ttft p50 {out['ttft_p50_s'] * 1e3:.1f} ms, latency p50 "
-          f"{out['latency_p50_s'] * 1e3:.1f} ms, serve-cycle decode "
-          f"p50 {out['serve_cycle_decode_ms_p50']:.2f} ms (waits on the "
-          f"cycle's prefill chunk)")
+    print(f"wall {out['wall_s']:.3f} s, {out['tokens_per_s']:.1f} tok/s; "
+          f"latency p50/p90/p99: {out['latency_p50'] * 1e3:.1f} / "
+          f"{out['latency_p90'] * 1e3:.1f} / {out['latency_p99'] * 1e3:.1f} "
+          f"ms; ttft p50/p90: {out['ttft_p50'] * 1e3:.1f} / "
+          f"{out['ttft_p90'] * 1e3:.1f} ms; itl p50/p99: "
+          f"{out['itl_p50'] * 1e3:.1f} / {out['itl_p99'] * 1e3:.1f} ms; "
+          f"serve-cycle decode p50 {out['serve_cycle_decode_ms_p50']:.2f} ms "
+          f"(waits on the cycle's prefill chunk)")
     if not out["chunked"]:
         print(f"full-prompt prefills (exact length, run to completion): "
               f"{out['full_prefills']}, p50 {out['full_prefill_ms_p50']:.2f}"
@@ -303,8 +312,8 @@ def main(argv=None) -> int:
               f"pages), prefill tokens computed/served: "
               f"{out['prefill_tokens_computed']}/"
               f"{out['prefill_tokens_served']}; ttft p50 hit/miss: "
-              f"{out['ttft_hit_p50_s'] * 1e3:.1f} / "
-              f"{out['ttft_miss_p50_s'] * 1e3:.1f} ms")
+              f"{out['ttft_hit_p50'] * 1e3:.1f} / "
+              f"{out['ttft_miss_p50'] * 1e3:.1f} ms")
     if args.max_queue is not None or args.deadline_ms is not None \
             or out["fault_events"] or out["prefix_lookup_failures"] \
             or out["checksum_failures"] or out["spec_watchdog_trips"]:

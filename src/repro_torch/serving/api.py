@@ -55,11 +55,14 @@ from repro_torch.serving.sampling import sample_with_seed
 class SamplingParams:
     """Per-request decode policy. ``temperature <= 0`` is the greedy fast
     path (bitwise argmax); ``top_k <= 0`` and ``top_p >= 1`` disable their
-    filters; ``seed`` drives the lane-local key schedule."""
+    filters; ``seed`` drives the lane-local key schedule. ``gamma`` is the
+    request's speculative draft length when the scheduler speculates (0
+    defers to the scheduler's γ; ignored otherwise)."""
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
+    gamma: int = 0
 
     @property
     def greedy(self) -> bool:

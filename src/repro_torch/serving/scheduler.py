@@ -42,6 +42,16 @@ match; a lane whose drafts are never accepted stops drafting after
 bookkeeping against the pool (and the store's structure) after every
 step.
 
+Metrics: the scheduler publishes the reference's series
+(:func:`repro_torch.serving.metrics.scheduler_instruments`) at the
+reference's call sites onto ``metrics`` (the process-wide ``REGISTRY``
+unless a registry is passed): outcomes, shed, deadline and fault counters,
+tokens, prefill tokens by source, queue depth, active lanes, TTFT, ITL,
+end-to-end latency, each request's queue / prefill / decode spans (a
+:class:`~repro_torch.serving.metrics.StageTimer` on ``clock``), and one
+span for each engine call: ``prefill_chunk``, ``decode_step``, ``draft``
+and ``verify_chunk``. No span waits on the device.
+
 :func:`lockstep_generate` is the batch-1 reference: whole-prompt prefill
 then one decode step per token, through the same engine and sampler.
 Tokens agree with the scheduler's when both use the same ``max_len`` (the
@@ -59,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving import cache as _cache
+from repro_torch.serving import metrics as _metrics
 from repro_torch.serving.api import (GREEDY, ExistingPrefix, FinishedRequest,
                                      GenerateRequest, PooledEngine,
                                      SamplingParams, StepResult)
@@ -95,21 +106,25 @@ class Scheduler:
     """Continuous batching over a :class:`PooledEngine`.
 
     ``prefix_cache`` (on by default) caches prefixes wherever the engine
-    declares a ``prefix_block``; the interned pages are bounded at 4× the
-    pool's token capacity. ``spec_decode`` turns on self-speculative
+    declares a ``prefix_block`` and the prompts are chunked; the interned
+    pages are bounded at 4× the pool's token capacity. ``chunked=False``
+    prefills every prompt whole, as an engine without ``supports_chunked``
+    does. ``spec_decode`` turns on self-speculative
     decoding with draft length ``gamma`` where the engine declares
     ``supports_speculative``; ``spec_watchdog`` is the number of
     consecutive zero-accept rounds after which a lane drafts no more.
+    ``metrics`` is the registry the scheduler publishes onto.
     """
 
     def __init__(self, engine: PooledEngine, *, n_slots: int,
                  max_queue: int | None = None, check_invariants: bool = False,
-                 prefix_cache: bool = True,
+                 chunked: bool = True, prefix_cache: bool = True,
                  spec_decode: bool = False, gamma: int = 4,
-                 spec_watchdog: int = 3, clock=time.monotonic):
+                 spec_watchdog: int = 3, clock=time.monotonic, metrics=None):
         if spec_decode and gamma < 1:
             raise ValueError(f"spec_decode needs gamma >= 1, got {gamma}")
         self.engine = engine
+        self.cfg = engine.cfg
         self.n_slots = n_slots
         self.max_queue = max_queue
         self.invariant_checks = check_invariants
@@ -117,14 +132,14 @@ class Scheduler:
         self.pool = self.engine.init_pool(n_slots)
         self.capacity = pool_capacity(self.pool)
         self.chunk_tokens = self.engine.chunk_tokens
-        self.chunked = self.engine.supports_chunked
+        self.chunked = chunked and self.engine.supports_chunked
         # an engine without rewindable pages or a chunked verify serves
         # plain decode
         self.spec = spec_decode and self.engine.supports_speculative
         self.gamma = gamma
         self.spec_watchdog = spec_watchdog
         self.prefix_store: PrefixStore | None = None
-        if prefix_cache and self.engine.prefix_block:
+        if prefix_cache and self.chunked and self.engine.prefix_block:
             self.prefix_store = PrefixStore(self.engine.prefix_block,
                                             max_tokens=4 * self.capacity)
         self.queue: deque[GenerateRequest] = deque()
@@ -133,8 +148,9 @@ class Scheduler:
         self._prefilling: deque[_Prefill] = deque()
         self._next_tok = np.zeros((n_slots, 1), np.int32)
         self.results: list[FinishedRequest] = []
-        # host seconds of each plain decode step, draft step and verify
-        # chunk (each ends in its one host transfer)
+        # every sample of the decode_step and spec_draft series (each step
+        # ends in its one host transfer), and each verify chunk's seconds
+        # through the host's read of its finiteness
         self.decode_seconds: list[float] = []
         self.draft_seconds: list[float] = []
         self.verify_seconds: list[float] = []
@@ -166,6 +182,9 @@ class Scheduler:
         self.fault_recoveries = 0      # rollback + retry that succeeded
         self.fault_finishes = 0        # lanes retired with reason "fault"
         self.fault_rids: set = set()   # rids a fault recovery touched
+        self.metrics = metrics if metrics is not None else _metrics.REGISTRY
+        self._m = _metrics.scheduler_instruments(self.metrics)
+        self._timers: dict = {}        # rid -> StageTimer, until retirement
 
     # ---------------- queue ----------------
 
@@ -176,14 +195,23 @@ class Scheduler:
         if need > self.capacity:
             raise ValueError(f"request {req.rid} needs {need} tokens but the "
                              f"pool capacity is {self.capacity}")
+        if req.sampling is not None and req.sampling.gamma < 0:
+            raise ValueError(f"request {req.rid}: sampling.gamma must be "
+                             f">= 0 (0 = the scheduler's), got "
+                             f"{req.sampling.gamma}")
         if req.arrival is None:
             req = replace(req, arrival=self.clock())
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self.shed_count += 1
+            self._m.shed.inc()
             self._record_abort(req, reason="shed")
             return False
+        timer = _metrics.StageTimer(self.clock)
+        timer.enter("queue")
+        self._timers[req.rid] = timer
         self.queue.append(req)
         self.queue_depth_peak = max(self.queue_depth_peak, len(self.queue))
+        self._m.queue_depth.set(len(self.queue))
         return True
 
     @property
@@ -251,6 +279,9 @@ class Scheduler:
                 self._record_abort(req, reason=reason)
                 continue
             slot = self._free.popleft()
+            timer = self._timers.get(req.rid)
+            if timer is not None:
+                timer.to("prefill")
             if not self.chunked:
                 self._prefill_whole(slot, req)
                 n += 1
@@ -266,13 +297,18 @@ class Scheduler:
                 self.prefix_hit_tokens += skip
             self.prefill_tokens_computed += len(req.prompt) - skip
             self.prefill_tokens_served += len(req.prompt)
+            self._m.prefill_tokens.labels(source="computed").inc(
+                len(req.prompt) - skip)
+            self._m.prefill_tokens.labels(source="cached").inc(skip)
             n += 1
         block = self.engine.prefix_block
         for node, slots in clones.values():
-            for n in self.prefix_store.chain(node):
+            for link in self.prefix_store.chain(node):
                 self.pool = self.engine.bulk_insert(
-                    self.pool, slots, ExistingPrefix(n.pages, n.n_tokens),
-                    start=n.n_tokens - block)
+                    self.pool, slots,
+                    ExistingPrefix(link.pages, link.n_tokens),
+                    start=link.n_tokens - block)
+        self._m.queue_depth.set(len(self.queue))
         return n
 
     def _intern_prefix(self, pf: _Prefill) -> None:
@@ -299,6 +335,7 @@ class Scheduler:
         plen = len(req.prompt)
         self.prefill_tokens_computed += plen
         self.prefill_tokens_served += plen
+        self._m.prefill_tokens.labels(source="computed").inc(plen)
         t0 = time.perf_counter()
         logits, req_cache = self.engine.prefill(
             np.asarray(req.prompt, np.int32)[None])
@@ -316,11 +353,17 @@ class Scheduler:
         self.pool = self.engine.set_sampling_state(self.pool, pf.slot,
                                                    sp.seed, 1)
         now = self.clock()
+        timer = self._timers.get(pf.req.rid)
+        if timer is not None:
+            timer.to("decode")
+        if pf.req.arrival is not None:
+            self._m.ttft.observe(now - pf.req.arrival)
         lane = _Lane(req=pf.req, tokens=[first],
                      remaining=pf.req.max_new_tokens - 1, t_admit=pf.t_admit,
                      t_first=now, token_times=[now],
                      cached_len=pf.cached_len)
         self.lanes[pf.slot] = lane
+        self._m.active_lanes.set(self.n_active)
         self._next_tok[pf.slot, 0] = first
         reason = self._token_reason(lane, first)
         self._emit(lane, first, 0, reason)
@@ -333,9 +376,11 @@ class Scheduler:
         pf = self._prefilling[0]
         k = pf.next_chunk
         final = k == len(pf.chunks) - 1
+        t0 = self.clock()
         logits, self.pool = self.engine.prefill_chunk(
             self.pool, pf.slot, pf.chunks[k], pf.starts[k], pf.seq_ends[k],
             final)
+        self._m.prefill_chunk.observe(self.clock() - t0)
         pf.next_chunk += 1
         if final:
             self._prefilling.popleft()
@@ -399,6 +444,7 @@ class Scheduler:
                 else:
                     kept.append(req)
             self.queue = kept
+            self._m.queue_depth.set(len(self.queue))
         if any(self._abort_reason(p.req) for p in self._prefilling):
             kept_p: deque[_Prefill] = deque()
             for pf in self._prefilling:
@@ -446,6 +492,7 @@ class Scheduler:
         "fault" only if that fails too."""
         lane = self.lanes[slot]
         self.fault_events += 1
+        self._m.fault_events.inc()
         self.fault_rids.add(lane.req.rid)
         lane.no_spec = True
         self.pool = self.engine.rollback(self.pool, slot, 1)
@@ -454,9 +501,11 @@ class Scheduler:
         if not bool(ok[slot]):
             self.pool = self.engine.rollback(self.pool, slot, 1)
             self.fault_finishes += 1
+            self._m.fault_finishes.inc()
             done.append(self._finish(slot, "fault"))
             return
         self.fault_recoveries += 1
+        self._m.fault_recoveries.inc()
         self._append_token(slot, int(toks[slot]), done)
 
     # ---------------- speculative decoding ----------------
@@ -469,20 +518,23 @@ class Scheduler:
                 + len(lane.tokens) - 1)
 
     def _spec_gamma(self) -> int:
-        """This round's draft length: ``gamma``, cut to the least over
-        active lanes of the token budget left and the capacity headroom
-        (verify writes γ+1 rows at [L, L+γ+1)). 0 — plain decode for the
-        whole cycle — when any lane drafts no more: the batched draft
-        cannot leave one lane out."""
-        g = self.gamma
+        """This round's draft length: the least over active lanes of the
+        request's γ (``sampling.gamma``, 0 = ``gamma``), its token budget
+        left and its capacity headroom (verify writes γ+1 rows at
+        [L, L+γ+1)). 0 — plain decode for the whole cycle — when any lane
+        drafts no more: the batched draft cannot leave one lane out."""
+        g = None
         for slot, lane in enumerate(self.lanes):
             if lane is None:
                 continue
             if lane.no_spec:
                 return 0
-            g = min(g, lane.remaining,
-                    self.capacity - 1 - self._lane_kv_len(slot))
-        return max(0, g)
+            sp = lane.req.sampling or GREEDY
+            lane_g = min(sp.gamma if sp.gamma > 0 else self.gamma,
+                         lane.remaining,
+                         self.capacity - 1 - self._lane_kv_len(slot))
+            g = lane_g if g is None else min(g, lane_g)
+        return max(0, g or 0)
 
     def _spec_round(self, g: int, temps, tks, tps, done: list) -> None:
         """One speculative cycle: ``g`` batched draft steps propose tokens
@@ -506,10 +558,12 @@ class Scheduler:
         drafts: dict = {s: [] for s in active}
         cur = self._next_tok.copy()
         for _ in range(g):
-            t0 = time.perf_counter()
+            t0 = self.clock()
             toks, self.pool = self.engine.draft(self.pool, cur, temps, tks,
                                                 tps)
-            self.draft_seconds.append(time.perf_counter() - t0)
+            dt = self.clock() - t0
+            self._m.spec_draft.observe(dt)
+            self.draft_seconds.append(dt)
             self.draft_launches += 1
             for s in active:
                 drafts[s].append(int(toks[s]))
@@ -525,11 +579,12 @@ class Scheduler:
                                      f"{self.capacity})")
             block = np.concatenate([self._next_tok[slot],
                                     np.asarray(drafts[slot], np.int32)])[None]
-            t0 = time.perf_counter()
+            t0 = self.clock()
             logits, self.pool = self.engine.verify_chunk(self.pool, slot,
                                                          block, start)
+            self._m.spec_verify.observe(self.clock() - t0)
             finite = bool(torch.isfinite(logits).all())
-            self.verify_seconds.append(time.perf_counter() - t0)
+            self.verify_seconds.append(self.clock() - t0)
             self.spec_verify_launches += 1
             if not finite:
                 # poisoned verify: rewind the round (g drafts + 1) and stop
@@ -538,6 +593,7 @@ class Scheduler:
                 self.pool = self.engine.rollback(self.pool, slot, g + 1)
                 lane.no_spec = True
                 self.fault_events += 1
+                self._m.fault_events.inc()
                 self.fault_rids.add(lane.req.rid)
                 continue
             sp = lane.req.sampling or GREEDY
@@ -601,10 +657,12 @@ class Scheduler:
             if g >= 1:
                 self._spec_round(g, temps, tks, tps, done)
                 return done
-        t0 = time.perf_counter()
+        t0 = self.clock()
         toks, self.pool = self.engine.decode_step(self.pool, self._next_tok,
                                                   temps, tks, tps)
-        self.decode_seconds.append(time.perf_counter() - t0)
+        dt = self.clock() - t0
+        self._m.decode_step.observe(dt)
+        self.decode_seconds.append(dt)
         self.decode_launches += 1
         ok = self.engine.last_ok
         for slot, lane in enumerate(self.lanes):
@@ -629,6 +687,8 @@ class Scheduler:
         self._free.append(slot)
         self._next_tok[slot, 0] = 0
         self.results.append(res)
+        self._m.active_lanes.set(self.n_active)
+        self._publish_finish(res, reason)
         return res
 
     def _record_abort(self, req: GenerateRequest, t_admit: float = 0.0,
@@ -642,7 +702,24 @@ class Scheduler:
             t_arrival=req.arrival if req.arrival is not None else now,
             t_admit=t_admit or now, t_first=now, t_done=now, token_times=[])
         self.results.append(res)
+        self._publish_finish(res, reason)
         return res
+
+    def _publish_finish(self, res: FinishedRequest, reason: str) -> None:
+        """The registry's side of a retirement: the outcome and deadline
+        counters, tokens, end-to-end latency, the inter-token gaps and the
+        request's stage spans."""
+        self._m.requests.labels(outcome=reason).inc()
+        if reason == "deadline":
+            self._m.deadline.inc()
+        self._m.tokens.inc(len(res.tokens))
+        self._m.e2e.observe(res.latency)
+        for gap in res.itl:
+            self._m.itl.observe(gap)
+        timer = self._timers.pop(res.rid, None)
+        if timer is not None:
+            for stage, span in timer.finish().items():
+                self._m.stage_seconds.labels(stage=stage).observe(span)
 
     # ---------------- invariants ----------------
 

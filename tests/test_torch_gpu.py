@@ -1369,3 +1369,103 @@ def test_moe_graph_entries_bitwise_eager(cuda, use_lop, sampled, shared):
     for r in reqs:
         assert lockstep_generate(graph, r.prompt, r.max_new_tokens,
                                  sampling=r.sampling) == got[r.rid], r.rid
+
+
+# ---------------------------------------------------------------------------
+# the HTTP front-end on the card
+# ---------------------------------------------------------------------------
+
+def _http(port, body=None, path="/v1/completions", method="POST"):
+    """One HTTP/1.1 request over loopback, the response read to its close.
+    → (status, body bytes)."""
+    import json
+    import socket
+    payload = json.dumps(body).encode() if body is not None else b""
+    s = socket.create_connection(("127.0.0.1", port), timeout=300)
+    s.sendall(f"{method} {path} HTTP/1.1\r\nHost: t\r\nContent-Length: "
+              f"{len(payload)}\r\n\r\n".encode() + payload)
+    raw = b""
+    while chunk := s.recv(65536):
+        raw += chunk
+    s.close()
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), rest
+
+
+def test_http_streams_match_direct_scheduler_on_card(cuda, monkeypatch):
+    """One greedy and one seeded-sampled SSE stream through the port's
+    server on the card (the pump thread capturing and replaying the decode
+    graphs) equal the same requests served straight through a Scheduler
+    on the same engine; /metrics counts what the run did; every token that
+    reaches the event loop is a Python int (no tensor, so no CUDA call on
+    the loop's thread)."""
+    import json
+    import threading
+
+    from repro_torch.serving.api import GenerateRequest, SamplingParams
+    from repro_torch.serving.frontend import server as server_mod
+    from repro_torch.serving.metrics import MetricsRegistry
+    from repro_torch.serving.scheduler import Scheduler
+
+    eng = _reduced_engine(cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (23, 41)]
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_k=20,
+                                            top_p=0.9, seed=7)]
+    direct = Scheduler(eng, n_slots=2)
+    for rid, (p, sp) in enumerate(zip(prompts, sps)):
+        direct.submit(GenerateRequest(rid=rid, prompt=p, max_new_tokens=12,
+                                      sampling=sp))
+    want = {r.rid: r.tokens for r in direct.run_to_completion()}
+
+    seen = []
+
+    class Checked(server_mod.HttpFrontend):
+        def _chunk(self, rid, sr):
+            seen.append((threading.current_thread().name, type(sr.token)))
+            return super()._chunk(rid, sr)
+
+    monkeypatch.setattr(server_mod, "HttpFrontend", Checked)
+    reg = MetricsRegistry()
+    sched = Scheduler(eng, n_slots=2, metrics=reg)
+    srv = server_mod.serve_threaded(sched, registry=reg)
+    outs = {}
+
+    def go(i):
+        sp = sps[i]
+        outs[i] = _http(srv.port, {
+            "prompt": [int(t) for t in prompts[i]], "max_tokens": 12,
+            "stream": True, "temperature": sp.temperature,
+            "top_k": sp.top_k, "top_p": sp.top_p, "seed": sp.seed})
+
+    try:
+        threads = [threading.Thread(target=go, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        status, text = _http(srv.port, path="/metrics", method="GET")
+    finally:
+        srv.close()
+    assert srv.frontend.pump.error is None and not srv.thread.is_alive()
+    assert status == 200
+    for i in (0, 1):
+        code, body = outs[i]
+        assert code == 200
+        frames = [json.loads(line[6:]) for line in body.decode().split("\n")
+                  if line.startswith("data: {")]
+        assert [f["choices"][0]["token"] for f in frames] == want[i], i
+    assert {t for _, t in seen} == {int}
+    assert {name for name, _ in seen} == {"http-frontend"}
+    assert all(type(x) is int for r in sched.results for x in r.tokens)
+    assert reg.value("repro_tokens_generated_total") == 24
+    assert reg.value("repro_requests_total", {"outcome": "length"}) == 2
+    assert (reg.value("repro_prefill_tokens_total", {"source": "computed"})
+            + reg.value("repro_prefill_tokens_total", {"source": "cached"})
+            == sum(len(p) for p in prompts))
+    assert reg.value("repro_http_requests_total",
+                     {"route": "/v1/completions", "code": 200}) == 2
+    assert f"repro_decode_step_seconds_count {sched.decode_launches}" \
+        in text.decode()
+    assert eng.graphs.count >= 1

@@ -391,3 +391,22 @@ def test_scheduler_same_sweep_sharers_hit_after_interning(eng):
     for rid in range(6):
         assert res[rid].tokens == cold[rid].tokens, rid
         assert cold[rid].cached_len == 0
+
+
+def test_admit_returns_the_count_with_prefix_hits(eng):
+    """``admit`` returns how many requests it admitted, as the
+    reference's does, also when hits clone chain nodes in that sweep."""
+    rng = np.random.default_rng(18)
+    shared = rng.integers(0, CFG.vocab, (32,)).astype(np.int32)
+    prompts = [np.concatenate([shared, s])
+               for s in _prompts([7, 10, 8], seed=19)]
+    sched = Scheduler(eng, n_slots=2, check_invariants=True)
+    sched.submit(GenerateRequest(rid=0, prompt=prompts[0], max_new_tokens=3))
+    assert sched.admit() == 1
+    sched.run_to_completion()
+    for rid in (1, 2):
+        sched.submit(GenerateRequest(rid=rid, prompt=prompts[rid],
+                                     max_new_tokens=3))
+    assert sched.admit() == 2
+    assert sched.prefix_hits == 2
+    sched.run_to_completion()

@@ -413,3 +413,21 @@ def test_rollback_slot_targets_one_lane(eng):
     assert pool["lengths"].tolist() == [len(p0) - 3, len(p1)]
     for name, leaf in _tensors(cache.extract_slot(pool, 1)):
         assert torch.equal(leaf, before[name]), name
+
+
+def test_request_gamma_sets_the_round(eng):
+    """A request's ``sampling.gamma`` (the wire's ``gamma``) sets its
+    rounds' draft length below the scheduler's; the stream is still the
+    lockstep one; a negative one is refused at submit."""
+    (p,) = _prompts((13,))
+    sp = SamplingParams(gamma=2)
+    sched, res = _run(eng, [GenerateRequest(rid=0, prompt=p,
+                                            max_new_tokens=9, sampling=sp)],
+                      gamma=4, n_slots=1, spec_watchdog=99)
+    assert sched.spec_rounds > 0
+    assert sched.spec_drafted == sched.draft_launches <= 2 * sched.spec_rounds
+    assert res[0].tokens == lockstep_generate(eng, p, 9)
+    with pytest.raises(ValueError, match="gamma"):
+        Scheduler(eng, n_slots=1, spec_decode=True).submit(GenerateRequest(
+            rid=1, prompt=p, max_new_tokens=4,
+            sampling=SamplingParams(gamma=-1)))
