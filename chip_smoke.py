@@ -153,6 +153,37 @@ printed:
               with gqa_shared_select=True (one candidate set a kv head)
               on the same weights, through the same checks, its tokens/s
               and step ms beside the per-head arm's;
+  4h. families stablelm-1.6b (LayerNorm) at full width and depth (24
+              layers, d 2048, 32 heads of 64, f 5632) and qwen1.5-32b (QKV
+              bias, drawn nonzero from a seeded generator before
+              quantization) at full width (d 5120, 40 heads of 128, f
+              27,392, vocab 152,064) and 8 of its 64 layers (the f32
+              master tree's peak): phase 4's 8 requests greedy LOP,
+              chunked, through the Scheduler on 4 slots, scheduler ==
+              lockstep for 2 requests, the clean decode step on graphs
+              and eager with its launches (#1 / #2 / decode kernel 48 /
+              24 / 24 and 16 / 8 / 8 a step), #1 at qwen's QKV shape with
+              its bias bitwise its plain version on layer 0's served
+              weights, half of qwen's #1 launches carrying the bias; then
+              whisper-small (encoder-decoder) at full width and depth (12
+              + 12 layers, d 768, 12 heads of 64, f 3072 ungated gelu,
+              vocab 51,865): 8 requests (default_rng(2)) of 1500 frames
+              and a 4–64-token prompt, 32 new tokens, max_len 448, run to
+              completion with exact-length prefill (#1 84 / #2 24 / #3 36
+              launches a prefill, the encoder's and cross prefill's #3
+              non-causal), greedy LOP, on a no-LOP engine sharing the
+              weights, and LOP with one transient NaN lane recovered
+              through the retry (its stream bitwise the clean one);
+              scheduler == lockstep for 2 requests in each arm; a decode
+              step 48 / 12 / 24 (self + cross, half of the decode
+              kernel's launches over the cross pages); after the greedy
+              run #3 at the encoder's shape (C = M = 1500) and the cross
+              prefill's (C 64 over M 1536, kv_len 1500) and #4 and #5
+              over the pool's cross pages (no write, the pages untouched)
+              against their plain versions (rtol = atol = 2e-5) and
+              timed beside their bounds; the decode step on graphs and
+              eager, one exact-length prefill's time, tokens/s, TTFT and
+              peak memory; each arm's engine freed before the next;
   5. standalone kernels and the per-head LOP decode, at full width:
               the TINT GEMM (ternary_matmul), the LOP screen
               (lop_scores_kernel), single-head flash prefill and block-sparse
@@ -196,9 +227,12 @@ printed:
               decode (token index, top-2 margins).
 
 The line before the last two is the ``kernels`` JSON (eleven entries:
-the nine TPU kernels, and #1 and #2 once more in their expert form; the
-two decode entries also list the modes they ran, each with its launches
-on the path that runs it and phase 3's numbers); the last line is
+the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
+#2, #3 and the two decode entries also list the modes they ran — #1
+``bias``, #2 ``ungated``, #3 ``non_causal``, #4/#5 ``per_head``,
+``shared_select``, ``pos_offset+return_stats`` and ``cross`` — each with
+its launches on the path that runs it and the numbers of the phase that
+checked it); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1044,15 +1078,17 @@ LOP_PATH = ("fused_qlinear", "fused_ffn", "fused_prefill_attention",
 DENSE = "fused_dense_decode_attention"
 
 
-def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
+def serve_run(torch, np, engine, reqs, label: str, card: str,
+              capacity: int = 1664, **sched_kw):
     """Serve ``reqs`` through a Scheduler on ``engine`` with the launch
-    counts zeroed just before and read just after. → dict."""
+    counts (by mode too) zeroed just before and read just after. →
+    dict."""
     from repro_torch.kernels import ops
     from repro_torch.serving.scheduler import Scheduler
 
     sched = Scheduler(engine, n_slots=N_SLOTS, **sched_kw)
-    if sched.capacity != 1664:
-        raise AssertionError(f"pool capacity {sched.capacity} != 1664")
+    if sched.capacity != capacity:
+        raise AssertionError(f"pool capacity {sched.capacity} != {capacity}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1062,7 +1098,7 @@ def serve_run(torch, np, engine, reqs, label: str, card: str, **sched_kw):
     results = {r.rid: r for r in sched.run_to_completion()}
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    counts = ops.launch_counts()
+    counts = ops.launch_counts(modes=True)
     peak = torch.cuda.max_memory_allocated()
     log(f"  [{label}] launch counts (graph replays counted): {counts}")
     if sorted(results) != sorted(r.rid for r in reqs):
@@ -1146,7 +1182,7 @@ def check_lockstep(engine, reqs, results, rids, label: str) -> None:
     for rid in rids:
         req = reqs[rid]
         ref = lockstep_generate(engine, req.prompt, req.max_new_tokens,
-                                sampling=req.sampling)
+                                sampling=req.sampling, frames=req.frames)
         if ref != results[rid].tokens:
             raise AssertionError(f"[{label}] rid {rid}: scheduler "
                                  f"{results[rid].tokens} != lockstep {ref}")
@@ -1261,14 +1297,17 @@ def decode_step_ms(torch, np, engine, reqs, sampling=None):
 
 
 def check_step_counts(counts: dict, engine, steps: int) -> None:
-    """Each decode step launches #1 twice a layer (QKV, O), #2 once (for a
-    moe model its grouped-expert form, every expert in the launch) and its
-    decode kernel once, and nothing else — counted per graph replay as per
-    eager call."""
+    """Each decode step launches #1 twice a layer (QKV, O; four times with
+    cross-attention: its Q and O too), #2 once (for a moe model its
+    grouped-expert form, every expert in the launch) and its decode kernel
+    once (twice with cross-attention: over the self and the cross pages),
+    and nothing else — counted per graph replay as per eager call."""
     n = engine.cfg.n_layers
+    per = 2 if engine.cfg.family == "encdec" else 1
     attn = "fused_decode_attention" if engine.use_lop else DENSE
     ffn = "fused_ffn_experts" if engine.cfg.family == "moe" else "fused_ffn"
-    want = {"fused_qlinear": 2 * n * steps, ffn: n * steps, attn: n * steps}
+    want = {"fused_qlinear": 2 * per * n * steps, ffn: n * steps,
+            attn: per * n * steps}
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         raise AssertionError(f"{steps} decode steps launched {got}, want "
@@ -2678,6 +2717,574 @@ def moe_phase(torch, np, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: the dense family's LayerNorm and QKV bias; the encdec family
+# ---------------------------------------------------------------------------
+
+QWEN_LAYERS = 8                    # of 64: the f32 master tree's peak
+WHISPER_MAX_LEN = 448              # whisper's decoder context
+WHISPER_FRAMES = 1500              # a full 30-s window (cross_ctx)
+WHISPER_MIN_PROMPT, WHISPER_MAX_PROMPT = 4, 64
+
+
+def free_cuda(torch) -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def qkv_bias_check(torch, np, qp, card: str) -> dict:
+    """#1 at the fused QKV shape with its bias, on layer 0's served
+    weights (the bias drawn nonzero): bitwise the plain version, timed
+    eagerly and in a CUDA graph beside its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.qlinear import fused_qlinear
+    from repro_torch.models.transformer import layer_slice
+
+    node = layer_slice(qp["layers"]["attn"], 0)["wqkv"]
+    k, n = node["packed"].shape[0] * 4, node["packed"].shape[1]
+    if not node["b"].any():
+        raise AssertionError("qwen's QKV bias is all zero")
+    rng = np.random.default_rng(SEED + 7)
+    x = torch.from_numpy(rng.standard_normal((N_SLOTS, k)).astype(
+        np.float32)).cuda()
+    gamma = ops._col_scale(node["scale"], n)
+    got = ops.qlinear_fused(x, node["packed"], node["scale"], node["b"])
+    want = plain.qlinear_ref(x, node["packed"], gamma, node["b"])
+    err = check_close(torch, "fused_qlinear[qwen QKV + bias]", got, want,
+                      bitwise=True)
+    args = (x, node["packed"].contiguous(), gamma.reshape(n).contiguous(),
+            node["b"].contiguous())
+    sets = copies(torch, args)
+    ms = cuda_ms(torch, fused_qlinear, sets, 30)
+    g_ms = graph_ms(torch, fused_qlinear, sets)
+    p_ms = cuda_ms(torch, lambda x_, p_, g_, b_: plain.qlinear_ref(
+        x_, p_, g_[None], b_), [args], 3)
+    b_ms, b_by = bound_ms(nbytes(*args) + N_SLOTS * n * 4,
+                          int8_ops=2.0 * N_SLOTS * k * n)
+    log(f"  fused_qlinear QKV + bias (m={N_SLOTS}, k={k}, n={n}, layer 0's "
+        f"served weights): bitwise the plain version; {ms:.4f} ms, in a "
+        f"CUDA graph {g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} "
+        f"ms by {b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
+        f"graph) [{card}]")
+    return dict(max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                shape=f"m={N_SLOTS} k={k} n={n}")
+
+
+def dense_feature_arm(torch, np, cfg, label: str, card: str,
+                      bias_seed: int | None = None) -> dict:
+    """One dense model at full width through phase 4's traffic: seeded
+    master weights drawn on the card (``bias_seed``: the QKV biases drawn
+    nonzero from a generator of that seed before quantization), quantized,
+    the master freed; then phase 4's 8 requests greedy LOP through the
+    Scheduler on 4 slots (chunked), scheduler == lockstep for 2 requests,
+    and the clean decode step on CUDA graphs and eager with its launches.
+    → stats."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.quantize import quantize_params
+    from repro_torch.serving.scheduler import Scheduler
+
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, SEED, "cuda")
+    if bias_seed is not None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(bias_seed)
+        for name in ("wq", "wk", "wv"):
+            b = params["layers"]["attn"][name]["b"]
+            b.copy_(torch.randn(b.shape, generator=gen, device="cuda")
+                    * 0.02)
+    qp = quantize_params(cfg, params)
+    del params
+    free_cuda(torch)
+    init_peak = torch.cuda.max_memory_allocated()
+    engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + GEN, device="cuda")
+    log(f"  [{label}] seeded weights ready in {time.monotonic() - t0:.1f} s"
+        f" ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.hd}, ffn {cfg.d_ff}, vocab {cfg.vocab}, norm {cfg.norm}, "
+        f"qkv_bias {cfg.qkv_bias}): serving weights "
+        f"{tree_bytes(qp) / 2**30:.3f} GiB; peak while drawing and "
+        f"quantizing {(init_peak - base) / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB the earlier phases hold [{card}]")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+                         max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:64],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    out = {}
+    if bias_seed is not None:
+        out["bias_check"] = qkv_bias_check(torch, np, qp, card)
+    run = serve_run(torch, np, engine, reqs, label, card)
+    check_counts(run["counts"], label, LOP_PATH,
+                 idle=(DENSE, "fused_qlinear_experts", "fused_ffn_experts"))
+    check_tokens(cfg, run["results"], GEN, label)
+    check_lockstep(engine, reqs, run["results"], (0, 1), label)
+    bias = run["counts"].get("fused_qlinear:bias", 0)
+    if cfg.qkv_bias and 2 * bias != run["counts"]["fused_qlinear"]:
+        raise AssertionError(f"[{label}] {bias} of "
+                             f"{run['counts']['fused_qlinear']} #1 launches "
+                             f"carried the QKV bias, want half")
+    step = decode_arms(torch, np, engine, reqs, label, card)
+    out.update(counts=run["counts"], tokens=tokens_digest(run["results"]),
+               tokens_per_s=run["tokens_per_s"],
+               ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
+               init_peak_bytes=init_peak - base,
+               decode_step_ms_p50=step["ms"],
+               eager_decode_step_ms_p50=step["eager_ms"])
+    del run, step, engine, qp
+    free_cuda(torch)
+    return out
+
+
+def whisper_requests(np, cfg) -> list:
+    """8 requests (numpy default_rng(2)): a 4–64-token decoder prompt and
+    1500 encoder frames of 0.02·N(0, 1) each, 32 new tokens."""
+    from repro_torch.serving.api import GenerateRequest
+    rng = np.random.default_rng(2)
+    reqs = []
+    for rid in range(N_REQUESTS):
+        plen = int(rng.integers(WHISPER_MIN_PROMPT, WHISPER_MAX_PROMPT + 1))
+        prompt = rng.integers(0, cfg.vocab, (plen,)).astype(np.int32)
+        frames = (rng.standard_normal((WHISPER_FRAMES, cfg.d_model))
+                  .astype(np.float32) * 0.02)
+        reqs.append(GenerateRequest(rid=rid, prompt=prompt,
+                                    max_new_tokens=GEN, frames=frames))
+    return reqs
+
+
+def prefill_row(torch, np, rng, label, k, v, ks, vs, kv_len, c, dh,
+                card) -> dict:
+    """#3 non-causal: seeded int8 queries [1, H, c, dh] over the given K/V
+    view, through the ops entry as the engine calls it, against the plain
+    version, then the kernel timed alone (CUDA events, L2 cold) beside
+    its bound and SDPA on the dequantized tensors."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.prefill_attention import fused_prefill_attention
+
+    h, m = k.shape[1], k.shape[2]
+    dev = k.device
+    qi = torch.from_numpy(rng.integers(-127, 128, (1, h, c, dh)).astype(
+        np.int8)).to(dev)
+    qsc = torch.from_numpy((rng.random((1, h, c)) * 0.02 + 0.001).astype(
+        np.float32)).to(dev)
+    kvl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+    scale = dh ** -0.5
+    got = ops.prefill_attention(qi, qsc, k, v, ks, vs, kvl, causal=False)
+    want = plain.prefill_attention_ref(qi, qsc, k, v, ks, vs, kvl, 0,
+                                       causal=False, window=0,
+                                       softmax_scale=scale)
+    err = check_close(torch, f"fused_prefill_attention[{label}]", got, want)
+    args = (qi[0].contiguous(), qsc[0].contiguous(), k[0].contiguous(),
+            v[0].contiguous(), ks[0].contiguous(), vs[0].contiguous(), kvl)
+
+    def kern(*a):
+        return fused_prefill_attention(*a, hkv=h, chunk=c, causal=False,
+                                       window=0, softmax_scale=scale)
+    ms = cuda_ms(torch, kern, copies(torch, args), 20)
+    p_ms = cuda_ms(torch, lambda *a: plain.prefill_attention_ref(
+        *(t[None] for t in a[:6]), a[6], 0, causal=False, window=0,
+        softmax_scale=scale), [args], 2)
+    pairs = c * kv_len
+    b_ms, b_by = bound_ms(nbytes(qi, qsc) + h * kv_len * (2 * dh + 8)
+                          + h * c * dh * 4,
+                          int8_ops=2.0 * h * pairs * dh,
+                          f32_ops=2.0 * h * pairs * dh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qf = qi.float() * qsc[..., None]
+    kf = k[:, :, :kv_len].float() * ks[:, :, :kv_len, None]
+    vf = v[:, :, :kv_len].float() * vs[:, :, :kv_len, None]
+    lib_ms = cuda_ms(torch, sdpa, [(qf, kf, vf)], 10)
+    log(f"  fused_prefill_attention {label} (non-causal, C={c}, M={m}, "
+        f"kv_len {kv_len}, H {h}, dh {dh}): max |err| {err:.3g}; {ms:.4f} ms"
+        f" (plain {p_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"by {b_by}; {b_ms / ms:.1%} of bound) [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                shape=f"C={c} M={m} kv_len={kv_len} H={h} dh={dh}")
+
+
+def cross_decode_rows(torch, np, rng, cfg, cl, cross_len, card) -> dict:
+    """#4 (LOP) and #5 (dense) over one layer of the pool's cross pages
+    (no write; new_len = cross_len; features recomputed: retiring a lane
+    zeroes them), through the ops entry against the plain version, then
+    each kernel timed eagerly and in a CUDA graph beside its bound."""
+    from repro_torch.core.lop import lop_features, pack_features
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.decode_attention import (
+        fused_decode_attention, fused_dense_decode_attention)
+    from repro_torch.serving.lop_select import k_keep_blocks
+
+    b, h, m, dh = cl["k"].shape
+    blk = cfg.lop_block
+    k_keep = max(1, min(k_keep_blocks(cfg, m), m // blk))
+    dev = cl["k"].device
+    feat = pack_features(lop_features(cl["k"]))
+    qi = torch.from_numpy(rng.integers(-127, 128, (b, h, dh)).astype(
+        np.int8)).to(dev)
+    qsc = torch.from_numpy((rng.random((b, h, 1)) * 0.02 + 0.001).astype(
+        np.float32)).to(dev)
+    scale = dh ** -0.5
+    nl = cross_len.tolist()
+    rows = {}
+    for name, use_lop in (("fused_decode_attention", True), (DENSE, False)):
+        kw = dict(block=blk, k_keep=k_keep, window=0, use_lop=use_lop)
+        args = (qi, qsc, cl["k"], cl["v"], cl["k_scale"], cl["v_scale"],
+                feat, cross_len)
+        before = [cl[key].clone() for key in ("k", "v", "k_scale",
+                                              "v_scale")]
+        got = ops.decode_attention(*args, **kw)
+        want = plain.decode_attention_ref(*args, softmax_scale=scale, **kw)
+        err = check_close(torch, f"{name}[whisper cross]", got, want)
+        if not all(torch.equal(cl[key], old) for key, old in zip(
+                ("k", "v", "k_scale", "v_scale"), before)):
+            raise AssertionError(f"{name}[whisper cross] wrote the cache")
+        lanes = tuple(a.reshape(b * h, *a.shape[2:]).contiguous()
+                      for a in args[:6])
+        lanes = (lanes[0].reshape(b * h, 1, dh), lanes[1].reshape(b * h, 1),
+                 *lanes[2:])
+        if use_lop:
+            kargs = (*lanes, feat.reshape(b * h, m, dh // 2).contiguous(),
+                     cross_len)
+
+            def kern(*a):
+                return fused_decode_attention(
+                    *a, hkv=h, block=blk, k_keep=k_keep, window=0,
+                    softmax_scale=scale)
+        else:
+            kargs = (*lanes, cross_len)
+
+            def kern(*a):
+                return fused_dense_decode_attention(
+                    *a, hkv=h, block=blk, window=0, softmax_scale=scale)
+        sets = copies(torch, kargs)
+        ms = cuda_ms(torch, kern, sets, 50)
+        g_ms = graph_ms(torch, kern, sets)
+        p_ms = cuda_ms(torch, lambda *a: plain.decode_attention_ref(
+            *a, softmax_scale=scale, **kw), [args], 3)
+        if use_lop:
+            live = sum(min(n_, k_keep * blk) for n_ in nl if n_)
+            sel = sum(min(k_keep, -(-n_ // blk)) for n_ in nl if n_)
+            b_ms, b_by = bound_ms(
+                nbytes(qi, qsc, cross_len) + h * sum(nl) * (dh // 2)
+                + h * sel * blk * (2 * dh + 8) + b * h * dh * 4,
+                int8_ops=2.0 * h * (sum(nl) + live) * dh,
+                f32_ops=2.0 * h * live * dh)
+        else:
+            b_ms, b_by = bound_ms(
+                nbytes(qi, qsc, cross_len) + h * sum(nl) * (2 * dh + 8)
+                + b * h * dh * 4, int8_ops=2.0 * h * sum(nl) * dh,
+                f32_ops=2.0 * h * sum(nl) * dh)
+        log(f"  {name} over the cross pages (B={b}, H {h}, M={m}, new_len "
+            f"= cross_len {nl}, k_keep {k_keep}, no write): max |err| "
+            f"{err:.3g}, cache untouched; {ms:.4f} ms, in a CUDA graph "
+            f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
+            f"graph) [{card}]")
+        rows[name] = dict(max_abs_err=err, ms=ms, graph_ms=g_ms,
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                          shape=f"B={b} H={h} M={m} new_len={nl}")
+    return rows
+
+
+def whisper_projection_rows(torch, np, rng, engine, layer, card) -> dict:
+    """#2 ungated (gelu) on one decoder layer's served FFN at the decode
+    rows (m 4) and the encoder's (m 1500), and #1 at the cross K‖V
+    projection of the encoder memory (m 1500, n 2·768), each through the
+    ops entry against the plain version (#1 bitwise), then timed alone
+    (CUDA events, L2 cold; in a CUDA graph at m 4) beside its bound. →
+    the #2 row (m 4, with m 1500 nested)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.qlinear import fused_ffn, fused_qlinear
+    from repro_torch.models.transformer import layer_slice
+
+    cfg = engine.cfg
+    lp = layer_slice(engine.qp["layers"], layer)
+    node = lp["ffn"]
+    d, f = cfg.d_model, cfg.d_ff
+    dev = node["gu_packed"].device
+    gu_row = ops._col_scale(node["gu_scale"], f).reshape(f).contiguous()
+    down_row = ops._col_scale(node["down_scale"], d).reshape(d).contiguous()
+    rows = {}
+    for m in (N_SLOTS, WHISPER_FRAMES):
+        x = torch.from_numpy(rng.standard_normal((m, d)).astype(
+            np.float32)).to(dev)
+        got = ops.ffn_fused(x, node["gu_packed"], node["gu_scale"],
+                            node["down_packed"], node["down_scale"],
+                            gated=False, act="gelu")
+        want = plain.ffn_fused_ref(x, node["gu_packed"], gu_row[None],
+                                   node["down_packed"], down_row[None],
+                                   gated=False, act="gelu")
+        err = check_close(torch, f"fused_ffn[whisper ungated, m={m}]", got,
+                          want)
+        args = (x, node["gu_packed"].contiguous(), gu_row,
+                node["down_packed"].contiguous(), down_row)
+
+        def kern(*a):
+            return fused_ffn(*a, gated=False, act="gelu")
+        sets = copies(torch, args)
+        ms = cuda_ms(torch, kern, sets, 30)
+        g_ms = graph_ms(torch, kern, sets) if m == N_SLOTS else None
+        p_ms = cuda_ms(torch, lambda *a: plain.ffn_fused_ref(
+            a[0], a[1], a[2][None], a[3], a[4][None], gated=False,
+            act="gelu"), [args], 3)
+        b_ms, b_by = bound_ms(nbytes(*args) + m * d * 4,
+                              int8_ops=4.0 * m * d * f)
+        graph = (f", in a CUDA graph {g_ms:.4f} ms ({b_ms / g_ms:.1%} of "
+                 f"bound)" if g_ms else "")
+        log(f"  fused_ffn ungated gelu (m={m}, d={d}, f={f}, layer {layer}'s"
+            f" served weights): max |err| {err:.3g}; {ms:.4f} ms{graph} "
+            f"(plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"{b_ms / ms:.1%} of bound) [{card}]")
+        rows[m] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                       bound_by=b_by, shape=f"m={m} d={d} f={f}")
+        if g_ms:
+            rows[m]["graph_ms"] = g_ms
+    wkv = lp["xattn"]["wkv"]
+    n = wkv["packed"].shape[1]
+    x = torch.from_numpy(rng.standard_normal((WHISPER_FRAMES, d)).astype(
+        np.float32)).to(dev)
+    gamma = ops._col_scale(wkv["scale"], n).reshape(n).contiguous()
+    got = ops.qlinear_fused(x, wkv["packed"], wkv["scale"])
+    check_close(torch, "fused_qlinear[whisper cross K‖V, m=1500]", got,
+                plain.qlinear_ref(x, wkv["packed"], gamma[None]),
+                bitwise=True)
+    args = (x, wkv["packed"].contiguous(), gamma)
+    ms = cuda_ms(torch, fused_qlinear, copies(torch, args), 30)
+    b_ms, b_by = bound_ms(nbytes(*args) + WHISPER_FRAMES * n * 4,
+                          int8_ops=2.0 * WHISPER_FRAMES * d * n)
+    log(f"  fused_qlinear cross K‖V of the encoder memory (m="
+        f"{WHISPER_FRAMES}, k={d}, n={n}): bitwise the plain version; "
+        f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; {b_ms / ms:.1%} of "
+        f"bound) [{card}]")
+    return dict(rows[N_SLOTS], encoder_rows=rows[WHISPER_FRAMES],
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+
+
+def whisper_kernel_checks(torch, np, engine, pool, card) -> dict:
+    """After the greedy run, on one layer's served K/V: #3 non-causal at
+    the encoder's shape (C = M = 1500: the unpadded frames) and at the
+    cross-prefill's (a 64-token prompt over the 1536-slot cross page,
+    kv_len 1500), then #4 and #5 over the pool's cross pages, then #2
+    ungated and #1's cross K‖V projection on the layer's served weights.
+    → rows by kernel and mode."""
+    cfg = engine.cfg
+    layer = cfg.n_layers // 2
+    rng = np.random.default_rng(SEED + 11)
+    cl = {key: pool["cross"][key][layer] for key in pool["cross"]}
+    s_enc = int(pool["cross_len"][0])
+    enc_view = [cl[key][:1, :, :s_enc] for key in ("k", "v", "k_scale",
+                                                   "v_scale")]
+    cross_view = [cl[key][:1] for key in ("k", "v", "k_scale", "v_scale")]
+    enc = prefill_row(torch, np, rng, "encoder", *enc_view, s_enc, s_enc,
+                      cfg.hd, card)
+    cross = prefill_row(torch, np, rng, "cross prefill", *cross_view, s_enc,
+                        WHISPER_MAX_PROMPT, cfg.hd, card)
+    decode = cross_decode_rows(torch, np, rng, cfg, cl,
+                               pool["cross_len"].clone(), card)
+    ffn = whisper_projection_rows(torch, np, rng, engine, layer, card)
+    return {"fused_ffn": {"ungated": ffn},
+            "fused_prefill_attention": {"non_causal": dict(
+                enc, cross_prefill=cross,
+                max_abs_err=max(enc["max_abs_err"], cross["max_abs_err"]))},
+            "fused_decode_attention": {"cross": decode[
+                "fused_decode_attention"]},
+            DENSE: {"cross": decode[DENSE]}}
+
+
+def whisper_prefill_ms(torch, engine, req) -> float:
+    """Host ms of one exact-length prefill of ``req`` (its frames and
+    prompt, batch 1) to a synchronize: the median of 3 after a warm call."""
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(req.prompt[None], frames=req.frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times[1:])[1] * 1e3
+
+
+def whisper_arm(torch, np, card: str) -> dict:
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, d 768, 12 heads of 64, f 3072 ungated gelu, vocab 51865,
+    cross_ctx 1500): 8 requests of 1500 frames and a 4–64-token prompt,
+    run to completion with exact-length prefill, greedy LOP, on a no-LOP
+    engine sharing the weights, and LOP with one transient NaN lane
+    recovered through the retry. → stats."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import faults
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.cache import capacity_for
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("whisper-small")
+    free_cuda(torch)
+    t0 = time.monotonic()
+    engine = PooledEngine.from_seed(cfg, seed=SEED, max_len=WHISPER_MAX_LEN,
+                                    device="cuda")
+    dense = PooledEngine(cfg, engine.qp, max_len=WHISPER_MAX_LEN,
+                         use_lop=False, device="cuda")
+    torch.cuda.synchronize()
+    reqs = whisper_requests(np, cfg)
+    pool = engine.init_pool(N_SLOTS)
+    log(f"  [whisper] seeded whisper-small weights ready in "
+        f"{time.monotonic() - t0:.1f} s: serving weights "
+        f"{tree_bytes(engine.qp) / 2**30:.3f} GiB, a {N_SLOTS}-slot pool "
+        f"{tree_bytes(pool) / 2**20:.1f} MiB (self capacity "
+        f"{pool['layers']['k'].shape[3]}, cross capacity "
+        f"{pool['cross']['k'].shape[3]}); exact_length_prefill="
+        f"{engine.exact_length_prefill}, supports_chunked="
+        f"{engine.supports_chunked}, prefix_block={engine.prefix_block}; "
+        f"prompt lengths "
+        + ", ".join(str(len(r.prompt)) for r in reqs)
+        + f", {WHISPER_FRAMES} frames each [{card}]")
+    del pool
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(replace(reqs[0], rid=-1, max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    # one exact-length prefill's launches
+    n, n_enc = cfg.n_layers, cfg.n_encoder_layers
+    ops.reset_launch_counts()
+    engine.prefill(reqs[0].prompt[None], frames=reqs[0].frames)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ops.launch_counts(modes=True).items() if v}
+    want = {"fused_qlinear": 2 * n_enc + 5 * n, "fused_ffn": n_enc + n,
+            "fused_ffn:ungated": n_enc + n,
+            "fused_prefill_attention": n_enc + 2 * n,
+            "fused_prefill_attention:non_causal": n_enc + n}
+    if got != want:
+        raise AssertionError(f"a whisper prefill launched {got}, want {want}")
+    log("  launches an exact-length prefill (whisper-small): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(got.items())))
+
+    out, checks = {}, {}
+    plan = faults.FaultPlan(nan_logits=frozenset({(5, 1)}))
+    arms = (("whisper LOP greedy", engine, None),
+            ("whisper no-LOP greedy", dense, None),
+            ("whisper LOP greedy, NaN lane", engine, plan))
+    for label, eng, fault in arms:
+        attn = "fused_decode_attention" if eng.use_lop else DENSE
+        with faults.inject(fault or faults.FaultPlan()):
+            run = serve_run(torch, np, eng, reqs, label, card,
+                            capacity=capacity_for(cfg, WHISPER_MAX_LEN),
+                            check_invariants=True)
+        idle = ("fused_ffn_experts", "fused_qlinear_experts")
+        if fault is None:
+            idle += ("fused_decode_attention" if attn == DENSE else DENSE,)
+        check_counts(run["counts"], label,
+                     ("fused_qlinear", "fused_ffn", "fused_prefill_attention",
+                      attn), idle=idle)
+        check_tokens(cfg, run["results"], GEN, label)
+        check_lockstep(eng, reqs, run["results"], (0, 1), label)
+        sched = run.pop("sched")
+        digest = tokens_digest(run["results"])
+        if fault is not None:
+            if not (sched.fault_events >= 1 and sched.fault_finishes == 0
+                    and sched.fault_recoveries == sched.fault_events):
+                raise AssertionError(
+                    f"[{label}] events {sched.fault_events}, recoveries "
+                    f"{sched.fault_recoveries}, finishes "
+                    f"{sched.fault_finishes}")
+            if digest != out["whisper LOP greedy"]["tokens"]:
+                raise AssertionError(f"[{label}] recovered stream != clean")
+            log(f"  [{label}] {sched.fault_events} fault event(s), all "
+                f"recovered through the dense retry "
+                f"({run['counts'][DENSE]} dense launches: self and cross); "
+                f"tokens bitwise the clean run's")
+        cross = run["counts"].get(f"{attn}:cross", 0)
+        if fault is None and 2 * cross != run["counts"][attn]:
+            raise AssertionError(f"[{label}] {cross} of "
+                                 f"{run['counts'][attn]} decode launches "
+                                 f"over the cross pages, want half")
+        log(f"  [{label}] {len(sched.full_prefill_seconds)} exact-length "
+            f"prefills (1500 frames + prompt), p50 "
+            f"{np.percentile(sched.full_prefill_seconds, 50) * 1e3:.1f} ms, "
+            f"{sched.full_prefill_stalls} stalled the decoding lanes [{card}]")
+        if label == "whisper LOP greedy":
+            checks = whisper_kernel_checks(torch, np, eng, sched.pool, card)
+        out[label] = dict(counts=run["counts"], tokens=digest,
+                          tokens_per_s=run["tokens_per_s"],
+                          ttft_p50_ms=run["ttft_p50_ms"],
+                          peak_bytes=run["peak_bytes"])
+        del run, sched
+    step = decode_arms(torch, np, engine, reqs, "whisper LOP greedy", card)
+    out["whisper LOP greedy"].update(decode_step_ms_p50=step["ms"],
+                                     eager_decode_step_ms_p50=step["eager_ms"])
+    del step
+    longest = replace(reqs[0], prompt=np.random.default_rng(3).integers(
+        0, cfg.vocab, (WHISPER_MAX_PROMPT,)).astype(np.int32))
+    pre_ms = whisper_prefill_ms(torch, engine, longest)
+    log(f"  whisper exact-length prefill ({WHISPER_FRAMES} frames + "
+        f"{len(longest.prompt)} tokens, batch 1, host ms to a synchronize):"
+        f" {pre_ms:.1f} ms [{card}]")
+    g = out["whisper LOP greedy"]
+    log(f"  whisper LOP greedy: {g['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{g['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA graph "
+        f"{g['decode_step_ms_p50']:.2f} ms, eager "
+        f"{g['eager_decode_step_ms_p50']:.2f} ms, max_memory_allocated "
+        f"{g['peak_bytes'] / 2**30:.2f} GiB; no-LOP "
+        f"{out['whisper no-LOP greedy']['tokens_per_s']:.2f} tok/s [{card}]")
+    del engine, dense
+    free_cuda(torch)
+    return dict(runs=out, checks=checks, prefill_ms=pre_ms)
+
+
+def families_phase(torch, np, card: str) -> dict:
+    """Phase 4h: (a) stablelm-1.6b (LayerNorm) at full width and depth,
+    (b) qwen1.5-32b (QKV bias drawn nonzero) at full width and 8 of its 64
+    layers, (c) whisper-small (encdec) at full width and depth; each
+    arm's engine and master tree freed before the next. → stats, with the
+    launches of the new kernel modes on the paths that run them and the
+    kernel rows of the new shapes."""
+    from repro_torch.configs import get_config
+
+    t0 = time.monotonic()
+    stable = dense_feature_arm(torch, np, get_config("stablelm-1.6b"),
+                               "stablelm LOP greedy", card)
+    qwen = dense_feature_arm(
+        torch, np, get_config("qwen1.5-32b").replace(n_layers=QWEN_LAYERS),
+        f"qwen ({QWEN_LAYERS} layers) LOP greedy", card, bias_seed=SEED + 1)
+    whisper = whisper_arm(torch, np, card)
+    runs = whisper["runs"]
+    lop, nolop = runs["whisper LOP greedy"], runs["whisper no-LOP greedy"]
+    nan = runs["whisper LOP greedy, NaN lane"]
+    modes = {
+        "fused_qlinear": {"bias": qwen["counts"]["fused_qlinear:bias"]},
+        "fused_ffn": {"ungated": lop["counts"]["fused_ffn:ungated"]},
+        "fused_prefill_attention": {
+            "non_causal": lop["counts"]["fused_prefill_attention:non_causal"]},
+        "fused_decode_attention": {
+            "cross": lop["counts"]["fused_decode_attention:cross"]},
+        DENSE: {"cross": nolop["counts"][f"{DENSE}:cross"]
+                + nan["counts"].get(f"{DENSE}:cross", 0)}}
+    rows = dict(whisper["checks"])
+    rows["fused_qlinear"] = {"bias": qwen["bias_check"]}
+    for label, r in (("stablelm", stable), ("qwen", qwen),
+                     ("whisper", lop)):
+        log(f"  [{label}] {r['tokens_per_s']:.2f} tok/s, TTFT p50 "
+            f"{r['ttft_p50_ms']:.1f} ms, peak {r['peak_bytes'] / 2**30:.2f}"
+            f" GiB, tokens sha256 {r['tokens']} [{card}]")
+    log(f"  new modes' launches on their paths: {json.dumps(modes)}; phase "
+        f"4h took {time.monotonic() - t0:.1f} s")
+    return dict(stable=stable, qwen=qwen, whisper=whisper, modes=modes,
+                rows=rows)
+
+
+# ---------------------------------------------------------------------------
 # phase 4f: sequence-parallel decode over 2 gloo ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -3609,6 +4216,14 @@ def main() -> int:
     # #1's expert form runs in phase 3 only, so its count here is 0
     launches.update(moe["launches"])
 
+    # ---- 4h. the dense family's LayerNorm and QKV bias; the encdec
+    #      family (whisper) ----
+    log(f"[serve families] stablelm-1.6b (LayerNorm) full width and depth, "
+        f"qwen1.5-32b (QKV bias) full width at {QWEN_LAYERS} of 64 layers, "
+        f"whisper-small (encoder-decoder) full width and depth; {N_SLOTS} "
+        f"slots, {N_REQUESTS} requests, gen {GEN} [{smi}]")
+    fam = families_phase(torch, np, smi)
+
     # ---- 5. standalone kernels and the per-head LOP decode ----
     log(f"[standalone kernels + per-head LOP decode] full width (d 3200, "
         f"32 heads of 100, ffn 8640, capacity 1664, lop_block 128, k_keep "
@@ -3639,6 +4254,16 @@ def main() -> int:
             "pos_offset+return_stats": sp["lop"]},
         DENSE: {"per_head": launches[DENSE],
                 "pos_offset+return_stats": sp["dense"]}}
+    # phase 4h's modes: #1 with the QKV bias (qwen), #2 ungated, #3
+    # non-causal and #4/#5 over the cross pages (whisper), each with its
+    # launches on the path that runs it and phase 4h's check and times
+    for kname, by_mode in fam["modes"].items():
+        mode_launches.setdefault(kname, {}).update(by_mode)
+    for kname, by_mode in fam["rows"].items():
+        rows[kname].setdefault("modes", {}).update(by_mode)
+        rows[kname]["max_abs_err"] = max(
+            rows[kname]["max_abs_err"],
+            *(r["max_abs_err"] for r in by_mode.values()))
 
     sources = {"fused_qlinear": ("qlinear.cu", "src/repro/kernels/qlinear.py:224"),
                "fused_ffn": ("qlinear.cu", "src/repro/kernels/qlinear.py:368"),
@@ -3678,10 +4303,13 @@ def main() -> int:
             "shape": row["shape"]}
         if kname in mode_launches:
             # each mode the entry ran: its launches on the path that runs
-            # it (phase 4, 4e's shared arm, 4f's rank 0) and phase 3's row
+            # it (phase 4, 4e's shared arm, 4f's rank 0, 4h's arms) and its
+            # check and times (phase 3, or 4h at the new shapes)
             entry["modes"] = {
                 mode: dict(row.get("modes", {}).get(mode, {}), launches=n)
                 for mode, n in mode_launches[kname].items()}
+            for mode, r in row.get("modes", {}).items():
+                entry["modes"].setdefault(mode, dict(r))
         kernels.append(entry)
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -155,6 +155,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def count_mode(fn, mode: str) -> None:
+    """Count one launch of ``fn`` also under ``mode`` (a kernel mode, such
+    as a projection's bias or a non-causal prefill), beside the launch
+    count the wrapper keeps in ``fn.launches``."""
+    fn.modes[mode] = fn.modes.get(mode, 0) + 1
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error code."""
     if rc != 0:

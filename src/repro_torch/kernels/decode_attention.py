@@ -162,6 +162,7 @@ def fused_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
 
 
 fused_decode_attention.launches = 0
+fused_decode_attention.modes = {}
 
 
 def fused_dense_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale,
@@ -191,3 +192,4 @@ def fused_dense_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale,
 
 
 fused_dense_decode_attention.launches = 0
+fused_dense_decode_attention.modes = {}

@@ -53,6 +53,7 @@ def int8_flash_prefill(q, k, v, q_scale, k_scale, v_scale, *,
 
 
 int8_flash_prefill.launches = 0
+int8_flash_prefill.modes = {}
 
 
 def flash_prefill_launch_shape(s: int, d: int) -> dict:
@@ -143,3 +144,4 @@ def sparse_decode_attention(q, k_cache, v_cache, q_scale, k_scale, v_scale,
 
 
 sparse_decode_attention.launches = 0
+sparse_decode_attention.modes = {}

@@ -66,3 +66,4 @@ def lop_scores_kernel(q_pot: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
 
 
 lop_scores_kernel.launches = 0
+lop_scores_kernel.modes = {}

@@ -6,10 +6,13 @@ PyTorch version in :mod:`repro_torch.kernels.ref`; a CUDA tensor goes to
 the hand-written CUDA kernel, or the call raises. Nothing sends a CUDA
 tensor to the plain version.
 
-Every kernel counts the calls that launched it (``KERNELS[name].launches``);
-:func:`reset_launch_counts` and :func:`launch_counts` read them around a run,
-and :func:`add_launches` adds the launches a CUDA graph's replay makes,
-which no wrapper sees.
+Every kernel counts the calls that launched it (``KERNELS[name].launches``)
+and, under a mode's name, those that launched it in that mode
+(``KERNELS[name].modes``: #1 with a bias, #2 ungated, #3 non-causal, and
+#4/#5 over an encdec model's cross pages, which :func:`decode_attention`
+counts for a call given ``mode="cross"``); :func:`reset_launch_counts` and
+:func:`launch_counts` read them around a run, and :func:`add_launches`
+adds the launches a CUDA graph's replay makes, which no wrapper sees.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import math
 import torch
 
 from repro_torch.core.lop import pot
+from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import (
     fused_decode_attention, fused_dense_decode_attention)
@@ -49,17 +53,30 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.modes = {}
 
 
-def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def launch_counts(modes: bool = False) -> dict[str, int]:
+    """Kernel name → launches; with ``modes`` also ``"name:mode"`` →
+    the launches in that mode."""
+    out = {name: fn.launches for name, fn in KERNELS.items()}
+    if modes:
+        out.update({f"{name}:{mode}": n for name, fn in KERNELS.items()
+                    for mode, n in fn.modes.items()})
+    return out
 
 
 def add_launches(counts: dict[str, int]) -> None:
-    """Add ``counts`` (kernel name → launches, negative to take back the
-    calls a graph capture counted but did not launch) to the counts."""
+    """Add ``counts`` (kernel name, or ``"name:mode"`` → launches; negative
+    to take back the calls a graph capture counted but did not launch) to
+    the counts."""
     for name, n in counts.items():
-        KERNELS[name].launches += n
+        kernel, _, mode = name.partition(":")
+        fn = KERNELS[kernel]
+        if mode:
+            fn.modes[mode] = fn.modes.get(mode, 0) + n
+        else:
+            fn.launches += n
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -272,7 +289,7 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
                      new_len, *, block: int, k_keep: int, window: int = 0,
                      softmax_scale: float | None = None, use_lop: bool = True,
                      shared_select: bool = False, pos_offset=None,
-                     return_stats: bool = False):
+                     return_stats: bool = False, mode: str | None = None):
     """LOP screen → comparison-free block top-K → exact attention (or the
     dense baseline with ``use_lop=False``).
 
@@ -282,6 +299,8 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
     global position of cache row 0 (a multiple of ``block``; ``new_len``
     stays global). → f32 [B, H, dh] (or ``(out, m, ℓ)`` with
     ``return_stats``, m and ℓ f32 [B, H, 1] in natural-log units).
+    ``mode`` names the call's mode for the launch counts (``"cross"``:
+    over cross pages, which no decode step writes).
     """
     b, h, dh = qi.shape
     hkv, m = k_cache.shape[1], k_cache.shape[2]
@@ -306,6 +325,9 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
              k_scale.reshape(bh, m).contiguous(),
              v_scale.reshape(bh, m).contiguous())
     po = 0 if pos_offset is None else int(pos_offset)
+    kernel = fused_decode_attention if use_lop else \
+        fused_dense_decode_attention
+    before = kernel.launches
     if use_lop:
         out = fused_decode_attention(
             *lanes, feat.reshape(bh, m, dh // 2).contiguous(),
@@ -320,6 +342,8 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
             *lanes, new_len.contiguous(), hkv=hkv, block=block,
             window=window, softmax_scale=softmax_scale, pos_offset=po,
             return_stats=return_stats)
+    if mode is not None and kernel.launches > before:
+        _build.count_mode(kernel, mode)
     if return_stats:
         out, mx, l = out
         return (out.reshape(b, h, dh), mx.reshape(b, h, 1),

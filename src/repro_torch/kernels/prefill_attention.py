@@ -51,10 +51,13 @@ def fused_prefill_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale,
             _stream(qi))
         _build.check(rc, "repro_prefill_attention")
         fused_prefill_attention.launches += 1
+        if not causal:
+            _build.count_mode(fused_prefill_attention, "non_causal")
     return out
 
 
 fused_prefill_attention.launches = 0
+fused_prefill_attention.modes = {}
 
 
 def launch_shape(bh: int, r: int, d: int) -> dict:

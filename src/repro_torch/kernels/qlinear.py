@@ -17,7 +17,9 @@ experts); each form counts its own launches.
 
 Each wrapper checks its operands, allocates its output and one scratch
 buffer with ``torch.empty``, launches on the current stream, raises on a
-CUDA error, and counts its calls that launched in ``<fn>.launches``.
+CUDA error, and counts its calls that launched in ``<fn>.launches`` (a
+projection's with a bias also under ``<fn>.modes["bias"]``, an ungated
+FFN's under ``["ungated"]``).
 """
 
 from __future__ import annotations
@@ -104,6 +106,8 @@ def _qlinear(x, packed, gamma, bias, act, counter) -> torch.Tensor:
                                _stream(x))
         _build.check(rc, "repro_qlinear")
         counter.launches += 1
+        if bias is not None:
+            _build.count_mode(counter, "bias")
     return out
 
 
@@ -168,6 +172,8 @@ def _ffn(x, gu_packed, gu_scale, down_packed, down_scale, gated, act,
                        int(gated), act_code, _stream(x))
     _build.check(rc, "repro_ffn")
     counter.launches += 1
+    if not gated:
+        _build.count_mode(counter, "ungated")
     return out
 
 
@@ -200,10 +206,11 @@ def fused_ffn_experts(x: torch.Tensor, gu_packed: torch.Tensor,
                 fused_ffn_experts)
 
 
-fused_qlinear.launches = 0
-fused_qlinear_experts.launches = 0
-fused_ffn.launches = 0
-fused_ffn_experts.launches = 0
+for _fn in (fused_qlinear, fused_qlinear_experts, fused_ffn,
+            fused_ffn_experts):
+    _fn.launches = 0
+    _fn.modes = {}
+del _fn
 
 
 def launch_shape(m: int, k: int, n: int, *, gated: bool = False,

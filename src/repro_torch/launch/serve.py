@@ -1,7 +1,8 @@
 """Continuous-batching serving entry point of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch {bitnet-3b,granite-moe-1b-a400m} \\
+        --arch {bitnet-3b,granite-moe-1b-a400m,stablelm-1.6b,qwen1.5-32b,
+                whisper-small} \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
         [--shared-prefix-tokens N --prefix-reuse-frac F] [--no-prefix-cache] \\
@@ -12,9 +13,10 @@ Builds a seeded model on the device (the CUDA card unless ``--device cpu``),
 synthesizes requests with prompt lengths drawn from
 ``numpy.random.default_rng(seed)``, serves them through the
 :class:`repro_torch.serving.scheduler.Scheduler` (chunked prefill
-interleaved with decode; whole prompts at their exact length for a moe
-model, which never chunks) and reports tokens/s, latency, TTFT and ITL
-percentiles (through :func:`repro_torch.serving.metrics.summarize`, under
+interleaved with decode; whole prompts at their exact length for a moe or
+encdec model, which never chunks; an encdec request carries ``4 × plen``
+seeded encoder frames, as the reference's CLI draws them) and reports
+tokens/s, latency, TTFT and ITL percentiles (through :func:`repro_torch.serving.metrics.summarize`, under
 the reference's ``launch/serve.py`` keys), the time of a serve cycle's
 decode call and, last, the modeled K/V traffic per head and query, dense against LOP. The
 scheduler publishes onto a private registry per run (``out["metrics"]``):
@@ -65,7 +67,8 @@ def make_requests(cfg, *, n_requests: int, min_prompt: int, max_prompt: int,
     With ``sampling`` given, request ``rid`` samples under seed
     ``sampling.seed + rid``. ``shared_prefix_tokens > 0`` prepends ONE
     common prefix of that many tokens to the first
-    ``round(prefix_reuse_frac * n_requests)`` prompts (the reference's
+    ``round(prefix_reuse_frac * n_requests)`` prompts. An encdec request
+    carries ``4 × plen`` encoder frames of 0.02·N(0, 1) (the reference's
     draws, in its order)."""
     if not 0 < min_prompt <= max_prompt:
         raise ValueError(f"need 0 < min_prompt <= max_prompt, got "
@@ -81,12 +84,16 @@ def make_requests(cfg, *, n_requests: int, min_prompt: int, max_prompt: int,
         prompt = rng.integers(0, cfg.vocab, (plen,)).astype(np.int32)
         if rid < n_sharers:
             prompt = np.concatenate([shared, prompt])
+        frames = None
+        if cfg.family == "encdec":
+            frames = (rng.standard_normal((4 * plen, cfg.d_model))
+                      .astype(np.float32) * 0.02)
         sp = SamplingParams() if sampling is None else \
             replace(sampling, seed=sampling.seed + rid)
         reqs.append(GenerateRequest(rid=rid, prompt=prompt,
                                     max_new_tokens=gen, sampling=sp,
                                     deadline_ms=deadline_ms,
-                                    on_token=on_token))
+                                    on_token=on_token, frames=frames))
     return reqs
 
 
@@ -179,7 +186,7 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
                 continue
             ref = lockstep_generate(engine, req.prompt, req.max_new_tokens,
                                     eos_id=req.eos_id, sampling=req.sampling,
-                                    stop=req.stop)
+                                    stop=req.stop, frames=req.frames)
             if out["tokens"][req.rid] != ref:
                 mismatched.append(req.rid)
         out["verified"] = not mismatched

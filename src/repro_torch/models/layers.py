@@ -10,17 +10,49 @@ from repro_torch.core.quantization import rmsnorm
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
-                lead: tuple = ()) -> dict:
+                lead: tuple = (), bias: bool = False) -> dict:
+    """``{"w"}`` drawn from ``gen`` with fan-in scaling; ``bias=True`` adds
+    a zero ``b`` [d_out], as the reference's ``linear_init`` does."""
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=device,
                     dtype=torch.float32) * (d_in ** -0.5)
-    return {"w": w}
+    out = {"w": w}
+    if bias:
+        out["b"] = torch.zeros((*lead, d_out), dtype=torch.float32,
+                               device=device)
+    return out
+
+
+def norm_init(d: int, kind: str, *, device) -> dict:
+    """``{"g"}`` ones for RMSNorm; ``{"g", "b"}`` (ones, zeros) for
+    LayerNorm."""
+    out = {"g": torch.ones(d, dtype=torch.float32, device=device)}
+    if kind != "rmsnorm":
+        out["b"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return out
+
+
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """f32 mean over the last axis as the reference forms it, the sum
+    times the f32 reciprocal of the count; the sum is taken in float64
+    and rounded once, so a row's value does not depend on the other rows
+    (see ``rmsnorm``)."""
+    s = x.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
+    return s * (1.0 / x.shape[-1])
 
 
 def norm_apply(params, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rmsnorm(x, params["g"], eps)
+    """RMSNorm, or LayerNorm with the population variance (``jnp.var``'s,
+    not ``torch.var``'s default unbiased one): ``(x − μ)·rsqrt(var +
+    eps)·g + b`` in f32, cast back to x's dtype. The rsqrt is rounded
+    once from float64, the same on the CPU and the card."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["g"], eps)
+    xf = x.to(torch.float32)
+    centered = xf - _row_mean(xf)
+    var = _row_mean(centered * centered)
+    inv = torch.rsqrt((var + eps).to(torch.float64)).to(torch.float32)
+    return (centered * inv * params["g"] + params["b"]).to(x.dtype)
 
 
 def embedding_apply(params, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,26 @@
-"""Decoder parameters (dense and moe families), drawn from an explicit
-``torch.Generator``.
+"""Model parameters (dense, moe and encdec families), drawn from an
+explicit ``torch.Generator``.
 
 The tree mirrors the reference's ``init_params``: ``embed.table``,
-``ln_f.g``, ``head.w`` and layer-stacked ``layers`` with ``ln1``,
-``attn.{wq,wk,wv,wo}``, ``ln2`` and either ``ffn.{w_gate,w_up,w_down}``
-(dense) or ``moe`` (the reference's ``moe_init``: ``router`` [d, E] and
-the expert stacks ``w_gate``/``w_up`` [E, d, f] and ``w_down`` [E, f, d]
-as raw tensors). The reference uses ``jax.random`` — the same seed gives
-other numbers, so tests carry the reference's weights over with
-:mod:`repro_torch.convert`.
+``ln_f``, ``head.w`` and layer-stacked ``layers`` with ``ln1``,
+``attn.{wq,wk,wv,wo}`` (``wq/wk/wv`` with a zero ``b`` when the config
+has ``qkv_bias``), ``ln2`` and either ``ffn.{w_gate,w_up,w_down}`` (no
+``w_gate`` when the FFN is ungated) or ``moe`` (the reference's
+``moe_init``: ``router`` [d, E] and the expert stacks ``w_gate``/``w_up``
+[E, d, f] and ``w_down`` [E, f, d] as raw tensors). A norm is ``{"g"}``,
+or ``{"g", "b"}`` under LayerNorm. The encdec family adds the encoder
+stack ``enc_layers`` (decoder layers without cross-attention) and its
+final norm ``ln_enc``, and its decoder layers carry ``ln_x`` and the
+cross-attention ``xattn``. The reference uses ``jax.random`` — the same
+seed gives other numbers, so tests carry the reference's weights over
+with :mod:`repro_torch.convert`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import linear_init
+from repro_torch.models.layers import linear_init, norm_init
 
 
 def stack_trees(trees: list) -> dict:
@@ -46,32 +51,54 @@ def moe_init(gen: torch.Generator, cfg, *, device) -> dict:
             "w_down": draw(e, f, d, fan_in=f)}
 
 
+def _attention_init(gen, cfg, *, device) -> dict:
+    d, bias = cfg.d_model, cfg.qkv_bias
+    return {"wq": linear_init(gen, d, cfg.q_dim, device=device, bias=bias),
+            "wk": linear_init(gen, d, cfg.kv_dim, device=device, bias=bias),
+            "wv": linear_init(gen, d, cfg.kv_dim, device=device, bias=bias),
+            "wo": linear_init(gen, cfg.q_dim, d, device=device)}
+
+
+def _layer_init(gen, cfg, i: int, *, device, cross: bool = False) -> dict:
+    """One decoder (or, without ``cross``, encoder) layer's master
+    weights, drawn attention first, then cross-attention, then the FFN."""
+    d, f = cfg.d_model, cfg.d_ff
+    layer = {"ln1": norm_init(d, cfg.norm, device=device),
+             "attn": _attention_init(gen, cfg, device=device)}
+    if cross:
+        layer["ln_x"] = norm_init(d, cfg.norm, device=device)
+        layer["xattn"] = _attention_init(gen, cfg, device=device)
+    layer["ln2"] = norm_init(d, cfg.norm, device=device)
+    if cfg.is_moe_layer(i):
+        layer["moe"] = moe_init(gen, cfg, device=device)
+        return layer
+    names = ("w_gate", "w_up") if cfg.gated_ffn else ("w_up",)
+    ffn = {name: linear_init(gen, d, f, device=device) for name in names}
+    ffn["w_down"] = linear_init(gen, f, d, device=device)
+    layer["ffn"] = ffn
+    return layer
+
+
 def init_params(cfg, seed: int, device="cpu") -> dict:
-    """Full f32 master tree of a dense or moe model: embed, head, then the
-    layers in order, all drawn from one generator seeded with ``seed``."""
-    if cfg.family not in ("dense", "moe"):
+    """Full f32 master tree of a dense, moe or encdec model: embed, head,
+    then (encdec) the encoder layers, then the decoder layers in order,
+    all drawn from one generator seeded with ``seed``."""
+    if cfg.family not in ("dense", "moe", "encdec"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    d, f, vp = cfg.d_model, cfg.d_ff, cfg.vocab_padded
+    d, vp = cfg.d_model, cfg.vocab_padded
     params = {"embed": {"table": torch.randn((vp, d), generator=gen,
                                              device=device) * 0.02},
-              "ln_f": {"g": torch.ones(d, device=device)},
+              "ln_f": norm_init(d, cfg.norm, device=device),
               "head": linear_init(gen, d, vp, device=device)}
-    layers = []
-    for i in range(cfg.n_layers):
-        attn = {"wq": linear_init(gen, d, cfg.q_dim, device=device),
-                "wk": linear_init(gen, d, cfg.kv_dim, device=device),
-                "wv": linear_init(gen, d, cfg.kv_dim, device=device),
-                "wo": linear_init(gen, cfg.q_dim, d, device=device)}
-        layer = {"ln1": {"g": torch.ones(d, device=device)}, "attn": attn,
-                 "ln2": {"g": torch.ones(d, device=device)}}
-        if cfg.is_moe_layer(i):
-            layer["moe"] = moe_init(gen, cfg, device=device)
-        else:
-            layer["ffn"] = {"w_gate": linear_init(gen, d, f, device=device),
-                            "w_up": linear_init(gen, d, f, device=device),
-                            "w_down": linear_init(gen, f, d, device=device)}
-        layers.append(layer)
-    params["layers"] = stack_trees(layers)
+    encdec = cfg.family == "encdec"
+    if encdec:
+        params["enc_layers"] = stack_trees([
+            _layer_init(gen, cfg, i, device=device)
+            for i in range(cfg.n_encoder_layers)])
+        params["ln_enc"] = norm_init(d, cfg.norm, device=device)
+    params["layers"] = stack_trees([
+        _layer_init(gen, cfg, i, device=device, cross=encdec)
+        for i in range(cfg.n_layers)])
     return params

@@ -5,8 +5,9 @@ pooled engine.
   temperature / top-k / top-p + PRNG seed); the sampling contract lives in
   :mod:`repro_torch.serving.sampling`.
 * :class:`GenerateRequest` — prompt, budget, eos, stop token sequences, an
-  optional streaming ``on_token`` callback, a :class:`CancelToken` and a
-  ``deadline_ms`` latency budget.
+  optional streaming ``on_token`` callback, a :class:`CancelToken`, a
+  ``deadline_ms`` latency budget and, for an encdec model, the encoder
+  ``frames``.
 * :class:`StepResult` — one streamed token; :class:`FinishedRequest` — the
   completed request with its finish reason and latency breakdown.
 * :class:`ExistingPrefix` — interned prefix pages to resume a prompt from.
@@ -113,6 +114,7 @@ class GenerateRequest:
     suffix stays in ``tokens``). ``on_token`` streams every emitted token
     in order; ``cancel`` is the mid-flight abort handle; ``deadline_ms``
     is the latency budget from ``arrival`` (stamped at submit when None).
+    ``frames`` (np f32 [S_enc, D]) is an encdec request's encoder input.
     """
     rid: int
     prompt: np.ndarray                 # int32 [prompt_len]
@@ -124,6 +126,7 @@ class GenerateRequest:
     cancel: CancelToken | None = None
     arrival: float | None = None
     deadline_ms: float | None = None
+    frames: np.ndarray | None = None   # encdec encoder input [S_enc, D]
 
     def __post_init__(self):
         # hashable int tuples from any iterable of iterables; empty
@@ -257,7 +260,8 @@ class PooledEngine:
                 f"family {cfg.family!r} is not ported yet")
         # prefix pages are lop_block-aligned and resume through the chunk
         # carry; speculation needs rewindable pages and a chunk-shaped
-        # verify: both exist exactly where chunked prefill does
+        # verify: both exist exactly where chunked prefill does (not in
+        # moe or encdec, which prefill whole prompts at their exact length)
         self.prefix_block = cfg.lop_block if self.supports_chunked else 0
         self.supports_speculative = self.supports_chunked
         # the draft: a layer-stack prefix and a pinched LOP budget
@@ -308,11 +312,13 @@ class PooledEngine:
         return pool
 
     def extract(self, pool, slot: int) -> dict:
-        """A batch-1 *copy* of lane ``slot`` (lengths, pages and key
-        schedule): nothing done to the pool later reaches it."""
+        """A batch-1 *copy* of lane ``slot`` (lengths, pages — the cross
+        pages and ``cross_len`` too — and key schedule): nothing done to
+        the pool later reaches it."""
         lane = _cache.extract_slot(pool, slot)
-        out = {"lengths": lane["lengths"].clone(),
-               "layers": {k: v.clone() for k, v in lane["layers"].items()}}
+        out = {key: (val.clone() if isinstance(val, torch.Tensor) else
+                     {k: v.clone() for k, v in val.items()})
+               for key, val in lane.items()}
         for key in ("seed", "sample_step"):
             if key in pool:
                 out[key] = pool[key][slot:slot + 1].clone()
@@ -323,11 +329,18 @@ class PooledEngine:
 
     # ---------------- prefill ----------------
 
-    def prefill(self, tokens):
+    def prefill(self, tokens, frames=None):
         """Whole-prompt prefill of tokens [B, S] at their exact length →
-        (logits [B, V], cache of the pool's capacity)."""
+        (logits [B, V], cache of the pool's capacity). ``frames`` (f32
+        [S_enc, D] or [B, S_enc, D]) is an encdec model's encoder input,
+        required there."""
+        if frames is not None:
+            frames = torch.as_tensor(np.asarray(frames, np.float32),
+                                     device=self.device)
+            if frames.dim() == 2:
+                frames = frames[None]
         return prefill(self.cfg, self.qp, self._tokens(tokens),
-                       max_len=self.max_len)
+                       max_len=self.max_len, frames=frames)
 
     def prefill_chunk(self, pool, slot: int, tokens, start: int,
                       seq_end: int, activate: bool):

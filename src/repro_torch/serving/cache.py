@@ -3,7 +3,11 @@
 The cache is a dict of tensors: ``lengths`` int32 [B] and, per layer-stacked
 leaf, ``layers.k``/``layers.v`` int8 [L, B, Hkv, M, dh], ``k_scale``/
 ``v_scale`` f32 [L, B, Hkv, M] and ``feat`` uint8 [L, B, Hkv, M, dh//2].
-Capacity M is block-aligned (``lop_block``). A slot-paged pool adds an
+Capacity M is block-aligned (``lop_block``). An encdec cache adds the
+cross-attention pages ``cross`` (the same five leaves over the encoder
+memory, capacity ``round_up(cross_ctx, lop_block)``, written once at
+prefill and never by a decode step) and each lane's encoder length
+``cross_len`` int32 [B]. A slot-paged pool adds an
 ``active`` bool [B] mask and each lane's sampling state, ``seed`` and
 ``sample_step`` int32 [B] (the PRNG schedule travels with the lane).
 
@@ -47,19 +51,25 @@ def capacity_for(cfg, max_len: int) -> int:
     return round_up(max_len + 1, cfg.lop_block)
 
 
+def cross_capacity_for(cfg, frames: int = 0) -> int:
+    """Token capacity of an encdec cache's cross-attention pages: the
+    block roundup of ``cross_ctx``, or of ``frames`` when that is more (a
+    prefill of a longer encoder input, as the reference sizes it)."""
+    return round_up(max(cfg.cross_ctx, frames), cfg.lop_block)
+
+
 # how each served family keeps its per-sequence state (the reference's
-# ``_STATE_KINDS``): dense and moe layers both keep one paged K/V cache
-STATE_KINDS = {"dense": "paged-kv", "moe": "paged-kv"}
+# ``_STATE_KINDS``): dense and moe layers keep one paged K/V cache; encdec
+# adds the encoder memory's cross-attention pages
+STATE_KINDS = {"dense": "paged-kv", "moe": "paged-kv",
+               "encdec": "paged-kv+cross"}
 
 
-def init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    """Zero cache for ``batch`` sequences of up to ``max_len`` tokens."""
-    if STATE_KINDS.get(cfg.family) != "paged-kv":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    cap = capacity_for(cfg, max_len)
+def _attn_zeros(cfg, batch: int, cap: int, device) -> dict:
+    """The five zero leaves of an attention cache, [L, B, Hkv, cap, ...]."""
     lead = (cfg.n_layers, batch, cfg.n_kv_heads, cap)
     dh = cfg.hd
-    layers = {
+    return {
         "k": torch.zeros((*lead, dh), dtype=torch.int8, device=device),
         "v": torch.zeros((*lead, dh), dtype=torch.int8, device=device),
         "k_scale": torch.zeros(lead, dtype=torch.float32, device=device),
@@ -67,8 +77,24 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
         "feat": torch.zeros((*lead, dh // 2), dtype=torch.uint8,
                             device=device),
     }
-    return {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
-            "layers": layers}
+
+
+def init_cache(cfg, batch: int, max_len: int, device,
+               frames: int = 0) -> dict:
+    """Zero cache for ``batch`` sequences of up to ``max_len`` tokens (an
+    encdec cache's cross pages hold ``max(cross_ctx, frames)``)."""
+    kind = STATE_KINDS.get(cfg.family)
+    if kind is None:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
+             "layers": _attn_zeros(cfg, batch, capacity_for(cfg, max_len),
+                                   device)}
+    if kind == "paged-kv+cross":
+        cache["cross"] = _attn_zeros(cfg, batch,
+                                     cross_capacity_for(cfg, frames), device)
+        cache["cross_len"] = torch.zeros(batch, dtype=torch.int32,
+                                         device=device)
+    return cache
 
 
 def init_cache_pool(cfg, n_slots: int, max_len: int, device) -> dict:
@@ -82,22 +108,37 @@ def init_cache_pool(cfg, n_slots: int, max_len: int, device) -> dict:
 
 
 def pool_capacity(pool) -> int:
+    """Token capacity of the pool's self-attention lanes."""
     return pool["layers"]["k"].shape[3]
+
+
+def pool_cross_capacity(pool) -> int:
+    """Token capacity of the pool's cross-attention lanes (0 without)."""
+    return pool["cross"]["k"].shape[3] if "cross" in pool else 0
+
+
+def _page_trees(cache):
+    """The cache's page trees: ``layers``, and ``cross`` when present."""
+    return [name for name in ("layers", "cross") if name in cache]
 
 
 def insert_slot(pool, slot: int, req_cache, active: bool = True) -> dict:
     """Copy a batch-1 cache into lane ``slot`` (in place).
 
-    The request cache's capacity may be smaller than the pool's; positions
-    above it keep stale bytes, masked by ``lengths``. Copying a lane onto
-    itself (an ``extract_slot`` view) is skipped.
+    The request cache's capacity may be smaller than the pool's (each page
+    tree against its own); positions above it keep stale bytes, masked by
+    ``lengths`` (``cross_len``). Copying a lane onto itself (an
+    ``extract_slot`` view) is skipped.
     """
-    for key in _LEAVES:
-        dst = pool["layers"][key][:, slot]
-        src = req_cache["layers"][key][:, 0]
-        if dst.data_ptr() != src.data_ptr():
-            dst[:, :, :src.shape[2]].copy_(src)
-    pool["lengths"][slot] = req_cache["lengths"][0]
+    for tree in _page_trees(req_cache):
+        for key in _LEAVES:
+            dst = pool[tree][key][:, slot]
+            src = req_cache[tree][key][:, 0]
+            if dst.data_ptr() != src.data_ptr():
+                dst[:, :, :src.shape[2]].copy_(src)
+    for key in ("lengths", "cross_len"):
+        if key in req_cache:
+            pool[key][slot] = req_cache[key][0]
     pool["active"][slot] = active
     return pool
 
@@ -136,15 +177,21 @@ def free_slots(pool) -> list[int]:
 def extract_slot(pool, slot: int) -> dict:
     """Batch-1 *views* of lane ``slot``: writes through them land in the
     pool (chunked prefill writes its chunk's K/V this way)."""
-    return {"lengths": pool["lengths"][slot:slot + 1],
-            "layers": {key: pool["layers"][key][:, slot:slot + 1]
-                       for key in _LEAVES}}
+    out = {key: pool[key][slot:slot + 1] for key in ("lengths", "cross_len")
+           if key in pool}
+    for tree in _page_trees(pool):
+        out[tree] = {key: pool[tree][key][:, slot:slot + 1]
+                     for key in _LEAVES}
+    return out
 
 
 def evict_slot(pool, slot: int) -> dict:
     """Retire lane ``slot`` (in place): inactive, length 0, and its packed
-    LOP feature rows zeroed (the pool-init bit pattern)."""
-    pool["layers"]["feat"][:, slot].zero_()
+    LOP feature rows zeroed (the pool-init bit pattern), the cross pages'
+    too; ``cross_len`` stays, as in the reference (the lane's cross
+    attention is never read once it is inactive)."""
+    for tree in _page_trees(pool):
+        pool[tree]["feat"][:, slot].zero_()
     pool["active"][slot] = False
     pool["lengths"][slot] = 0
     return pool

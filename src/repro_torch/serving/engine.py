@@ -1,5 +1,5 @@
-"""Serving engine, dense and moe families: prefill (whole prompt, and
-chunked for dense) and the one-token decode step.
+"""Serving engine, dense, moe and encdec families: prefill (whole prompt,
+and chunked for dense) and the one-token decode step.
 
 Per decoder layer the path makes four kernel dispatches through
 :mod:`repro_torch.kernels.ops`: the fused QKV projection, prefill or decode
@@ -9,6 +9,15 @@ the combine (:mod:`repro_torch.models.moe`). Everything between them
 (RMSNorm, RoPE, the absmax quantization of q/k/v, LOP features, cache
 writes, the f32 head) is plain tensor code. Layers are a Python loop over
 the layer-stacked weights.
+
+The encdec family (whisper) prefills its encoder first: each encoder
+layer's self-attention is #3 non-causal over the unpadded encoder frames
+(no RoPE, no cache), then ``ln_enc``. Each decoder layer quantizes the
+encoder memory through its cross-attention K/V projection into the
+cache's ``cross`` pages (:func:`build_cross_cache`) and attends them
+after its self-attention: #3 non-causal at prefill
+(:func:`cross_attn_prefill`), the decode kernel at decode
+(:func:`cross_attn_decode`) with ``new_len = cross_len`` and no write.
 
 The cache is written in place: prefill writes each layer's K/V/features
 into a preallocated capacity-padded cache, a chunk writes its rows at
@@ -50,7 +59,10 @@ def _q(x):
     return qt.values, qt.scale
 
 
-def _check_family(cfg, families=("dense", "moe"), what: str = "") -> None:
+SERVED_FAMILIES = ("dense", "moe", "encdec")
+
+
+def _check_family(cfg, families=SERVED_FAMILIES, what: str = "") -> None:
     if cfg.family not in families:
         raise NotImplementedError(f"family {cfg.family!r} is not ported"
                                   + (f" for {what}" if what else ""))
@@ -59,8 +71,10 @@ def _check_family(cfg, families=("dense", "moe"), what: str = "") -> None:
 def chunks_prefill(cfg) -> bool:
     """Whether ``cfg``'s family prefills in chunks over the full capacity.
     moe routers rank a group's tokens for expert capacity, so a pad token
-    or a chunk boundary would change who is dropped: moe prefills whole
-    prompts at their exact length and attends only their block roundup."""
+    or a chunk boundary would change who is dropped, and an encdec prompt
+    is prefilled with its encoder frames: both prefill whole prompts at
+    their exact length (run to completion) and attend only their block
+    roundup."""
     return cfg.family == "dense"
 
 
@@ -73,16 +87,17 @@ def _project_qkv(cfg, lp, h):
             v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
 
 
-def _quantize_kv(k, v):
-    """[B, S, Hkv, dh] f32 → int8 K/V, scales and packed features in the
-    cache's [B, Hkv, S, ...] layout."""
+def _quantize_kv(k, v, features: bool = True):
+    """[B, S, Hkv, dh] f32 → int8 K/V, scales and packed features (None
+    with ``features=False``) in the cache's [B, Hkv, S, ...] layout."""
     ki, ksc = _q(k)
     vi, vsc = _q(v)
     ki = ki.transpose(1, 2)
     vi = vi.transpose(1, 2)
     ksc = ksc[..., 0].transpose(1, 2)
     vsc = vsc[..., 0].transpose(1, 2)
-    return ki, vi, ksc, vsc, pack_features(lop_features(ki))
+    return (ki, vi, ksc, vsc,
+            pack_features(lop_features(ki)) if features else None)
 
 
 def _write_rows(cl, ki, vi, ksc, vsc, feat, start: int) -> None:
@@ -143,11 +158,72 @@ def attn_prefill_chunk(cfg, lp, h, cl, *, start: int, kv_len):
     return _attend_prefill(cfg, lp, h, cl, start=start, kv_len=kv_len)
 
 
+def _to_rows(qi, qsc):
+    """Quantized queries [B, S, H, dh] and scales [B, S, H, 1] → the
+    prefill kernel's [B, H, S, dh] and [B, H, S]."""
+    return qi.transpose(1, 2), qsc[..., 0].transpose(1, 2)
+
+
+def encoder_layer(cfg, lp, e):
+    """One encoder layer: self-attention over the unpadded frames (#3
+    non-causal, no RoPE, nothing cached), then the FFN. e [B, S_enc, D]."""
+    b, s, _ = e.shape
+    q, k, v = _project_qkv(cfg, lp["attn"], norm_apply(lp["ln1"], e,
+                                                       cfg.norm))
+    ki, vi, ksc, vsc, _ = _quantize_kv(k, v, features=False)
+    o = ops.prefill_attention(
+        *_to_rows(*_q(q)), ki, vi, ksc, vsc,
+        torch.full((b,), s, dtype=torch.int32, device=e.device),
+        causal=False, int8_logits=bool(cfg.int8_logits))
+    e = e + qlinear(lp["attn"]["wo"], o.transpose(1, 2).reshape(b, s,
+                                                                cfg.q_dim))
+    return _mlp(cfg, lp, e)
+
+
+def encode(cfg, qp, frames):
+    """The encoder stack and ``ln_enc``: frames f32 [B, S_enc, D] → the
+    encoder memory [B, S_enc, D]."""
+    enc = frames.to(torch.float32)
+    for i in range(cfg.n_encoder_layers):
+        enc = encoder_layer(cfg, layer_slice(qp["enc_layers"], i), enc)
+    return norm_apply(qp["ln_enc"], enc, cfg.norm)
+
+
+def build_cross_cache(cfg, lp, enc, cl) -> dict:
+    """Quantize the encoder memory enc [B, S_enc, D] through this layer's
+    fused cross K‖V projection (one dispatch) into the cross cache layer
+    ``cl`` at [0, S_enc) (in place; rows above stay as they were). →
+    ``cl``."""
+    b, s, _ = enc.shape
+    k, v = qlinear_split(lp["wkv"], enc, (cfg.kv_dim, cfg.kv_dim))
+    _write_rows(cl, *_quantize_kv(k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
+                                  v.reshape(b, s, cfg.n_kv_heads, cfg.hd)),
+                0)
+    return cl
+
+
+def cross_attn_prefill(cfg, lp, h, cl, cross_len, kv_max: int | None = None):
+    """Decoder-side cross-attention of a whole prompt over the cross cache
+    layer ``cl`` (#3 non-causal, no RoPE). ``kv_max`` trims the view to
+    the encoder length's block roundup, so the cost follows the frames,
+    not the cross capacity."""
+    b, s, _ = h.shape
+    m = kv_max or cl["k"].shape[2]
+    q = qlinear(lp["wq"], h).reshape(b, s, cfg.n_heads, cfg.hd)
+    o = ops.prefill_attention(
+        *_to_rows(*_q(q)), cl["k"][:, :, :m], cl["v"][:, :, :m],
+        cl["k_scale"][:, :, :m], cl["v_scale"][:, :, :m], cross_len,
+        causal=False, int8_logits=bool(cfg.int8_logits))
+    return qlinear(lp["wo"], o.transpose(1, 2).reshape(b, s, cfg.q_dim))
+
+
 def lop_decode_attention(cfg, qi, qsc, cl, new_len, *, window: int,
-                         use_lop: bool = True, k_keep: int | None = None):
+                         use_lop: bool = True, k_keep: int | None = None,
+                         mode: str | None = None):
     """qi int8 [B, H, dh]; qsc f32 [B, H, 1] → f32 [B, H, dh].
     ``k_keep`` overrides the config's kept-block budget (the speculative
-    draft's pinched budget); None is the config's policy."""
+    draft's pinched budget); None is the config's policy. ``mode`` is the
+    kernel's launch-count mode (``ops.decode_attention``)."""
     cfg = resolve_decode_flags(cfg)
     m = cl["k"].shape[2]
     if k_keep is None:
@@ -156,7 +232,8 @@ def lop_decode_attention(cfg, qi, qsc, cl, new_len, *, window: int,
         qi, qsc, cl["k"], cl["v"], cl["k_scale"], cl["v_scale"], cl["feat"],
         new_len, block=cfg.lop_block,
         k_keep=max(1, min(k_keep, m // cfg.lop_block)), window=window,
-        use_lop=use_lop, shared_select=bool(cfg.gqa_shared_select))
+        use_lop=use_lop, shared_select=bool(cfg.gqa_shared_select),
+        mode=mode)
 
 
 def _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active=None) -> None:
@@ -175,10 +252,11 @@ def _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active=None) -> None:
 
 def shard_cache(cache, sp_axes=("model",)) -> dict:
     """This rank's token shard of a whole (replicated) cache: rows
-    ``[rank·M/n, (rank + 1)·M/n)`` of every layer leaf, copied, with the
-    other entries kept. A single-process mesh keeps the whole cache (its
-    shards are views of it). The capacity M must cut into whole
-    ``lop_block`` blocks a shard."""
+    ``[rank·M/n, (rank + 1)·M/n)`` of every leaf of the self-attention
+    pages (and of the cross pages, each against its own capacity),
+    copied, with the other entries kept. A single-process mesh keeps the
+    whole cache (its shards are views of it). Each capacity M must cut
+    into whole ``lop_block`` blocks a shard."""
     from repro_torch.distributed.partitioning import current_mesh
     mesh = current_mesh()
     if mesh is None:
@@ -186,13 +264,16 @@ def shard_cache(cache, sp_axes=("model",)) -> dict:
     if mesh.local:
         return cache
     n, r = mesh.size(sp_axes), mesh.rank(sp_axes)
-    m = cache["layers"]["k"].shape[3]
-    if m % n:
-        raise ValueError(f"capacity {m} does not cut into {n} shards")
-    m_loc = m // n
     out = dict(cache)
-    out["layers"] = {key: v[:, :, :, r * m_loc:(r + 1) * m_loc].clone()
-                     for key, v in cache["layers"].items()}
+    for tree in ("layers", "cross"):
+        if tree not in cache:
+            continue
+        m = cache[tree]["k"].shape[3]
+        if m % n:
+            raise ValueError(f"capacity {m} does not cut into {n} shards")
+        m_loc = m // n
+        out[tree] = {key: v[:, :, :, r * m_loc:(r + 1) * m_loc].clone()
+                     for key, v in cache[tree].items()}
     return out
 
 
@@ -230,6 +311,25 @@ def attn_decode(cfg, lp, h, cl, lengths, *, use_lop=True, active=None,
     return qlinear(lp["wo"], out.reshape(b, 1, cfg.q_dim))
 
 
+def cross_attn_decode(cfg, lp, h, cl, cross_len, *, use_lop=True,
+                      sp_axes=None):
+    """One-token cross-attention over the cross cache layer ``cl``: the
+    decode kernel (LOP or dense) with ``new_len = cross_len``, no window,
+    and no cache write. h [B, 1, D]."""
+    b = h.shape[0]
+    qi, qsc = _q(qlinear(lp["wq"], h).reshape(b, cfg.n_heads, cfg.hd))
+    use_lop = use_lop and cfg.use_lop
+    if sp_axes:
+        from repro_torch.distributed.sp_decode import sp_decode_attention
+        out, _ = sp_decode_attention(
+            cfg, qi, qsc, None, None, None, None, None, cl, cross_len,
+            window=0, use_lop=use_lop, sp_axes=sp_axes, write=False)
+    else:
+        out = lop_decode_attention(cfg, qi, qsc, cl, cross_len, window=0,
+                                   use_lop=use_lop, mode="cross")
+    return qlinear(lp["wo"], out.reshape(b, 1, cfg.q_dim))
+
+
 def _mlp(cfg, lp, x):
     h = norm_apply(lp["ln2"], x, cfg.norm)
     if "moe" in lp:
@@ -241,23 +341,42 @@ def _logits(cfg, qp, x_last):
     return head_apply(qp["head"], norm_apply(qp["ln_f"], x_last, cfg.norm))
 
 
-def prefill(cfg, qp, tokens, *, max_len=None):
+def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
     """Whole-prompt forward writing a new batch-B cache.
 
-    tokens int [B, S] on the weights' device. → (logits [B, V] at the last
-    position, cache with capacity for ``max(max_len, S)`` tokens).
+    tokens int [B, S] on the weights' device; ``frames`` f32 [B, S_enc, D]
+    the encoder input of an encdec model (required there, refused
+    elsewhere). → (logits [B, V] at the last position, cache with capacity
+    for ``max(max_len, S)`` tokens and, encdec, cross pages of capacity
+    ``round_up(max(cross_ctx, S_enc), lop_block)`` holding the encoder
+    memory at [0, S_enc), ``cross_len = S_enc``).
     """
     cfg = resolve_decode_flags(cfg)
     _check_family(cfg)
+    encdec = cfg.family == "encdec"
+    if encdec != (frames is not None):
+        raise ValueError(f"family {cfg.family!r} "
+                         + ("needs" if encdec else "takes no") + " frames")
     b, s = tokens.shape
     max_len = max(max_len if max_len is not None else 0, s)
-    cache = init_cache(cfg, b, max_len, tokens.device)
+    s_enc = frames.shape[1] if encdec else 0
+    cache = init_cache(cfg, b, max_len, tokens.device, frames=s_enc)
+    if encdec:
+        enc = encode(cfg, qp, frames)
+        cache["cross_len"].fill_(s_enc)
+        kv_max = round_up(s_enc, cfg.lop_block)
     x = embedding_apply(qp["embed"], tokens)
     for i in range(cfg.n_layers):
         lp = layer_slice(qp["layers"], i)
         cl = layer_slice(cache["layers"], i)
         x = x + attn_prefill(cfg, lp["attn"],
                              norm_apply(lp["ln1"], x, cfg.norm), cl)
+        if encdec:
+            xcl = build_cross_cache(cfg, lp["xattn"], enc,
+                                    layer_slice(cache["cross"], i))
+            x = x + cross_attn_prefill(
+                cfg, lp["xattn"], norm_apply(lp["ln_x"], x, cfg.norm), xcl,
+                cache["cross_len"], kv_max=kv_max)
         x = _mlp(cfg, lp, x)
     cache["lengths"].fill_(s)
     return _logits(cfg, qp, x[:, -1]), cache
@@ -318,6 +437,11 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
     With ``sp_axes`` (under an active mesh) the cache holds this rank's
     token shard (:func:`shard_cache`) and every layer's attention runs
     sequence-parallel; ``lengths`` stay global. It runs eagerly.
+
+    An encdec decoder layer attends its cross pages after its
+    self-attention (:func:`cross_attn_decode`): read only, over
+    ``cross_len`` keys, for every lane (as in the reference, an inactive
+    lane's result is never read).
     """
     cfg = resolve_decode_flags(cfg)
     _check_family(cfg)
@@ -334,6 +458,11 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
                             norm_apply(lp["ln1"], x, cfg.norm), cl, lengths,
                             use_lop=use_lop, active=active, k_keep=k_keep,
                             sp_axes=sp_axes)
+        if "xattn" in lp:
+            x = x + cross_attn_decode(
+                cfg, lp["xattn"], norm_apply(lp["ln_x"], x, cfg.norm),
+                layer_slice(cache["cross"], i), cache["cross_len"],
+                use_lop=use_lop, sp_axes=sp_axes)
         x = _mlp(cfg, lp, x)
     lengths.add_(1 if active is None else active.to(torch.int32))
     return _logits(cfg, qp, x[:, -1]), cache

@@ -25,7 +25,12 @@ graphs; keys of pools that are gone age out.
 The kernel wrappers count launches on the host, so they count at capture
 and never at replay: the capture's counts are taken back and every replay
 adds its graph's (:func:`repro_torch.kernels.ops.add_launches`), so
-``ops.launch_counts()`` still counts launches.
+``ops.launch_counts()`` still counts launches (by mode too).
+
+A pool's every tensor is in the key, so an encdec pool's cross pages and
+``cross_len`` are too: a graph of its step reads the cross pages and each
+lane's encoder length from the pool's own tensors, which an insert
+rewrites in place.
 
 Nothing here falls back to the eager step: a failed capture or replay
 raises.
@@ -126,7 +131,7 @@ class StepGraphs:
 
     def _capture(self, step, entry, pool, host) -> _Graph:
         inp = self._upload(host)
-        before = ops.launch_counts()
+        before = ops.launch_counts(modes=True)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=self.stream):
@@ -134,9 +139,9 @@ class StepGraphs:
                 out = step(pool, inp, entry)
             nbytes = torch.cuda.memory_reserved(self.device) - held
         finally:
-            after = ops.launch_counts()
-            launches = {k: after[k] - before[k] for k in after
-                        if after[k] != before[k]}
+            after = ops.launch_counts(modes=True)
+            launches = {k: after[k] - before.get(k, 0) for k in after
+                        if after[k] != before.get(k, 0)}
             ops.add_launches({k: -n for k, n in launches.items()})
         return _Graph(graph, inp, out, launches, nbytes)
 

@@ -1,5 +1,5 @@
-"""Master weights → the serving (deployment) format, dense and moe
-families.
+"""Master weights → the serving (deployment) format, dense, moe and
+encdec families.
 
 Every projection becomes packed 2-bit ternary codes plus its absmean γ,
 and projection groups fuse into one packed stream each, as the reference's
@@ -7,16 +7,22 @@ and projection groups fuse into one packed stream each, as the reference's
 
   * ``attn.{wq,wk,wv,wo}`` → ``attn.wqkv`` (codes concatenated along the
     output axis, a per-column γ row so each column keeps its own
-    projection's scalar γ) and ``attn.wo`` (scalar γ, shape [1, 1]);
+    projection's scalar γ, and ``b = concat(bq, bk, bv)`` when all three
+    carry a bias) and ``attn.wo`` (scalar γ, shape [1, 1]);
+  * the cross-attention ``xattn.{wq,wk,wv,wo}`` → ``xattn.wkv`` (K ‖ V
+    fused the same way: both read the encoder memory), ``xattn.wq`` (its
+    own node, keeping its bias) and ``xattn.wo``;
   * ``ffn.{w_gate,w_up,w_down}`` → ``gu_packed``/``gu_scale`` (gate ‖ up,
-    per-column γ row) and ``down_packed``/``down_scale``;
+    per-column γ row; ``up`` alone for an ungated FFN) and
+    ``down_packed``/``down_scale``;
   * ``moe.{w_gate,w_up,w_down}`` expert stacks [E, k, n] fuse the same way
     with a leading expert axis and one γ per expert and stream
     (``gu_scale`` [E, 1, 2f], ``down_scale`` [E, 1, 1]), so a layer's
     expert FFNs are one dispatch; ``moe.router`` stays f32.
 
-Embedding, norms, head and router stay f32. Layer-stacked trees keep their
-leading layer axis.
+Embedding, norms, head and router stay f32. Layer-stacked trees
+(``layers``, and the encoder's ``enc_layers``) keep their leading layer
+axis.
 """
 
 from __future__ import annotations
@@ -49,39 +55,80 @@ def _concat_packed(parts: list) -> dict:
     return {"packed": packed, "scale": scale}
 
 
-def _fuse_ffn(w_gate, w_up, w_down) -> dict:
-    """Gate, up and down weights ([..., k, n]) → the whole-FFN node."""
-    gu = _concat_packed([_quantize_linear(w_gate), _quantize_linear(w_up)])
+def _fuse_ffn(w_up, w_down, w_gate=None) -> dict:
+    """Up, down and (gated) gate weights ([..., k, n]) → the whole-FFN
+    node."""
+    parts = ([] if w_gate is None else [w_gate]) + [w_up]
+    gu = _concat_packed([_quantize_linear(w) for w in parts])
     down = _quantize_linear(w_down)
     return {"gu_packed": gu["packed"], "gu_scale": gu["scale"],
             "down_packed": down["packed"], "down_scale": down["scale"]}
 
 
+def _node(lin: dict) -> dict:
+    """One linear ``{"w", "b"?}`` → its own packed node, bias kept."""
+    out = _quantize_linear(lin["w"])
+    if "b" in lin:
+        out["b"] = lin["b"]
+    return out
+
+
+def _fuse_attn(attn: dict, fuse_q: bool) -> dict:
+    """Self-attention (``fuse_q``: Q ‖ K ‖ V in ``wqkv``) or cross-attention
+    (K ‖ V in ``wkv``, ``wq`` its own node) → the fused serving node.
+    Biases follow the reference's all-or-none rule: the fused node carries
+    the concatenated ``b`` when every fused projection has one. With some
+    but not all, the reference keeps the projections unfused, which this
+    engine does not serve."""
+    names = ("wq", "wk", "wv") if fuse_q else ("wk", "wv")
+    subs = [attn[name] for name in names]
+    fused = _concat_packed([_quantize_linear(sub["w"]) for sub in subs])
+    has_b = ["b" in sub for sub in subs]
+    if any(has_b) and not all(has_b):
+        raise NotImplementedError(
+            f"a bias on some of {names} but not all: the reference serves "
+            f"them unfused, which is not ported")
+    if all(has_b):
+        fused["b"] = torch.cat([sub["b"] for sub in subs], dim=-1)
+    out = {"wqkv" if fuse_q else "wkv": fused}
+    if not fuse_q:
+        out["wq"] = _node(attn["wq"])
+    out["wo"] = _node(attn["wo"])
+    return out
+
+
 def quantize_layer(lp: dict) -> dict:
-    """One layer's master weights → its fused serving layer."""
-    attn = lp["attn"]
-    wqkv = _concat_packed([_quantize_linear(attn[n]["w"])
-                           for n in ("wq", "wk", "wv")])
-    out = {"ln1": dict(lp["ln1"]), "ln2": dict(lp["ln2"]),
-           "attn": {"wqkv": wqkv, "wo": _quantize_linear(attn["wo"]["w"])}}
+    """One layer's master weights → its fused serving layer (norms carried
+    as they are)."""
+    out = {key: dict(val) for key, val in lp.items()
+           if key.startswith("ln")}
+    out["attn"] = _fuse_attn(lp["attn"], fuse_q=True)
+    if "xattn" in lp:
+        out["xattn"] = _fuse_attn(lp["xattn"], fuse_q=False)
     if "moe" in lp:
         moe = lp["moe"]
-        out["moe"] = dict(_fuse_ffn(moe["w_gate"], moe["w_up"],
-                                    moe["w_down"]), router=moe["router"])
+        out["moe"] = dict(_fuse_ffn(moe["w_up"], moe["w_down"],
+                                    moe["w_gate"]), router=moe["router"])
     else:
         ffn = lp["ffn"]
-        out["ffn"] = _fuse_ffn(ffn["w_gate"]["w"], ffn["w_up"]["w"],
-                               ffn["w_down"]["w"])
+        out["ffn"] = _fuse_ffn(ffn["w_up"]["w"], ffn["w_down"]["w"],
+                               ffn["w_gate"]["w"] if "w_gate" in ffn
+                               else None)
     return out
+
+
+def _quantize_stack(stack: dict, n: int) -> dict:
+    return stack_trees([quantize_layer(_index(stack, i)) for i in range(n)])
 
 
 def quantize_params(cfg, params: dict) -> dict:
     """Full master tree (layer-stacked) → serving tree."""
-    layers = [quantize_layer({k: _index(v, i)
-                              for k, v in params["layers"].items()})
-              for i in range(cfg.n_layers)]
-    out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = stack_trees(layers)
+    out = {k: v for k, v in params.items()
+           if k not in ("layers", "enc_layers")}
+    if "enc_layers" in params:
+        out["enc_layers"] = _quantize_stack(params["enc_layers"],
+                                            cfg.n_encoder_layers)
+    out["layers"] = _quantize_stack(params["layers"], cfg.n_layers)
     return out
 
 

@@ -131,6 +131,8 @@ class Scheduler:
         self.clock = clock
         self.pool = self.engine.init_pool(n_slots)
         self.capacity = pool_capacity(self.pool)
+        # encdec lanes hold the encoder memory in pages of their own
+        self.cross_capacity = _cache.pool_cross_capacity(self.pool)
         self.chunk_tokens = self.engine.chunk_tokens
         self.chunked = chunked and self.engine.supports_chunked
         # an engine without rewindable pages or a chunked verify serves
@@ -195,6 +197,14 @@ class Scheduler:
         if need > self.capacity:
             raise ValueError(f"request {req.rid} needs {need} tokens but the "
                              f"pool capacity is {self.capacity}")
+        if (req.frames is not None) != bool(self.cross_capacity):
+            raise ValueError(
+                f"request {req.rid}: an encdec engine needs frames and "
+                f"any other takes none")
+        if req.frames is not None and len(req.frames) > self.cross_capacity:
+            raise ValueError(f"request {req.rid} has {len(req.frames)} "
+                             f"encoder frames but the pool's cross capacity "
+                             f"is {self.cross_capacity}")
         if req.sampling is not None and req.sampling.gamma < 0:
             raise ValueError(f"request {req.rid}: sampling.gamma must be "
                              f">= 0 (0 = the scheduler's), got "
@@ -337,8 +347,8 @@ class Scheduler:
         self.prefill_tokens_served += plen
         self._m.prefill_tokens.labels(source="computed").inc(plen)
         t0 = time.perf_counter()
-        logits, req_cache = self.engine.prefill(
-            np.asarray(req.prompt, np.int32)[None])
+        logits, req_cache = _prefill(
+            self.engine, np.asarray(req.prompt, np.int32)[None], req.frames)
         self.pool = self.engine.insert(self.pool, slot, req_cache)
         self.full_prefill_seconds.append(time.perf_counter() - t0)
         self._start_lane(_Prefill(slot, req, [], [], [], t_admit), logits,
@@ -783,20 +793,29 @@ class Scheduler:
         return self.results
 
 
+def _prefill(eng, tokens, frames):
+    """``eng.prefill`` of tokens [1, S], given the encoder ``frames`` only
+    when the request has some."""
+    if frames is None:
+        return eng.prefill(tokens)
+    return eng.prefill(tokens, frames=frames)
+
+
 def lockstep_generate(eng: PooledEngine, prompt, max_new_tokens: int, *,
                       eos_id: int | None = None,
                       sampling: SamplingParams | None = None, stop=(),
-                      on_token=None, cancel=None) -> list:
+                      on_token=None, cancel=None, frames=None) -> list:
     """Batch-1 reference: whole-prompt prefill, then one decode step per
     token, through the same engine and sampler as a :class:`Scheduler` on
     it (so the same ``max_len``, cache capacity, LOP budget and key
-    schedule). Honors eos, stop sequences, ``on_token`` and ``cancel``."""
+    schedule). Honors eos, stop sequences, ``on_token`` and ``cancel``;
+    ``frames`` is an encdec request's encoder input."""
     sp = sampling or GREEDY
     req = GenerateRequest(rid=-1, prompt=np.asarray(prompt, np.int32),
                           max_new_tokens=max_new_tokens, eos_id=eos_id,
                           sampling=sp, stop=stop, on_token=on_token,
-                          cancel=cancel)
-    logits, cache = eng.prefill(req.prompt[None])
+                          cancel=cancel, frames=frames)
+    logits, cache = _prefill(eng, req.prompt[None], frames)
     # the batch-1 cache carries the pool's key-schedule leaves: seed and
     # next step 1 (step 0 is the prefill's first-token draw)
     for key in ("seed", "sample_step"):

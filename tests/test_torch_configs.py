@@ -19,7 +19,7 @@ MODULES = ("bitnet_3b", "granite_moe_1b_a400m", "jamba_1_5_large_398b",
            "llava_next_34b", "mistral_nemo_12b", "mixtral_8x22b",
            "qwen1_5_110b", "qwen1_5_32b", "rwkv6_1_6b", "stablelm_1_6b",
            "whisper_small")
-SERVED = ("dense", "moe")
+SERVED = ("dense", "moe", "encdec")
 
 
 def _pair(module: str, which: str):
@@ -54,7 +54,7 @@ def test_registry_holds_every_config():
 
 @pytest.mark.parametrize("module", MODULES)
 def test_unserved_families_raise(module):
-    """Only dense and moe are served: the other families raise where they
+    """Only dense, moe and encdec are served: the other families raise where they
     reach the weights, the cache or the engine."""
     _, cfg = _pair(module, "REDUCED")
     if cfg.family in SERVED:

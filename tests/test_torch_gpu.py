@@ -981,11 +981,13 @@ def _serve_arm(eng, reqs, nan=frozenset()):
             sched.submit(r)
         res = {r.rid: r.tokens for r in sched.run_to_completion()}
     torch.cuda.synchronize()
-    pool = sched.pool
-    leaves = {k: v.clone() for k, v in pool.items() if k != "layers"}
-    leaves.update({f"layers.{k}": v.clone()
-                   for k, v in pool["layers"].items()})
-    return res, leaves, ops.launch_counts(), sched
+    leaves = {}
+    for k, v in sched.pool.items():
+        if isinstance(v, dict):
+            leaves.update({f"{k}.{kk}": vv.clone() for kk, vv in v.items()})
+        else:
+            leaves[k] = v.clone()
+    return res, leaves, ops.launch_counts(modes=True), sched
 
 
 @pytest.mark.parametrize("use_lop,sampled,nan", [
@@ -1369,6 +1371,202 @@ def test_moe_graph_entries_bitwise_eager(cuda, use_lop, sampled, shared):
     for r in reqs:
         assert lockstep_generate(graph, r.prompt, r.max_new_tokens,
                                  sampling=r.sampling) == got[r.rid], r.rid
+
+
+# ---------------------------------------------------------------------------
+# the encdec family (whisper) and the dense family's LayerNorm and QKV bias
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,c,m,kv_len", [(1, 1500, 1500, (1500,)),
+                                          (1, 37, 1536, (1500,)),
+                                          (3, 64, 1536, (1500, 24, 0))],
+                         ids=["encoder", "cross-prefill", "cross-lanes"])
+def test_prefill_noncausal_whisper_shapes(cuda, b, c, m, kv_len):
+    """#3 with causal=False at whisper-small's shapes (12 heads of 64):
+    the encoder's self-attention over its unpadded 1500 frames (M 1500, a
+    multiple of neither the key tile nor the row tile), and the decoder's
+    cross-attention over the 1536-slot cross cache at kv_len 1500 (an
+    empty lane exact zero)."""
+    rng = np.random.default_rng(c + m)
+    arrs = _dev(_attn(rng, b, 12, 12, c, 64, m), cuda)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.prefill_attention(*arrs, lens, causal=False)
+    want = plain.prefill_attention_ref(*arrs, lens, 0, causal=False,
+                                       window=0, softmax_scale=64 ** -0.5)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts(modes=True)
+    assert counts["fused_prefill_attention"] == 1
+    assert counts["fused_prefill_attention:non_causal"] == 1
+    torch.testing.assert_close(got, want, **TOL)
+    for lane, n in enumerate(kv_len):
+        if n == 0:
+            assert not got[lane].any()
+
+
+@pytest.mark.parametrize("use_lop", [True, False], ids=["lop", "dense"])
+def test_decode_over_never_written_cross_cache(cuda, use_lop):
+    """#4/#5 over whisper's cross cache (M 1536, 12 blocks of 128, 12
+    heads of 64) with new_len = cross_len and no write: against the plain
+    version, the cache bytes untouched, a second call bitwise the first,
+    and the call counted under the "cross" mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.lop_select import k_keep_blocks
+    cfg = get_config("whisper-small")
+    m, blk = 1536, cfg.lop_block
+    rng = np.random.default_rng(1536)
+    arrs = _dev(_decode(rng, 4, 12, 12, m, 64), cuda)
+    before = [a.clone() for a in arrs[2:]]
+    cross_len = torch.tensor([1500, 24, 0, 1536], dtype=torch.int32,
+                             device=cuda)
+    kw = dict(block=blk, k_keep=max(1, min(k_keep_blocks(cfg, m),
+                                           m // blk)), window=0,
+              use_lop=use_lop)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(*arrs, cross_len, mode="cross", **kw)
+    again = ops.decode_attention(*arrs, cross_len, **kw)
+    want = plain.decode_attention_ref(*arrs, cross_len,
+                                      softmax_scale=64 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    name = "fused_decode_attention" if use_lop else \
+        "fused_dense_decode_attention"
+    counts = ops.launch_counts(modes=True)
+    assert counts[name] == 2 and counts[f"{name}:cross"] == 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again) and not got[2].any()
+    for a, b in zip(arrs[2:], before):
+        assert torch.equal(a, b)
+
+
+def test_qlinear_bias_at_qwen_qkv_shape(cuda):
+    """#1 with its bias epilogue at qwen1.5-32b's fused QKV (k 5120, n
+    15360) at the decode rows: bitwise the plain version, counted under
+    the "bias" mode."""
+    rng = np.random.default_rng(5120)
+    m, k, n = 4, 5120, 15360
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    packed = rng.integers(0, 256, (k // 4, n)).astype(np.uint8)
+    gamma = rng.uniform(0.01, 0.05, (1, n)).astype(np.float32)
+    b = rng.standard_normal((n,)).astype(np.float32) * 0.02
+    x, packed, gamma, b = _dev((x, packed, gamma, b), cuda)
+    ops.reset_launch_counts()
+    got = ops.qlinear_fused(x, packed, gamma, b)
+    want = plain.qlinear_ref(x, packed, gamma, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts(modes=True)["fused_qlinear:bias"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,d", [(37, 768), (1500, 768), (5, 2048)])
+def test_layernorm_on_card_matches_cpu(cuda, rows, d):
+    """LayerNorm on the card within 1e-6 of the CPU's, and a row bitwise
+    alone and among the others on the card."""
+    from repro_torch.models.layers import norm_apply
+    rng = np.random.default_rng(rows + d)
+    x = (rng.standard_normal((rows, d)) * 2 + 0.5).astype(np.float32)
+    p = {"g": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+         "b": (0.02 * rng.standard_normal(d)).astype(np.float32)}
+    cpu = norm_apply({k: torch.from_numpy(v) for k, v in p.items()},
+                     torch.from_numpy(x), "layernorm")
+    pc = {k: torch.from_numpy(v).to(cuda) for k, v in p.items()}
+    xc = torch.from_numpy(x).to(cuda)
+    got = norm_apply(pc, xc, "layernorm")
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-6)
+    for i in (0, rows - 1):
+        assert torch.equal(norm_apply(pc, xc[i:i + 1], "layernorm")[0],
+                           got[i])
+
+
+def _encdec_requests(sampled: bool):
+    from repro_torch.serving.api import GenerateRequest, SamplingParams
+    rng = np.random.default_rng(9)
+    reqs = []
+    for rid, n in enumerate((6, 9, 4, 12, 7)):
+        sp = (SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=rid)
+              if sampled else None)
+        prompt = rng.integers(0, 512, n).astype(np.int32)
+        frames = (rng.standard_normal((4 * n, 96)).astype(np.float32) * 0.02)
+        reqs.append(GenerateRequest(
+            rid=rid, prompt=prompt, max_new_tokens=12 - rid, frames=frames,
+            **({} if sp is None else dict(sampling=sp))))
+    return reqs
+
+
+@pytest.mark.parametrize("use_lop,sampled,nan", [
+    (True, False, frozenset()), (False, False, frozenset()),
+    (True, True, frozenset()), (True, False, NAN_CALLS)],
+    ids=["lop-greedy", "nolop-greedy", "lop-sampled", "lop-greedy-faults"])
+def test_encdec_graph_entries_bitwise_eager(cuda, use_lop, sampled, nan):
+    """whisper-small-reduced served run-to-completion with frames: the
+    decode entries in CUDA graphs bitwise the eager engine (tokens, every
+    pool tensor, the cross pages and cross_len too, launch counts by mode),
+    a decode step's cross-attention counted under "cross" (one a layer),
+    the encoder and cross prefill under "non_causal", the FFN "ungated";
+    the scheduler's tokens bitwise the port's lockstep_generate."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.scheduler import lockstep_generate
+    cfg = get_config("whisper-small-reduced")
+    eager = PooledEngine.from_seed(cfg, seed=0, max_len=GRAPH_MAX_LEN,
+                                   use_lop=use_lop, device=cuda, graphs=False)
+    graph = PooledEngine(cfg, eager.qp, max_len=GRAPH_MAX_LEN,
+                         use_lop=use_lop, device=cuda)
+    reqs = _encdec_requests(sampled)
+    want, want_pool, want_counts, esched = _serve_arm(eager, reqs, nan)
+    got, got_pool, got_counts, gsched = _serve_arm(graph, reqs, nan)
+    assert got == want
+    assert got_counts == want_counts
+    assert "cross.k" in want_pool and "cross_len" in want_pool
+    for name, leaf in want_pool.items():
+        assert torch.equal(got_pool[name], leaf), name
+    if nan:
+        assert gsched.fault_recoveries == esched.fault_recoveries >= 3
+    assert graph.graphs.count >= 1
+    attn = "fused_decode_attention" if use_lop else \
+        "fused_dense_decode_attention"
+    steps, n = esched.decode_launches, cfg.n_layers
+    if not nan:
+        assert got_counts[f"{attn}:cross"] == n * steps
+        assert got_counts[attn] == 2 * n * steps
+    assert got_counts["fused_prefill_attention:non_causal"] == \
+        (cfg.n_encoder_layers + n) * len(reqs)
+    assert got_counts["fused_ffn:ungated"] == got_counts["fused_ffn"]
+    for r in reqs:
+        assert lockstep_generate(graph, r.prompt, r.max_new_tokens,
+                                 sampling=r.sampling,
+                                 frames=r.frames) == got[r.rid], r.rid
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-32b-reduced",
+                                  "stablelm-1.6b-reduced"])
+def test_dense_features_graph_entries_bitwise_eager(cuda, arch):
+    """qwen (QKV bias, drawn nonzero) and stablelm (LayerNorm) reduced:
+    graphs bitwise the eager engine, every #1 QKV launch with its bias."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.quantize import quantize_params
+    cfg = get_config(arch)
+    params = init_params(cfg, 0, cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    for name in ("wq", "wk", "wv"):
+        node = params["layers"]["attn"][name]
+        if "b" in node:
+            node["b"] = torch.randn(node["b"].shape, generator=gen,
+                                    device=cuda) * 0.02
+    qp = quantize_params(cfg, params)
+    eager = PooledEngine(cfg, qp, max_len=GRAPH_MAX_LEN, device=cuda,
+                         graphs=False)
+    graph = PooledEngine(cfg, qp, max_len=GRAPH_MAX_LEN, device=cuda)
+    reqs = _graph_requests(False)
+    want, want_pool, want_counts, esched = _serve_arm(eager, reqs)
+    got, got_pool, got_counts, _ = _serve_arm(graph, reqs)
+    assert got == want and got_counts == want_counts
+    for name, leaf in want_pool.items():
+        assert torch.equal(got_pool[name], leaf), name
+    bias = got_counts.get("fused_qlinear:bias", 0)
+    assert bias == (got_counts["fused_qlinear"] // 2 if cfg.qkv_bias else 0)
 
 
 # ---------------------------------------------------------------------------
