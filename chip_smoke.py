@@ -184,6 +184,42 @@ printed:
               timed beside their bounds; the decode step on graphs and
               eager, one exact-length prefill's time, tokens/s, TTFT and
               peak memory; each arm's engine freed before the next;
+  4i. recurrent rwkv6-1.6b (ssm) at full width and depth (24 layers, d
+              2048, 32 heads of 64, f 7168, vocab 65,536) with seeded
+              weights drawn on the card: phase 4's 8 requests greedy, then
+              sampled (T 0.8, top-k 50, top-p 0.95, seed = rid), run to
+              completion with exact-length prefill (the wkv recurrence a
+              time loop of plain tensor ops); 240 #1 launches a decode
+              step and no other kernel of the table; scheduler ==
+              lockstep for 2 requests an arm; the decode step on CUDA
+              graphs and on an eager twin (tokens equal) with a profiler
+              split of #1 against the glue and the device's busy share;
+              #1 at w_lora_a / w_lora_b / wk_c / wv_c on layer 0's served
+              weights at m 4 and 1536 bitwise its plain version, timed
+              eagerly and in a graph beside its bound; one exact-length
+              prefill at 128, 512, 1024 and 1536 tokens; the peak while
+              drawing; then jamba-1.5-large-398b reduced (hybrid: per
+              superblock Mamba, Mamba + MoE, attention, Mamba + MoE): 8
+              requests of 8–96 tokens (default_rng(3)), 16 new, greedy
+              LOP, no-LOP and sampled, a prefill's and a decode step's
+              launches (#1 22, #2 4 dense and 4 expert, the decode kernel
+              2 a step; #3 one a superblock a prefill), scheduler ==
+              lockstep, graph == eager (a launch and parity check of
+              the hybrid path at d 128, not its performance); then
+              jamba at full width, one sublayer of each mixer drawn on
+              the card (Mamba: d 8192, Di 16384, dt_rank 512;
+              attention: 64 heads of 128 over 8): #1 at in_proj, x_proj,
+              dt_proj + bias, out_proj, wqkv and wo at m 4 and 1536
+              bitwise its plain version and timed beside its bound; the
+              Mamba prefill (4 #1 launches) at 128, 512 and 1536 tokens
+              and its decode step, eager and in a graph; the Mamba
+              sublayer card against CPU stage by stage (2e-5, the
+              barrier in front of out_proj bitwise but for 1-ulp
+              knife-edges); the attention sublayer's 512-token prefill
+              and decode step with #3, #4 and #5 against their plain
+              versions; each arm's engine freed before the next (the
+              whole full-width model, about 100 GB even packed, waits
+              for drawing seeded weights a layer at a time);
   5. standalone kernels and the per-head LOP decode, at full width:
               the TINT GEMM (ternary_matmul), the LOP screen
               (lop_scores_kernel), single-head flash prefill and block-sparse
@@ -232,8 +268,8 @@ the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
 ``bias``, #2 ``ungated``, #3 ``non_causal``, #4/#5 ``per_head``,
 ``shared_select``, ``pos_offset+return_stats`` and ``cross`` — each with
 its launches on the path that runs it and the numbers of the phase that
-checked it); the last line is
-``{"ok": true, "device": {...}}``.
+checked it; the launches of #1–#5 also count phase 4i's serve runs);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1296,18 +1332,39 @@ def decode_step_ms(torch, np, engine, reqs, sampling=None):
     return float(np.median(step_s[2:]) * 1e3), sched
 
 
+def recurrent_step_launches(cfg, use_lop: bool) -> dict:
+    """Kernel launches of one decode step of an ssm or hybrid model: rwkv6
+    ten #1 a layer; a jamba superblock #1 three a Mamba sublayer (in, x,
+    out; four where dt_proj packs, k = dt_rank >= 16) and two for its
+    attention (QKV, O), #2 a sublayer (its expert form on MoE positions)
+    and the decode kernel once."""
+    if cfg.family == "ssm":
+        return {"fused_qlinear": 10 * cfg.n_layers}
+    from repro_torch.models.mamba import dt_rank
+    n_sb, e = cfg.n_layers // cfg.attn_every, cfg.attn_every
+    n_moe = sum(cfg.is_moe_layer(j) for j in range(e))
+    mamba_q = 3 + (dt_rank(cfg) >= 16 and dt_rank(cfg) % 4 == 0)
+    return {"fused_qlinear": n_sb * ((e - 1) * mamba_q + 2),
+            "fused_ffn": n_sb * (e - n_moe), "fused_ffn_experts": n_sb * n_moe,
+            "fused_decode_attention" if use_lop else DENSE: n_sb}
+
+
 def check_step_counts(counts: dict, engine, steps: int) -> None:
     """Each decode step launches #1 twice a layer (QKV, O; four times with
     cross-attention: its Q and O too), #2 once (for a moe model its
     grouped-expert form, every expert in the launch) and its decode kernel
     once (twice with cross-attention: over the self and the cross pages),
-    and nothing else — counted per graph replay as per eager call."""
+    and nothing else — counted per graph replay as per eager call; an ssm
+    or hybrid model launches :func:`recurrent_step_launches`."""
     n = engine.cfg.n_layers
     per = 2 if engine.cfg.family == "encdec" else 1
     attn = "fused_decode_attention" if engine.use_lop else DENSE
     ffn = "fused_ffn_experts" if engine.cfg.family == "moe" else "fused_ffn"
     want = {"fused_qlinear": 2 * per * n * steps, ffn: n * steps,
             attn: per * n * steps}
+    if engine.cfg.family in ("ssm", "hybrid"):
+        want = {k: v * steps for k, v in recurrent_step_launches(
+            engine.cfg, engine.use_lop).items()}
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         raise AssertionError(f"{steps} decode steps launched {got}, want "
@@ -2462,21 +2519,24 @@ def chaos_phase(torch, np, dense, card) -> dict:
 # phase 4e: serve full-width granite-moe-1b-a400m
 # ---------------------------------------------------------------------------
 
-def prefill_ms_by_length(torch, np, engine, lengths) -> dict:
+def prefill_ms_by_length(torch, np, engine, lengths, reps: int = 3,
+                         warm: bool = True) -> dict:
     """Host ms of one exact-length, batch-1 whole-prompt prefill (ending in
-    a synchronize), the median of 3 after one warm call, by length."""
+    a synchronize), the median of ``reps`` after one warm call (none
+    without ``warm``: an engine that has served prompts of every length
+    already), by length."""
     rng = np.random.default_rng(SEED)
     out = {}
     for s in lengths:
         prompt = rng.integers(0, engine.cfg.vocab, (1, s)).astype(np.int32)
         times = []
-        for _ in range(4):
+        for _ in range(reps + warm):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             engine.prefill(prompt)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        out[s] = float(np.median(times[1:]) * 1e3)
+        out[s] = float(np.median(times[int(warm):]) * 1e3)
     return out
 
 
@@ -3282,6 +3342,599 @@ def families_phase(torch, np, card: str) -> dict:
         f"4h took {time.monotonic() - t0:.1f} s")
     return dict(stable=stable, qwen=qwen, whisper=whisper, modes=modes,
                 rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the recurrent families — rwkv6 (ssm) and jamba (hybrid)
+# ---------------------------------------------------------------------------
+
+RWKV_ROWS = ("w_lora_a", "w_lora_b", "wk_c", "wv_c")
+JAMBA_REQUESTS, JAMBA_MIN_PROMPT, JAMBA_MAX_PROMPT = 8, 8, 96
+JAMBA_GEN = 16
+JAMBA_MAX_LEN = JAMBA_MAX_PROMPT + 96      # room for the steady steps' 96
+JW_ATTN_PROMPT = 512                      # full-width attention sublayer
+KERNEL_NAMES = ("fused_qlinear", "fused_ffn", "fused_qlinear_experts",
+                "fused_ffn_experts", "fused_prefill_attention",
+                "fused_decode_attention", DENSE)
+
+
+def sampled_params(rid):
+    from repro_torch.serving.api import SamplingParams
+    return SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=rid)
+
+
+def projection_rows(torch, np, nodes: dict, label: str, whose: str,
+                    card: str, seed: int) -> dict:
+    """#1 on the served projections ``nodes`` (name → packed node) at the
+    decode rows (m 4) and one 1536-token prompt's: bitwise the plain
+    version, timed eagerly and in a CUDA graph beside the bound. A node
+    with a bias runs with a seeded nonzero one of its shape (a drawn bias
+    is zero). Called outside every counted window. → rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.qlinear import fused_qlinear
+
+    rng = np.random.default_rng(seed)
+    rows = {}
+    for name, node in nodes.items():
+        k, n = node["packed"].shape[0] * 4, node["packed"].shape[1]
+        gamma = ops._col_scale(node["scale"], n)
+        bias = (torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).cuda() if "b" in node else None)
+        for m in (N_SLOTS, MAX_PROMPT):
+            x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+                np.float32)).cuda()
+            got = ops.qlinear_fused(x, node["packed"], node["scale"], bias)
+            want = plain.qlinear_ref(x, node["packed"], gamma, bias)
+            err = check_close(torch, f"fused_qlinear[{label} {name}, m={m}]",
+                              got, want, bitwise=True)
+            args = (x, node["packed"].contiguous(),
+                    gamma.reshape(n).contiguous(), bias)
+            sets = copies(torch, args)
+            ms = cuda_ms(torch, fused_qlinear, sets, 30)
+            g_ms = graph_ms(torch, fused_qlinear, sets)
+            p_ms = cuda_ms(torch, lambda x_, p_, g_, b_: plain.qlinear_ref(
+                x_, p_, g_[None], b_), [args], 3)
+            b_ms, b_by = bound_ms(
+                nbytes(*args[:3]) + (0 if bias is None else nbytes(bias))
+                + m * n * 4, int8_ops=2.0 * m * k * n)
+            rows[f"{name} m={m}"] = dict(
+                max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, shape=f"m={m} k={k} n={n}")
+            log(f"  fused_qlinear {label} {name} (m={m}, k={k}, n={n}"
+                f"{', bias' if bias is not None else ''}, {whose}): bitwise "
+                f"the plain version; {ms:.4f} ms, in a CUDA graph "
+                f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.6f} ms by "
+                f"{b_by}; {b_ms / ms:.2%} of bound, {b_ms / g_ms:.2%} in the "
+                f"graph) [{card}]")
+    return rows
+
+
+def step_split(torch, sched, label: str, card: str, n_prof: int = 4):
+    """Profile ``n_prof`` decode steps: #1's device time (its barrier and
+    GEMM kernels) against the rest (the glue), and the device's busy
+    share. → (#1 ms a step, glue ms a step, busy share), or Nones when
+    the profiler recorded no device time."""
+    by_name, dev_us, wall_us = profiled(
+        torch, lambda: [sched.step() for _ in range(n_prof)])
+    if not dev_us:
+        log(f"  profiler ({label}): no device time recorded (not measured)")
+        return None, None, None
+    q_us = sum(us for key, us in by_name.items()
+               if "barrier_kernel" in key or "qlinear_" in key)
+    log(f"  profiler, {n_prof} decode steps ({label}): #1 "
+        f"{q_us / n_prof / 1e3:.3f} ms a step, the glue "
+        f"{(dev_us - q_us) / n_prof / 1e3:.3f} ms ({q_us / dev_us:.1%} #1);"
+        f" device busy {dev_us / wall_us:.1%} of {wall_us / 1e3:.2f} ms wall"
+        f" (profiler on) [{card}]")
+    return (q_us / n_prof / 1e3, (dev_us - q_us) / n_prof / 1e3,
+            dev_us / wall_us)
+
+
+def recurrent_serve(torch, np, engine, reqs, label, card, capacity: int,
+                    launched, idle) -> dict:
+    """One serve run of phase 4i: launches, tokens, scheduler == lockstep
+    for rids 0 and 1. → stats with the scheduler's prefill times."""
+    run = serve_run(torch, np, engine, reqs, label, card, capacity=capacity)
+    check_counts(run["counts"], label, launched, idle=idle)
+    check_tokens(engine.cfg, run["results"], reqs[0].max_new_tokens, label)
+    check_lockstep(engine, reqs, run["results"], (0, 1), label)
+    sched = run.pop("sched")
+    pre = sched.full_prefill_seconds
+    log(f"  [{label}] {len(pre)} exact-length prefills, p50 "
+        f"{np.percentile(pre, 50) * 1e3:.1f} ms, max "
+        f"{max(pre) * 1e3:.1f} ms; {sched.full_prefill_stalls} stalled the "
+        f"decoding lanes [{card}]")
+    return dict(counts=run["counts"], tokens=tokens_digest(run["results"]),
+                tokens_per_s=run["tokens_per_s"],
+                ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
+                prefill_ms_p50=float(np.percentile(pre, 50) * 1e3))
+
+
+def rwkv_arm(torch, np, card: str) -> dict:
+    """rwkv6-1.6b at full width and depth (24 layers, d 2048, 32 heads of
+    64, f 7168, vocab 65,536): seeded weights drawn on the card, phase 4's
+    8 requests greedy, then sampled, through the Scheduler on 4 slots (run
+    to completion, exact-length prefill), #1 the only kernel of the table
+    (240 launches a decode step). → stats."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import init_params, layer_slice
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.quantize import quantize_params
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("rwkv6-1.6b")
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, SEED, "cuda")
+    qp = quantize_params(cfg, params)
+    del params
+    free_cuda(torch)
+    draw_peak = torch.cuda.max_memory_allocated() - base
+    engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + GEN, device="cuda")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+                         max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
+    log(f"  [rwkv6] seeded weights ready in {time.monotonic() - t0:.1f} s "
+        f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.hd}, f {cfg.d_ff}, vocab {cfg.vocab}): serving weights "
+        f"{tree_bytes(qp) / 2**30:.3f} GiB, a {N_SLOTS}-slot pool "
+        f"{tree_bytes(engine.init_pool(N_SLOTS)) / 2**20:.1f} MiB of "
+        f"state; peak while drawing and quantizing "
+        f"{draw_peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB the "
+        f"earlier phases hold; state_kind {engine.state_kind}, "
+        f"exact_length_prefill={engine.exact_length_prefill}; prompt "
+        f"lengths " + ", ".join(str(len(r.prompt)) for r in reqs)
+        + f" [{card}]")
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:16],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    rows = projection_rows(
+        torch, np, {name: layer_slice(qp["layers"], 0)["tm"][name]
+                    for name in RWKV_ROWS}, "rwkv6",
+        "layer 0's served weights", card, SEED + 9)
+    idle = tuple(k for k in KERNEL_NAMES if k != "fused_qlinear")
+    # a decode step's cost does not depend on the context, so the steady
+    # steps run on the four shortest prompts (their prefills are the
+    # phase's cost)
+    short = sorted(reqs, key=lambda r: len(r.prompt))[:N_SLOTS]
+    out = {}
+    for label, sampling in (("rwkv6 greedy", None),
+                            ("rwkv6 sampled", sampled_params)):
+        rq = reqs if sampling is None else [
+            replace(r, sampling=sampling(r.rid)) for r in reqs]
+        out[label] = recurrent_serve(torch, np, engine, rq, label, card, 0,
+                                     ("fused_qlinear",), idle)
+        step = decode_arms(torch, np, engine, short, label, card,
+                           sampling=sampling)
+        out[label].update(decode_step_ms_p50=step["ms"],
+                          eager_decode_step_ms_p50=step["eager_ms"])
+        if sampling is None:
+            prof = profile_arms(torch, step, label, card)
+            out[label]["split"] = {
+                arm: step_split(torch, step[key], f"{label}, {arm}", card)
+                for arm, key in (("eager", "eager_sched"),
+                                 ("graph", "sched"))}
+            out[label]["device_ms"] = prof["graph"][0]
+        del step
+    by_len = prefill_ms_by_length(torch, np, engine, (128, 512, 1024, 1536),
+                                  reps=1, warm=False)
+    log("  [rwkv6] exact-length prefill (batch 1, host ms to a synchronize,"
+        " one call each on the warm engine): " + ", ".join(
+            f"{s} tokens {ms:.1f} ms" for s, ms in by_len.items())
+        + f" [{card}]")
+    g, sm = out["rwkv6 greedy"], out["rwkv6 sampled"]
+    log(f"  [rwkv6] greedy {g['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{g['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA graph "
+        f"{g['decode_step_ms_p50']:.2f} ms, eager "
+        f"{g['eager_decode_step_ms_p50']:.2f} ms; sampled "
+        f"{sm['tokens_per_s']:.2f} tok/s, step {sm['decode_step_ms_p50']:.2f}"
+        f" ({sm['eager_decode_step_ms_p50']:.2f}) ms; peak in the greedy "
+        f"run {g['peak_bytes'] / 2**30:.2f} GiB; tokens sha256 "
+        f"{g['tokens']} / {sm['tokens']} [{card}]")
+    del engine, qp
+    free_cuda(torch)
+    return dict(runs=out, rows=rows, prefill_ms=by_len,
+                draw_peak_bytes=draw_peak)
+
+
+def jamba_arm(torch, np, card: str) -> dict:
+    """jamba-1.5-large-398b-reduced (2 superblocks of Mamba, Mamba + MoE,
+    attention, Mamba + MoE; d 128, 4 experts top-2, lop_block 32): 8
+    requests of 8–96 prompt tokens (default_rng(3)), 16 new, greedy LOP,
+    no-LOP on an engine sharing the weights, and sampled; every kernel of
+    the path launches. A launch and parity check of the hybrid path at d
+    128, not its performance: :func:`jamba_width_arm` runs its sublayers
+    at full width, and the whole full-width model (about 100 GB even
+    packed) waits for drawing seeded weights a layer at a time. →
+    stats."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.cache import capacity_for
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("jamba-1.5-large-398b-reduced")
+    t0 = time.monotonic()
+    engine = PooledEngine.from_seed(cfg, seed=SEED, max_len=JAMBA_MAX_LEN,
+                                    device="cuda")
+    dense = PooledEngine(cfg, engine.qp, max_len=JAMBA_MAX_LEN,
+                         use_lop=False, device="cuda")
+    reqs = make_requests(cfg, n_requests=JAMBA_REQUESTS,
+                         min_prompt=JAMBA_MIN_PROMPT,
+                         max_prompt=JAMBA_MAX_PROMPT, gen=JAMBA_GEN, seed=3)
+    cap = capacity_for(cfg, JAMBA_MAX_LEN)
+    log(f"  [jamba] seeded reduced weights ready in "
+        f"{time.monotonic() - t0:.1f} s: serving weights "
+        f"{tree_bytes(engine.qp) / 2**20:.2f} MiB, capacity {cap}; "
+        f"state_kind {engine.state_kind}; prompt lengths "
+        + ", ".join(str(len(r.prompt)) for r in reqs) + f" [{card}]")
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:8],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    # one exact-length prefill's launches: the decode step's #1 and dense
+    # #2, #2's expert form once a moe_group of tokens, #3 a superblock
+    prompt = max((r.prompt for r in reqs), key=len)
+    ops.reset_launch_counts()
+    engine.prefill(prompt[None])
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    step = recurrent_step_launches(cfg, True)
+    groups = -(-len(prompt) // cfg.moe_group)
+    want = {"fused_qlinear": step["fused_qlinear"],
+            "fused_ffn": step["fused_ffn"],
+            "fused_ffn_experts": step["fused_ffn_experts"] * groups,
+            "fused_prefill_attention": step["fused_decode_attention"]}
+    if got != want:
+        raise AssertionError(f"a jamba prefill of {len(prompt)} tokens "
+                             f"launched {got}, want {want}")
+    log(f"  launches an exact-length prefill of {len(prompt)} tokens "
+        f"(jamba reduced): " + ", ".join(f"{k} {v}" for k, v in
+                                         sorted(got.items())))
+    out = {}
+    for label, eng, sampling in (("jamba LOP greedy", engine, None),
+                                 ("jamba no-LOP greedy", dense, None),
+                                 ("jamba LOP sampled", engine,
+                                  sampled_params)):
+        attn = "fused_decode_attention" if eng.use_lop else DENSE
+        rq = reqs if sampling is None else [
+            replace(r, sampling=sampling(r.rid)) for r in reqs]
+        out[label] = recurrent_serve(
+            torch, np, eng, rq, label, card, cap,
+            ("fused_qlinear", "fused_ffn", "fused_ffn_experts",
+             "fused_prefill_attention", attn),
+            ("fused_qlinear_experts",
+             DENSE if attn != DENSE else "fused_decode_attention"))
+        step = decode_arms(torch, np, eng, reqs, label, card,
+                           sampling=sampling)
+        out[label].update(decode_step_ms_p50=step["ms"],
+                          eager_decode_step_ms_p50=step["eager_ms"])
+        del step
+    g = out["jamba LOP greedy"]
+    log(f"  [jamba] LOP greedy {g['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{g['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA graph "
+        f"{g['decode_step_ms_p50']:.2f} ms, eager "
+        f"{g['eager_decode_step_ms_p50']:.2f} ms; tokens sha256 "
+        + " / ".join(f"{r['tokens']}" for r in out.values()) + f" [{card}]")
+    del engine, dense
+    free_cuda(torch)
+    return dict(runs=out)
+
+
+def to_cpu(tree):
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def barrier_parts(torch, got, want) -> int:
+    """The int8 absmax barrier of the card's f32 rows ``got`` against the
+    CPU's ``want``: the values may part only where the CPU's scaled value
+    lies within 1e-4 of a rounding boundary (a 1-ulp knife-edge), and
+    then by one. → how many part."""
+    from repro_torch.core.quantization import absmax_scale, quantize
+
+    g, w = quantize(got).values, quantize(want).values
+    apart = g != w
+    scaled = (want / absmax_scale(want))[apart].abs()
+    if ((g.int() - w.int()).abs().max() > 1
+            or ((scaled % 1.0 - 0.5).abs() > 1e-4).any()):
+        raise AssertionError(f"int8 barrier values part away from a "
+                             f"rounding boundary: {scaled.tolist()[:8]}")
+    return int(apart.sum())
+
+
+def mamba_card_vs_cpu(torch, np, cfg, mp, card) -> dict:
+    """A full-width Mamba sublayer on the card against the CPU, stage by
+    stage, each stage on the CPU's input to it: a 16-token prefill from
+    zero states, then one decode step from the CPU's state. ``in_proj``'s
+    x and z, the causal conv and silu, ``x_proj``/``dt_proj``/softplus's
+    dt, B and C, the selective scan's state and y, and ``out_proj`` on the
+    CPU's gated y, each within rtol = atol = 2e-5; ``out_proj``'s int8
+    barrier values (the gated y) bitwise but for 1-ulp knife-edges. The
+    whole sublayer is not held at 2e-5: exp and sigmoid round apart by
+    ulps between the CPU and the card, and a value on a rounding boundary
+    of a barrier moves its row's projection by a 127th of its scale. →
+    the largest |err| by stage, and the barrier values that parted."""
+    from repro_torch.models import mamba
+    from repro_torch.models.layers import linear_apply
+    from repro_torch.models.rwkv6 import silu
+    from repro_torch.models.scan_utils import chunked_scan
+
+    weights = {"cpu": to_cpu(mp), "cuda": mp}
+    rng = np.random.default_rng(SEED + 16)
+    errs, parts = {}, {}
+
+    def stage(name, fn, *args):
+        """fn(weights, *args) on the CPU, and on the card on the same
+        values; every output within 2e-5. → (the CPU's outputs, the
+        card's)."""
+        want = fn(weights["cpu"], *args)
+        got = fn(weights["cuda"], *(a.cuda() for a in args))
+        for i, (g, w) in enumerate(zip(got, want)):
+            errs[name] = max(errs.get(name, 0.0), check_close(
+                torch, f"jamba mamba {name}[{i}], card vs CPU", g.cpu(), w))
+        return want, got
+
+    def conv_silu(p, x, *conv):
+        y, st = mamba._causal_conv(x, p["conv_w"], p["conv_b"], *conv)
+        return silu(y), st
+
+    def scan(p, h, *xs):
+        return chunked_scan(mamba._scan_step(p["A_log"], p["D"]), h,
+                            tuple(a.transpose(0, 1) for a in xs))
+
+    h = torch.zeros((1, cfg.d_inner, cfg.mamba_d_state))
+    conv = ()
+    for label, t in (("prefill", 16), ("decode", 1)):
+        u = torch.from_numpy(rng.standard_normal((1, t, cfg.d_model)).astype(
+            np.float32))
+        (x, z), _ = stage(f"{label} in_proj",
+                          lambda p, u_: mamba._ssm_inputs(cfg, p, u_), u)
+        (xc, conv_new), _ = stage(f"{label} conv", conv_silu, x, *conv)
+        (dt, b, c), _ = stage(f"{label} x_proj/dt_proj",
+                              lambda p, x_: mamba._ssm_project(cfg, p, x_),
+                              xc)
+        (h, ys), (_, ys_card) = stage(f"{label} scan", scan, h, xc, dt, b, c)
+        y = ys.transpose(0, 1) * silu(z)
+        parts[label] = barrier_parts(
+            torch, (ys_card.transpose(0, 1) * silu(z.cuda())).cpu(), y)
+        stage(f"{label} out_proj", lambda p, y_: (linear_apply(
+            p["out_proj"], y_, quant=cfg.quant),), y)
+        conv = (conv_new,)
+    log("  jamba full-width Mamba sublayer, card vs CPU stage by stage (a "
+        "16-token prefill, then a decode step; rtol=atol=2e-5): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + "; out_proj's int8 barrier values parted at "
+        + ", ".join(f"{v} ({k})" for k, v in parts.items())
+        + f" 1-ulp knife-edges [{card}]")
+    return dict(max_abs_err=errs, barrier_parts=parts)
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Median host ms of ``fn()`` (:func:`timed_ms`) over ``reps``
+    calls."""
+    times = sorted(timed_ms(torch, fn)[0] for _ in range(reps))
+    return times[len(times) // 2]
+
+
+def counted(torch, fn, want: dict, label: str):
+    """``fn()`` once with the launch counts zeroed before it; its launches
+    must be ``want``. → fn's result."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    if got != want:
+        raise AssertionError(f"{label} launched {got}, want {want}")
+    return out
+
+
+def jamba_attention_checks(torch, np, cfg, ap, card) -> dict:
+    """The full-width attention sublayer (64 heads of 128 over 8 KV
+    heads) on a page layer of 4 lanes: a 512-token prefill of each (#1
+    twice, #3 once) and a decode step at LOP and dense (#1 twice, the
+    decode kernel once), each timed (host ms to a synchronize) with
+    finite outputs; #3 on the prefill's own queries and pages, and #4 and
+    #5 on the decode step's and the pages it wrote, against their plain
+    versions (rtol = atol = 2e-5). → times and errors."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.models.layers import rope
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving import engine as teng
+    from repro_torch.serving.cache import init_cache, round_up
+    from repro_torch.serving.lop_select import k_keep_blocks
+
+    rng = np.random.default_rng(SEED + 17)
+    t = JW_ATTN_PROMPT
+    cache = init_cache(cfg, N_SLOTS, t + 1, "cuda")
+    cl = layer_slice(cache["blocks"], 0)["attn"]
+    cap, blk, scale = cl["k"].shape[2], cfg.lop_block, cfg.hd ** -0.5
+    h = torch.from_numpy(rng.standard_normal((N_SLOTS, t, cfg.d_model))
+                         .astype(np.float32)).cuda()
+    teng.attn_prefill(cfg, ap, h[:, :16], cl)              # warm
+    out = counted(torch, lambda: teng.attn_prefill(cfg, ap, h, cl),
+                  {"fused_qlinear": 2, "fused_prefill_attention": 1},
+                  "the jamba attention sublayer's prefill")
+    if not torch.isfinite(out).all():
+        raise AssertionError("jamba attention prefill: non-finite output")
+    pre_ms = host_ms(torch, lambda: teng.attn_prefill(cfg, ap, h, cl), 3)
+    q = rope(teng._project_qkv(cfg, ap, h)[0],
+             torch.arange(t, device="cuda")[None, :], cfg.rope_theta)
+    qi, qsc = teng._q(q)
+    kv_len = torch.full((N_SLOTS,), t, dtype=torch.int32, device="cuda")
+    view = [cl[key][:, :, :min(cap, round_up(t, blk))]
+            for key in ("k", "v", "k_scale", "v_scale")]
+    qargs = (qi.transpose(1, 2), qsc[..., 0].transpose(1, 2), *view, kv_len)
+    flags = dict(causal=True, window=cfg.swa_window,
+                 int8_logits=bool(cfg.int8_logits))
+    errs = {"fused_prefill_attention": check_close(
+        torch, "fused_prefill_attention[jamba full width, causal]",
+        ops.prefill_attention(*qargs, q_offset=0, **flags),
+        plain.prefill_attention_ref(*qargs, 0, softmax_scale=scale,
+                                    **flags))}
+    lengths = kv_len.clone()
+    h1 = torch.from_numpy(rng.standard_normal((N_SLOTS, 1, cfg.d_model))
+                          .astype(np.float32)).cuda()
+    q1 = rope(teng._project_qkv(cfg, ap, h1)[0], lengths[:, None],
+              cfg.rope_theta)
+    qi1, qsc1 = teng._q(q1[:, 0])
+    k_keep = max(1, min(k_keep_blocks(cfg, cap), cap // blk))
+    step_ms = {}
+    for name, use_lop in (("fused_decode_attention", True), (DENSE, False)):
+        # each call writes the same token at the same row of every lane
+        def step():
+            return teng.attn_decode(cfg, ap, h1, cl, lengths,
+                                    use_lop=use_lop)
+        y = counted(torch, step, {"fused_qlinear": 2, name: 1},
+                    f"a jamba attention decode step ({name})")
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"jamba attention decode ({name}): "
+                                 f"non-finite output")
+        step_ms[name] = host_ms(torch, step, 10)
+        dargs = (qi1, qsc1, cl["k"], cl["v"], cl["k_scale"], cl["v_scale"],
+                 cl["feat"], lengths + 1)
+        kw = dict(block=blk, k_keep=k_keep, window=cfg.swa_window,
+                  use_lop=use_lop,
+                  shared_select=bool(cfg.gqa_shared_select))
+        errs[name] = check_close(
+            torch, f"{name}[jamba full width]",
+            ops.decode_attention(*dargs, **kw),
+            plain.decode_attention_ref(*dargs, softmax_scale=scale, **kw))
+    log(f"  jamba full-width attention sublayer (B {N_SLOTS}, {cfg.n_heads} "
+        f"heads of {cfg.hd} over {cfg.n_kv_heads}, pages of {cap}): prefill "
+        f"of {t} tokens a lane {pre_ms:.2f} ms (#1 2, #3 1); decode step LOP"
+        f" {step_ms['fused_decode_attention']:.3f} ms, dense "
+        f"{step_ms[DENSE]:.3f} ms (#1 2, the decode kernel 1; host ms to a "
+        f"synchronize); against the plain versions: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + f" [{card}]")
+    del cache
+    return dict(prefill_ms=pre_ms, decode_step_ms=step_ms,
+                max_abs_err=errs)
+
+
+def jamba_width_arm(torch, np, card: str) -> dict:
+    """jamba-1.5-large-398b at full width, one sublayer of each mixer: a
+    Mamba sublayer (d 8192, Di 16384, S 16, conv 4, dt_rank 512) and an
+    attention sublayer (64 heads of 128 over 8 KV heads), drawn on the
+    card from the seed and put in serving format as the model's
+    superblocks are (``dt_proj`` packed with its bias). #1 at ``in_proj``,
+    ``x_proj``, ``dt_proj`` + bias, ``out_proj``, ``wqkv`` and ``wo``
+    bitwise its plain version and timed beside its bound; the Mamba
+    sublayer's prefill (4 #1 launches, the selective scan a time loop of
+    plain ops) at 128, 512 and 1536 tokens and its decode step (4 lanes,
+    eager and in a CUDA graph); the Mamba sublayer card against CPU stage
+    by stage; the attention sublayer's prefill and decode with #3 and the
+    decode kernels held against their plain versions. The model's whole
+    depth (72 sublayers, 16 experts of f 24,576 on every other; about
+    100 GB even packed) and its FFN and MoE sublayers wait for drawing
+    seeded weights a layer at a time. → stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import resolve_decode_flags
+    from repro_torch.models import mamba
+    from repro_torch.models.transformer import _attention_init
+    from repro_torch.serving.quantize import quantize_layer
+
+    cfg = resolve_decode_flags(get_config("jamba-1.5-large-398b"))
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    masters = {"mamba": mamba.mamba_init(gen, cfg, device="cuda"),
+               "attn": _attention_init(gen, cfg, device="cuda")}
+    master_bytes = tree_bytes(masters)
+    sub = quantize_layer(masters)
+    del masters
+    free_cuda(torch)
+    draw_peak = torch.cuda.max_memory_allocated() - base
+    mp, ap = sub["mamba"], sub["attn"]
+    if "packed" not in mp["dt_proj"] or "b" not in mp["dt_proj"]:
+        raise AssertionError("full-width dt_proj is not packed with its bias")
+    log(f"  [jamba full width] a Mamba and an attention sublayer drawn in "
+        f"{time.monotonic() - t0:.1f} s: masters "
+        f"{master_bytes / 2**30:.3f} GiB f32, served "
+        f"{tree_bytes(sub) / 2**20:.1f} MiB; peak while drawing and "
+        f"quantizing {draw_peak / 2**30:.2f} GiB [{card}]")
+    rows = projection_rows(
+        torch, np, {**{f"mamba {n}": mp[n] for n in (
+            "in_proj", "x_proj", "dt_proj", "out_proj")},
+            "attn wqkv": ap["wqkv"], "attn wo": ap["wo"]},
+        "jamba", "a full-width sublayer drawn on the card", card, SEED + 18)
+    rng = np.random.default_rng(SEED + 19)
+
+    def seeded(*shape, sd=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sd).astype(
+            np.float32)).cuda()
+    four = {"fused_qlinear": 4}
+    mamba.mamba_forward(cfg, mp, seeded(1, 16, cfg.d_model))   # warm
+    prefill_ms = {}
+    for t in (128, 512, 1536):
+        u = seeded(1, t, cfg.d_model)
+        y, st = counted(torch, lambda: mamba.mamba_forward(cfg, mp, u), four,
+                        f"a full-width Mamba prefill of {t} tokens")
+        if not (torch.isfinite(y).all() and torch.isfinite(st["ssm"]).all()):
+            raise AssertionError(f"Mamba prefill of {t}: non-finite output")
+        prefill_ms[t] = timed_ms(
+            torch, lambda: mamba.mamba_forward(cfg, mp, u))[0]
+    shapes = mamba.mamba_state_shape(cfg, N_SLOTS)
+    u1, ssm, conv = (seeded(N_SLOTS, 1, cfg.d_model),
+                     seeded(*shapes["ssm"][0], sd=0.3),
+                     seeded(*shapes["conv"][0], sd=0.3))
+
+    def decode(u_, s_, c_):
+        return mamba.mamba_decode_step(cfg, mp, u_, {"ssm": s_, "conv": c_})
+    y, _ = counted(torch, lambda: decode(u1, ssm, conv), four,
+                   "a full-width Mamba decode step")
+    if not torch.isfinite(y).all():
+        raise AssertionError("Mamba decode step: non-finite output")
+    step_ms = host_ms(torch, lambda: decode(u1, ssm, conv), 20)
+    step_graph_ms = graph_ms(torch, decode, [(u1, ssm, conv)])
+    log(f"  [jamba full width] Mamba sublayer prefill (batch 1, host ms to "
+        f"a synchronize): " + ", ".join(f"{t} tokens {ms:.1f} ms" for t, ms
+                                        in prefill_ms.items())
+        + f"; decode step (B={N_SLOTS}) eager {step_ms:.3f} ms, in a CUDA "
+        f"graph {step_graph_ms:.3f} ms; 4 #1 launches a call [{card}]")
+    cpu = mamba_card_vs_cpu(torch, np, cfg, mp, card)
+    attn = jamba_attention_checks(torch, np, cfg, ap, card)
+    del sub, mp, ap
+    free_cuda(torch)
+    return dict(rows=rows, mamba_prefill_ms=prefill_ms,
+                mamba_step_ms=step_ms, mamba_step_graph_ms=step_graph_ms,
+                card_vs_cpu=cpu, attention=attn, draw_peak_bytes=draw_peak)
+
+
+def recurrent_phase(torch, np, card: str) -> dict:
+    """Phase 4i: (a) rwkv6-1.6b at full width and depth, (b)
+    jamba-1.5-large-398b reduced, (c) one full-width jamba sublayer of
+    each mixer; each arm's engine freed before the next. → stats, with
+    every serve run's launches summed by kernel."""
+    t0 = time.monotonic()
+    rwkv = rwkv_arm(torch, np, card)
+    jamba = jamba_arm(torch, np, card)
+    width = jamba_width_arm(torch, np, card)
+    launches = {k: 0 for k in KERNEL_NAMES}
+    for run in (*rwkv["runs"].values(), *jamba["runs"].values()):
+        for k in KERNEL_NAMES:
+            launches[k] += run["counts"][k]
+    log(f"  phase 4i's serve runs launched {json.dumps(launches)}; phase 4i "
+        f"took {time.monotonic() - t0:.1f} s")
+    return dict(rwkv=rwkv, jamba=jamba, jamba_width=width,
+                launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4224,6 +4877,15 @@ def main() -> int:
         f"slots, {N_REQUESTS} requests, gen {GEN} [{smi}]")
     fam = families_phase(torch, np, smi)
 
+    # ---- 4i. the recurrent families: rwkv6 (ssm) and jamba (hybrid) ----
+    log(f"[serve recurrent] rwkv6-1.6b (ssm) full width and depth (24 "
+        f"layers, d 2048), phase 4's {N_REQUESTS} requests greedy and "
+        f"sampled; jamba-1.5-large-398b reduced (hybrid: Mamba + attention "
+        f"+ MoE), {JAMBA_REQUESTS} requests of {JAMBA_MIN_PROMPT}-"
+        f"{JAMBA_MAX_PROMPT} tokens, LOP, no-LOP, sampled; {N_SLOTS} slots; "
+        f"then a full-width jamba Mamba and attention sublayer [{smi}]")
+    rec = recurrent_phase(torch, np, smi)
+
     # ---- 5. standalone kernels and the per-head LOP decode ----
     log(f"[standalone kernels + per-head LOP decode] full width (d 3200, "
         f"32 heads of 100, ffn 8640, capacity 1664, lop_block 128, k_keep "
@@ -4233,6 +4895,10 @@ def main() -> int:
     for kname, row in standalone.items():
         launches[kname] = row["launches"]
     rows.update(standalone)
+    # phase 4i's serve runs: #1 on rwkv6 and jamba, #2 dense and expert,
+    # #3 and the decode kernels on jamba
+    for kname, n in rec["launches"].items():
+        launches[kname] += n
 
     # ---- 4f. sequence-parallel decode over 2 gloo ranks (last, with the
     #      earlier phases' engines freed: each rank draws full-width

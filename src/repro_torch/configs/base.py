@@ -1,10 +1,10 @@
 """Model configuration: every architecture is a ``ModelConfig``.
 
 A jax-free copy of the reference's config record (same fields, same
-derived properties). The dense and moe families are served by this
-package; the other families' configs are mirrored field for field with
-the reference and raise ``NotImplementedError`` where they reach the
-engine.
+derived properties). The dense, moe, encdec, ssm and hybrid families are
+served by this package; the vlm family's configs are mirrored field for
+field with the reference and raise ``NotImplementedError`` where they
+reach the engine.
 """
 
 from __future__ import annotations

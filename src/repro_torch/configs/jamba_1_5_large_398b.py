@@ -1,6 +1,6 @@
 """jamba-1.5-large-398b [hybrid] — Mamba + attention 1:7, MoE 16 top-2
-every other layer [arXiv:2403.19887]. Mirrored only: the hybrid family is
-not served by this package."""
+every other layer [arXiv:2403.19887]. Served reduced; the full width
+(about 100 GB even packed) does not fit one card."""
 
 from repro_torch.configs.base import ModelConfig, register
 

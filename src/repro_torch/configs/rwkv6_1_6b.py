@@ -1,7 +1,7 @@
 """rwkv6-1.6b [ssm] — attention-free RWKV6, 24 layers, d 2048
 [hf:RWKV/v6-Finch-1B6-HF]. LOP has no K/V cache to screen here
-(``use_lop=False``). Mirrored only: the ssm family is not served by this
-package."""
+(``use_lop=False``); the family's cache is each layer's recurrent
+state."""
 
 from repro_torch.configs.base import ModelConfig, register
 

@@ -1,7 +1,6 @@
 """whisper-small [encdec] — the backbone: 12 encoder and 12 decoder
 layers, d 768, gelu MLP, rotary positions, a stub frame frontend
-[arXiv:2212.04356]. Mirrored only: the encdec family is not served by
-this package."""
+[arXiv:2212.04356]. Each request carries its encoder frames."""
 
 from repro_torch.configs.base import ModelConfig, register
 

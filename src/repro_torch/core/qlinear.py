@@ -17,6 +17,10 @@ from repro_torch.distributed import tp_ffn
 from repro_torch.kernels import ops
 
 
+def is_packed(node) -> bool:
+    return isinstance(node, dict) and "packed" in node
+
+
 def is_fused_ffn(node) -> bool:
     return isinstance(node, dict) and "gu_packed" in node
 

@@ -43,6 +43,18 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return (qt.values.to(torch.float32) * qt.scale).to(dtype)
 
 
+def fake_quantize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Quantize then dequantize, in x's dtype (the QAT forward value)."""
+    return dequantize(quantize(x, dim=dim), dtype=x.dtype)
+
+
+def ste_quantize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The straight-through estimator's forward value, formed as the
+    reference forms it: ``x + (fake_quantize(x) − x)``. Its identity
+    gradient waits for the training slice."""
+    return x + (fake_quantize(x, dim=dim) - x)
+
+
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact integer product of small-int tensors → int32.
 

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.quantization import (QuantizedTensor, int8_matmul,
-                                           quantize)
+                                           quantize, ste_quantize)
 
 EPS = 1e-5
 
@@ -43,6 +43,15 @@ def ternary_quantize(w: torch.Tensor, per_channel: bool = False):
     gamma = gamma.clamp_min(EPS)
     wt = torch.round(w / gamma).clamp(-1, 1).to(torch.int8)
     return wt, gamma.to(torch.float32)
+
+
+def ste_ternary(w: torch.Tensor, per_channel: bool = False) -> torch.Tensor:
+    """The QAT forward value of a weight, dequantized ternary, formed as
+    the reference forms it: ``w + (Wt·γ − w)``. The identity gradient
+    waits for the training slice."""
+    wt, gamma = ternary_quantize(w, per_channel=per_channel)
+    wq = (wt.to(torch.float32) * gamma).to(w.dtype)
+    return w + (wq - w)
 
 
 def pack_ternary(wt: torch.Tensor) -> torch.Tensor:
@@ -82,6 +91,21 @@ def bitlinear_infer(xq: QuantizedTensor, tw: TernaryWeight) -> torch.Tensor:
     ``(acc·x_scale)·γ`` with the integer GEMM exact."""
     wt = unpack_ternary(tw.packed, tw.shape[0])
     return int8_matmul(xq, wt, tw.scale)
+
+
+def bitlinear_qat(x: torch.Tensor, w: torch.Tensor,
+                  per_channel: bool = False) -> torch.Tensor:
+    """The training BitLinear's forward: the absmax-quantized activations
+    (per row) times the dequantized ternary weights, in x's dtype. Serving
+    runs it where a projection is too small to pack (k not a multiple of
+    4, or below 16), as the reference does. The product is taken in
+    float64 and rounded once (the reference's is f32), so a row's value
+    does not depend on how many rows share the call; the backward waits
+    for the training slice."""
+    xq = ste_quantize(x)
+    wq = ste_ternary(w, per_channel=per_channel).to(x.dtype)
+    return torch.matmul(xq.to(torch.float64),
+                        wq.to(torch.float64)).to(x.dtype)
 
 
 def bitlinear_ref(x: torch.Tensor, tw: TernaryWeight) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch {bitnet-3b,granite-moe-1b-a400m,stablelm-1.6b,qwen1.5-32b,
-                whisper-small} \\
+                whisper-small,rwkv6-1.6b,jamba-1.5-large-398b} \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
         [--shared-prefix-tokens N --prefix-reuse-frac F] [--no-prefix-cache] \\
@@ -13,8 +13,10 @@ Builds a seeded model on the device (the CUDA card unless ``--device cpu``),
 synthesizes requests with prompt lengths drawn from
 ``numpy.random.default_rng(seed)``, serves them through the
 :class:`repro_torch.serving.scheduler.Scheduler` (chunked prefill
-interleaved with decode; whole prompts at their exact length for a moe or
-encdec model, which never chunks; an encdec request carries ``4 × plen``
+interleaved with decode; whole prompts at their exact length for a moe,
+encdec, ssm (rwkv6) or hybrid (jamba, served ``--reduced``: its full
+width does not fit one card) model, which never chunks; an encdec
+request carries ``4 × plen``
 seeded encoder frames, as the reference's CLI draws them) and reports
 tokens/s, latency, TTFT and ITL percentiles (through :func:`repro_torch.serving.metrics.summarize`, under
 the reference's ``launch/serve.py`` keys), the time of a serve cycle's
@@ -197,7 +199,10 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="bitnet-3b")
+    ap.add_argument("--arch", default="bitnet-3b",
+                    help="bitnet-3b, granite-moe-1b-a400m, stablelm-1.6b, "
+                         "qwen1.5-32b, whisper-small, rwkv6-1.6b or "
+                         "jamba-1.5-large-398b (the last with --reduced)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)

@@ -1,12 +1,15 @@
 """Building blocks outside the kernels: norms, rotary, embedding, head,
-and the dense FFN dispatch. Parameters are plain dicts of tensors."""
+the linear and dense FFN dispatches. Parameters are plain dicts of
+tensors."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.qlinear import ffn_node_apply, is_fused_ffn
+from repro_torch.core.qlinear import (ffn_node_apply, is_fused_ffn,
+                                      is_packed, qlinear)
 from repro_torch.core.quantization import rmsnorm
+from repro_torch.core.ternary import bitlinear_qat
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
@@ -20,6 +23,24 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
         out["b"] = torch.zeros((*lead, d_out), dtype=torch.float32,
                                device=device)
     return out
+
+
+def linear_apply(params, x: torch.Tensor, *, quant: str) -> torch.Tensor:
+    """One linear by its node's format, as the reference's
+    ``linear_apply``: a packed node is #1 (barrier, packed-ternary GEMM,
+    dequant and bias in one launch); an f32 node ``{"w", "b"?}`` — a
+    projection too small to pack, such as reduced jamba's ``dt_proj`` (k
+    8) — is the QAT BitLinear forward under ``quant="ternary"`` or a
+    plain matmul otherwise, then its bias."""
+    if is_packed(params):
+        return qlinear(params, x)
+    if quant == "ternary":
+        y = bitlinear_qat(x, params["w"])
+    else:
+        y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
 
 
 def norm_init(d: int, kind: str, *, device) -> dict:

@@ -1,5 +1,5 @@
-"""Model parameters (dense, moe and encdec families), drawn from an
-explicit ``torch.Generator``.
+"""Model parameters (dense, moe, encdec, ssm and hybrid families), drawn
+from an explicit ``torch.Generator``.
 
 The tree mirrors the reference's ``init_params``: ``embed.table``,
 ``ln_f``, ``head.w`` and layer-stacked ``layers`` with ``ln1``,
@@ -11,9 +11,18 @@ has ``qkv_bias``), ``ln2`` and either ``ffn.{w_gate,w_up,w_down}`` (no
 or ``{"g", "b"}`` under LayerNorm. The encdec family adds the encoder
 stack ``enc_layers`` (decoder layers without cross-attention) and its
 final norm ``ln_enc``, and its decoder layers carry ``ln_x`` and the
-cross-attention ``xattn``. The reference uses ``jax.random`` — the same
-seed gives other numbers, so tests carry the reference's weights over
-with :mod:`repro_torch.convert`.
+cross-attention ``xattn``. The ssm family (rwkv6) stacks ``layers`` of
+``ln1``, ``tm`` (:func:`repro_torch.models.rwkv6.rwkv_init`, the time and
+channel mix together) and ``ln2``; the hybrid family (jamba) stacks
+``blocks`` over ``n_layers // attn_every`` superblocks, each
+``sub0`` … ``sub{attn_every-1}`` of ``ln1``, ``attn`` (the one attention
+sublayer, at ``attn_every // 2``) or ``mamba``
+(:func:`repro_torch.models.mamba.mamba_init`), ``ln2``, and ``moe`` (odd
+positions) or ``ffn``. The reference uses ``jax.random`` — the same seed
+gives other numbers, so tests carry the reference's weights over with
+:mod:`repro_torch.convert`. The reference's training forwards
+(``rwkv_layer_apply``, ``superblock_apply``) and ``models/attention.py``,
+which only they and its init call, wait for the training slice.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import linear_init, norm_init
+from repro_torch.models.mamba import mamba_init
+from repro_torch.models.rwkv6 import rwkv_init
 
 
 def stack_trees(trees: list) -> dict:
@@ -59,12 +70,17 @@ def _attention_init(gen, cfg, *, device) -> dict:
             "wo": linear_init(gen, cfg.q_dim, d, device=device)}
 
 
-def _layer_init(gen, cfg, i: int, *, device, cross: bool = False) -> dict:
+def _layer_init(gen, cfg, i: int, *, device, cross: bool = False,
+                mixer: str = "attn") -> dict:
     """One decoder (or, without ``cross``, encoder) layer's master
-    weights, drawn attention first, then cross-attention, then the FFN."""
+    weights, drawn attention (or, with ``mixer="mamba"``, the Mamba
+    sublayer) first, then cross-attention, then the FFN or MoE of layer
+    position ``i``."""
     d, f = cfg.d_model, cfg.d_ff
     layer = {"ln1": norm_init(d, cfg.norm, device=device),
-             "attn": _attention_init(gen, cfg, device=device)}
+             mixer: (_attention_init(gen, cfg, device=device)
+                     if mixer == "attn" else
+                     mamba_init(gen, cfg, device=device))}
     if cross:
         layer["ln_x"] = norm_init(d, cfg.norm, device=device)
         layer["xattn"] = _attention_init(gen, cfg, device=device)
@@ -79,11 +95,30 @@ def _layer_init(gen, cfg, i: int, *, device, cross: bool = False) -> dict:
     return layer
 
 
+def rwkv_layer_init(gen, cfg, *, device) -> dict:
+    """One rwkv6 layer: ``ln1``, the time and channel mix ``tm``,
+    ``ln2``."""
+    d = cfg.d_model
+    return {"ln1": norm_init(d, cfg.norm, device=device),
+            "tm": rwkv_init(gen, cfg, device=device),
+            "ln2": norm_init(d, cfg.norm, device=device)}
+
+
+def superblock_init(gen, cfg, *, device) -> dict:
+    """One jamba superblock: ``sub{j}`` for j < ``attn_every``, each an
+    attention or Mamba sublayer and an FFN or MoE by its position."""
+    return {f"sub{j}": _layer_init(
+        gen, cfg, j, device=device,
+        mixer="attn" if cfg.is_attn_layer(j) else "mamba")
+        for j in range(cfg.attn_every)}
+
+
 def init_params(cfg, seed: int, device="cpu") -> dict:
-    """Full f32 master tree of a dense, moe or encdec model: embed, head,
-    then (encdec) the encoder layers, then the decoder layers in order,
-    all drawn from one generator seeded with ``seed``."""
-    if cfg.family not in ("dense", "moe", "encdec"):
+    """Full f32 master tree of a dense, moe, encdec, ssm or hybrid model:
+    embed, head, then (encdec) the encoder layers, then the decoder
+    layers (ssm: rwkv layers; hybrid: superblocks) in order, all drawn
+    from one generator seeded with ``seed``."""
+    if cfg.family not in ("dense", "moe", "encdec", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -92,6 +127,16 @@ def init_params(cfg, seed: int, device="cpu") -> dict:
                                              device=device) * 0.02},
               "ln_f": norm_init(d, cfg.norm, device=device),
               "head": linear_init(gen, d, vp, device=device)}
+    if cfg.family == "ssm":
+        params["layers"] = stack_trees([
+            rwkv_layer_init(gen, cfg, device=device)
+            for _ in range(cfg.n_layers)])
+        return params
+    if cfg.family == "hybrid":
+        params["blocks"] = stack_trees([
+            superblock_init(gen, cfg, device=device)
+            for _ in range(cfg.n_layers // cfg.attn_every)])
+        return params
     encdec = cfg.family == "encdec"
     if encdec:
         params["enc_layers"] = stack_trees([

@@ -313,12 +313,12 @@ class PooledEngine:
 
     def extract(self, pool, slot: int) -> dict:
         """A batch-1 *copy* of lane ``slot`` (lengths, pages — the cross
-        pages and ``cross_len`` too — and key schedule): nothing done to
-        the pool later reaches it."""
-        lane = _cache.extract_slot(pool, slot)
-        out = {key: (val.clone() if isinstance(val, torch.Tensor) else
-                     {k: v.clone() for k, v in val.items()})
-               for key, val in lane.items()}
+        pages and ``cross_len`` too —, recurrent state and key schedule):
+        nothing done to the pool later reaches it."""
+        def copy(tree):
+            return {k: copy(v) if isinstance(v, dict) else v.clone()
+                    for k, v in tree.items()}
+        out = copy(_cache.extract_slot(pool, slot))
         for key in ("seed", "sample_step"):
             if key in pool:
                 out[key] = pool[key][slot:slot + 1].clone()

@@ -3,7 +3,13 @@
 The cache is a dict of tensors: ``lengths`` int32 [B] and, per layer-stacked
 leaf, ``layers.k``/``layers.v`` int8 [L, B, Hkv, M, dh], ``k_scale``/
 ``v_scale`` f32 [L, B, Hkv, M] and ``feat`` uint8 [L, B, Hkv, M, dh//2].
-Capacity M is block-aligned (``lop_block``). An encdec cache adds the
+Capacity M is block-aligned (``lop_block``). A recurrent family keeps
+its state in the same tree: ssm (rwkv6) ``layers.wkv`` f32 [L, B, H, dh,
+dh] and ``layers.x_tm``/``x_cm`` f32 [L, B, 1, D], and no pages; hybrid
+(jamba) ``blocks.attn`` (the five page leaves stacked over the
+superblocks) and ``blocks.mamba.ssm`` f32 [n_sb, attn_every − 1, B, Di, S]
+and ``blocks.mamba.conv`` [n_sb, attn_every − 1, B, ck − 1, Di], whose
+slot axis is 2. An encdec cache adds the
 cross-attention pages ``cross`` (the same five leaves over the encoder
 memory, capacity ``round_up(cross_ctx, lop_block)``, written once at
 prefill and never by a decode step) and each lane's encoder length
@@ -15,8 +21,10 @@ Unlike the reference's functional updates, these operations write the
 pool in place: ``insert_slot`` copies a batch-1 cache into a lane,
 ``extract_slot`` returns *views* of a lane (so a chunked-prefill step that
 writes its chunk into the extracted lane writes the pool itself), and
-``evict_slot`` retires a lane and ``rollback_slot`` rewinds one. Bytes
-above a lane's length are stale and masked by every reader.
+``evict_slot`` retires a lane and ``rollback_slot`` rewinds one; each
+finds a leaf's slot axis from its name and rank, as the reference's
+``slot_axis`` does. Bytes above a lane's length are stale and masked by
+every reader.
 
 Prefix caching: :class:`PrefixStore` interns computed prefill pages keyed
 by token-block hash chains (block ``k`` of a prompt is keyed by
@@ -37,6 +45,8 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.models.mamba import mamba_state_shape
+from repro_torch.models.rwkv6 import rwkv_state_shape
 from repro_torch.serving import faults as _faults
 
 _LEAVES = ("k", "v", "k_scale", "v_scale", "feat")
@@ -60,14 +70,47 @@ def cross_capacity_for(cfg, frames: int = 0) -> int:
 
 # how each served family keeps its per-sequence state (the reference's
 # ``_STATE_KINDS``): dense and moe layers keep one paged K/V cache; encdec
-# adds the encoder memory's cross-attention pages
+# adds the encoder memory's cross-attention pages; ssm (rwkv6) keeps a
+# recurrent state a layer and no pages; hybrid (jamba) keeps one page
+# tree a superblock beside its Mamba sublayers' states
 STATE_KINDS = {"dense": "paged-kv", "moe": "paged-kv",
-               "encdec": "paged-kv+cross"}
+               "encdec": "paged-kv+cross", "ssm": "recurrent",
+               "hybrid": "hybrid"}
+
+# each leaf's rank below its stacked leading axes (the reference's
+# ``_leaf_spec``): a leaf's slot axis is its ndim less this rank, so 1 for
+# pages and rwkv6 states ([L, B, ...]) and 2 for Mamba states ([n_sb,
+# n_mamba, B, ...]); the per-lane vectors' slot axis is 0
+_LEAF_RANK = {"k": 4, "v": 4, "feat": 4, "k_scale": 3, "v_scale": 3,
+              "wkv": 4, "x_tm": 3, "x_cm": 3, "ssm": 3, "conv": 3}
+_PER_LANE = ("lengths", "cross_len", "active", "seed", "sample_step")
 
 
-def _attn_zeros(cfg, batch: int, cap: int, device) -> dict:
-    """The five zero leaves of an attention cache, [L, B, Hkv, cap, ...]."""
-    lead = (cfg.n_layers, batch, cfg.n_kv_heads, cap)
+def slot_axis(name: str, leaf: torch.Tensor) -> int:
+    """Index of the slot (batch) axis of the cache leaf ``name``."""
+    return 0 if name in _PER_LANE else leaf.ndim - _LEAF_RANK[name]
+
+
+def _tree_leaves(tree, path=()):
+    """(path, leaf) of every tensor of a nested dict, in insertion order."""
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            yield from _tree_leaves(val, path + (name,))
+        else:
+            yield path + (name,), val
+
+
+def _at(tree, path):
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def _attn_zeros(cfg, batch: int, cap: int, device, n: int | None = None
+                ) -> dict:
+    """The five zero leaves of an attention cache, [n, B, Hkv, cap, ...]
+    (n the layer count by default)."""
+    lead = (cfg.n_layers if n is None else n, batch, cfg.n_kv_heads, cap)
     dh = cfg.hd
     return {
         "k": torch.zeros((*lead, dh), dtype=torch.int8, device=device),
@@ -79,16 +122,38 @@ def _attn_zeros(cfg, batch: int, cap: int, device) -> dict:
     }
 
 
+def _zeros(lead: tuple, shapes: dict, device) -> dict:
+    """Zero state leaves of ``shapes`` (name → (shape, dtype)) under the
+    stacked axes ``lead``."""
+    return {name: torch.zeros((*lead, *shape), dtype=dtype, device=device)
+            for name, (shape, dtype) in shapes.items()}
+
+
 def init_cache(cfg, batch: int, max_len: int, device,
                frames: int = 0) -> dict:
     """Zero cache for ``batch`` sequences of up to ``max_len`` tokens (an
-    encdec cache's cross pages hold ``max(cross_ctx, frames)``)."""
+    encdec cache's cross pages hold ``max(cross_ctx, frames)``). An ssm
+    cache holds each layer's rwkv6 state (``layers.{wkv, x_tm, x_cm}``) and
+    no pages; a hybrid cache holds ``blocks.attn`` pages stacked over the
+    superblocks and ``blocks.mamba.{ssm, conv}`` [n_sb, attn_every − 1, B,
+    ...]."""
     kind = STATE_KINDS.get(cfg.family)
     if kind is None:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
-             "layers": _attn_zeros(cfg, batch, capacity_for(cfg, max_len),
-                                   device)}
+    cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device)}
+    cap = capacity_for(cfg, max_len)
+    if kind == "recurrent":
+        cache["layers"] = _zeros((cfg.n_layers,),
+                                 rwkv_state_shape(cfg, batch), device)
+        return cache
+    if kind == "hybrid":
+        n_sb = cfg.n_layers // cfg.attn_every
+        cache["blocks"] = {
+            "attn": _attn_zeros(cfg, batch, cap, device, n=n_sb),
+            "mamba": _zeros((n_sb, cfg.attn_every - 1),
+                            mamba_state_shape(cfg, batch), device)}
+        return cache
+    cache["layers"] = _attn_zeros(cfg, batch, cap, device)
     if kind == "paged-kv+cross":
         cache["cross"] = _attn_zeros(cfg, batch,
                                      cross_capacity_for(cfg, frames), device)
@@ -108,8 +173,12 @@ def init_cache_pool(cfg, n_slots: int, max_len: int, device) -> dict:
 
 
 def pool_capacity(pool) -> int:
-    """Token capacity of the pool's self-attention lanes."""
-    return pool["layers"]["k"].shape[3]
+    """Token capacity of the pool's self-attention lanes (0 for an
+    attention-free pool, which has no token bound)."""
+    for path, leaf in _tree_leaves(pool):
+        if path[-1] == "k" and "cross" not in path:
+            return leaf.shape[slot_axis("k", leaf) + 2]
+    return 0
 
 
 def pool_cross_capacity(pool) -> int:
@@ -117,28 +186,25 @@ def pool_cross_capacity(pool) -> int:
     return pool["cross"]["k"].shape[3] if "cross" in pool else 0
 
 
-def _page_trees(cache):
-    """The cache's page trees: ``layers``, and ``cross`` when present."""
-    return [name for name in ("layers", "cross") if name in cache]
-
-
 def insert_slot(pool, slot: int, req_cache, active: bool = True) -> dict:
-    """Copy a batch-1 cache into lane ``slot`` (in place).
+    """Copy a batch-1 cache into lane ``slot`` (in place): every page and
+    state leaf at its own slot axis, ``lengths`` and ``cross_len``.
 
-    The request cache's capacity may be smaller than the pool's (each page
-    tree against its own); positions above it keep stale bytes, masked by
-    ``lengths`` (``cross_len``). Copying a lane onto itself (an
+    The request cache's token capacity may be smaller than the pool's
+    (each page tree against its own); positions above it keep stale bytes,
+    masked by ``lengths`` (``cross_len``). Copying a lane onto itself (an
     ``extract_slot`` view) is skipped.
     """
-    for tree in _page_trees(req_cache):
-        for key in _LEAVES:
-            dst = pool[tree][key][:, slot]
-            src = req_cache[tree][key][:, 0]
-            if dst.data_ptr() != src.data_ptr():
-                dst[:, :, :src.shape[2]].copy_(src)
-    for key in ("lengths", "cross_len"):
-        if key in req_cache:
-            pool[key][slot] = req_cache[key][0]
+    for path, src in _tree_leaves(req_cache):
+        name = path[-1]
+        if name in ("lengths", "cross_len"):
+            pool[name][slot] = src[0]
+        elif name not in _PER_LANE:
+            dst = _at(pool, path)
+            ax = slot_axis(name, dst)
+            d, s = dst.select(ax, slot), src.select(ax, 0)
+            if d.data_ptr() != s.data_ptr():
+                d[tuple(slice(0, n) for n in s.shape)].copy_(s)
     pool["active"][slot] = active
     return pool
 
@@ -175,23 +241,29 @@ def free_slots(pool) -> list[int]:
 
 
 def extract_slot(pool, slot: int) -> dict:
-    """Batch-1 *views* of lane ``slot``: writes through them land in the
-    pool (chunked prefill writes its chunk's K/V this way)."""
-    out = {key: pool[key][slot:slot + 1] for key in ("lengths", "cross_len")
-           if key in pool}
-    for tree in _page_trees(pool):
-        out[tree] = {key: pool[tree][key][:, slot:slot + 1]
-                     for key in _LEAVES}
-    return out
+    """Batch-1 *views* of lane ``slot`` (``lengths``, ``cross_len``, and
+    every page and state leaf): writes through them land in the pool
+    (chunked prefill writes its chunk's K/V this way)."""
+    def lane(tree):
+        out = {}
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                out[name] = lane(val)
+            elif name not in ("active", "seed", "sample_step"):
+                out[name] = val.narrow(slot_axis(name, val), slot, 1)
+        return out
+    return lane(pool)
 
 
 def evict_slot(pool, slot: int) -> dict:
     """Retire lane ``slot`` (in place): inactive, length 0, and its packed
-    LOP feature rows zeroed (the pool-init bit pattern), the cross pages'
-    too; ``cross_len`` stays, as in the reference (the lane's cross
-    attention is never read once it is inactive)."""
-    for tree in _page_trees(pool):
-        pool[tree]["feat"][:, slot].zero_()
+    LOP feature rows zeroed in every page tree (the pool-init bit
+    pattern), the cross pages' too; ``cross_len`` and recurrent state
+    stay, as in the reference (an inactive lane's are never read, and an
+    insert overwrites them)."""
+    for path, leaf in _tree_leaves(pool):
+        if path[-1] == "feat":
+            leaf.select(slot_axis("feat", leaf), slot).zero_()
     pool["active"][slot] = False
     pool["lengths"][slot] = 0
     return pool
@@ -201,15 +273,20 @@ def rollback_slot(pool, slot: int, n: int) -> dict:
     """Rewind lane ``slot`` by ``n`` appended tokens (in place).
 
     ``lengths`` drops by ``n`` (clamped at 0) and the rows
-    ``[lengths − n, lengths)`` of k/v/k_scale/v_scale/feat are zeroed, so
-    the lane is bit for bit its pool-init pattern there; ``sample_step``
-    rewinds by ``n`` too (clamped at 0), keeping a sampled lane's key
-    schedule aligned with its emission count.
+    ``[lengths − n, lengths)`` of k/v/k_scale/v_scale/feat of every
+    self-attention page tree are zeroed, so the lane is bit for bit its
+    pool-init pattern there; ``sample_step`` rewinds by ``n`` too (clamped
+    at 0), keeping a sampled lane's key schedule aligned with its emission
+    count. Cross pages and recurrent state are left as they are, as in
+    the reference: a recurrent state cannot rewind, so a rolled-back lane
+    of an ssm or hybrid pool steps on from its advanced state.
     """
     old = int(pool["lengths"][slot])
     new = max(old - n, 0)
-    for key in _LEAVES:
-        pool["layers"][key][:, slot, :, new:old].zero_()
+    for path, leaf in _tree_leaves(pool):
+        if path[-1] in _LEAVES and "cross" not in path:
+            ax = slot_axis(path[-1], leaf)
+            leaf.select(ax, slot).narrow(ax + 1, new, old - new).zero_()
     pool["lengths"][slot] = new
     if "sample_step" in pool:
         pool["sample_step"][slot] = torch.clamp_min(

@@ -1,5 +1,5 @@
-"""Serving engine, dense, moe and encdec families: prefill (whole prompt,
-and chunked for dense) and the one-token decode step.
+"""Serving engine, dense, moe, encdec, ssm and hybrid families: prefill
+(whole prompt, and chunked for dense) and the one-token decode step.
 
 Per decoder layer the path makes four kernel dispatches through
 :mod:`repro_torch.kernels.ops`: the fused QKV projection, prefill or decode
@@ -28,6 +28,20 @@ a decode step appends one token per active lane. Self-speculative decoding
 then the shared head — and the verify chunk, :func:`prefill_chunk` with
 ``all_logits=True``.
 
+The recurrent families carry state instead of (or beside) pages. An ssm
+(rwkv6) layer runs :func:`repro_torch.models.rwkv6.rwkv_time_mix` and
+``rwkv_channel_mix`` — ten #1 launches and the wkv recurrence in plain
+tensor ops — over the whole prompt from zero states at prefill and over
+one token at decode (:func:`_rwkv_layer`). A hybrid (jamba) superblock
+runs its ``attn_every`` sublayers in order: the attention one as a
+decoder layer over the superblock's pages (#3 over the prompt's block
+roundup, as moe does; #4/#5 at decode), the others as Mamba sublayers
+(:func:`_mamba_layer`), each with its FFN or MoE. Every state update
+writes the cache's own tensors in place, for every lane: as in the
+reference, a recurrent state ignores ``active`` (an inactive lane's state
+is never read, and an insert overwrites it), so a retry steps every
+lane's state once more.
+
 With ``sp_axes`` and an active mesh (:mod:`repro_torch.distributed`) the
 decode step runs the sequence-parallel attention of
 :mod:`repro_torch.distributed.sp_decode`, as the reference's production
@@ -46,8 +60,10 @@ from repro_torch.core.lop import lop_features, pack_features
 from repro_torch.core.qlinear import qlinear, qlinear_split
 from repro_torch.core.quantization import quantize
 from repro_torch.kernels import ops
+from repro_torch.models import rwkv6
 from repro_torch.models.layers import (embedding_apply, ffn_apply, head_apply,
                                        norm_apply, rope)
+from repro_torch.models.mamba import mamba_decode_step, mamba_forward
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import layer_slice
 from repro_torch.serving.cache import init_cache, round_up
@@ -59,7 +75,7 @@ def _q(x):
     return qt.values, qt.scale
 
 
-SERVED_FAMILIES = ("dense", "moe", "encdec")
+SERVED_FAMILIES = ("dense", "moe", "encdec", "ssm", "hybrid")
 
 
 def _check_family(cfg, families=SERVED_FAMILIES, what: str = "") -> None:
@@ -337,8 +353,93 @@ def _mlp(cfg, lp, x):
     return x + ffn_apply(cfg, lp["ffn"], h)
 
 
+def _attn_layer(cfg, lp, x, cl, *, lengths=None, cross=None, **decode):
+    """One attention layer over x [B, T, D]: self-attention on the page
+    layer ``cl`` — the whole prompt at its exact length, or, given
+    ``lengths``, one decode token a lane (``decode`` the keywords of
+    :func:`attn_decode`) —, then, for an encdec decoder layer, ``cross``
+    (a function of the normed x: its cross-attention), then the FFN or
+    MoE."""
+    h = norm_apply(lp["ln1"], x, cfg.norm)
+    if lengths is None:
+        x = x + attn_prefill(cfg, lp["attn"], h, cl)
+    else:
+        x = x + attn_decode(cfg, lp["attn"], h, cl, lengths, **decode)
+    if cross is not None:
+        x = x + cross(norm_apply(lp["ln_x"], x, cfg.norm))
+    return _mlp(cfg, lp, x)
+
+
+def _write_state(dst: dict, src: dict) -> None:
+    """Copy each new state leaf into the cache's own tensor (in place)."""
+    for name, val in src.items():
+        dst[name].copy_(val)
+
+
+def _rwkv_layer(cfg, lp, x, st):
+    """One rwkv6 layer over x [B, T, D] — a whole prompt from the zero
+    states of a fresh cache, or one decode token — from the state views
+    ``st`` (``wkv``, ``x_tm``, ``x_cm``), which are rewritten with the
+    state after the last token."""
+    h = norm_apply(lp["ln1"], x, cfg.norm)
+    y, x_tm, wkv = rwkv6.rwkv_time_mix(cfg, lp["tm"], h, st["x_tm"],
+                                       st["wkv"])
+    x = x + y
+    h = norm_apply(lp["ln2"], x, cfg.norm)
+    y, x_cm = rwkv6.rwkv_channel_mix(cfg, lp["tm"], h, st["x_cm"])
+    _write_state(st, {"wkv": wkv, "x_tm": x_tm, "x_cm": x_cm})
+    return x + y
+
+
+def _mamba_layer(cfg, lp, x, st, *, prefill: bool):
+    """One Mamba sublayer and its FFN or MoE: the whole prompt from zero
+    states (``prefill``) or one decode token from the state views ``st``
+    (``ssm``, ``conv``), which are rewritten with the new state."""
+    h = norm_apply(lp["ln1"], x, cfg.norm)
+    if prefill:
+        y, new = mamba_forward(cfg, lp["mamba"], h)
+    else:
+        y, new = mamba_decode_step(cfg, lp["mamba"], h, st)
+    _write_state(st, new)
+    return _mlp(cfg, lp, x + y)
+
+
+def _hybrid_sublayers(cfg, qp, cache):
+    """A hybrid model's sublayers in order: (weights, the superblock's
+    page layer, None) for the attention sublayer, (weights, None, its
+    state views) for a Mamba one."""
+    for sb in range(cfg.n_layers // cfg.attn_every):
+        bp = layer_slice(qp["blocks"], sb)
+        bc = layer_slice(cache["blocks"], sb)
+        mi = 0
+        for j in range(cfg.attn_every):
+            if cfg.is_attn_layer(j):
+                yield bp[f"sub{j}"], bc["attn"], None
+            else:
+                yield bp[f"sub{j}"], None, layer_slice(bc["mamba"], mi)
+                mi += 1
+
+
 def _logits(cfg, qp, x_last):
     return head_apply(qp["head"], norm_apply(qp["ln_f"], x_last, cfg.norm))
+
+
+def _recurrent_stack(cfg, qp, cache, x, *, lengths=None, **decode):
+    """The layers of an ssm or hybrid model over x [B, T, D]: a whole
+    prompt from the fresh cache's zero states and empty pages, or, given
+    ``lengths``, one decode token a lane (``decode`` the attention
+    sublayers' keywords of :func:`attn_decode`)."""
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _rwkv_layer(cfg, layer_slice(qp["layers"], i), x,
+                            layer_slice(cache["layers"], i))
+        return x
+    for lp, cl, st in _hybrid_sublayers(cfg, qp, cache):
+        if st is None:
+            x = _attn_layer(cfg, lp, x, cl, lengths=lengths, **decode)
+        else:
+            x = _mamba_layer(cfg, lp, x, st, prefill=lengths is None)
+    return x
 
 
 def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
@@ -349,7 +450,8 @@ def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
     elsewhere). → (logits [B, V] at the last position, cache with capacity
     for ``max(max_len, S)`` tokens and, encdec, cross pages of capacity
     ``round_up(max(cross_ctx, S_enc), lop_block)`` holding the encoder
-    memory at [0, S_enc), ``cross_len = S_enc``).
+    memory at [0, S_enc), ``cross_len = S_enc``; ssm and hybrid, each
+    layer's recurrent state after the prompt, from zero states).
     """
     cfg = resolve_decode_flags(cfg)
     _check_family(cfg)
@@ -366,18 +468,21 @@ def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
         cache["cross_len"].fill_(s_enc)
         kv_max = round_up(s_enc, cfg.lop_block)
     x = embedding_apply(qp["embed"], tokens)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _recurrent_stack(cfg, qp, cache, x)
+        cache["lengths"].fill_(s)
+        return _logits(cfg, qp, x[:, -1]), cache
     for i in range(cfg.n_layers):
         lp = layer_slice(qp["layers"], i)
-        cl = layer_slice(cache["layers"], i)
-        x = x + attn_prefill(cfg, lp["attn"],
-                             norm_apply(lp["ln1"], x, cfg.norm), cl)
+        cross = None
         if encdec:
-            xcl = build_cross_cache(cfg, lp["xattn"], enc,
-                                    layer_slice(cache["cross"], i))
-            x = x + cross_attn_prefill(
-                cfg, lp["xattn"], norm_apply(lp["ln_x"], x, cfg.norm), xcl,
-                cache["cross_len"], kv_max=kv_max)
-        x = _mlp(cfg, lp, x)
+            def cross(h, lp=lp, i=i):
+                xcl = build_cross_cache(cfg, lp["xattn"], enc,
+                                        layer_slice(cache["cross"], i))
+                return cross_attn_prefill(cfg, lp["xattn"], h, xcl,
+                                          cache["cross_len"], kv_max=kv_max)
+        x = _attn_layer(cfg, lp, x, layer_slice(cache["layers"], i),
+                        cross=cross)
     cache["lengths"].fill_(s)
     return _logits(cfg, qp, x[:, -1]), cache
 
@@ -442,6 +547,11 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
     self-attention (:func:`cross_attn_decode`): read only, over
     ``cross_len`` keys, for every lane (as in the reference, an inactive
     lane's result is never read).
+
+    An ssm or hybrid model steps every lane's recurrent state, active or
+    not, as the reference's bodies do; a hybrid model's attention pages
+    follow ``active``. Their sequence-parallel decode is not ported
+    (``sp_axes`` raises).
     """
     cfg = resolve_decode_flags(cfg)
     _check_family(cfg)
@@ -451,19 +561,26 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
     if active is None:
         active = cache.get("active")
     x = embedding_apply(qp["embed"], tokens)
+    if cfg.family in ("ssm", "hybrid"):
+        if sp_axes:
+            raise NotImplementedError(
+                f"sequence-parallel decode of family {cfg.family!r} is not "
+                f"ported")
+        x = _recurrent_stack(cfg, qp, cache, x, lengths=lengths,
+                             use_lop=use_lop, active=active)
+        lengths.add_(1 if active is None else active.to(torch.int32))
+        return _logits(cfg, qp, x[:, -1]), cache
     for i in range(cfg.n_layers if n_layers is None else n_layers):
         lp = layer_slice(qp["layers"], i)
-        cl = layer_slice(cache["layers"], i)
-        x = x + attn_decode(cfg, lp["attn"],
-                            norm_apply(lp["ln1"], x, cfg.norm), cl, lengths,
-                            use_lop=use_lop, active=active, k_keep=k_keep,
-                            sp_axes=sp_axes)
+        cross = None
         if "xattn" in lp:
-            x = x + cross_attn_decode(
-                cfg, lp["xattn"], norm_apply(lp["ln_x"], x, cfg.norm),
-                layer_slice(cache["cross"], i), cache["cross_len"],
-                use_lop=use_lop, sp_axes=sp_axes)
-        x = _mlp(cfg, lp, x)
+            def cross(h, lp=lp, i=i):
+                return cross_attn_decode(
+                    cfg, lp["xattn"], h, layer_slice(cache["cross"], i),
+                    cache["cross_len"], use_lop=use_lop, sp_axes=sp_axes)
+        x = _attn_layer(cfg, lp, x, layer_slice(cache["layers"], i),
+                        lengths=lengths, cross=cross, use_lop=use_lop,
+                        active=active, k_keep=k_keep, sp_axes=sp_axes)
     lengths.add_(1 if active is None else active.to(torch.int32))
     return _logits(cfg, qp, x[:, -1]), cache
 

@@ -1,5 +1,5 @@
-"""Master weights → the serving (deployment) format, dense, moe and
-encdec families.
+"""Master weights → the serving (deployment) format, dense, moe, encdec,
+ssm and hybrid families.
 
 Every projection becomes packed 2-bit ternary codes plus its absmean γ,
 and projection groups fuse into one packed stream each, as the reference's
@@ -20,9 +20,18 @@ and projection groups fuse into one packed stream each, as the reference's
     (``gu_scale`` [E, 1, 2f], ``down_scale`` [E, 1, 1]), so a layer's
     expert FFNs are one dispatch; ``moe.router`` stays f32.
 
+  * the recurrent mixers' projections (rwkv6's ``tm.{wr,wk,wv,wg,wo,
+    w_lora_a,w_lora_b,wk_c,wv_c,wr_c}``, Mamba's ``in_proj``, ``x_proj``,
+    ``dt_proj`` with its bias, ``out_proj``) each → its own packed node
+    where the reduction k is a multiple of 4 and at least 16 (the
+    reference's ``_eligible``); a smaller one (reduced jamba's
+    ``dt_proj``, k 8) stays ``{"w", "b"}`` in f32. Their other tensors
+    (``mu``, ``mu_c``, ``u``, ``w_base``, ``ln_x``, ``A_log``, ``D``,
+    ``conv_w``, ``conv_b``: the reference's ``_KEEP_FP``) stay f32.
+
 Embedding, norms, head and router stay f32. Layer-stacked trees
-(``layers``, and the encoder's ``enc_layers``) keep their leading layer
-axis.
+(``layers``, the encoder's ``enc_layers``, and hybrid's ``blocks`` of
+``sub{j}`` sublayers over the superblocks) keep their leading axis.
 """
 
 from __future__ import annotations
@@ -44,6 +53,17 @@ def _quantize_linear(w: torch.Tensor) -> dict:
         scale.append(gamma.reshape(1, 1))
     return {"packed": torch.stack(packed).reshape(*lead, k // 4, n),
             "scale": torch.stack(scale).reshape(*lead, 1, 1)}
+
+
+# tensors of the recurrent mixers that stay f32 even when 2-D
+_KEEP_FP = ("mu", "mu_c", "u", "w_base", "ln_x", "A_log", "D", "conv_w",
+            "conv_b")
+
+
+def _eligible(k: int) -> bool:
+    """Whether a projection of reduction k packs (four codes a byte, and
+    not too small to be worth a kernel), as the reference decides."""
+    return k % 4 == 0 and k >= 16
 
 
 def _concat_packed(parts: list) -> dict:
@@ -71,6 +91,14 @@ def _node(lin: dict) -> dict:
     if "b" in lin:
         out["b"] = lin["b"]
     return out
+
+
+def _mixer(p: dict) -> dict:
+    """An rwkv6 ``tm`` or a Mamba sublayer → serving format: each eligible
+    projection its own packed node (bias kept), the rest as it is."""
+    return {name: val if name in _KEEP_FP
+            else _node(val) if _eligible(val["w"].shape[-2]) else dict(val)
+            for name, val in p.items()}
 
 
 def _fuse_attn(attn: dict, fuse_q: bool) -> dict:
@@ -102,14 +130,18 @@ def quantize_layer(lp: dict) -> dict:
     as they are)."""
     out = {key: dict(val) for key, val in lp.items()
            if key.startswith("ln")}
-    out["attn"] = _fuse_attn(lp["attn"], fuse_q=True)
+    if "attn" in lp:
+        out["attn"] = _fuse_attn(lp["attn"], fuse_q=True)
+    for key in ("tm", "mamba"):
+        if key in lp:
+            out[key] = _mixer(lp[key])
     if "xattn" in lp:
         out["xattn"] = _fuse_attn(lp["xattn"], fuse_q=False)
     if "moe" in lp:
         moe = lp["moe"]
         out["moe"] = dict(_fuse_ffn(moe["w_up"], moe["w_down"],
                                     moe["w_gate"]), router=moe["router"])
-    else:
+    elif "ffn" in lp:
         ffn = lp["ffn"]
         out["ffn"] = _fuse_ffn(ffn["w_up"]["w"], ffn["w_down"]["w"],
                                ffn["w_gate"]["w"] if "w_gate" in ffn
@@ -121,14 +153,26 @@ def _quantize_stack(stack: dict, n: int) -> dict:
     return stack_trees([quantize_layer(_index(stack, i)) for i in range(n)])
 
 
+def _quantize_blocks(blocks: dict, n: int) -> dict:
+    """Superblock-stacked ``sub{j}`` sublayers → serving format, each
+    sublayer as a layer."""
+    return stack_trees([{name: quantize_layer(sub)
+                         for name, sub in _index(blocks, i).items()}
+                        for i in range(n)])
+
+
 def quantize_params(cfg, params: dict) -> dict:
-    """Full master tree (layer-stacked) → serving tree."""
+    """Full master tree (layer- or superblock-stacked) → serving tree."""
     out = {k: v for k, v in params.items()
-           if k not in ("layers", "enc_layers")}
+           if k not in ("layers", "enc_layers", "blocks")}
     if "enc_layers" in params:
         out["enc_layers"] = _quantize_stack(params["enc_layers"],
                                             cfg.n_encoder_layers)
-    out["layers"] = _quantize_stack(params["layers"], cfg.n_layers)
+    if "blocks" in params:
+        out["blocks"] = _quantize_blocks(params["blocks"],
+                                         cfg.n_layers // cfg.attn_every)
+    else:
+        out["layers"] = _quantize_stack(params["layers"], cfg.n_layers)
     return out
 
 

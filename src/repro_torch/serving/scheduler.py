@@ -5,8 +5,9 @@ A FIFO queue feeds ``n_slots`` persistent decode lanes. Per request:
     admit → chunked prefill → activate → decode → evict
 
 or, on an engine that does not declare ``supports_chunked`` (moe, whose
-routers rank a group's tokens for expert capacity), the run-to-completion
-regime: ``admit`` prefills the whole prompt at once, batch 1 and at its
+routers rank a group's tokens for expert capacity; encdec; the recurrent
+ssm and hybrid families, whose state integrates every position), the
+run-to-completion regime: ``admit`` prefills the whole prompt at once, batch 1 and at its
 exact length (``engine.prefill`` → ``engine.insert``), and the lane
 decodes from the next step; a prefill that runs while other lanes are
 decoding stalls them and counts in ``full_prefill_stalls``. The prefix
@@ -194,7 +195,9 @@ class Scheduler:
         """Queue ``req``. → False when it was shed at ``max_queue``
         (reject-newest: it finishes at once with reason "shed")."""
         need = len(req.prompt) + req.max_new_tokens
-        if need > self.capacity:
+        # an attention-free pool (capacity 0: recurrent state only) has no
+        # token bound
+        if self.capacity and need > self.capacity:
             raise ValueError(f"request {req.rid} needs {need} tokens but the "
                              f"pool capacity is {self.capacity}")
         if (req.frames is not None) != bool(self.cross_capacity):
@@ -740,7 +743,8 @@ class Scheduler:
         - every slot is exactly one of occupied, reserved (mid-prefill) or
           free;
         - the pool's ``active`` mask equals the occupied set;
-        - lengths stay within capacity, and an occupied lane's length is
+        - lengths stay within capacity (an attention-free pool has none),
+          and an occupied lane's length is
           its prompt plus its emissions minus the one pending token;
         - a sampled lane's ``sample_step`` equals its emission count (so
           rollback and retry net to exactly the tokens delivered);
@@ -765,7 +769,7 @@ class Scheduler:
                                  f"lanes {occupied}")
         lengths = self.pool["lengths"].cpu().numpy()
         steps = self.pool["sample_step"].cpu().numpy()
-        if int(lengths.max(initial=0)) > self.capacity:
+        if self.capacity and int(lengths.max(initial=0)) > self.capacity:
             raise AssertionError(f"lane length {int(lengths.max())} exceeds "
                                  f"capacity {self.capacity}")
         if int(steps.min(initial=0)) < 0:

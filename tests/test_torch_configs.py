@@ -19,7 +19,7 @@ MODULES = ("bitnet_3b", "granite_moe_1b_a400m", "jamba_1_5_large_398b",
            "llava_next_34b", "mistral_nemo_12b", "mixtral_8x22b",
            "qwen1_5_110b", "qwen1_5_32b", "rwkv6_1_6b", "stablelm_1_6b",
            "whisper_small")
-SERVED = ("dense", "moe", "encdec")
+SERVED = ("dense", "moe", "encdec", "ssm", "hybrid")
 
 
 def _pair(module: str, which: str):
@@ -54,8 +54,9 @@ def test_registry_holds_every_config():
 
 @pytest.mark.parametrize("module", MODULES)
 def test_unserved_families_raise(module):
-    """Only dense, moe and encdec are served: the other families raise where they
-    reach the weights, the cache or the engine."""
+    """Dense, moe, encdec, ssm and hybrid are served (the cache is built);
+    the other family (vlm) raises where it reaches the weights, the cache
+    or the engine."""
     _, cfg = _pair(module, "REDUCED")
     if cfg.family in SERVED:
         assert init_cache(cfg, 1, 8, "cpu")["lengths"].shape == (1,)
