@@ -218,8 +218,39 @@ printed:
               knife-edges); the attention sublayer's 512-token prefill
               and decode step with #3, #4 and #5 against their plain
               versions; each arm's engine freed before the next (the
-              whole full-width model, about 100 GB even packed, waits
-              for drawing seeded weights a layer at a time);
+              whole full-width model is more than one card holds,
+              even packed);
+  4j. vlm   the streamed draw, then two models that only it fits on the
+      + draw card, each drawn and quantized one layer at a time
+              (init_serving_params): bitnet-3b at full width and depth
+              drawn both ways (the whole f32 master tree, then
+              quantize_params; and layer by layer), every served leaf
+              bitwise, both peaks printed; llava-next-34b (vlm) at full
+              width and depth (60 layers, d 7168, 56 heads of 128 over
+              8, f 20,480, vocab 64,000, 2,880 image rows), its draw's
+              peak under 30 GiB: 8 requests (default_rng(4)) of 2,880
+              patch rows of 0.02·N(0, 1) and 64–512 text tokens, 32 new,
+              4 slots, chunked (the image rides the first chunk:
+              2,880 + 128 rows at start 0), greedy LOP and no-LOP, each
+              scheduler == lockstep for 2 requests and its decode step
+              on CUDA graphs and eager (120 / 60 / 60 launches of #1 /
+              #2 / the decode kernel a step); one request's chunks
+              timed and bitwise its whole-prompt prefill; #3 causal at
+              the first chunk's shape (R = 7 x 3,008 rows a kv lane)
+              and a text chunk past it, #4 and #5 at G 7 on the served
+              pages, against their plain versions and timed beside
+              their bounds; 4 sampled requests with one NaN lane
+              recovered through the retry (a clean lane == its
+              lockstep); the prefix store (image requests never match
+              or intern; text-only requests sharing 1,024 tokens hit);
+              2 requests speculatively (γ 4, the draft 30 of 60 layers)
+              against plain no-LOP decode, equal or a near-tie of
+              rounding; then mistral-nemo-12b (40 layers, d 5120, q_dim
+              4096) at full width and depth: phase 4's 8 requests
+              greedy LOP, scheduler == lockstep, the decode step graph
+              and eager, #1 at its O projection (k 4096 → n 5120)
+              bitwise its plain version; each arm freed before the
+              next;
   5. standalone kernels and the per-head LOP decode, at full width:
               the TINT GEMM (ternary_matmul), the LOP screen
               (lop_scores_kernel), single-head flash prefill and block-sparse
@@ -268,7 +299,8 @@ the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
 ``bias``, #2 ``ungated``, #3 ``non_causal``, #4/#5 ``per_head``,
 ``shared_select``, ``pos_offset+return_stats`` and ``cross`` — each with
 its launches on the path that runs it and the numbers of the phase that
-checked it; the launches of #1–#5 also count phase 4i's serve runs);
+checked it; the launches of #1–#5 also count phase 4i's and 4j's serve
+runs; #1, #3, #4 and #5 list phase 4j's checks under ``shapes``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1218,7 +1250,8 @@ def check_lockstep(engine, reqs, results, rids, label: str) -> None:
     for rid in rids:
         req = reqs[rid]
         ref = lockstep_generate(engine, req.prompt, req.max_new_tokens,
-                                sampling=req.sampling, frames=req.frames)
+                                sampling=req.sampling, frames=req.frames,
+                                patches=req.patches)
         if ref != results[rid].tokens:
             raise AssertionError(f"[{label}] rid {rid}: scheduler "
                                  f"{results[rid].tokens} != lockstep {ref}")
@@ -1741,7 +1774,7 @@ def explain_divergence(torch, np, engine, req, plain_toks, spec_toks, p,
     from repro_torch.serving.engine import prefill_chunk, serve_step
 
     cfg, qp, dev = engine.cfg, engine.qp, engine.device
-    plen = len(req.prompt)
+    plen = engine.prefix_len(req) + len(req.prompt)     # a vlm image first
     pos = plen + p - 1                  # the position whose row picks token p
     start, logits = next((st, lg) for st, lg in reversed(chunks)
                          if st <= pos < st + lg.shape[0])
@@ -2780,7 +2813,8 @@ def moe_phase(torch, np, card: str) -> dict:
 # phase 4h: the dense family's LayerNorm and QKV bias; the encdec family
 # ---------------------------------------------------------------------------
 
-QWEN_LAYERS = 8                    # of 64: the f32 master tree's peak
+QWEN_LAYERS = 8                    # of 64: these 8 layers' token digest
+#                                    is held from run to run
 WHISPER_MAX_LEN = 448              # whisper's decoder context
 WHISPER_FRAMES = 1500              # a full 30-s window (cross_ctx)
 WHISPER_MIN_PROMPT, WHISPER_MAX_PROMPT = 4, 64
@@ -2835,32 +2869,32 @@ def qkv_bias_check(torch, np, qp, card: str) -> dict:
 def dense_feature_arm(torch, np, cfg, label: str, card: str,
                       bias_seed: int | None = None) -> dict:
     """One dense model at full width through phase 4's traffic: seeded
-    master weights drawn on the card (``bias_seed``: the QKV biases drawn
-    nonzero from a generator of that seed before quantization), quantized,
-    the master freed; then phase 4's 8 requests greedy LOP through the
+    weights drawn and quantized on the card one layer at a time
+    (``bias_seed``: the QKV biases drawn nonzero from a generator of that
+    seed, the values a draw onto the master tree gave); then phase 4's 8 requests greedy LOP through the
     Scheduler on 4 slots (chunked), scheduler == lockstep for 2 requests,
     and the clean decode step on CUDA graphs and eager with its launches.
     → stats."""
     from repro_torch.launch.serve import make_requests
-    from repro_torch.models.transformer import init_params
     from repro_torch.serving.api import GenerateRequest, PooledEngine
-    from repro_torch.serving.quantize import quantize_params
+    from repro_torch.serving.quantize import init_serving_params
     from repro_torch.serving.scheduler import Scheduler
 
     free_cuda(torch)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    params = init_params(cfg, SEED, "cuda")
+    qp = init_serving_params(cfg, SEED, "cuda")
     if bias_seed is not None:
+        # the stacked biases [L, n] of wq, wk, wv drawn in that order, as
+        # onto the master tree before quantization, then fused as
+        # quantize_params fuses them (concatenated)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(bias_seed)
-        for name in ("wq", "wk", "wv"):
-            b = params["layers"]["attn"][name]["b"]
-            b.copy_(torch.randn(b.shape, generator=gen, device="cuda")
-                    * 0.02)
-    qp = quantize_params(cfg, params)
-    del params
+        n = cfg.n_layers
+        qp["layers"]["attn"]["wqkv"]["b"].copy_(torch.cat([
+            torch.randn((n, width), generator=gen, device="cuda") * 0.02
+            for width in (cfg.q_dim, cfg.kv_dim, cfg.kv_dim)], dim=-1))
     free_cuda(torch)
     init_peak = torch.cuda.max_memory_allocated()
     engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + GEN, device="cuda")
@@ -2869,7 +2903,8 @@ def dense_feature_arm(torch, np, cfg, label: str, card: str,
         f"{cfg.hd}, ffn {cfg.d_ff}, vocab {cfg.vocab}, norm {cfg.norm}, "
         f"qkv_bias {cfg.qkv_bias}): serving weights "
         f"{tree_bytes(qp) / 2**30:.3f} GiB; peak while drawing and "
-        f"quantizing {(init_peak - base) / 2**30:.2f} GiB above the "
+        f"quantizing one layer at a time {(init_peak - base) / 2**30:.2f} "
+        f"GiB above the "
         f"{base / 2**30:.2f} GiB the earlier phases hold [{card}]")
     reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
                          max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
@@ -2971,11 +3006,15 @@ def prefill_row(torch, np, rng, label, k, v, ks, vs, kv_len, c, dh,
                 shape=f"C={c} M={m} kv_len={kv_len} H={h} dh={dh}")
 
 
-def cross_decode_rows(torch, np, rng, cfg, cl, cross_len, card) -> dict:
-    """#4 (LOP) and #5 (dense) over one layer of the pool's cross pages
-    (no write; new_len = cross_len; features recomputed: retiring a lane
-    zeroes them), through the ops entry against the plain version, then
-    each kernel timed eagerly and in a CUDA graph beside its bound."""
+def decode_rows(torch, np, rng, cfg, cl, new_len, label: str,
+                card: str) -> dict:
+    """#4 (LOP) and #5 (dense) over one layer's pages ``cl`` (B, Hkv, M,
+    dh) at ``cfg``'s query heads (G = H / Hkv rows a kv lane) and
+    ``new_len``, seeded queries, features recomputed (retiring a lane
+    zeroes them), through the ops entry against the plain version (the
+    pages untouched), then each kernel timed eagerly and in a CUDA graph
+    beside its bound (the blocks and live tokens the plain selection
+    reads on these inputs)."""
     from repro_torch.core.lop import lop_features, pack_features
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as plain
@@ -2983,7 +3022,9 @@ def cross_decode_rows(torch, np, rng, cfg, cl, cross_len, card) -> dict:
         fused_decode_attention, fused_dense_decode_attention)
     from repro_torch.serving.lop_select import k_keep_blocks
 
-    b, h, m, dh = cl["k"].shape
+    b, hkv, m, dh = cl["k"].shape
+    h = cfg.n_heads
+    g = h // hkv
     blk = cfg.lop_block
     k_keep = max(1, min(k_keep_blocks(cfg, m), m // blk))
     dev = cl["k"].device
@@ -2993,65 +3034,69 @@ def cross_decode_rows(torch, np, rng, cfg, cl, cross_len, card) -> dict:
     qsc = torch.from_numpy((rng.random((b, h, 1)) * 0.02 + 0.001).astype(
         np.float32)).to(dev)
     scale = dh ** -0.5
-    nl = cross_len.tolist()
+    nl = new_len.tolist()
+    live = hkv * sum(nl)
     rows = {}
     for name, use_lop in (("fused_decode_attention", True), (DENSE, False)):
         kw = dict(block=blk, k_keep=k_keep, window=0, use_lop=use_lop)
         args = (qi, qsc, cl["k"], cl["v"], cl["k_scale"], cl["v_scale"],
-                feat, cross_len)
+                feat, new_len)
         before = [cl[key].clone() for key in ("k", "v", "k_scale",
                                               "v_scale")]
         got = ops.decode_attention(*args, **kw)
         want = plain.decode_attention_ref(*args, softmax_scale=scale, **kw)
-        err = check_close(torch, f"{name}[whisper cross]", got, want)
+        err = check_close(torch, f"{name}[{label}]", got, want)
         if not all(torch.equal(cl[key], old) for key, old in zip(
                 ("k", "v", "k_scale", "v_scale"), before)):
-            raise AssertionError(f"{name}[whisper cross] wrote the cache")
-        lanes = tuple(a.reshape(b * h, *a.shape[2:]).contiguous()
-                      for a in args[:6])
-        lanes = (lanes[0].reshape(b * h, 1, dh), lanes[1].reshape(b * h, 1),
-                 *lanes[2:])
+            raise AssertionError(f"{name}[{label}] wrote the cache")
+        for lane, n_ in enumerate(nl):
+            if not n_ and got[lane].any():
+                raise AssertionError(f"{name}[{label}]: retired lane not "
+                                     f"zero")
+        lanes = (qi.reshape(b * hkv, g, dh).contiguous(),
+                 qsc.reshape(b * hkv, g).contiguous(),
+                 *(a.reshape(b * hkv, *a.shape[2:]).contiguous()
+                   for a in args[2:6]))
         if use_lop:
-            kargs = (*lanes, feat.reshape(b * h, m, dh // 2).contiguous(),
-                     cross_len)
+            kargs = (*lanes, feat.reshape(b * hkv, m, dh // 2).contiguous(),
+                     new_len)
 
             def kern(*a):
                 return fused_decode_attention(
-                    *a, hkv=h, block=blk, k_keep=k_keep, window=0,
+                    *a, hkv=hkv, block=blk, k_keep=k_keep, window=0,
                     softmax_scale=scale)
+            blocks, live_sel = selected(torch, qi, feat, new_len, b=b,
+                                        hkv=hkv, g=g, m=m, dh=dh, blk=blk,
+                                        k_keep=k_keep)
+            b_ms, b_by = bound_ms(
+                nbytes(qi, qsc, new_len) + live * (dh // 2)
+                + blocks * blk * (2 * dh + 8) + b * h * dh * 4,
+                int8_ops=2.0 * g * live * dh + 2.0 * live_sel * dh,
+                f32_ops=2.0 * live_sel * dh)
         else:
-            kargs = (*lanes, cross_len)
+            kargs = (*lanes, new_len)
 
             def kern(*a):
                 return fused_dense_decode_attention(
-                    *a, hkv=h, block=blk, window=0, softmax_scale=scale)
+                    *a, hkv=hkv, block=blk, window=0, softmax_scale=scale)
+            b_ms, b_by = bound_ms(
+                nbytes(qi, qsc, new_len) + live * (2 * dh + 8)
+                + b * h * dh * 4, int8_ops=2.0 * g * live * dh,
+                f32_ops=2.0 * g * live * dh)
         sets = copies(torch, kargs)
         ms = cuda_ms(torch, kern, sets, 50)
         g_ms = graph_ms(torch, kern, sets)
         p_ms = cuda_ms(torch, lambda *a: plain.decode_attention_ref(
             *a, softmax_scale=scale, **kw), [args], 3)
-        if use_lop:
-            live = sum(min(n_, k_keep * blk) for n_ in nl if n_)
-            sel = sum(min(k_keep, -(-n_ // blk)) for n_ in nl if n_)
-            b_ms, b_by = bound_ms(
-                nbytes(qi, qsc, cross_len) + h * sum(nl) * (dh // 2)
-                + h * sel * blk * (2 * dh + 8) + b * h * dh * 4,
-                int8_ops=2.0 * h * (sum(nl) + live) * dh,
-                f32_ops=2.0 * h * live * dh)
-        else:
-            b_ms, b_by = bound_ms(
-                nbytes(qi, qsc, cross_len) + h * sum(nl) * (2 * dh + 8)
-                + b * h * dh * 4, int8_ops=2.0 * h * sum(nl) * dh,
-                f32_ops=2.0 * h * sum(nl) * dh)
-        log(f"  {name} over the cross pages (B={b}, H {h}, M={m}, new_len "
-            f"= cross_len {nl}, k_keep {k_keep}, no write): max |err| "
-            f"{err:.3g}, cache untouched; {ms:.4f} ms, in a CUDA graph "
+        log(f"  {name} {label} (B={b}, H {h} over Hkv {hkv}, G {g}, dh "
+            f"{dh}, M={m}, new_len {nl}, k_keep {k_keep}, no write): max "
+            f"|err| {err:.3g}, cache untouched; {ms:.4f} ms, in a CUDA graph "
             f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
             f"{b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
             f"graph) [{card}]")
         rows[name] = dict(max_abs_err=err, ms=ms, graph_ms=g_ms,
                           plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                          shape=f"B={b} H={h} M={m} new_len={nl}")
+                          shape=f"B={b} H={h} Hkv={hkv} M={m} new_len={nl}")
     return rows
 
 
@@ -3149,8 +3194,8 @@ def whisper_kernel_checks(torch, np, engine, pool, card) -> dict:
                       cfg.hd, card)
     cross = prefill_row(torch, np, rng, "cross prefill", *cross_view, s_enc,
                         WHISPER_MAX_PROMPT, cfg.hd, card)
-    decode = cross_decode_rows(torch, np, rng, cfg, cl,
-                               pool["cross_len"].clone(), card)
+    decode = decode_rows(torch, np, rng, cfg, cl, pool["cross_len"].clone(),
+                         "over whisper's cross pages", card)
     ffn = whisper_projection_rows(torch, np, rng, engine, layer, card)
     return {"fused_ffn": {"ungated": ffn},
             "fused_prefill_attention": {"non_causal": dict(
@@ -3453,7 +3498,8 @@ def recurrent_serve(torch, np, engine, reqs, label, card, capacity: int,
 
 def rwkv_arm(torch, np, card: str) -> dict:
     """rwkv6-1.6b at full width and depth (24 layers, d 2048, 32 heads of
-    64, f 7168, vocab 65,536): seeded weights drawn on the card, phase 4's
+    64, f 7168, vocab 65,536): seeded weights drawn and quantized on the
+    card one layer at a time, phase 4's
     8 requests greedy, then sampled, through the Scheduler on 4 slots (run
     to completion, exact-length prefill), #1 the only kernel of the table
     (240 launches a decode step). → stats."""
@@ -3461,9 +3507,9 @@ def rwkv_arm(torch, np, card: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests
-    from repro_torch.models.transformer import init_params, layer_slice
+    from repro_torch.models.transformer import layer_slice
     from repro_torch.serving.api import GenerateRequest, PooledEngine
-    from repro_torch.serving.quantize import quantize_params
+    from repro_torch.serving.quantize import init_serving_params
     from repro_torch.serving.scheduler import Scheduler
 
     cfg = get_config("rwkv6-1.6b")
@@ -3471,9 +3517,7 @@ def rwkv_arm(torch, np, card: str) -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    params = init_params(cfg, SEED, "cuda")
-    qp = quantize_params(cfg, params)
-    del params
+    qp = init_serving_params(cfg, SEED, "cuda")
     free_cuda(torch)
     draw_peak = torch.cuda.max_memory_allocated() - base
     engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + GEN, device="cuda")
@@ -3935,6 +3979,504 @@ def recurrent_phase(torch, np, card: str) -> dict:
         f"took {time.monotonic() - t0:.1f} s")
     return dict(rwkv=rwkv, jamba=jamba, jamba_width=width,
                 launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the streamed draw; the vlm family (llava-next-34b) and
+# mistral-nemo-12b at full width and depth
+# ---------------------------------------------------------------------------
+
+VLM_SEED = 4                       # the vlm traffic's request rng
+VLM_MIN_TEXT, VLM_MAX_TEXT = 64, 512
+VLM_SPEC_REQUESTS = 2
+VLM_SHARED_TEXT = 1024             # the text-only prefix-store arm
+DRAW_PEAK_LIMIT = 30 * 2 ** 30     # llava's streamed draw (its whole f32
+#                                    master tree would not fit the card)
+VLM_NAN_CALLS = frozenset({(3, 1)})   # (decode call, lane): one NaN lane
+
+
+def leaves(tree, path=()):
+    """(path, tensor) of every leaf of a nested dict."""
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            yield from leaves(val, path + (name,))
+        else:
+            yield path + (name,), val
+
+
+def drawn(torch, draw) -> tuple:
+    """``draw()`` with the device's peak above what was allocated before
+    it. → (tree, seconds, peak bytes)."""
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tree = draw()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    return tree, secs, torch.cuda.max_memory_allocated() - base
+
+
+def streamed_draw_arm(torch, np, card: str) -> dict:
+    """(a) bitnet-3b at full width and depth drawn both ways on the card:
+    the whole f32 master tree then ``quantize_params``, and
+    ``init_serving_params``, one layer at a time; every leaf bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.quantize import (init_serving_params,
+                                              quantize_params)
+
+    cfg = get_config("bitnet-3b")
+    whole, w_s, w_peak = drawn(torch, lambda: quantize_params(
+        cfg, init_params(cfg, SEED, "cuda")))
+    streamed, s_s, s_peak = drawn(torch, lambda: init_serving_params(
+        cfg, SEED, "cuda"))
+    want = dict(leaves(whole))
+    got = dict(leaves(streamed))
+    if got.keys() != want.keys():
+        raise AssertionError(f"streamed tree paths {sorted(got)} != "
+                             f"{sorted(want)}")
+    apart = [p for p, leaf in want.items()
+             if got[p].dtype != leaf.dtype or not torch.equal(got[p], leaf)]
+    if apart:
+        raise AssertionError(f"streamed draw != whole draw at {apart}")
+    log(f"  [streamed draw] bitnet-3b ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}): {len(want)} leaves "
+        f"({tree_bytes(whole) / 2**30:.3f} GiB) bitwise both ways; whole "
+        f"master then quantize {w_s:.1f} s, peak {w_peak / 2**30:.2f} GiB; "
+        f"one layer at a time {s_s:.1f} s, peak {s_peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    del whole, streamed, want, got
+    free_cuda(torch)
+    return dict(whole_peak_bytes=w_peak, streamed_peak_bytes=s_peak,
+                whole_s=w_s, streamed_s=s_s)
+
+
+def prefill_chunk_rows(torch, np, rng, cfg, cl, start: int, c: int,
+                       label: str, card: str) -> dict:
+    """#3 causal at a chunk's shape over one layer's pages ``cl`` (batch
+    1; ``c`` rows a query head at global positions [start, start + c),
+    kv_len start + c; G = H / Hkv rows a kv lane, g-major), seeded
+    queries, through the ops entry against the plain version, then timed
+    alone (CUDA events, L2 cold) beside its bound and SDPA on the
+    dequantized tensors with the chunk's causal mask."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.prefill_attention import fused_prefill_attention
+
+    _, hkv, m, dh = cl["k"].shape
+    h = cfg.n_heads
+    g = h // hkv
+    dev = cl["k"].device
+    kvl = start + c
+    qi = torch.from_numpy(rng.integers(-127, 128, (1, h, c, dh)).astype(
+        np.int8)).to(dev)
+    qsc = torch.from_numpy((rng.random((1, h, c)) * 0.02 + 0.001).astype(
+        np.float32)).to(dev)
+    kv_len = torch.full((1,), kvl, dtype=torch.int32, device=dev)
+    scale = dh ** -0.5
+    view = [cl[key][:1] for key in ("k", "v", "k_scale", "v_scale")]
+    got = ops.prefill_attention(qi, qsc, *view, kv_len, q_offset=start,
+                                causal=True)
+    want = plain.prefill_attention_ref(qi, qsc, *view, kv_len, start,
+                                       causal=True, window=0,
+                                       softmax_scale=scale)
+    err = check_close(torch, f"fused_prefill_attention[{label}]", got, want)
+    args = (qi.reshape(hkv, g * c, dh).contiguous(),
+            qsc.reshape(hkv, g * c).contiguous(),
+            *(v_[0].contiguous() for v_ in view), kv_len, start)
+
+    def kern(*a):
+        return fused_prefill_attention(*a, hkv=hkv, chunk=c, causal=True,
+                                       window=0, softmax_scale=scale)
+    ms = cuda_ms(torch, kern, copies(torch, args), 10)
+    p_ms = cuda_ms(torch, lambda: plain.prefill_attention_ref(
+        qi, qsc, *view, kv_len, start, causal=True, window=0,
+        softmax_scale=scale), [()], 2)
+    visible = c * start + c * (c + 1) // 2          # causal pairs a head
+    b_ms, b_by = bound_ms(nbytes(qi, qsc) + hkv * kvl * (2 * dh + 8)
+                          + h * c * dh * 4, int8_ops=2.0 * h * visible * dh,
+                          f32_ops=2.0 * h * visible * dh)
+    kf = (view[0][:, :, :kvl].float() * view[2][:, :, :kvl, None])
+    vf = (view[1][:, :, :kvl].float() * view[3][:, :, :kvl, None])
+    kf, vf = (x.repeat_interleave(g, dim=1) for x in (kf, vf))
+    qf = qi.float() * qsc[..., None]
+    mask = (torch.arange(kvl, device=dev)[None, :]
+            <= (start + torch.arange(c, device=dev))[:, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(torch, lambda: sdpa(qf, kf, vf, attn_mask=mask),
+                     [()], 3)
+    del kf, vf, qf, mask
+    log(f"  fused_prefill_attention {label} (causal, C={c} rows a head at "
+        f"start {start}, kv_len {kvl}, M={m}, H {h} over Hkv {hkv}, G {g}, "
+        f"dh {dh}): max |err| {err:.3g}; {ms:.4f} ms (plain {p_ms:.3f} ms, "
+        f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+        f"{b_ms / ms:.1%} of bound) [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                shape=f"C={c} start={start} M={m} H={h} Hkv={hkv} dh={dh}")
+
+
+def vlm_chunks(torch, engine, req, card: str) -> dict:
+    """One image request's chunked prefill on a fresh 1-slot pool, each
+    chunk timed (host ms to a synchronize): the first carries the image
+    (n_img + C rows at start 0), the rest start past it; then its
+    whole-prompt prefill, which the chunks must equal bitwise (logits and
+    the prompt's pages). → ms of the first chunk and of the later ones."""
+    from repro_torch.serving.scheduler import Scheduler
+
+    chk = Scheduler(engine, n_slots=1, prefix_cache=False)
+    chk.submit(req)
+    chk.admit()
+    pf = chk._prefilling[0]
+    times = []
+    for k in range(len(pf.chunks)):
+        kw = {"patches": req.patches} if k == 0 else {}
+        ms, (logits_c, pool) = timed_ms(torch, lambda k=k, kw=kw:
+                                        engine.prefill_chunk(
+                                            chk.pool, pf.slot, pf.chunks[k],
+                                            pf.starts[k], pf.seq_ends[k],
+                                            k == len(pf.chunks) - 1, **kw))
+        times.append(ms)
+    whole_ms, (logits_w, whole) = timed_ms(
+        torch, lambda: engine.prefill(req.prompt[None],
+                                      patches=req.patches))
+    s = engine.prefix_len(req) + len(req.prompt)
+    if not torch.isfinite(logits_w).all():
+        raise AssertionError("non-finite vlm prefill logits")
+    if not torch.equal(logits_c, logits_w):
+        raise AssertionError("vlm chunked prefill logits != whole prefill")
+    for key, leaf in whole["layers"].items():
+        if not torch.equal(pool["layers"][key][:, 0, :, :s],
+                           leaf[:, 0, :, :s]):
+            raise AssertionError(f"vlm chunked prefill '{key}' != whole")
+    log(f"  [llava] an image request ({engine.prefix_len(req)} image rows + "
+        f"{len(req.prompt)} tokens) in {len(times)} chunks (starts "
+        f"{pf.starts}, widths {[c.shape[1] for c in pf.chunks]}): logits "
+        f"and pages bitwise its whole-prompt prefill; first chunk "
+        f"({engine.prefix_len(req) + pf.chunks[0].shape[1]} rows) "
+        f"{times[0]:.1f} ms, later chunks "
+        + ", ".join(f"{t:.1f}" for t in times[1:])
+        + f" ms, whole prefill ({s} rows) {whole_ms:.1f} ms (host ms to a "
+        f"synchronize, eager) [{card}]")
+    del chk, pool, whole
+    return dict(first_chunk_ms=times[0], chunk_ms=times[1:],
+                whole_ms=whole_ms)
+
+
+def vlm_prefix_arm(torch, np, engine, reqs, card: str) -> dict:
+    """Two image requests with the same text and their own images: no
+    hit, nothing interned. Then two text-only requests sharing their
+    first 1024 tokens on the same Scheduler: the second hits all 8
+    blocks, and its tokens equal its lockstep's."""
+    from dataclasses import replace
+
+    from repro_torch.serving.api import GenerateRequest
+    from repro_torch.serving.scheduler import Scheduler, lockstep_generate
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(VLM_SEED + 1)
+    sched = Scheduler(engine, n_slots=N_SLOTS, check_invariants=True)
+    text = reqs[0].prompt
+    for rid, r in enumerate(reqs[:2]):
+        sched.submit(replace(r, rid=rid, prompt=text, arrival=None))
+        sched.run_to_completion()
+    if sched.prefix_hits or sched.prefix_store.cached_tokens:
+        raise AssertionError(f"image requests touched the prefix store: "
+                             f"{sched.prefix_hits} hits, "
+                             f"{sched.prefix_store.cached_tokens} tokens")
+    shared = rng.integers(0, cfg.vocab, VLM_SHARED_TEXT).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 64)
+                               .astype(np.int32)]) for _ in range(2)]
+    for rid, p in enumerate(prompts, start=2):
+        sched.submit(GenerateRequest(rid=rid, prompt=p, max_new_tokens=GEN))
+        sched.run_to_completion()
+    res = {r.rid: r for r in sched.results}
+    if (sched.prefix_hits, res[3].cached_len) != (1, VLM_SHARED_TEXT):
+        raise AssertionError(f"text-only requests: {sched.prefix_hits} "
+                             f"hits, cached {res[3].cached_len}")
+    ref = lockstep_generate(engine, prompts[1], GEN)
+    if res[3].tokens != ref:
+        raise AssertionError("text-only prefix hit != its lockstep")
+    log(f"  [llava prefix store] 2 image requests with one text: 0 hits, "
+        f"nothing interned; 2 text-only requests sharing "
+        f"{VLM_SHARED_TEXT} tokens: 1 hit of {res[3].cached_len} tokens "
+        f"(TTFT {res[2].ttft * 1e3:.1f} ms cold, {res[3].ttft * 1e3:.1f} ms "
+        f"hit), the hit's tokens == lockstep [{card}]")
+    return dict(cold_ttft_ms=res[2].ttft * 1e3, hit_ttft_ms=res[3].ttft * 1e3)
+
+
+def vlm_spec_arm(torch, np, dense, reqs, cap: int, card: str) -> dict:
+    """2 image requests speculatively (γ 4, the draft 30 of 60 layers at
+    k_keep 1) on the no-LOP engine against plain decode of the same
+    requests: equal, or a first divergence that is a near-tie of rounding
+    (:func:`rounding_verdict`)."""
+    from dataclasses import replace
+
+    sreqs = [replace(r, arrival=None) for r in reqs[:VLM_SPEC_REQUESTS]]
+    with kept_lanes() as lanes:
+        plain = serve_run(torch, np, dense, sreqs, "llava plain no-LOP",
+                          card, capacity=cap)
+    plain = dict(plain, lanes=lanes, tokens={
+        rid: r.tokens for rid, r in plain["results"].items()})
+    with kept_lanes() as lanes:
+        spec = dict(spec_run(torch, np, dense, sreqs, "llava spec no-LOP",
+                             card), lanes=lanes)
+    ties = compare_streams(torch, np, dense, sreqs, spec, plain,
+                           "llava spec no-LOP", card)
+    log(f"  [llava spec] {spec['rounds']} rounds, accept rate "
+        f"{spec['accept_rate']:.3f}, draft step {spec['draft_ms']:.2f} ms "
+        f"(graph, {dense.draft_layers} of {dense.cfg.n_layers} layers), "
+        f"verify chunk {spec['verify_ms']:.2f} ms (eager); "
+        f"{spec['tokens_per_s']:.2f} tok/s vs plain "
+        f"{plain['tokens_per_s']:.2f}; near-ties {len(ties)} [{card}]")
+    return dict(tokens_per_s=spec["tokens_per_s"],
+                plain_tokens_per_s=plain["tokens_per_s"],
+                draft_ms=spec["draft_ms"], verify_ms=spec["verify_ms"],
+                accept_rate=spec["accept_rate"], near_ties=len(ties),
+                counts=spec["counts"])
+
+
+def vlm_arm(torch, np, card: str) -> dict:
+    """(b) llava-next-34b at full width and depth (60 layers, d 7168, 56
+    heads of 128 over 8, f 20,480, vocab 64,000, 2,880 image rows) drawn
+    on the card one layer at a time: 8 image requests (default_rng(4):
+    64–512 text tokens and 2,880 patch rows of 0.02·N(0, 1) each), 32
+    new tokens, 4 slots, chunked; greedy LOP, no-LOP, then 4 sampled with
+    a NaN lane through the retry; the decode step on graphs and eager, a
+    request's chunks against its whole prefill, the prefix store and
+    speculation, #3 and #4/#5 at G 7 on the served pages. → stats."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving import faults
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.cache import capacity_for
+    from repro_torch.serving.quantize import init_serving_params
+    from repro_torch.serving.scheduler import Scheduler, lockstep_generate
+
+    cfg = get_config("llava-next-34b")
+    n_img = cfg.n_img_tokens
+    qp, draw_s, draw_peak = drawn(torch, lambda: init_serving_params(
+        cfg, SEED, "cuda"))
+    if draw_peak >= DRAW_PEAK_LIMIT:
+        raise AssertionError(f"llava's draw peaked at "
+                             f"{draw_peak / 2**30:.2f} GiB")
+    max_len = VLM_MAX_TEXT + GEN + n_img
+    cap = capacity_for(cfg, max_len)
+    engine = PooledEngine(cfg, qp, max_len=max_len, device="cuda")
+    by_part = {name: tree_bytes(qp[name]) for name in qp}
+    log(f"  [llava] seeded weights drawn and quantized one layer at a time "
+        f"in {draw_s:.1f} s ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads}, f "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {n_img} image rows): peak while "
+        f"drawing {draw_peak / 2**30:.2f} GiB (limit "
+        f"{DRAW_PEAK_LIMIT / 2**30:.0f}); serving weights "
+        f"{tree_bytes(qp) / 2**30:.3f} GiB ("
+        + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in by_part.items())
+        + f" GiB); a {N_SLOTS}-slot pool of capacity {cap} "
+        f"{tree_bytes(engine.init_pool(N_SLOTS)) / 2**30:.3f} GiB; "
+        f"has_image_prefix={engine.has_image_prefix}, "
+        f"supports_chunked={engine.supports_chunked} [{card}]")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS,
+                         min_prompt=VLM_MIN_TEXT, max_prompt=VLM_MAX_TEXT,
+                         gen=GEN, seed=VLM_SEED)
+    log("  [llava] text lengths: " + ", ".join(str(len(r.prompt))
+                                               for r in reqs))
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:64],
+                                max_new_tokens=2, patches=reqs[0].patches))
+    warm.run_to_completion()
+    del warm
+    chunks = vlm_chunks(torch, engine, max(reqs, key=lambda r: len(
+        r.prompt)), card)
+    out = dict(draw_peak_bytes=draw_peak, draw_s=draw_s,
+               weight_bytes=tree_bytes(qp), chunks=chunks)
+    idle = (DENSE, "fused_qlinear_experts", "fused_ffn_experts")
+    dense = PooledEngine(cfg, qp, max_len=max_len, use_lop=False,
+                         device="cuda")
+    # the steady decode step: the 4 shortest prompts, with room for its
+    # 96 tokens a lane
+    short = [replace(r, prompt=r.prompt[:cap - 1 - n_img - 96])
+             for r in sorted(reqs, key=lambda r: len(r.prompt))[:N_SLOTS]]
+    for label, eng, launched, off in (
+            ("llava LOP greedy", engine, LOP_PATH, idle),
+            ("llava no-LOP greedy", dense,
+             ("fused_qlinear", "fused_ffn", "fused_prefill_attention",
+              DENSE), ("fused_decode_attention", *idle[1:]))):
+        run = serve_run(torch, np, eng, reqs, label, card, capacity=cap)
+        check_counts(run["counts"], label, launched, idle=off)
+        check_tokens(cfg, run["results"], GEN, label)
+        check_lockstep(eng, reqs, run["results"], (0, 1), label)
+        sched = run.pop("sched")
+        if eng is engine:
+            rng = np.random.default_rng(SEED + 11)
+            layer = cfg.n_layers // 2
+            cl = layer_slice(sched.pool["layers"], layer)
+            # lanes deep into the image's rows and past them; one retired
+            lens = torch.tensor([cap - 56, 0, n_img + 70, n_img + 300],
+                                dtype=torch.int32, device="cuda")
+            out["rows"] = dict(
+                first_chunk=prefill_chunk_rows(
+                    torch, np, rng, cfg, cl, 0, n_img + engine.chunk_tokens,
+                    "llava first chunk (image + text)", card),
+                text_chunk=prefill_chunk_rows(
+                    torch, np, rng, cfg, cl, n_img + engine.chunk_tokens,
+                    engine.chunk_tokens, "llava text chunk", card),
+                decode=decode_rows(torch, np, rng, cfg, cl, lens,
+                                   "llava served pages", card))
+            del cl
+        del sched
+        if eng is engine:
+            # the clean decode step, graph and eager, on the LOP engine
+            step = decode_arms(torch, np, eng, short, label, card)
+            out.update(decode_step_ms_p50=step["ms"],
+                       eager_decode_step_ms_p50=step["eager_ms"])
+            del step
+        out[label] = dict(
+            counts=run["counts"], tokens=tokens_digest(run["results"]),
+            tokens_per_s=run["tokens_per_s"],
+            ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
+            serve_cycle_decode_ms_p50=run["serve_cycle_decode_ms_p50"])
+        del run
+
+    # 4 sampled requests, one lane's logits NaN once: the lane recovers
+    # through the dense retry; every request runs to its length
+    label = "llava LOP sampled + NaN lane"
+    sreqs = [replace(r, sampling=sampled_params(r.rid)) for r in reqs[:4]]
+    with faults.inject(faults.FaultPlan(nan_logits=VLM_NAN_CALLS)):
+        run = serve_run(torch, np, engine, sreqs, label, card, capacity=cap,
+                        check_invariants=True)
+    fs = run.pop("sched")
+    if not (fs.fault_events >= 1 and fs.fault_recoveries == fs.fault_events
+            and fs.fault_finishes == 0):
+        raise AssertionError(f"[{label}] events {fs.fault_events}, "
+                             f"recoveries {fs.fault_recoveries}, finishes "
+                             f"{fs.fault_finishes}")
+    check_tokens(cfg, run["results"], GEN, label)
+    clean = next(r for r in sreqs if r.rid not in fs.fault_rids)
+    ref = lockstep_generate(engine, clean.prompt, GEN,
+                            sampling=clean.sampling, patches=clean.patches)
+    if run["results"][clean.rid].tokens != ref:
+        raise AssertionError(f"[{label}] rid {clean.rid} != its lockstep")
+    log(f"  [{label}] {fs.fault_events} NaN events, all recovered through "
+        f"the dense retry (rids {sorted(fs.fault_rids)}); rid {clean.rid}'s"
+        f" sampled stream == its lockstep [{card}]")
+    out[label] = dict(counts=run["counts"],
+                      tokens=tokens_digest(run["results"]),
+                      tokens_per_s=run["tokens_per_s"],
+                      ttft_p50_ms=run["ttft_p50_ms"])
+    del run, fs
+    out["prefix"] = vlm_prefix_arm(torch, np, engine, reqs, card)
+    out["spec"] = vlm_spec_arm(torch, np, dense, reqs, cap, card)
+    g, d = out["llava LOP greedy"], out["llava no-LOP greedy"]
+    log(f"  [llava] greedy LOP {g['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{g['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA graph "
+        f"{out['decode_step_ms_p50']:.2f} ms, eager "
+        f"{out['eager_decode_step_ms_p50']:.2f} ms, peak while serving "
+        f"{g['peak_bytes'] / 2**30:.2f} GiB; no-LOP {d['tokens_per_s']:.2f} "
+        f"tok/s, serve-cycle decode p50 {d['serve_cycle_decode_ms_p50']:.2f}"
+        f" ms; first chunk "
+        f"{chunks['first_chunk_ms']:.1f} ms; tokens sha256 {g['tokens']} / "
+        f"{d['tokens']} / {out['llava LOP sampled + NaN lane']['tokens']} "
+        f"[{card}]")
+    del engine, dense, qp
+    free_cuda(torch)
+    return out
+
+
+def mistral_arm(torch, np, card: str) -> dict:
+    """(c) mistral-nemo-12b at full width and depth (40 layers, d 5120, 32
+    heads of 128 over 8 — q_dim 4096 ≠ d —, f 14,336, vocab 131,072) drawn
+    on the card one layer at a time: phase 4's 8 requests greedy LOP,
+    scheduler == lockstep for 2 rids, the decode step on graphs and eager,
+    #1 at the O projection (k 4096 → n 5120) bitwise its plain version.
+    → stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.quantize import init_serving_params
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("mistral-nemo-12b")
+    qp, draw_s, draw_peak = drawn(torch, lambda: init_serving_params(
+        cfg, SEED, "cuda"))
+    engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + GEN, device="cuda")
+    log(f"  [mistral-nemo] seeded weights drawn and quantized one layer at "
+        f"a time in {draw_s:.1f} s ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} over "
+        f"{cfg.n_kv_heads}, q_dim {cfg.q_dim}, f {cfg.d_ff}, vocab "
+        f"{cfg.vocab}): peak while drawing {draw_peak / 2**30:.2f} GiB, "
+        f"serving weights {tree_bytes(qp) / 2**30:.3f} GiB [{card}]")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+                         max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:64],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    rows = projection_rows(
+        torch, np, {"wo": layer_slice(qp["layers"]["attn"], 0)["wo"]},
+        "mistral-nemo", "layer 0's served weights", card, SEED + 13)
+    label = "mistral-nemo LOP greedy"
+    run = serve_run(torch, np, engine, reqs, label, card)
+    check_counts(run["counts"], label, LOP_PATH,
+                 idle=(DENSE, "fused_qlinear_experts", "fused_ffn_experts"))
+    check_tokens(cfg, run["results"], GEN, label)
+    check_lockstep(engine, reqs, run["results"], (0, 1), label)
+    run.pop("sched")
+    short = sorted(reqs, key=lambda r: len(r.prompt))[:N_SLOTS]
+    step = decode_arms(torch, np, engine, short, label, card)
+    out = dict(counts=run["counts"], tokens=tokens_digest(run["results"]),
+               tokens_per_s=run["tokens_per_s"],
+               ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
+               decode_step_ms_p50=step["ms"],
+               eager_decode_step_ms_p50=step["eager_ms"], rows=rows,
+               draw_peak_bytes=draw_peak, draw_s=draw_s)
+    log(f"  [mistral-nemo] {out['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA graph "
+        f"{out['decode_step_ms_p50']:.2f} ms, eager "
+        f"{out['eager_decode_step_ms_p50']:.2f} ms, peak while serving "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB; tokens sha256 "
+        f"{out['tokens']} [{card}]")
+    del run, step, engine, qp
+    free_cuda(torch)
+    return out
+
+
+def vlm_phase(torch, np, card: str) -> dict:
+    """Phase 4j: (a) the streamed draw bitwise the whole one at full-width
+    bitnet-3b, (b) llava-next-34b and (c) mistral-nemo-12b at full width
+    and depth; each arm's engines freed before the next. → stats, with
+    every serve run's launches summed by kernel."""
+    t0 = time.monotonic()
+    free_cuda(torch)
+    log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by the "
+        f"earlier phases [{card}]")
+    draw = streamed_draw_arm(torch, np, card)
+    vlm = vlm_arm(torch, np, card)
+    mistral = mistral_arm(torch, np, card)
+    launches = {k: 0 for k in KERNEL_NAMES}
+    runs = [r for key, r in vlm.items() if key.startswith("llava ")]
+    for run in (*runs, vlm["spec"], mistral):
+        for k in KERNEL_NAMES:
+            launches[k] += run["counts"][k]
+    vr = vlm["rows"]
+    rows = {"fused_prefill_attention": {
+                "llava first chunk": vr["first_chunk"],
+                "llava text chunk": vr["text_chunk"]},
+            "fused_decode_attention": {
+                "llava G 7": vr["decode"]["fused_decode_attention"]},
+            DENSE: {"llava G 7": vr["decode"][DENSE]},
+            "fused_qlinear": {f"mistral-nemo {k}": v
+                              for k, v in mistral["rows"].items()}}
+    log(f"  phase 4j's serve runs launched {json.dumps(launches)}; phase 4j "
+        f"took {time.monotonic() - t0:.1f} s")
+    return dict(draw=draw, vlm=vlm, mistral=mistral, launches=launches,
+                rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -4886,6 +5428,17 @@ def main() -> int:
         f"then a full-width jamba Mamba and attention sublayer [{smi}]")
     rec = recurrent_phase(torch, np, smi)
 
+    # ---- 4j. the streamed draw; llava-next-34b (vlm) and
+    #      mistral-nemo-12b at full width and depth ----
+    log(f"[serve vlm + streamed draw] bitnet-3b drawn whole and one layer at "
+        f"a time (bitwise); llava-next-34b (vlm) full width and depth, "
+        f"{N_REQUESTS} image requests of 2880 patch rows and "
+        f"{VLM_MIN_TEXT}-{VLM_MAX_TEXT} text tokens, LOP, no-LOP, sampled "
+        f"with a NaN lane, prefix store, speculation; mistral-nemo-12b full "
+        f"width and depth, phase 4's {N_REQUESTS} requests; {N_SLOTS} slots "
+        f"[{smi}]")
+    vlm4j = vlm_phase(torch, np, smi)
+
     # ---- 5. standalone kernels and the per-head LOP decode ----
     log(f"[standalone kernels + per-head LOP decode] full width (d 3200, "
         f"32 heads of 100, ffn 8640, capacity 1664, lop_block 128, k_keep "
@@ -4898,6 +5451,9 @@ def main() -> int:
     # phase 4i's serve runs: #1 on rwkv6 and jamba, #2 dense and expert,
     # #3 and the decode kernels on jamba
     for kname, n in rec["launches"].items():
+        launches[kname] += n
+    # phase 4j's serve runs: llava (#1–#5) and mistral-nemo (#1–#4)
+    for kname, n in vlm4j["launches"].items():
         launches[kname] += n
 
     # ---- 4f. sequence-parallel decode over 2 gloo ranks (last, with the
@@ -4930,6 +5486,14 @@ def main() -> int:
         rows[kname]["max_abs_err"] = max(
             rows[kname]["max_abs_err"],
             *(r["max_abs_err"] for r in by_mode.values()))
+    # phase 4j's shapes: #3 at llava's image-prefixed first chunk and a
+    # text chunk past it, #4/#5 at G 7 on llava's pages, #1 at
+    # mistral-nemo's O projection
+    for kname, by_shape in vlm4j["rows"].items():
+        rows[kname].setdefault("shapes", {}).update(by_shape)
+        rows[kname]["max_abs_err"] = max(
+            rows[kname]["max_abs_err"],
+            *(r["max_abs_err"] for r in by_shape.values()))
 
     sources = {"fused_qlinear": ("qlinear.cu", "src/repro/kernels/qlinear.py:224"),
                "fused_ffn": ("qlinear.cu", "src/repro/kernels/qlinear.py:368"),
@@ -4967,6 +5531,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"]}
+        if "shapes" in row:
+            entry["shapes"] = row["shapes"]
         if kname in mode_launches:
             # each mode the entry ran: its launches on the path that runs
             # it (phase 4, 4e's shared arm, 4f's rank 0, 4h's arms) and its

@@ -1,10 +1,8 @@
 """Model configuration: every architecture is a ``ModelConfig``.
 
 A jax-free copy of the reference's config record (same fields, same
-derived properties). The dense, moe, encdec, ssm and hybrid families are
-served by this package; the vlm family's configs are mirrored field for
-field with the reference and raise ``NotImplementedError`` where they
-reach the engine.
+derived properties). Every family — dense, moe, encdec, ssm, hybrid and
+vlm — is served by this package.
 """
 
 from __future__ import annotations

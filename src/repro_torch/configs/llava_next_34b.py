@@ -1,6 +1,7 @@
 """llava-next-34b [vlm] — the decoder backbone with a stub patch-embedding
-prefix of 2880 anyres tokens [hf:llava-hf/llava-v1.6-mistral-7b-hf].
-Mirrored only: the vlm family is not served by this package."""
+prefix of 2880 anyres tokens [hf:llava-hf/llava-v1.6-mistral-7b-hf]. A
+request's patch rows go through the f32 projector and ride its first
+prefill chunk (``serving/engine.py``)."""
 
 from repro_torch.configs.base import ModelConfig, register
 

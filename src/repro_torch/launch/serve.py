@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch {bitnet-3b,granite-moe-1b-a400m,stablelm-1.6b,qwen1.5-32b,
-                whisper-small,rwkv6-1.6b,jamba-1.5-large-398b} \\
+                mistral-nemo-12b,whisper-small,rwkv6-1.6b,
+                jamba-1.5-large-398b,llava-next-34b} \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
         [--shared-prefix-tokens N --prefix-reuse-frac F] [--no-prefix-cache] \\
@@ -10,14 +11,16 @@
         [--max-queue N] [--deadline-ms MS] [--stream] [--verify]
 
 Builds a seeded model on the device (the CUDA card unless ``--device cpu``),
-synthesizes requests with prompt lengths drawn from
+drawn and quantized one layer at a time, synthesizes requests with prompt lengths drawn from
 ``numpy.random.default_rng(seed)``, serves them through the
 :class:`repro_torch.serving.scheduler.Scheduler` (chunked prefill
 interleaved with decode; whole prompts at their exact length for a moe,
 encdec, ssm (rwkv6) or hybrid (jamba, served ``--reduced``: its full
 width does not fit one card) model, which never chunks; an encdec
 request carries ``4 × plen``
-seeded encoder frames, as the reference's CLI draws them) and reports
+seeded encoder frames, and a vlm (llava) request ``n_img_tokens`` seeded
+patch rows before its text, which the cache's ``max_len`` makes room
+for, as the reference's CLI draws them) and reports
 tokens/s, latency, TTFT and ITL percentiles (through :func:`repro_torch.serving.metrics.summarize`, under
 the reference's ``launch/serve.py`` keys), the time of a serve cycle's
 decode call and, last, the modeled K/V traffic per head and query, dense against LOP. The
@@ -70,8 +73,9 @@ def make_requests(cfg, *, n_requests: int, min_prompt: int, max_prompt: int,
     ``sampling.seed + rid``. ``shared_prefix_tokens > 0`` prepends ONE
     common prefix of that many tokens to the first
     ``round(prefix_reuse_frac * n_requests)`` prompts. An encdec request
-    carries ``4 × plen`` encoder frames of 0.02·N(0, 1) (the reference's
-    draws, in its order)."""
+    carries ``4 × plen`` encoder frames of 0.02·N(0, 1), a vlm request
+    ``n_img_tokens`` patch rows of 0.02·N(0, 1) (the reference's draws, in
+    its order)."""
     if not 0 < min_prompt <= max_prompt:
         raise ValueError(f"need 0 < min_prompt <= max_prompt, got "
                          f"{min_prompt}..{max_prompt}")
@@ -86,16 +90,20 @@ def make_requests(cfg, *, n_requests: int, min_prompt: int, max_prompt: int,
         prompt = rng.integers(0, cfg.vocab, (plen,)).astype(np.int32)
         if rid < n_sharers:
             prompt = np.concatenate([shared, prompt])
-        frames = None
+        frames = patches = None
         if cfg.family == "encdec":
             frames = (rng.standard_normal((4 * plen, cfg.d_model))
                       .astype(np.float32) * 0.02)
+        if cfg.family == "vlm":
+            patches = (rng.standard_normal((cfg.n_img_tokens, cfg.d_model))
+                       .astype(np.float32) * 0.02)
         sp = SamplingParams() if sampling is None else \
             replace(sampling, seed=sampling.seed + rid)
         reqs.append(GenerateRequest(rid=rid, prompt=prompt,
                                     max_new_tokens=gen, sampling=sp,
                                     deadline_ms=deadline_ms,
-                                    on_token=on_token, frames=frames))
+                                    on_token=on_token, frames=frames,
+                                    patches=patches))
     return reqs
 
 
@@ -188,7 +196,8 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
                 continue
             ref = lockstep_generate(engine, req.prompt, req.max_new_tokens,
                                     eos_id=req.eos_id, sampling=req.sampling,
-                                    stop=req.stop, frames=req.frames)
+                                    stop=req.stop, frames=req.frames,
+                                    patches=req.patches)
             if out["tokens"][req.rid] != ref:
                 mismatched.append(req.rid)
         out["verified"] = not mismatched
@@ -201,8 +210,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="bitnet-3b",
                     help="bitnet-3b, granite-moe-1b-a400m, stablelm-1.6b, "
-                         "qwen1.5-32b, whisper-small, rwkv6-1.6b or "
-                         "jamba-1.5-large-398b (the last with --reduced)")
+                         "qwen1.5-32b, mistral-nemo-12b, whisper-small, "
+                         "rwkv6-1.6b, jamba-1.5-large-398b (with --reduced) "
+                         "or llava-next-34b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
@@ -259,6 +269,8 @@ def main(argv=None) -> int:
 
     cfg = resolve_config(args.arch, args.reduced)
     max_len = args.max_prompt + args.gen + args.shared_prefix_tokens
+    if cfg.family == "vlm":
+        max_len += cfg.n_img_tokens       # the image prefix shares the cache
     engine = PooledEngine.from_seed(cfg, seed=args.seed, max_len=max_len,
                                     device=args.device,
                                     use_lop=not args.no_lop,

@@ -1,5 +1,5 @@
-"""Model parameters (dense, moe, encdec, ssm and hybrid families), drawn
-from an explicit ``torch.Generator``.
+"""Model parameters (dense, moe, encdec, ssm, hybrid and vlm families),
+drawn from an explicit ``torch.Generator``.
 
 The tree mirrors the reference's ``init_params``: ``embed.table``,
 ``ln_f``, ``head.w`` and layer-stacked ``layers`` with ``ln1``,
@@ -18,7 +18,9 @@ channel mix together) and ``ln2``; the hybrid family (jamba) stacks
 ``sub0`` … ``sub{attn_every-1}`` of ``ln1``, ``attn`` (the one attention
 sublayer, at ``attn_every // 2``) or ``mamba``
 (:func:`repro_torch.models.mamba.mamba_init`), ``ln2``, and ``moe`` (odd
-positions) or ``ffn``. The reference uses ``jax.random`` — the same seed
+positions) or ``ffn``. The vlm family (llava) is the dense layer stack
+and the patch projector ``projector`` ``{"w"}`` [d, d] (the reference's
+``linear_init``), drawn after the layers. The reference uses ``jax.random`` — the same seed
 gives other numbers, so tests carry the reference's weights over with
 :mod:`repro_torch.convert`. The reference's training forwards
 (``rwkv_layer_apply``, ``superblock_apply``) and ``models/attention.py``,
@@ -113,37 +115,55 @@ def superblock_init(gen, cfg, *, device) -> dict:
         for j in range(cfg.attn_every)}
 
 
-def init_params(cfg, seed: int, device="cpu") -> dict:
-    """Full f32 master tree of a dense, moe, encdec, ssm or hybrid model:
-    embed, head, then (encdec) the encoder layers, then the decoder
-    layers (ssm: rwkv layers; hybrid: superblocks) in order, all drawn
-    from one generator seeded with ``seed``."""
-    if cfg.family not in ("dense", "moe", "encdec", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+def draw_params(cfg, seed: int, device="cpu"):
+    """The master tree's entries in draw order, from one generator seeded
+    with ``seed``: embed, ``ln_f``, head, then (encdec) the encoder layers
+    and ``ln_enc``, then the decoder layers (ssm: rwkv layers; hybrid:
+    superblocks), then (vlm) the projector. Yields ``(name, i, n, tree)``:
+    a top-level entry with ``i`` and ``n`` None, or entry ``i`` of the
+    ``n`` of the stack ``name`` (``enc_layers``, ``layers``, ``blocks``),
+    each drawn only when it is asked for. :func:`init_params` and the
+    streamed draw (:func:`repro_torch.serving.quantize.
+    init_serving_params`) both walk it, so they make the same
+    ``torch.randn`` calls with the same shapes in the same order."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, vp = cfg.d_model, cfg.vocab_padded
-    params = {"embed": {"table": torch.randn((vp, d), generator=gen,
-                                             device=device) * 0.02},
-              "ln_f": norm_init(d, cfg.norm, device=device),
-              "head": linear_init(gen, d, vp, device=device)}
+    yield "embed", None, None, {"table": torch.randn(
+        (vp, d), generator=gen, device=device) * 0.02}
+    yield "ln_f", None, None, norm_init(d, cfg.norm, device=device)
+    yield "head", None, None, linear_init(gen, d, vp, device=device)
     if cfg.family == "ssm":
-        params["layers"] = stack_trees([
-            rwkv_layer_init(gen, cfg, device=device)
-            for _ in range(cfg.n_layers)])
-        return params
+        for i in range(cfg.n_layers):
+            yield "layers", i, cfg.n_layers, rwkv_layer_init(
+                gen, cfg, device=device)
+        return
     if cfg.family == "hybrid":
-        params["blocks"] = stack_trees([
-            superblock_init(gen, cfg, device=device)
-            for _ in range(cfg.n_layers // cfg.attn_every)])
-        return params
+        n = cfg.n_layers // cfg.attn_every
+        for i in range(n):
+            yield "blocks", i, n, superblock_init(gen, cfg, device=device)
+        return
     encdec = cfg.family == "encdec"
     if encdec:
-        params["enc_layers"] = stack_trees([
-            _layer_init(gen, cfg, i, device=device)
-            for i in range(cfg.n_encoder_layers)])
-        params["ln_enc"] = norm_init(d, cfg.norm, device=device)
-    params["layers"] = stack_trees([
-        _layer_init(gen, cfg, i, device=device, cross=encdec)
-        for i in range(cfg.n_layers)])
-    return params
+        for i in range(cfg.n_encoder_layers):
+            yield "enc_layers", i, cfg.n_encoder_layers, _layer_init(
+                gen, cfg, i, device=device)
+        yield "ln_enc", None, None, norm_init(d, cfg.norm, device=device)
+    for i in range(cfg.n_layers):
+        yield "layers", i, cfg.n_layers, _layer_init(
+            gen, cfg, i, device=device, cross=encdec)
+    if cfg.family == "vlm":
+        yield "projector", None, None, linear_init(gen, d, d, device=device)
+
+
+def init_params(cfg, seed: int, device="cpu") -> dict:
+    """Full f32 master tree of any family, the entries of
+    :func:`draw_params` with each stack's layers stacked."""
+    params = {}
+    for name, i, _, tree in draw_params(cfg, seed, device):
+        if i is None:
+            params[name] = tree
+        else:
+            params.setdefault(name, []).append(tree)
+    return {name: stack_trees(val) if isinstance(val, list) else val
+            for name, val in params.items()}

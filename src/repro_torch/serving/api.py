@@ -7,7 +7,7 @@ pooled engine.
 * :class:`GenerateRequest` — prompt, budget, eos, stop token sequences, an
   optional streaming ``on_token`` callback, a :class:`CancelToken`, a
   ``deadline_ms`` latency budget and, for an encdec model, the encoder
-  ``frames``.
+  ``frames``, for a vlm model the image prefix ``patches``.
 * :class:`StepResult` — one streamed token; :class:`FinishedRequest` — the
   completed request with its finish reason and latency breakdown.
 * :class:`ExistingPrefix` — interned prefix pages to resume a prompt from.
@@ -42,13 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import init_params
 from repro_torch.serving import cache as _cache
 from repro_torch.serving import faults as _faults
 from repro_torch.serving.engine import (chunks_prefill, guard_logits,
                                         prefill, prefill_chunk, serve_step)
 from repro_torch.serving.graphs import StepGraphs
-from repro_torch.serving.quantize import quantize_params
+from repro_torch.serving.quantize import init_serving_params
 from repro_torch.serving.sampling import sample_with_seed
 
 
@@ -114,7 +113,9 @@ class GenerateRequest:
     suffix stays in ``tokens``). ``on_token`` streams every emitted token
     in order; ``cancel`` is the mid-flight abort handle; ``deadline_ms``
     is the latency budget from ``arrival`` (stamped at submit when None).
-    ``frames`` (np f32 [S_enc, D]) is an encdec request's encoder input.
+    ``frames`` (np f32 [S_enc, D]) is an encdec request's encoder input;
+    ``patches`` (np f32 [n_img, D]) a vlm request's stub patch embeddings,
+    which take the lane's first n_img cache positions.
     """
     rid: int
     prompt: np.ndarray                 # int32 [prompt_len]
@@ -127,6 +128,7 @@ class GenerateRequest:
     arrival: float | None = None
     deadline_ms: float | None = None
     frames: np.ndarray | None = None   # encdec encoder input [S_enc, D]
+    patches: np.ndarray | None = None  # vlm image prefix [n_img, D]
 
     def __post_init__(self):
         # hashable int tuples from any iterable of iterables; empty
@@ -254,14 +256,13 @@ class PooledEngine:
         # ---- capability declarations (family → behaviour, once) ----
         self.supports_chunked = chunks_prefill(cfg)
         self.exact_length_prefill = not self.supports_chunked
-        self.state_kind = _cache.STATE_KINDS.get(cfg.family)
-        if self.state_kind is None:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet")
+        self.has_image_prefix = cfg.family == "vlm"
+        self.state_kind = _cache.STATE_KINDS[cfg.family]
         # prefix pages are lop_block-aligned and resume through the chunk
         # carry; speculation needs rewindable pages and a chunk-shaped
-        # verify: both exist exactly where chunked prefill does (not in
-        # moe or encdec, which prefill whole prompts at their exact length)
+        # verify: both exist exactly where chunked prefill does (dense and
+        # vlm; not in moe, encdec or the recurrent families, which prefill
+        # whole prompts at their exact length)
         self.prefix_block = cfg.lop_block if self.supports_chunked else 0
         self.supports_speculative = self.supports_chunked
         # the draft: a layer-stack prefix and a pinched LOP budget
@@ -275,14 +276,25 @@ class PooledEngine:
 
     @classmethod
     def from_seed(cls, cfg, *, seed: int, max_len: int, device=None, **kw):
-        """Engine over seeded random weights drawn on ``device``."""
+        """Engine over seeded random weights drawn on ``device``, one layer
+        at a time (:func:`repro_torch.serving.quantize.
+        init_serving_params`)."""
         dev = resolve_device(device)
-        return cls(cfg, quantize_params(cfg, init_params(cfg, seed, dev)),
+        return cls(cfg, init_serving_params(cfg, seed, dev),
                    max_len=max_len, device=dev, **kw)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)
+
+    def _rows(self, rows):
+        """Frames or patches (np f32 [S, D] or [B, S, D], or None) → a
+        batched f32 tensor on the device."""
+        if rows is None:
+            return None
+        rows = torch.as_tensor(np.asarray(rows, np.float32),
+                               device=self.device)
+        return rows[None] if rows.dim() == 2 else rows
 
     # ---------------- pool ----------------
 
@@ -291,8 +303,11 @@ class PooledEngine:
                                       self.device)
 
     def prefix_len(self, req: GenerateRequest) -> int:
-        """Cache positions a request holds before its text tokens (an
-        image prefix; none in the dense and moe families)."""
+        """Cache positions a request holds before its text tokens: a vlm
+        request's image rows (none for the other families, or a text-only
+        vlm request)."""
+        if self.has_image_prefix and req.patches is not None:
+            return len(req.patches)
         return 0
 
     def insert(self, pool, slot: int, req_cache) -> dict:
@@ -329,27 +344,26 @@ class PooledEngine:
 
     # ---------------- prefill ----------------
 
-    def prefill(self, tokens, frames=None):
+    def prefill(self, tokens, frames=None, patches=None):
         """Whole-prompt prefill of tokens [B, S] at their exact length →
         (logits [B, V], cache of the pool's capacity). ``frames`` (f32
         [S_enc, D] or [B, S_enc, D]) is an encdec model's encoder input,
-        required there."""
-        if frames is not None:
-            frames = torch.as_tensor(np.asarray(frames, np.float32),
-                                     device=self.device)
-            if frames.dim() == 2:
-                frames = frames[None]
+        required there; ``patches`` (f32 [n_img, D] or [B, n_img, D]) a
+        vlm request's image prefix."""
         return prefill(self.cfg, self.qp, self._tokens(tokens),
-                       max_len=self.max_len, frames=frames)
+                       max_len=self.max_len, frames=self._rows(frames),
+                       patches=self._rows(patches))
 
     def prefill_chunk(self, pool, slot: int, tokens, start: int,
-                      seq_end: int, activate: bool):
+                      seq_end: int, activate: bool, patches=None):
         """One chunk into the reserved lane ``slot``: the chunk's K/V land
         in the pool through the lane's views; the final chunk activates
-        the lane. → (logits [1, V], pool)."""
+        the lane; a vlm lane's first chunk carries its ``patches``. →
+        (logits [1, V], pool)."""
         lane = _cache.extract_slot(pool, slot)
         logits, lane = prefill_chunk(self.cfg, self.qp, self._tokens(tokens),
-                                     lane, start=start, seq_end=seq_end)
+                                     lane, start=start, seq_end=seq_end,
+                                     patches=self._rows(patches))
         pool = _cache.insert_slot(pool, slot, lane, active=activate)
         return logits, pool
 

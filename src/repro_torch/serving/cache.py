@@ -69,11 +69,12 @@ def cross_capacity_for(cfg, frames: int = 0) -> int:
 
 
 # how each served family keeps its per-sequence state (the reference's
-# ``_STATE_KINDS``): dense and moe layers keep one paged K/V cache; encdec
+# ``_STATE_KINDS``): dense, moe and vlm layers keep one paged K/V cache (a
+# vlm image prefix takes the lane's first positions); encdec
 # adds the encoder memory's cross-attention pages; ssm (rwkv6) keeps a
 # recurrent state a layer and no pages; hybrid (jamba) keeps one page
 # tree a superblock beside its Mamba sublayers' states
-STATE_KINDS = {"dense": "paged-kv", "moe": "paged-kv",
+STATE_KINDS = {"dense": "paged-kv", "moe": "paged-kv", "vlm": "paged-kv",
                "encdec": "paged-kv+cross", "ssm": "recurrent",
                "hybrid": "hybrid"}
 
@@ -137,9 +138,7 @@ def init_cache(cfg, batch: int, max_len: int, device,
     no pages; a hybrid cache holds ``blocks.attn`` pages stacked over the
     superblocks and ``blocks.mamba.{ssm, conv}`` [n_sb, attn_every − 1, B,
     ...]."""
-    kind = STATE_KINDS.get(cfg.family)
-    if kind is None:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    kind = STATE_KINDS[cfg.family]
     cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device)}
     cap = capacity_for(cfg, max_len)
     if kind == "recurrent":

@@ -1,5 +1,5 @@
-"""Serving engine, dense, moe, encdec, ssm and hybrid families: prefill
-(whole prompt, and chunked for dense) and the one-token decode step.
+"""Serving engine, every family: prefill (whole prompt, and chunked for
+dense and vlm) and the one-token decode step.
 
 Per decoder layer the path makes four kernel dispatches through
 :mod:`repro_torch.kernels.ops`: the fused QKV projection, prefill or decode
@@ -42,6 +42,14 @@ reference, a recurrent state ignores ``active`` (an inactive lane's state
 is never read, and an insert overwrites it), so a retry steps every
 lane's state once more.
 
+The vlm family (llava) is the dense layer stack behind an image prefix:
+a request's stub patch embeddings f32 [n_img, D] go through the f32
+``projector`` (a plain product, :func:`_embed`) and stand before the text
+embeddings, so the image's rows take cache positions [0, n_img) and text
+token t position n_img + t. Chunked, the image rides the first chunk
+(embedded width n_img + C at start 0) and later chunks start past it;
+decode is the dense step.
+
 With ``sp_axes`` and an active mesh (:mod:`repro_torch.distributed`) the
 decode step runs the sequence-parallel attention of
 :mod:`repro_torch.distributed.sp_decode`, as the reference's production
@@ -75,7 +83,10 @@ def _q(x):
     return qt.values, qt.scale
 
 
-SERVED_FAMILIES = ("dense", "moe", "encdec", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "encdec", "ssm", "hybrid", "vlm")
+# the families whose per-token compute does not depend on how the prompt
+# is split: they prefill in chunks, speculate and cache prefixes
+CHUNKED_FAMILIES = ("dense", "vlm")
 
 
 def _check_family(cfg, families=SERVED_FAMILIES, what: str = "") -> None:
@@ -91,7 +102,7 @@ def chunks_prefill(cfg) -> bool:
     is prefilled with its encoder frames: both prefill whole prompts at
     their exact length (run to completion) and attend only their block
     roundup."""
-    return cfg.family == "dense"
+    return cfg.family in CHUNKED_FAMILIES
 
 
 def _project_qkv(cfg, lp, h):
@@ -420,6 +431,19 @@ def _hybrid_sublayers(cfg, qp, cache):
                 mi += 1
 
 
+def _embed(cfg, qp, tokens, patches=None):
+    """Token embeddings [B, T, D], behind (vlm) the image prefix: patches
+    f32 [B, n_img, D] through the f32 projector, a plain product outside
+    any kernel (TF32 is off on the card), as the reference's ``_embed``.
+    → [B, n_img + T, D]."""
+    x = embedding_apply(qp["embed"], tokens)
+    if patches is None:
+        return x
+    if cfg.family != "vlm":
+        raise ValueError(f"family {cfg.family!r} takes no patches")
+    return torch.cat([patches.to(x.dtype) @ qp["projector"]["w"], x], dim=1)
+
+
 def _logits(cfg, qp, x_last):
     return head_apply(qp["head"], norm_apply(qp["ln_f"], x_last, cfg.norm))
 
@@ -442,13 +466,15 @@ def _recurrent_stack(cfg, qp, cache, x, *, lengths=None, **decode):
     return x
 
 
-def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
+def prefill(cfg, qp, tokens, *, max_len=None, frames=None, patches=None):
     """Whole-prompt forward writing a new batch-B cache.
 
     tokens int [B, S] on the weights' device; ``frames`` f32 [B, S_enc, D]
     the encoder input of an encdec model (required there, refused
-    elsewhere). → (logits [B, V] at the last position, cache with capacity
-    for ``max(max_len, S)`` tokens and, encdec, cross pages of capacity
+    elsewhere); ``patches`` f32 [B, n_img, D] a vlm request's image prefix
+    (optional there, refused elsewhere), which makes the stream S' = n_img
+    + S long. → (logits [B, V] at the last position, cache with capacity
+    for ``max(max_len, S')`` tokens and, encdec, cross pages of capacity
     ``round_up(max(cross_ctx, S_enc), lop_block)`` holding the encoder
     memory at [0, S_enc), ``cross_len = S_enc``; ssm and hybrid, each
     layer's recurrent state after the prompt, from zero states).
@@ -459,7 +485,8 @@ def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
     if encdec != (frames is not None):
         raise ValueError(f"family {cfg.family!r} "
                          + ("needs" if encdec else "takes no") + " frames")
-    b, s = tokens.shape
+    x = _embed(cfg, qp, tokens, patches)
+    b, s, _ = x.shape
     max_len = max(max_len if max_len is not None else 0, s)
     s_enc = frames.shape[1] if encdec else 0
     cache = init_cache(cfg, b, max_len, tokens.device, frames=s_enc)
@@ -467,7 +494,6 @@ def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
         enc = encode(cfg, qp, frames)
         cache["cross_len"].fill_(s_enc)
         kv_max = round_up(s_enc, cfg.lop_block)
-    x = embedding_apply(qp["embed"], tokens)
     if cfg.family in ("ssm", "hybrid"):
         x = _recurrent_stack(cfg, qp, cache, x)
         cache["lengths"].fill_(s)
@@ -488,11 +514,17 @@ def prefill(cfg, qp, tokens, *, max_len=None, frames=None):
 
 
 def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int,
-                  all_logits: bool = False):
+                  patches=None, all_logits: bool = False):
     """One chunk of chunked prefill. tokens [B, C] at positions
     [start, start + C); ``cache`` holds [0, start) and is written in place
     at [start, start + C) with ``lengths = seq_end``. → (logits [B, V] at
     position ``seq_end - 1``, cache).
+
+    A vlm stream is [image prefix ‖ text]: a lane's first chunk carries
+    ``patches`` f32 [B, n_img, D] too, so its embedded width is C' = n_img
+    + C at ``start`` 0, it writes [0, C') and its logits row is
+    ``clip(seq_end - 1 - start, 0, C' - 1)``; later chunks start past the
+    prefix.
 
     ``start`` may be any block multiple on a lane's first chunk: a prefix
     hit resumes past cloned pages with the same carry as any later chunk.
@@ -502,11 +534,11 @@ def prefill_chunk(cfg, qp, tokens, cache, *, start: int, seq_end: int,
     cfg = resolve_decode_flags(cfg)
     # the chunk carry needs routing that does not see other tokens: moe
     # routers rank a group's tokens for capacity, so moe never chunks
-    _check_family(cfg, ("dense",), "chunked prefill")
-    b, c = tokens.shape
+    _check_family(cfg, CHUNKED_FAMILIES, "chunked prefill")
+    x = _embed(cfg, qp, tokens, patches)
+    b, c, _ = x.shape
     kv_len = torch.full((b,), start + c, dtype=torch.int32,
                         device=tokens.device)
-    x = embedding_apply(qp["embed"], tokens)
     for i in range(cfg.n_layers):
         lp = layer_slice(qp["layers"], i)
         cl = layer_slice(cache["layers"], i)
@@ -556,7 +588,7 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
     cfg = resolve_decode_flags(cfg)
     _check_family(cfg)
     if n_layers is not None:
-        _check_family(cfg, ("dense",), "the speculative draft")
+        _check_family(cfg, CHUNKED_FAMILIES, "the speculative draft")
     lengths = cache["lengths"]
     if active is None:
         active = cache.get("active")

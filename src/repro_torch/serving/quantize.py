@@ -1,5 +1,4 @@
-"""Master weights → the serving (deployment) format, dense, moe, encdec,
-ssm and hybrid families.
+"""Master weights → the serving (deployment) format, every family.
 
 Every projection becomes packed 2-bit ternary codes plus its absmean γ,
 and projection groups fuse into one packed stream each, as the reference's
@@ -29,9 +28,15 @@ and projection groups fuse into one packed stream each, as the reference's
     (``mu``, ``mu_c``, ``u``, ``w_base``, ``ln_x``, ``A_log``, ``D``,
     ``conv_w``, ``conv_b``: the reference's ``_KEEP_FP``) stay f32.
 
-Embedding, norms, head and router stay f32. Layer-stacked trees
+Embedding, norms, head, router and the vlm ``projector`` stay f32 (the
+reference's ``_KEEP_FP``). Layer-stacked trees
 (``layers``, the encoder's ``enc_layers``, and hybrid's ``blocks`` of
 ``sub{j}`` sublayers over the superblocks) keep their leading axis.
+
+:func:`init_serving_params` draws and quantizes a seeded model one stack
+entry at a time, so a model whose f32 master tree does not fit the card
+but whose serving tree does (llava-next-34b, mistral-nemo-12b) is served
+from a seed.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.ternary import pack_ternary, ternary_quantize
-from repro_torch.models.transformer import stack_trees
+from repro_torch.models.transformer import draw_params, stack_trees
 
 
 def _quantize_linear(w: torch.Tensor) -> dict:
@@ -149,31 +154,69 @@ def quantize_layer(lp: dict) -> dict:
     return out
 
 
-def _quantize_stack(stack: dict, n: int) -> dict:
-    return stack_trees([quantize_layer(_index(stack, i)) for i in range(n)])
-
-
-def _quantize_blocks(blocks: dict, n: int) -> dict:
-    """Superblock-stacked ``sub{j}`` sublayers → serving format, each
-    sublayer as a layer."""
-    return stack_trees([{name: quantize_layer(sub)
-                         for name, sub in _index(blocks, i).items()}
-                        for i in range(n)])
+def _quantize_entry(name: str, tree: dict) -> dict:
+    """One entry of a stack → serving format: a layer, or a superblock
+    (``blocks``) of ``sub{j}`` sublayers, each quantized as a layer."""
+    if name == "blocks":
+        return {sub: quantize_layer(lp) for sub, lp in tree.items()}
+    return quantize_layer(tree)
 
 
 def quantize_params(cfg, params: dict) -> dict:
     """Full master tree (layer- or superblock-stacked) → serving tree."""
-    out = {k: v for k, v in params.items()
-           if k not in ("layers", "enc_layers", "blocks")}
-    if "enc_layers" in params:
-        out["enc_layers"] = _quantize_stack(params["enc_layers"],
-                                            cfg.n_encoder_layers)
-    if "blocks" in params:
-        out["blocks"] = _quantize_blocks(params["blocks"],
-                                         cfg.n_layers // cfg.attn_every)
-    else:
-        out["layers"] = _quantize_stack(params["layers"], cfg.n_layers)
+    out = {}
+    for name, val in params.items():
+        if name not in ("enc_layers", "layers", "blocks"):
+            out[name] = val
+            continue
+        n = (cfg.n_encoder_layers if name == "enc_layers" else
+             cfg.n_layers // cfg.attn_every if name == "blocks" else
+             cfg.n_layers)
+        out[name] = stack_trees([_quantize_entry(name, _index(val, i))
+                                 for i in range(n)])
     return out
+
+
+def init_serving_params(cfg, seed: int, device="cpu") -> dict:
+    """The serving tree of ``quantize_params(cfg, init_params(cfg, seed,
+    device))``, bitwise, without the whole f32 master tree: each stack
+    entry is drawn (:func:`repro_torch.models.transformer.draw_params`),
+    quantized and written into a stacked serving tree allocated once, from
+    the first entry's shapes, before the next entry is drawn. The peak is
+    the serving tree, one entry's masters and the quantizer's temporaries.
+
+    Bitwise equality holds because both paths make the same
+    ``torch.randn`` calls, with the same shapes, in the same order (the
+    generator's offset advances by each call's size, so one reordered,
+    merged or extra draw changes every later weight), and nothing in the
+    quantizer draws from a generator."""
+    out = {}
+    for name, i, n, tree in draw_params(cfg, seed, device):
+        if i is None:
+            out[name] = tree
+            continue
+        entry = _quantize_entry(name, tree)
+        del tree
+        if i == 0:
+            out[name] = _empty_stack(entry, n)
+        _write_entry(out[name], i, entry)
+        del entry
+    return out
+
+
+def _empty_stack(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    return torch.empty((n, *tree.shape), dtype=tree.dtype,
+                       device=tree.device)
+
+
+def _write_entry(stack, i: int, tree) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _write_entry(stack[k], i, v)
+        else:
+            stack[k][i].copy_(v)
 
 
 def _index(tree, i):

@@ -13,6 +13,12 @@ decodes from the next step; a prefill that runs while other lanes are
 decoding stalls them and counts in ``full_prefill_stalls``. The prefix
 store is off there (prefix pages resume through the chunk carry).
 
+A vlm request's image prefix (``patches``, :meth:`PooledEngine.prefix_len`
+positions) rides its first chunk, or its whole prefill, and shifts every
+later chunk past it; a lane's length counts it. Image requests never
+match or intern prefix pages: their pages depend on the image, which the
+store's token keys do not see.
+
 In the chunked regime ``admit`` reserves a free lane and plans the
 prompt's chunk grid (chunk = ``lop_block`` tokens; the last chunk is
 right-padded to the same width unless that would pass the pool
@@ -194,7 +200,8 @@ class Scheduler:
     def submit(self, req: GenerateRequest) -> bool:
         """Queue ``req``. → False when it was shed at ``max_queue``
         (reject-newest: it finishes at once with reason "shed")."""
-        need = len(req.prompt) + req.max_new_tokens
+        need = (self.engine.prefix_len(req) + len(req.prompt)
+                + req.max_new_tokens)
         # an attention-free pool (capacity 0: recurrent state only) has no
         # token bound
         if self.capacity and need > self.capacity:
@@ -204,6 +211,9 @@ class Scheduler:
             raise ValueError(
                 f"request {req.rid}: an encdec engine needs frames and "
                 f"any other takes none")
+        if req.patches is not None and not self.engine.has_image_prefix:
+            raise ValueError(f"request {req.rid}: only a vlm engine takes "
+                             f"patches")
         if req.frames is not None and len(req.frames) > self.cross_capacity:
             raise ValueError(f"request {req.rid} has {len(req.frames)} "
                              f"encoder frames but the pool's cross capacity "
@@ -245,18 +255,21 @@ class Scheduler:
         (``skip``: block-aligned tokens a prefix hit already holds, so the
         first chunk starts at the cached boundary); the final chunk is
         padded to the same width unless that would pass the pool
-        capacity."""
+        capacity. A vlm request's image prefix rides the first chunk
+        (start 0; its patches go in at :meth:`_step_prefill`), and every
+        later position is shifted past it."""
         plen = len(req.prompt)
+        prefix = self.engine.prefix_len(req)
         c = self.chunk_tokens
         chunks, starts, seq_ends = [], [], []
         for lo in range(skip, max(plen, skip + 1), c):
             hi = min(plen, lo + c)
-            width = c if lo + c <= self.capacity else hi - lo
+            width = c if prefix + lo + c <= self.capacity else hi - lo
             buf = np.zeros((1, width), np.int32)
             buf[0, :hi - lo] = req.prompt[lo:hi]
             chunks.append(buf)
-            starts.append(lo)
-            seq_ends.append(hi)
+            starts.append(prefix + lo if lo else 0)
+            seq_ends.append(prefix + hi)
         return chunks, starts, seq_ends
 
     def _match(self, req: GenerateRequest):
@@ -351,7 +364,8 @@ class Scheduler:
         self._m.prefill_tokens.labels(source="computed").inc(plen)
         t0 = time.perf_counter()
         logits, req_cache = _prefill(
-            self.engine, np.asarray(req.prompt, np.int32)[None], req.frames)
+            self.engine, np.asarray(req.prompt, np.int32)[None], req.frames,
+            req.patches)
         self.pool = self.engine.insert(self.pool, slot, req_cache)
         self.full_prefill_seconds.append(time.perf_counter() - t0)
         self._start_lane(_Prefill(slot, req, [], [], [], t_admit), logits,
@@ -389,10 +403,13 @@ class Scheduler:
         pf = self._prefilling[0]
         k = pf.next_chunk
         final = k == len(pf.chunks) - 1
+        kw = {}
+        if k == 0 and self.engine.prefix_len(pf.req):
+            kw["patches"] = pf.req.patches
         t0 = self.clock()
         logits, self.pool = self.engine.prefill_chunk(
             self.pool, pf.slot, pf.chunks[k], pf.starts[k], pf.seq_ends[k],
-            final)
+            final, **kw)
         self._m.prefill_chunk.observe(self.clock() - t0)
         pf.next_chunk += 1
         if final:
@@ -797,29 +814,32 @@ class Scheduler:
         return self.results
 
 
-def _prefill(eng, tokens, frames):
-    """``eng.prefill`` of tokens [1, S], given the encoder ``frames`` only
-    when the request has some."""
-    if frames is None:
-        return eng.prefill(tokens)
-    return eng.prefill(tokens, frames=frames)
+def _prefill(eng, tokens, frames=None, patches=None):
+    """``eng.prefill`` of tokens [1, S], given the encoder ``frames`` and
+    the image ``patches`` only when the request has them."""
+    kw = {name: rows for name, rows in (("frames", frames),
+                                        ("patches", patches))
+          if rows is not None}
+    return eng.prefill(tokens, **kw)
 
 
 def lockstep_generate(eng: PooledEngine, prompt, max_new_tokens: int, *,
                       eos_id: int | None = None,
                       sampling: SamplingParams | None = None, stop=(),
-                      on_token=None, cancel=None, frames=None) -> list:
+                      on_token=None, cancel=None, frames=None,
+                      patches=None) -> list:
     """Batch-1 reference: whole-prompt prefill, then one decode step per
     token, through the same engine and sampler as a :class:`Scheduler` on
     it (so the same ``max_len``, cache capacity, LOP budget and key
     schedule). Honors eos, stop sequences, ``on_token`` and ``cancel``;
-    ``frames`` is an encdec request's encoder input."""
+    ``frames`` is an encdec request's encoder input, ``patches`` a vlm
+    request's image prefix."""
     sp = sampling or GREEDY
     req = GenerateRequest(rid=-1, prompt=np.asarray(prompt, np.int32),
                           max_new_tokens=max_new_tokens, eos_id=eos_id,
                           sampling=sp, stop=stop, on_token=on_token,
-                          cancel=cancel, frames=frames)
-    logits, cache = _prefill(eng, req.prompt[None], frames)
+                          cancel=cancel, frames=frames, patches=patches)
+    logits, cache = _prefill(eng, req.prompt[None], frames, patches)
     # the batch-1 cache carries the pool's key-schedule leaves: seed and
     # next step 1 (step 0 is the prefill's first-token draw)
     for key in ("seed", "sample_step"):

@@ -12,6 +12,7 @@ from repro_torch.configs import all_configs, get_config, resolve_config
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.api import PooledEngine
 from repro_torch.serving.cache import init_cache
+from repro_torch.serving.quantize import init_serving_params
 
 torch.set_num_threads(1)
 
@@ -19,7 +20,7 @@ MODULES = ("bitnet_3b", "granite_moe_1b_a400m", "jamba_1_5_large_398b",
            "llava_next_34b", "mistral_nemo_12b", "mixtral_8x22b",
            "qwen1_5_110b", "qwen1_5_32b", "rwkv6_1_6b", "stablelm_1_6b",
            "whisper_small")
-SERVED = ("dense", "moe", "encdec", "ssm", "hybrid")
+SERVED = ("dense", "moe", "encdec", "ssm", "hybrid", "vlm")
 
 
 def _pair(module: str, which: str):
@@ -54,19 +55,14 @@ def test_registry_holds_every_config():
 
 @pytest.mark.parametrize("module", MODULES)
 def test_unserved_families_raise(module):
-    """Dense, moe, encdec, ssm and hybrid are served (the cache is built);
-    the other family (vlm) raises where it reaches the weights, the cache
-    or the engine."""
+    """Every family is served now (the vlm family since the image prefix
+    was ported): each config's family builds its weights' tree, its cache
+    and its engine, and no family is left to raise."""
     _, cfg = _pair(module, "REDUCED")
-    if cfg.family in SERVED:
-        assert init_cache(cfg, 1, 8, "cpu")["lengths"].shape == (1,)
-        return
-    with pytest.raises(NotImplementedError):
-        init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError):
-        init_cache(cfg, 1, 8, "cpu")
-    with pytest.raises(NotImplementedError):
-        PooledEngine(cfg, {}, max_len=8, device="cpu")
+    assert cfg.family in SERVED
+    assert init_cache(cfg, 1, 8, "cpu")["lengths"].shape == (1,)
+    qp = init_serving_params(cfg, 0, "cpu")
+    assert PooledEngine(cfg, qp, max_len=8, device="cpu").state_kind
 
 
 def test_moe_master_tree():

@@ -1768,6 +1768,171 @@ def test_recurrent_graph_entries_bitwise_eager(cuda, arch, use_lop, sampled,
 
 
 # ---------------------------------------------------------------------------
+# the streamed draw and the vlm family (llava) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", [
+    "bitnet-3b-reduced", "granite-moe-1b-a400m-reduced",
+    "qwen1.5-32b-reduced", "whisper-small-reduced", "rwkv6-1.6b-reduced",
+    "jamba-1.5-large-398b-reduced", "llava-next-34b-reduced"])
+def test_streamed_draw_bitwise_on_card(cuda, arch):
+    """``init_serving_params`` on the card: every served leaf bitwise
+    ``quantize_params(init_params(...))`` drawn on the card (the same
+    ``torch.randn`` calls in the same order from a CUDA generator)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.quantize import (init_serving_params,
+                                              quantize_params)
+    cfg = get_config(arch)
+    want = dict(_leaves(quantize_params(cfg, init_params(cfg, 3, cuda))))
+    got = dict(_leaves(init_serving_params(cfg, 3, cuda)))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert leaf.is_cuda and torch.equal(got[path], leaf), path
+
+
+def _leaves(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{path}{k}.")
+        else:
+            yield f"{path}{k}", v
+
+
+VLM_MAX_LEN = 95                   # capacity 96: 16 image rows + 51 + 14
+
+
+def _vlm_requests(sampled: bool, n_img: int = 16, d: int = 128):
+    from repro_torch.serving.api import GenerateRequest, SamplingParams
+    rng = np.random.default_rng(33)
+    reqs = []
+    for rid, n in enumerate((9, 40, 23, 51, 5)):
+        sp = (SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=rid)
+              if sampled else None)
+        reqs.append(GenerateRequest(
+            rid=rid, prompt=rng.integers(0, 512, n).astype(np.int32),
+            max_new_tokens=14 - rid,
+            patches=(rng.standard_normal((n_img, d)) * 0.02).astype(
+                np.float32), **({} if sp is None else dict(sampling=sp))))
+    return reqs
+
+
+def test_vlm_prefill_and_decode_on_card_match_cpu(cuda):
+    """Reduced llava on the CPU's weights: the embedded rows (the f32
+    projector product, summed in another order on the card) within 2e-5
+    of the CPU's; one request's image-prefixed first chunk and a text
+    chunk past it (``prefill_chunk``), then one decode step: the int8
+    pages part from the CPU's by ±1 at no more than 0.5 % of their
+    entries (1-ulp knife-edges of the barrier after those rounding
+    differences), the logits within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine as teng
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.quantize import init_serving_params
+    cfg = get_config("llava-next-34b-reduced")
+    qp_cpu = init_serving_params(cfg, 0, "cpu")
+    req = _vlm_requests(False)[3]                         # 51 text tokens
+    outs = {}
+    for dev in ("cpu", cuda):
+        qp = _to(qp_cpu, dev)
+        toks = torch.from_numpy(req.prompt.astype(np.int64)).to(dev)[None]
+        patches = torch.from_numpy(req.patches).to(dev)[None]
+        emb = teng._embed(cfg, qp, toks, patches)
+        cache = init_cache(cfg, 1, VLM_MAX_LEN, dev)
+        n_img, c = cfg.n_img_tokens, cfg.lop_block
+        teng.prefill_chunk(cfg, qp, toks[:, :c], cache, start=0,
+                           seq_end=n_img + c, patches=patches)
+        first, _ = teng.prefill_chunk(cfg, qp, toks[:, c:], cache,
+                                      start=n_img + c,
+                                      seq_end=n_img + len(req.prompt))
+        step, _ = teng.serve_step(cfg, qp, cache,
+                                  torch.argmax(first, -1)[:, None])
+        outs[str(dev)] = [t.cpu() for t in (emb, first, step)] + [
+            {k: v.cpu() for k, v in cache["layers"].items()}]
+    (e0, f0, s0, c0), (e1, f1, s1, c1) = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(e1, e0, **TOL)
+    for name in ("k", "v"):
+        diff = (c1[name].to(torch.int32) - c0[name]).abs()
+        assert int(diff.max()) <= 1, name
+        assert float((diff > 0).float().mean()) <= 0.005, name
+    torch.testing.assert_close(f1, f0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(s1, s0, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("c,start", [(3008, 0), (128, 3008), (37, 3100)],
+                         ids=["image-chunk", "text-chunk", "verify-rows"])
+def test_vlm_prefill_kernel_at_group_7(cuda, c, start):
+    """#3 at llava's shapes: 56 query heads over 8 kv heads (G 7, rows
+    g-major), dh 128, a 3456-slot cache; the image-prefixed first chunk
+    (2,880 + 128 rows at start 0), a text chunk past the image and a
+    short block at a start that is no block multiple."""
+    rng = np.random.default_rng(c + start)
+    arrs = _dev(_attn(rng, 1, 56, 8, c, 128, 3456), cuda)
+    kv_len = torch.tensor([start + c], dtype=torch.int32, device=cuda)
+    got = ops.prefill_attention(*arrs, kv_len, q_offset=start, causal=True)
+    want = plain.prefill_attention_ref(*arrs, kv_len, start, causal=True,
+                                       window=0, softmax_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("use_lop", [True, False], ids=["lop", "dense"])
+def test_vlm_decode_kernels_at_group_7(cuda, use_lop):
+    """#4 and #5 at llava's decode shape: B 4, 56 heads over 8 (G 7), dh
+    128, M 3456, llava's k_keep; lanes deep in and past the image rows,
+    one retired (exact zero)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.lop_select import k_keep_blocks
+    m, blk = 3456, 128
+    k_keep = k_keep_blocks(get_config("llava-next-34b"), m)
+    rng = np.random.default_rng(7 + use_lop)
+    arrs = _dev(_decode(rng, 4, 56, 8, m, 128), cuda)
+    lens = (3400, 0, 2950, 3180)
+    new_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(block=blk, k_keep=k_keep, window=0, use_lop=use_lop)
+    got = ops.decode_attention(*arrs, new_len, **kw)
+    want = plain.decode_attention_ref(*arrs, new_len,
+                                      softmax_scale=128 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("use_lop,sampled,nan", [
+    (True, False, frozenset()), (False, False, frozenset()),
+    (True, True, NAN_CALLS)],
+    ids=["lop-greedy", "nolop-greedy", "lop-sampled-faults"])
+def test_vlm_graph_entries_bitwise_eager(cuda, use_lop, sampled, nan):
+    """Reduced llava, image requests chunked (the image on each first
+    chunk): the decode entries in CUDA graphs bitwise the eager engine —
+    tokens, every pool tensor, launch counts; without faults the
+    scheduler's tokens bitwise the port's ``lockstep_generate(...,
+    patches=)`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.scheduler import lockstep_generate
+    cfg = get_config("llava-next-34b-reduced")
+    eager = PooledEngine.from_seed(cfg, seed=0, max_len=VLM_MAX_LEN,
+                                   use_lop=use_lop, device=cuda, graphs=False)
+    graph = PooledEngine(cfg, eager.qp, max_len=VLM_MAX_LEN,
+                         use_lop=use_lop, device=cuda)
+    reqs = _vlm_requests(sampled)
+    want, want_pool, want_counts, esched = _serve_arm(eager, reqs, nan)
+    got, got_pool, got_counts, gsched = _serve_arm(graph, reqs, nan)
+    assert got == want and got_counts == want_counts
+    for name, leaf in want_pool.items():
+        assert torch.equal(got_pool[name], leaf), name
+    assert gsched.chunked and graph.graphs.count >= 1
+    if nan:
+        assert gsched.fault_recoveries == esched.fault_recoveries >= 1
+        return
+    for r in reqs:
+        assert lockstep_generate(graph, r.prompt, r.max_new_tokens,
+                                 sampling=r.sampling,
+                                 patches=r.patches) == got[r.rid], r.rid
+
+
+# ---------------------------------------------------------------------------
 # the HTTP front-end on the card
 # ---------------------------------------------------------------------------
 

@@ -21,7 +21,7 @@ reference's converted weights, on the CPU:
     touches one lane only, and rolling back into cloned prefix pages
     leaves the store's pages intact.
 
-The reference's vlm case waits for the vlm family (ROADMAP P7b).
+The reference's vlm case is held in ``tests/test_torch_vlm.py``.
 """
 import jax
 import numpy as np
