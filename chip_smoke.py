@@ -274,6 +274,28 @@ printed:
               kv-head) lane → select_blocks → sparse_decode over every
               lane; 2 launches) against the fused LOP decode kernel (1
               launch) on the K/V of one layer of the serve engine's cache;
+  4k. train  (after phase 5, the earlier engines freed) the QAT training
+              path: (a) full-width bitnet-3b (26 layers, d 3200) with f32
+              masters drawn on the card, 8 make_train_step steps of batch
+              4 x 512 (bf16 activations, per-layer remat, peak lr 1e-4
+              after 1 warmup step; SyntheticDataset seed 0), each step's
+              loss, grad norm, lr and synchronized ms, the peak device
+              memory; gates: finite, the mean loss of steps 7-8 below that
+              of steps 1-2, no kernel of the table launched while
+              training; (b) reduced bitnet (2 layers, vocab 256) through
+              train_loop for 60 steps (batch 8 x 32, lr 3e-3), last-5 mean
+              below first-5 mean - 0.3; at f32, the same loop on the
+              card and on the CPU from the same masters: step 1's loss
+              within 1e-4 and its pre-clip grad norm within 1e-4 of
+              itself, its forward's first int8 parting a knife-edge, steps
+              2-5 printed; a run preempted at step 30 (checkpointed) and
+              resumed, its losses bitwise the uninterrupted run's; (c)
+              (a)'s trained masters quantized on the card and served:
+              phase 4's first 4 requests greedy LOP through the Scheduler,
+              scheduler == lockstep for 2 requests, #1-#4 launched, the
+              tokens' sha256; #1 at layer 0's QKV and #2 at its FFN on the
+              trained served weights bitwise their plain versions, timed
+              beside their bounds;
   4f. sp     (run last, the earlier engines freed) the reference's
               production decode path: full-width bitnet-3b drawn from the
               seeded generator, phase 4's first 4 prompts prefilled
@@ -300,7 +322,8 @@ the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
 ``shared_select``, ``pos_offset+return_stats`` and ``cross`` — each with
 its launches on the path that runs it and the numbers of the phase that
 checked it; the launches of #1–#5 also count phase 4i's and 4j's serve
-runs; #1, #3, #4 and #5 list phase 4j's checks under ``shapes``);
+runs and phase 4k's serve run; #1, #3, #4 and #5 list phase 4j's
+checks under ``shapes``, #1 and #2 phase 4k's on trained weights);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -4480,6 +4503,360 @@ def vlm_phase(torch, np, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the QAT training path — train, quantize, serve
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
+# lr 1e-3 (the reduced arm's scale) diverges at d 3200 from this seeded
+# init, on the card and in the reference alike (scripts/train_lr_check.py)
+TRAIN_LR, TRAIN_WARMUP = 1e-4, 1
+RED_STEPS, RED_BATCH, RED_SEQ, RED_LR, RED_RESUME = 60, 8, 32, 3e-3, 30
+RED_HELD, RED_TOL, RED_GNORM_TOL = 5, 1e-4, 1e-4
+TRAIN_REQUESTS = 4
+
+
+class StopAfter:
+    """A preemption flag that trips after ``n`` polls (one a step)."""
+
+    def __init__(self, n: int):
+        self.n, self.polls = n, 0
+
+    @property
+    def preempted(self) -> bool:
+        self.polls += 1
+        return self.polls >= self.n
+
+
+def train_full_arm(torch, np, card: str, lr: float = TRAIN_LR,
+                   warmup: int = TRAIN_WARMUP):
+    """(a) bitnet-3b at full width and depth: masters drawn on the card,
+    then ``TRAIN_STEPS`` steps of ``make_train_step`` (batch 4 × 512,
+    peak ``lr`` after ``warmup`` steps) with every step's loss, grad norm,
+    lr and synchronized ms, the peak, and no kernel of the table
+    launched. → (trained masters, stats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train import make_train_step
+
+    cfg = get_config("bitnet-3b")
+    params, draw_s, draw_peak = drawn(torch, lambda: init_params(
+        cfg, SEED, "cuda"))
+    n_params = sum(p.numel() for _, p in leaves(params))
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, peak_lr=lr, warmup=warmup,
+                              total_steps=TRAIN_STEPS)
+    data = SyntheticDataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            seed=SEED)
+    held = torch.cuda.memory_allocated()
+    log(f"  [train bitnet-3b] {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd}, ffn {cfg.d_ff}: {n_params:,} "
+        f"f32 masters drawn on the card in {draw_s:.1f} s (peak "
+        f"{draw_peak / 2**30:.2f} GiB); {held / 2**30:.2f} GiB with the "
+        f"AdamW moments; peak lr {lr}, warmup {warmup} [{card}]")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, step_ms = [], [], []
+    for n in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch(n).items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        log(f"  [train bitnet-3b] step {n + 1}: loss {losses[-1]:.4f}, grad "
+            f"norm {norms[-1]:.4f}, lr {float(m['lr']):.3e}, param norm "
+            f"{float(m['param_norm']):.2f}, {step_ms[-1]:.1f} ms")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"[train bitnet-3b] training launched serving "
+                             f"kernels: {counts}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"[train bitnet-3b] non-finite losses {losses} "
+                             f"or norms {norms}")
+    first, last = np.mean(losses[:2]), np.mean(losses[-2:])
+    if not last < first:
+        raise AssertionError(f"[train bitnet-3b] loss did not fall: steps "
+                             f"1–2 {first:.4f}, {TRAIN_STEPS - 1}–"
+                             f"{TRAIN_STEPS} {last:.4f}")
+    log(f"  [train bitnet-3b] loss {first:.4f} (steps 1–2) → {last:.4f} "
+        f"(steps {TRAIN_STEPS - 1}–{TRAIN_STEPS}); step ms p50 "
+        f"{np.percentile(step_ms[1:], 50):.1f} (first {step_ms[0]:.1f}); "
+        f"peak {peak / 2**30:.2f} GiB; launch counts while training "
+        f"{counts} [{card}]")
+    del opt, batch, m
+    free_cuda(torch)
+    return params, dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                        peak_bytes=peak, draw_s=draw_s,
+                        draw_peak_bytes=draw_peak)
+
+
+def step_parting(torch, cfg, masters, batch) -> dict:
+    """Step 1's forward from the same masters on the CPU and on the card,
+    every QAT BitLinear input recorded: the first input whose absmax int8
+    values differ, and whether each differing element is a knife-edge
+    (x/scale within 1e-4 of one half-integer on both sides: rounding, not
+    a fault; what follows carries it). → {"edge", "text", ...}."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.tree_util import tree_map
+
+    real = layers.bitlinear_qat
+    rec = {}
+    for dev in ("cpu", "cuda"):
+        xs = rec[dev] = []
+
+        def recorded(x, w, *a, xs=xs, **k):
+            xs.append(x.detach().to("cpu", copy=True))
+            return real(x, w, *a, **k)
+        layers.bitlinear_qat = recorded
+        try:
+            with torch.no_grad():
+                forward_train(cfg, tree_map(lambda t: t.to(dev), masters),
+                              torch.from_numpy(batch["tokens"]).to(dev),
+                              remat=False)
+        finally:
+            layers.bitlinear_qat = real
+    before = 0.0
+    for i, (a, b) in enumerate(zip(rec["cpu"], rec["cuda"])):
+        qa, qb = quantize(a), quantize(b)
+        apart = [tuple(j) for j in (qa.values != qb.values).nonzero().tolist()]
+        if not apart:
+            before = max(before, float((a - b).abs().max()))
+            continue
+        ratios = [(float(a[j] / qa.scale[j[:-1]]),
+                   float(b[j] / qb.scale[j[:-1]])) for j in apart]
+        edge = all(abs(r - math.floor(ra) - 0.5) < 1e-4
+                   for ra, rb in ratios for r in (ra, rb))
+        shown = [(round(x, 6), round(y, 6)) for x, y in ratios[:4]]
+        return dict(edge=edge, index=i, elements=apart, ratios=ratios,
+                    text=f"the int8 values of the first {i} of "
+                    f"{len(rec['cpu'])} BitLinear inputs bitwise (f32 apart "
+                    f"by at most {before:.2e}); input {i} parts at "
+                    f"{len(apart)} element(s) {apart[:4]}, x/scale CPU / "
+                    f"card {shown}"
+                    f"{' (knife-edges)' if edge else ' (NOT knife-edges)'}")
+    return dict(edge=True, index=None, text=f"all {len(rec['cpu'])} "
+                f"BitLinear inputs' int8 values bitwise (f32 apart by at "
+                f"most {before:.2e})")
+
+
+def train_reduced_arm(torch, np, card: str) -> dict:
+    """(b) reduced bitnet (2 layers, vocab 256): ``train_loop`` for 60 steps
+    (batch 8 × 32, lr 3e-3, the reference's ``test_loss_decreases_qat``)
+    with its gate; at f32, the same loop on the CPU and on the card from
+    the same masters (drawn on the CPU: a CUDA generator draws other
+    numbers): step 1's loss within 1e-4 and its pre-clip grad norm (the
+    backward, before AdamW) within 1e-4 of itself, its forward's first
+    int8 parting a knife-edge (``step_parting``), the later steps' parting
+    printed (AdamW's first steps are sign-like, so a gradient element
+    near zero that rounds the other way moves its master by 2·lr); a run
+    preempted at step 30 (checkpointed)
+    and resumed, its losses bitwise the uninterrupted run's."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree_util import tree_map
+
+    cfg = get_config("bitnet-3b-reduced").replace(n_layers=2, vocab=256)
+    kw = dict(steps=RED_STEPS, global_batch=RED_BATCH, seq_len=RED_SEQ,
+              peak_lr=RED_LR, log_every=10 ** 6)
+    t0 = time.monotonic()
+    full = train_loop(cfg, device="cuda", **kw)
+    secs = time.monotonic() - t0
+    losses = full["losses"]
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last5 < first5 - 0.3:
+        raise AssertionError(f"[train reduced] last-5 mean {last5:.4f} not "
+                             f"below first-5 mean {first5:.4f} − 0.3")
+    log(f"  [train reduced] bitnet-3b-reduced, 2 layers, vocab 256: "
+        f"{RED_STEPS} steps in {secs:.1f} s, loss first-5 mean {first5:.4f} "
+        f"→ last-5 mean {last5:.4f} (gate: below {first5 - 0.3:.4f}) "
+        f"[{card}]")
+    f32 = cfg.replace(act_dtype="float32")
+    masters = init_params(f32, SEED, "cpu")      # the same draw on both
+    held, gnorm = {}, {}
+    for dev in ("cpu", "cuda"):
+        norms = gnorm[dev] = []
+        held[dev] = train_loop(
+            f32, device=dev, preemption=StopAfter(RED_HELD),
+            params=tree_map(lambda t: t.to(dev, copy=True), masters),
+            hooks=[lambda n, p, o, m, norms=norms: norms.append(
+                float(m["grad_norm"]))], **kw)["losses"]
+    first = abs(held["cuda"][0] - held["cpu"][0])
+    gn_rel = abs(gnorm["cuda"][0] / gnorm["cpu"][0] - 1)
+    apart = max(abs(a - b) for a, b in zip(held["cuda"], held["cpu"]))
+    data = SyntheticDataset(f32, seq_len=RED_SEQ, global_batch=RED_BATCH,
+                            seed=SEED)
+    part = step_parting(torch, f32, masters, data.batch(0))
+    log(f"  [train reduced] f32 from the same masters, first {RED_HELD} "
+        f"losses: CPU {[round(x, 6) for x in held['cpu']]}, card "
+        f"{[round(x, 6) for x in held['cuda']]}: step 1 apart by "
+        f"{first:.2e} (tol {RED_TOL}), the steps after by up to "
+        f"{apart:.2e}; step 1's pre-clip grad norm CPU / card "
+        f"{gnorm['cpu'][0]:.6f} / {gnorm['cuda'][0]:.6f}, apart by "
+        f"{gn_rel:.2e} of it (tol {RED_GNORM_TOL}); step 1's forward: "
+        f"{part['text']}")
+    if (len(held["cuda"]) != RED_HELD or first > RED_TOL
+            or gn_rel > RED_GNORM_TOL or not part["edge"]):
+        raise AssertionError(f"[train reduced] card vs CPU {held}; grad "
+                             f"norms {gnorm}; {part}")
+    with tempfile.TemporaryDirectory() as ckpt:
+        cut = train_loop(cfg, device="cuda", ckpt_dir=ckpt,
+                         ckpt_every=10 ** 6,
+                         preemption=StopAfter(RED_RESUME), **kw)
+        rest = train_loop(cfg, device="cuda", ckpt_dir=ckpt,
+                          ckpt_every=10 ** 6, **kw)
+    if cut["last_step"] != RED_RESUME or len(rest["losses"]) != \
+            RED_STEPS - RED_RESUME:
+        raise AssertionError(f"[train reduced] cut at {cut['last_step']}, "
+                             f"resumed {len(rest['losses'])} steps")
+    if cut["losses"] + rest["losses"] != losses:
+        raise AssertionError("[train reduced] resumed losses != the "
+                             "uninterrupted run's")
+    log(f"  [train reduced] checkpointed at step {RED_RESUME} and resumed: "
+        f"steps {RED_RESUME + 1}–{RED_STEPS} bitwise the uninterrupted "
+        f"run's ({rest['losses'][-1]:.6f} last) [{card}]")
+    del full, cut, rest
+    free_cuda(torch)
+    return dict(first5=float(first5), last5=float(last5), step1_diff=first,
+                step1_grad_norm_rel=gn_rel, held_apart=apart, seconds=secs)
+
+
+def trained_ffn_rows(torch, np, node, d: int, card: str) -> dict:
+    """#2 on a served FFN node at the decode rows (m 4) and one 1536-token
+    prompt's, bitwise its plain version, timed beside its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.qlinear import fused_ffn
+
+    rng = np.random.default_rng(SEED + 29)
+    f = node["down_packed"].shape[0] * 4
+    gs = ops._col_scale(node["gu_scale"], 2 * f).reshape(2 * f).contiguous()
+    ds = ops._col_scale(node["down_scale"], d).reshape(d).contiguous()
+    rows = {}
+    for m in (N_SLOTS, MAX_PROMPT):
+        x = torch.from_numpy(rng.standard_normal((m, d)).astype(
+            np.float32)).cuda()
+        args = (x, node["gu_packed"].contiguous(), gs,
+                node["down_packed"].contiguous(), ds)
+
+        def kern(*a):
+            return fused_ffn(*a, gated=True, act="silu")
+
+        def ref(x_, gu_, gs_, down_, ds_):
+            return plain.ffn_fused_ref(x_, gu_, gs_[None], down_, ds_[None],
+                                       gated=True, act="silu")
+        err = check_close(torch, f"fused_ffn[trained, m={m}]", kern(*args),
+                          ref(*args), bitwise=True)
+        sets = copies(torch, args)
+        ms = cuda_ms(torch, kern, sets, 30)
+        p_ms = cuda_ms(torch, ref, [args], 3)
+        b_ms, b_by = bound_ms(nbytes(*args) + m * d * 4,
+                              int8_ops=2.0 * m * d * 3 * f)
+        rows[f"m={m}"] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by,
+                              shape=f"m={m} d={d} f={f}")
+        log(f"  fused_ffn on layer 0's trained served weights (m={m}, d={d}, "
+            f"f={f}): bitwise the plain version; {ms:.4f} ms (plain "
+            f"{p_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}; "
+            f"{b_ms / ms:.2%} of bound) [{card}]")
+    return rows
+
+
+def train_serve_arm(torch, np, params, card: str) -> dict:
+    """(c) the trained masters quantized on the card (then dropped: the
+    tree ``params`` is emptied) and served: phase 4's
+    first 4 requests greedy LOP through the Scheduler, scheduler ==
+    lockstep, #1 (QKV) and #2 on layer 0's trained served weights bitwise
+    their plain versions. → stats with the serve run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.quantize import quantize_params
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("bitnet-3b")
+    t0 = time.monotonic()
+    qp = quantize_params(cfg, params)
+    torch.cuda.synchronize()
+    q_s = time.monotonic() - t0
+    params.clear()              # the caller's tree too: the masters go
+    free_cuda(torch)
+    layer0 = layer_slice(qp["layers"], 0)
+    qkv = layer0["attn"]["wqkv"]
+    zeros = float((qkv["packed"] == 0).float().mean())
+    gammas = [round(float(g), 5) for g in qkv["scale"][0, ::cfg.q_dim][:3]]
+    log(f"  [trained serve] the trained masters quantized on the card in "
+        f"{q_s:.1f} s: {tree_bytes(qp) / 2**30:.3f} GiB served; layer 0's "
+        f"Q, K, V γ {gammas}, {zeros:.2%} of its code bytes all-zero "
+        f"[{card}]")
+    engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + GEN, device="cuda")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+                         max_prompt=MAX_PROMPT, gen=GEN,
+                         seed=SEED)[:TRAIN_REQUESTS]
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:64],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    label = "trained bitnet-3b LOP greedy"
+    run = serve_run(torch, np, engine, reqs, label, card)
+    check_counts(run["counts"], label, LOP_PATH,
+                 idle=(DENSE, "fused_qlinear_experts", "fused_ffn_experts"))
+    check_tokens(cfg, run["results"], GEN, label)
+    check_lockstep(engine, reqs, run["results"], (0, 1), label)
+    rows = projection_rows(torch, np, {"wqkv": qkv},
+                           "trained bitnet-3b", "layer 0's trained served "
+                           "weights", card, SEED + 28)
+    ffn = trained_ffn_rows(torch, np, layer0["ffn"], cfg.d_model, card)
+    out = dict(counts=run["counts"], tokens=tokens_digest(run["results"]),
+               tokens_per_s=run["tokens_per_s"],
+               ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
+               quantize_s=q_s, rows=rows, ffn_rows=ffn)
+    del run, engine, qp, layer0, qkv
+    free_cuda(torch)
+    return out
+
+
+def train_phase(torch, np, card: str) -> dict:
+    """Phase 4k: (a) bitnet-3b trained at full width and depth, (b) the
+    reduced loop's loss drop, card against CPU and the bitwise resume,
+    (c) (a)'s trained masters quantized and served. → stats, with the
+    serve run's launches by kernel."""
+    t0 = time.monotonic()
+    free_cuda(torch)
+    log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by the "
+        f"earlier phases [{card}]")
+    # bf16 products summed in f32 (the reference's preferred_element_type)
+    matmul = torch.backends.cuda.matmul
+    reduced_bf16 = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        params, full = train_full_arm(torch, np, card)
+        red = train_reduced_arm(torch, np, card)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced_bf16
+    serve = train_serve_arm(torch, np, params, card)
+    launches = {k: serve["counts"][k] for k in KERNEL_NAMES}
+    log(f"  phase 4k's serve run launched {json.dumps(launches)}; phase 4k "
+        f"took {time.monotonic() - t0:.1f} s")
+    return dict(full=full, reduced=red, serve=serve, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 4f: sequence-parallel decode over 2 gloo ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -5460,9 +5837,24 @@ def main() -> int:
     #      earlier phases' engines freed: each rank draws full-width
     #      weights) ----
     del engine, nolop, sampled
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    free_cuda(torch)
+
+    # ---- 4k. the QAT training path: bitnet-3b trained at full width and
+    #      depth, the reduced loop, then the trained masters served ----
+    log(f"[train] bitnet-3b full width and depth, {TRAIN_STEPS} steps of "
+        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; reduced bitnet {RED_STEPS} "
+        f"steps, card vs CPU, resume at step {RED_RESUME}; the trained "
+        f"masters quantized and served ({TRAIN_REQUESTS} requests) [{smi}]")
+    train = train_phase(torch, np, smi)
+    for kname, n in train["launches"].items():
+        launches[kname] += n
+    rows["fused_qlinear"].setdefault("shapes", {}).update(
+        {f"trained bitnet-3b {k}": v
+         for k, v in train["serve"]["rows"].items()})
+    rows["fused_ffn"].setdefault("shapes", {}).update(
+        {f"trained bitnet-3b {k}": v
+         for k, v in train["serve"]["ffn_rows"].items()})
+
     log(f"[serve sp] bitnet-3b full width, sequence-parallel decode over "
         f"{SP_RANKS} gloo ranks on cuda:0 (kernels built above), with and "
         f"without f-axis TP of the FFN, and dense; "

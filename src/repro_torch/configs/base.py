@@ -106,6 +106,17 @@ def resolve_decode_flags(cfg: ModelConfig) -> ModelConfig:
                        int8_logits=bool(cfg.int8_logits))
 
 
+def text_len(cfg: ModelConfig, seq_len: int, kind: str) -> int:
+    """Token length of the decoder's text stream for a cell's ``seq_len``
+    (the reference's): encdec counts audio frames, its text is a quarter;
+    vlm's image tokens come out of it at training and prefill."""
+    if cfg.family == "encdec":
+        return max(seq_len // 4, 8)
+    if cfg.family == "vlm" and kind in ("train", "prefill"):
+        return max(seq_len - cfg.n_img_tokens, 8)
+    return seq_len
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 

@@ -49,10 +49,11 @@ def fake_quantize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def ste_quantize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """The straight-through estimator's forward value, formed as the
-    reference forms it: ``x + (fake_quantize(x) − x)``. Its identity
-    gradient waits for the training slice."""
-    return x + (fake_quantize(x, dim=dim) - x)
+    """The straight-through estimator: forward the fake-quantized value,
+    formed as the reference forms it, ``x + (fake_quantize(x) − x)``;
+    gradient the identity (the difference is detached, as the reference
+    stops its gradient), so no gradient flows through the absmax scale."""
+    return x + (fake_quantize(x, dim=dim) - x).detach()
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,14 +78,19 @@ def int8_matmul(xq: QuantizedTensor, wq_values: torch.Tensor,
     return acc.to(torch.float32) * xq.scale * w_scale
 
 
+def rmsnorm_reduction(x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm's mean of squares over the last axis, f32 [..., 1]: summed
+    in float64 and rounded once, so a row's value does not depend on how
+    the reduction is laid out over the other rows (chunked and
+    whole-prompt prefill agree bitwise); the reference's is an f32 mean."""
+    return x.to(torch.float64).square().mean(dim=-1, keepdim=True).to(
+        torch.float32)
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    # mean of squares summed in float64 and rounded once to f32: a row's
-    # value does not depend on how the reduction is laid out over the
-    # other rows, so chunked and whole-prompt prefill agree bitwise
-    ms = xf.to(torch.float64).square().mean(dim=-1, keepdim=True).to(
-        torch.float32)
+    ms = rmsnorm_reduction(xf)
     y = xf * torch.rsqrt(ms + eps)
     return (y * gamma.to(torch.float32)).to(x.dtype)
 

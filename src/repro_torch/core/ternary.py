@@ -47,11 +47,12 @@ def ternary_quantize(w: torch.Tensor, per_channel: bool = False):
 
 def ste_ternary(w: torch.Tensor, per_channel: bool = False) -> torch.Tensor:
     """The QAT forward value of a weight, dequantized ternary, formed as
-    the reference forms it: ``w + (Wt·γ − w)``. The identity gradient
-    waits for the training slice."""
+    the reference forms it: ``w + (Wt·γ − w)``, with the difference
+    detached, so the gradient is the identity onto the f32 master (none
+    flows through γ)."""
     wt, gamma = ternary_quantize(w, per_channel=per_channel)
     wq = (wt.to(torch.float32) * gamma).to(w.dtype)
-    return w + (wq - w)
+    return w + (wq - w).detach()
 
 
 def pack_ternary(wt: torch.Tensor) -> torch.Tensor:
@@ -94,18 +95,29 @@ def bitlinear_infer(xq: QuantizedTensor, tw: TernaryWeight) -> torch.Tensor:
 
 
 def bitlinear_qat(x: torch.Tensor, w: torch.Tensor,
-                  per_channel: bool = False) -> torch.Tensor:
-    """The training BitLinear's forward: the absmax-quantized activations
-    (per row) times the dequantized ternary weights, in x's dtype. Serving
-    runs it where a projection is too small to pack (k not a multiple of
-    4, or below 16), as the reference does. The product is taken in
-    float64 and rounded once (the reference's is f32), so a row's value
-    does not depend on how many rows share the call; the backward waits
-    for the training slice."""
+                  per_channel: bool = False, *,
+                  batch_invariant: bool = False) -> torch.Tensor:
+    """The QAT BitLinear: the absmax-quantized activations (per row) times
+    the dequantized ternary weights, both through the straight-through
+    estimator, so the gradient reaches x and the f32 master w as a plain
+    product's would.
+
+    Two callers, two products. Training (``batch_invariant=False``, the
+    default: ``forward_train`` through ``linear_apply``) takes the
+    reference's: operands in x's dtype, f32 accumulation (a product of
+    two bf16 or f32 values summed in f32), rounded to x's dtype. Serving
+    (``batch_invariant=True``, through ``layers.serving_linear``: the
+    recurrent mixers of ``models/rwkv6.py`` and ``models/mamba.py``, whose
+    projections too small to pack — k not a
+    multiple of 4, or below 16, such as reduced jamba's ``dt_proj`` — stay
+    f32 nodes) takes it in float64, rounded once, so a row's value does
+    not depend on how many rows share the call."""
     xq = ste_quantize(x)
     wq = ste_ternary(w, per_channel=per_channel).to(x.dtype)
-    return torch.matmul(xq.to(torch.float64),
-                        wq.to(torch.float64)).to(x.dtype)
+    if batch_invariant:
+        return torch.matmul(xq.to(torch.float64),
+                            wq.to(torch.float64)).to(x.dtype)
+    return torch.matmul(xq, wq)
 
 
 def bitlinear_ref(x: torch.Tensor, tw: TernaryWeight) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Building blocks outside the kernels: norms, rotary, embedding, head,
 the linear and dense FFN dispatches. Parameters are plain dicts of
-tensors."""
+tensors. Every function here is differentiable on f32 master nodes (the
+training forward); on packed serving nodes it calls the kernels."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.qlinear import (ffn_node_apply, is_fused_ffn,
                                       is_packed, qlinear)
@@ -28,16 +30,28 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
 def linear_apply(params, x: torch.Tensor, *, quant: str) -> torch.Tensor:
     """One linear by its node's format, as the reference's
     ``linear_apply``: a packed node is #1 (barrier, packed-ternary GEMM,
-    dequant and bias in one launch); an f32 node ``{"w", "b"?}`` — a
-    projection too small to pack, such as reduced jamba's ``dt_proj`` (k
-    8) — is the QAT BitLinear forward under ``quant="ternary"`` or a
-    plain matmul otherwise, then its bias."""
+    dequant and bias in one launch); an f32 node ``{"w", "b"?}`` (a
+    training master) is the QAT BitLinear
+    (:func:`~repro_torch.core.ternary.bitlinear_qat`) under
+    ``quant="ternary"`` or a plain matmul otherwise, then its bias."""
     if is_packed(params):
         return qlinear(params, x)
     if quant == "ternary":
         y = bitlinear_qat(x, params["w"])
     else:
         y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def serving_linear(params, x: torch.Tensor, *, quant: str) -> torch.Tensor:
+    """``linear_apply`` as the serving mixers call it: an f32 ternary node
+    (a projection too small to pack, such as reduced jamba's ``dt_proj``,
+    k 8) takes ``bitlinear_qat``'s batch-invariant product."""
+    if is_packed(params) or quant != "ternary":
+        return linear_apply(params, x, quant=quant)
+    y = bitlinear_qat(x, params["w"], batch_invariant=True)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -77,14 +91,16 @@ def norm_apply(params, x: torch.Tensor, kind: str = "rmsnorm",
 
 
 def embedding_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    """Rows of the f32 table; its gradient is a scatter-add over the
+    tokens (the reference's ``jnp.take``), summed in another order."""
+    return F.embedding(tokens, params["table"])
 
 
 def head_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """LM head in f32 ([..., d] @ [d, V]); a plain matmul outside any
-    kernel (the serving engine turns TF32 off, so the card runs it in
-    full f32)."""
-    return x @ params["w"]
+    """LM head in f32 ([..., d] @ [d, V]), x promoted to f32 as the
+    reference's bf16 @ f32 is; a plain matmul outside any kernel (the
+    serving engine turns TF32 off, so the card runs it in full f32)."""
+    return x.to(params["w"].dtype) @ params["w"]
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -104,9 +120,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's silu: x·sigmoid(x)."""
+    return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
 def ffn_apply(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """Dense FFN in serving format: the whole FFN as one dispatch."""
-    if not is_fused_ffn(p):
-        raise NotImplementedError("only the fused serving FFN is ported")
-    return ffn_node_apply(p, x, gated=cfg.gated_ffn,
-                          act="silu" if cfg.gated_ffn else "gelu")
+    """Dense FFN by its node's format, as the reference's ``ffn_apply``:
+    the fused serving node is one dispatch of #2; the training masters
+    ``{"w_gate"?, "w_up", "w_down"}`` are QAT BitLinears, silu(gate)·up
+    (or gelu(up) ungated), then down."""
+    act = "silu" if cfg.gated_ffn else "gelu"
+    if is_fused_ffn(p):
+        return ffn_node_apply(p, x, gated=cfg.gated_ffn, act=act)
+    if cfg.gated_ffn:
+        h = silu(linear_apply(p["w_gate"], x, quant=cfg.quant))
+        h = h * linear_apply(p["w_up"], x, quant=cfg.quant)
+    else:
+        h = gelu(linear_apply(p["w_up"], x, quant=cfg.quant))
+    return linear_apply(p["w_down"], h, quant=cfg.quant)

@@ -17,16 +17,15 @@ Numerics against XLA: softplus is the reference's ``logaddexp(x, 0)``
 silu is x·sigmoid(x), and a step's ``einsum`` is a float64 product
 rounded once, so a lane does not depend on the others.
 The reference's ``shard`` constraints are no-ops off a mesh and are
-dropped; training (the remat'd scan's backward) waits for the training
-slice.
+dropped; training (the remat'd scan's backward) is not ported yet
+(``forward_train`` raises for the hybrid family).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import linear_apply, linear_init
-from repro_torch.models.rwkv6 import silu
+from repro_torch.models.layers import linear_init, serving_linear, silu
 from repro_torch.models.scan_utils import chunked_scan
 
 
@@ -79,7 +78,7 @@ def _causal_conv(x, conv_w, conv_b, conv_state=None):
 
 def _ssm_inputs(cfg, p, u):
     """u [B, T, D] → x, z [B, T, Di] (``in_proj``, split)."""
-    xz = linear_apply(p["in_proj"], u, quant=cfg.quant)
+    xz = serving_linear(p["in_proj"], u, quant=cfg.quant)
     return torch.chunk(xz, 2, dim=-1)
 
 
@@ -87,9 +86,9 @@ def _ssm_project(cfg, p, x):
     """x [B, T, Di] → dt [B, T, Di] (softplus of ``dt_proj``), B and C
     [B, T, S]."""
     s, r = cfg.mamba_d_state, dt_rank(cfg)
-    x_dbl = linear_apply(p["x_proj"], x, quant=cfg.quant)
+    x_dbl = serving_linear(p["x_proj"], x, quant=cfg.quant)
     dt, b_ssm, c_ssm = torch.split(x_dbl, [r, s, s], dim=-1)
-    dt = softplus(linear_apply(p["dt_proj"], dt, quant=cfg.quant))
+    dt = softplus(serving_linear(p["dt_proj"], dt, quant=cfg.quant))
     return dt, b_ssm, c_ssm
 
 
@@ -115,7 +114,7 @@ def _gated_out(cfg, p, x, z, dt, b_ssm, c_ssm, h, dtype):
     xs = tuple(a.transpose(0, 1) for a in (x, dt, b_ssm, c_ssm))
     h, ys = chunked_scan(_scan_step(p["A_log"], p["D"]), h, xs)
     y = ys.transpose(0, 1) * silu(z)
-    return linear_apply(p["out_proj"], y.to(dtype), quant=cfg.quant), h
+    return serving_linear(p["out_proj"], y.to(dtype), quant=cfg.quant), h
 
 
 def mamba_forward(cfg, p, u):

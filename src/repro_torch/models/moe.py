@@ -30,8 +30,16 @@ Numerics, against the reference and within the port:
 
 Everything is static-shaped with no host sync (no ``.item()``, no
 ``nonzero``, no boolean-mask indexing), so a decode step that runs it is
-captured whole in a CUDA graph. The load-balancing aux loss of training
-is not computed: serving never reads it.
+captured whole in a CUDA graph. The load-balancing aux loss is not
+computed there: serving never reads it.
+
+Training (:func:`train_moe_apply`, the reference's ``moe_apply`` on f32
+master expert stacks) routes in f32 as the reference does, picks the top
+k by a stable descending sort (equal probabilities in index order, as
+``jax.lax.top_k``), dispatches and combines by differentiable gathers
+(the values of the reference's one-hot einsums, without their [T, E,
+cap] tensors), runs the experts as plain products of STE-ternary weights
+in the activation dtype, and returns the Switch load-balancing loss.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.qlinear import ffn_node_apply
+from repro_torch.core.ternary import ste_ternary
+from repro_torch.models.layers import gelu, silu
 
 
 def capacity(cfg, t: int) -> int:
@@ -64,39 +74,58 @@ def route(cfg, router: torch.Tensor, x: torch.Tensor):
     denom = vals.to(torch.float64).sum(-1, keepdim=True).to(torch.float32)
     # divide by a tensor: ``t / scalar`` on CUDA multiplies by 1/scalar
     gates = vals / torch.clamp_min(denom, 1e-9)
-    # position of each (token, choice) among its expert's earlier picks
-    onehot = (expert[..., None] == torch.arange(e, device=x.device)).to(
-        torch.int32)                                          # [T, k, E]
+    pos, keep, _ = _positions(expert, e, cap)
+    return gates, expert, pos, keep, cap
+
+
+def _positions(expert: torch.Tensor, e: int, cap: int):
+    """expert int64 [T, k] → (pos [T, k]: each (token, choice)'s position
+    among its expert's earlier picks, keep [T, k]: pos < cap, onehot int32
+    [T, k, E])."""
+    t, k = expert.shape
+    onehot = (expert[..., None] == torch.arange(e, device=expert.device)
+              ).to(torch.int32)
     flat = onehot.reshape(t * k, e)
     before = (torch.cumsum(flat, dim=0) - flat).reshape(t, k, e)
-    pos = (before * onehot).sum(-1)                           # [T, k]
-    return gates, expert, pos, pos < cap, cap
+    pos = (before * onehot).sum(-1)
+    return pos, pos < cap, onehot
 
 
-def dispatch_group(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """One token group x f32 [T, d] → the MoE output f32 [T, d]."""
+def _gather_experts(x: torch.Tensor, expert, pos, keep, cap: int, e: int):
+    """x [T, d] → (xe [E, cap, d]: each kept choice's token row at its
+    expert's capacity slot, empty slots zero; slot [T, k])."""
     t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    gates, expert, pos, keep, cap = route(cfg, p["router"], x)
     slot = expert * cap + pos                                 # [T, k]
     # which token fills each capacity slot: token t for a kept choice,
     # the zero row T for an empty slot; dropped choices all write the
     # trash slot e·cap, which is never read
-    token = torch.arange(t, device=x.device)[:, None].expand(t, k)
+    token = torch.arange(t, device=x.device)[:, None].expand_as(slot)
     filler = torch.full((e * cap + 1,), t, dtype=torch.int64,
                         device=x.device)
     filler.scatter_(0, torch.where(keep, slot, e * cap).reshape(-1),
                     token.reshape(-1))
-    rows = torch.cat([x.to(torch.float32), x.new_zeros((1, d),
-                                                       dtype=torch.float32)])
-    xe = rows[filler[:e * cap]].reshape(e, cap, d)
+    rows = torch.cat([x, x.new_zeros((1, d))])
+    return rows[filler[:e * cap]].reshape(e, cap, d), slot
+
+
+def _kept_terms(ye: torch.Tensor, slot, keep, gates) -> torch.Tensor:
+    """Each choice's expert row [E, cap, d] weighted by its f32 gate →
+    [T, k, d] f32; a dropped choice adds exact zero, whatever its slot-0
+    stand-in holds."""
+    rows = ye.reshape(-1, ye.shape[-1])[torch.where(keep, slot, 0)]
+    return torch.where(keep[..., None],
+                       rows.to(torch.float32) * gates[..., None], 0.0)
+
+
+def dispatch_group(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """One token group x f32 [T, d] → the MoE output f32 [T, d]."""
+    gates, expert, pos, keep, cap = route(cfg, p["router"], x)
+    xe, slot = _gather_experts(x.to(torch.float32), expert, pos, keep, cap,
+                               cfg.n_experts)
     ye = ffn_node_apply(p, xe, gated=cfg.gated_ffn,
                         act="silu" if cfg.gated_ffn else "gelu")
-    # each choice's weighted expert row (a dropped choice adds exact zero,
-    # whatever its slot-0 stand-in holds), then summed in a fixed order
-    src = torch.where(keep, slot, 0)
-    terms = ye.reshape(e * cap, d)[src] * gates[..., None]      # [T, k, d]
-    return _sum_choices(torch.where(keep[..., None], terms, 0.0))
+    # the choices summed in an order fixed by k alone
+    return _sum_choices(_kept_terms(ye, slot, keep, gates))
 
 
 def _sum_choices(terms: torch.Tensor) -> torch.Tensor:
@@ -124,3 +153,65 @@ def moe_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     out = torch.cat([dispatch_group(cfg, p, flat[i:i + grp])
                      for i in range(0, t + pad, grp)])
     return out[:t].reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# training: f32 master expert stacks, the Switch aux loss
+# ---------------------------------------------------------------------------
+
+def _prepare_expert_weights(cfg, p: dict, act_dtype) -> dict:
+    """Once a layer: each expert stack through the STE (one γ over the
+    whole stack, as the reference reshapes it to [E·k, n]), cast to the
+    activation dtype."""
+    out = dict(p)
+    for name in ("w_gate", "w_up", "w_down"):
+        if name not in p:
+            continue
+        w = p[name]
+        if cfg.quant == "ternary":
+            w = ste_ternary(w.reshape(-1, w.shape[-1])).reshape(w.shape)
+        out[name] = w.to(act_dtype)
+    return out
+
+
+def _train_dispatch_group(cfg, p: dict, x: torch.Tensor):
+    """One token group x [T, d] → (the MoE output [T, d] in x's dtype,
+    the group's aux loss f32): the reference's ``_dispatch_group`` on
+    prepared training weights."""
+    t = x.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, t)
+    probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+    vals, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, expert = vals[:, :k], expert[:, :k]
+    gates = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    pos, keep, onehot = _positions(expert, e, cap)
+    xe, slot = _gather_experts(x, expert, pos, keep, cap, e)
+    if cfg.gated_ffn:
+        h = silu(torch.matmul(xe, p["w_gate"])) * torch.matmul(xe, p["w_up"])
+    else:
+        h = gelu(torch.matmul(xe, p["w_up"]))
+    ye = torch.matmul(h, p["w_down"])
+    y = _kept_terms(ye, slot, keep, gates).sum(1)
+    frac_tokens = onehot.sum(1).to(torch.float32).mean(0)
+    aux = e * torch.sum(frac_tokens / k * probs.mean(0))
+    return y.to(x.dtype), aux
+
+
+def train_moe_apply(cfg, p: dict, x: torch.Tensor):
+    """x [B, S, d] → ([B, S, d], aux): the training MoE over groups of
+    ``moe_group`` tokens (the last padded with zero rows, which come last
+    in their group and so take no capacity from a real token), aux the
+    mean over groups."""
+    b, s, d = x.shape
+    p = _prepare_expert_weights(cfg, p, x.dtype)
+    flat = x.reshape(b * s, d)
+    t = flat.shape[0]
+    grp = max(1, min(cfg.moe_group, t))
+    pad = -t % grp
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, d))])
+    ys, auxs = zip(*(_train_dispatch_group(cfg, p, flat[i:i + grp])
+                     for i in range(0, t + pad, grp)))
+    return (torch.cat(ys)[:t].reshape(b, s, d),
+            torch.stack(auxs).mean())

@@ -24,15 +24,16 @@ in float64 and rounded once, times the f32 reciprocal of the count (as
 does not depend on how many lanes share the call; the rest is the
 reference's op order in f32. The reference's ``shard`` constraints are
 no-ops off a mesh and are dropped; its training forward
-(``rwkv_layer_apply`` over ``rwkv_time_mix``) waits for the training
-slice.
+(``rwkv_layer_apply`` over ``rwkv_time_mix``) is not ported yet
+(``forward_train`` raises for the ssm family).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import _row_mean, linear_apply, linear_init
+from repro_torch.models.layers import (_row_mean, linear_init,
+                                      serving_linear, silu)
 
 W_LORA = 64
 # steps of the wkv recurrence whose kv products and y are formed at once
@@ -67,11 +68,6 @@ def rwkv_init(gen: torch.Generator, cfg, *, device) -> dict:
     return p
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """The reference's silu: x·sigmoid(x)."""
-    return x * torch.sigmoid(x)
-
-
 def _group_norm(x: torch.Tensor, gamma: torch.Tensor, h: int, dh: int,
                 eps: float = 1e-5) -> torch.Tensor:
     """Per-head layer norm of y [..., H, dh] (rwkv's ``ln_x``), without a
@@ -97,12 +93,12 @@ def _time_mix_inputs(cfg, p, x, x_prev):
     delta = _shift(x, x_prev) - x
     mixes = [x + p["mu"][i].to(x.dtype) * delta for i in range(5)]
     q = cfg.quant
-    r = linear_apply(p["wr"], mixes[0], quant=q)
-    k = linear_apply(p["wk"], mixes[1], quant=q)
-    v = linear_apply(p["wv"], mixes[2], quant=q)
-    g = silu(linear_apply(p["wg"], mixes[3], quant=q))
-    lora = linear_apply(p["w_lora_b"],
-                        torch.tanh(linear_apply(p["w_lora_a"], mixes[4],
+    r = serving_linear(p["wr"], mixes[0], quant=q)
+    k = serving_linear(p["wk"], mixes[1], quant=q)
+    v = serving_linear(p["wv"], mixes[2], quant=q)
+    g = silu(serving_linear(p["wg"], mixes[3], quant=q))
+    lora = serving_linear(p["w_lora_b"],
+                        torch.tanh(serving_linear(p["w_lora_a"], mixes[4],
                                                 quant=q)), quant=q)
     w = torch.exp(-torch.exp(p["w_base"] + lora))
     heads = [a.reshape(b, t, cfg.n_heads, cfg.hd) for a in (r, k, v, w)]
@@ -147,7 +143,7 @@ def rwkv_time_mix(cfg, p, x, x_prev, state):
                      state)
     y = _group_norm(ys.transpose(0, 1), p["ln_x"], cfg.n_heads, cfg.hd)
     y = (y.reshape(b, t, d) * g).to(x.dtype)
-    return linear_apply(p["wo"], y, quant=cfg.quant), x[:, -1:], state
+    return serving_linear(p["wo"], y, quant=cfg.quant), x[:, -1:], state
 
 
 def rwkv_channel_mix(cfg, p, x, x_prev):
@@ -156,10 +152,10 @@ def rwkv_channel_mix(cfg, p, x, x_prev):
     delta = _shift(x, x_prev) - x
     m_r = x + p["mu_c"][0].to(x.dtype) * delta
     m_k = x + p["mu_c"][1].to(x.dtype) * delta
-    k = torch.square(torch.relu(linear_apply(p["wk_c"], m_k,
+    k = torch.square(torch.relu(serving_linear(p["wk_c"], m_k,
                                              quant=cfg.quant)))
-    r = torch.sigmoid(linear_apply(p["wr_c"], m_r, quant=cfg.quant))
-    out = (r * linear_apply(p["wv_c"], k, quant=cfg.quant)).to(x.dtype)
+    r = torch.sigmoid(serving_linear(p["wr_c"], m_r, quant=cfg.quant))
+    out = (r * serving_linear(p["wv_c"], k, quant=cfg.quant)).to(x.dtype)
     return out, x[:, -1:]
 
 

@@ -6,9 +6,12 @@ rematerializes each chunk's body so that training keeps O(T / chunk)
 residuals; the forward value is ``lax.scan``'s, step for step, ragged tail
 included. Serving keeps no residuals, so the port runs the steps in one
 loop: the same body on the same carry in the same order gives the same
-values. The remat (the reference checkpoints each chunk's body) waits
-for the training slice, as does ``accounting_unroll``, the reference's
-dry-run costing knob; its ``stacked_init`` is the port's
+values. The remat (the reference checkpoints each chunk's body) comes
+with the recurrent families' training, which is not ported yet; the
+reference's ``accounting_unroll`` is a dry-run costing knob and is not
+copied (the layer stack's remat is
+:func:`repro_torch.models.transformer._scan_stack`'s); its
+``stacked_init`` is the port's
 :func:`repro_torch.models.transformer.stack_trees`.
 """
 

@@ -22,17 +22,26 @@ positions) or ``ffn``. The vlm family (llava) is the dense layer stack
 and the patch projector ``projector`` ``{"w"}`` [d, d] (the reference's
 ``linear_init``), drawn after the layers. The reference uses ``jax.random`` — the same seed
 gives other numbers, so tests carry the reference's weights over with
-:mod:`repro_torch.convert`. The reference's training forwards
-(``rwkv_layer_apply``, ``superblock_apply``) and ``models/attention.py``,
-which only they and its init call, wait for the training slice.
+:mod:`repro_torch.convert`.
+
+:func:`forward_train` is the training forward (QAT BitLinear everywhere,
+f32 norms, softmax and logits; the residual stream in ``act_dtype``) of
+the dense, moe, vlm and encdec families, over the f32 master tree, with
+per-layer rematerialization. The ssm and hybrid training forwards
+(``rwkv_layer_apply``, ``superblock_apply``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import linear_init, norm_init
+from repro_torch.models.attention import attention_apply
+from repro_torch.models.layers import (embedding_apply, ffn_apply,
+                                       head_apply, linear_init, norm_apply,
+                                       norm_init)
 from repro_torch.models.mamba import mamba_init
+from repro_torch.models.moe import train_moe_apply
 from repro_torch.models.rwkv6 import rwkv_init
 
 
@@ -167,3 +176,138 @@ def init_params(cfg, seed: int, device="cpu") -> dict:
             params.setdefault(name, []).append(tree)
     return {name: stack_trees(val) if isinstance(val, list) else val
             for name, val in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# training forward (dense, moe, vlm, encdec)
+# ---------------------------------------------------------------------------
+
+def decoder_layer_apply(cfg, p, x, *, positions, causal=True, cross_kv=None,
+                        chunk_ctx=None):
+    """One decoder (or encoder) layer on f32 masters → (x, aux). With
+    ``chunk_ctx`` (the whole pre-layer stream prefix ‖ x) x is a suffix
+    chunk whose queries attend the whole context at their global offset;
+    ``cross_kv`` adds cross-attention over the encoder memory."""
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    if chunk_ctx is None:
+        x = x + attention_apply(cfg, p["attn"], h, positions=positions,
+                                causal=causal)
+    else:
+        hk = norm_apply(p["ln1"], chunk_ctx, cfg.norm)
+        x = x + attention_apply(cfg, p["attn"], h, kv_x=hk, causal=causal,
+                                positions=positions, chunk_carry=True,
+                                q_offset=chunk_ctx.shape[1] - x.shape[1])
+    if cross_kv is not None:
+        h = norm_apply(p["ln_x"], x, cfg.norm)
+        x = x + attention_apply(cfg, p["xattn"], h, kv_x=cross_kv,
+                                use_rope=False)
+    h = norm_apply(p["ln2"], x, cfg.norm)
+    if "moe" in p:
+        y, aux = train_moe_apply(cfg, p["moe"], h)
+    else:
+        y = ffn_apply(cfg, p["ffn"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
+
+
+class _LayerOf(torch.autograd.Function):
+    """Layer ``i`` of a stacked master leaf, whose gradient is added
+    straight into the leaf's ``.grad`` at ``[i]`` (allocated zero on first
+    use). Autograd's own slice gradient is a zero tensor of the whole
+    stack a layer (or, through ``unbind``, every layer's gradient held
+    until one stacked copy is made): at full width that is a second 13.7
+    GB of gradients. The leaf itself gets no gradient through the graph,
+    so ``.grad`` accumulates across backward passes as autograd's does."""
+
+    @staticmethod
+    def forward(ctx, leaf, i):
+        ctx.leaf, ctx.i = leaf, i
+        return leaf[i]
+
+    @staticmethod
+    def backward(ctx, grad):
+        leaf = ctx.leaf
+        if leaf.grad is None:
+            leaf.grad = torch.zeros_like(leaf)
+        leaf.grad[ctx.i] += grad
+        return None, None
+
+
+def _layer_of(stacked, i: int):
+    """Layer ``i`` of a stacked tree: a master leaf that takes gradients
+    goes through :class:`_LayerOf`, anything else is a plain view."""
+    if isinstance(stacked, dict):
+        return {k: _layer_of(v, i) for k, v in stacked.items()}
+    if stacked.is_leaf and stacked.requires_grad and \
+            torch.is_grad_enabled():
+        return _LayerOf.apply(stacked, i)
+    return stacked[i]
+
+
+def _scan_stack(body, x, stacked, *, remat: bool = True):
+    """``body(x, layer) → (x, aux)`` over a stacked tree's layers in order,
+    aux summed from f32 zero. With ``remat`` each layer's activations are
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant),
+    as the reference checkpoints its scan step."""
+    n = next(iter(_leaves(stacked))).shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        lp = _layer_of(stacked, i)
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, a = body(x, lp)
+        aux = aux + a
+    return x, aux
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def forward_train(cfg, params, tokens, *, frames=None, patches=None,
+                  remat: bool = True):
+    """→ (logits f32 [B, T_text, vocab_padded], moe aux f32).
+
+    tokens [B, T]; frames [B, S_audio, D] (encdec's stub frontend);
+    patches [B, n_img, D] (vlm's stub vision tower: through the projector
+    in the activation dtype ahead of the text, whose positions alone
+    come out). The residual stream runs in ``cfg.act_dtype``; norms,
+    softmax and the logits stay f32; the masters are f32, cast at use."""
+    if cfg.family not in ("dense", "moe", "vlm", "encdec"):
+        raise NotImplementedError(
+            f"forward_train for the {cfg.family} family is not ported yet "
+            "(ROADMAP queue 1: ssm and hybrid training come next)")
+    act = getattr(torch, cfg.act_dtype)
+    x = embedding_apply(params["embed"], tokens).to(act)
+    t = tokens.shape[1]
+    positions = torch.arange(t, device=x.device)[None, :]
+    cross = None
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError("the vlm family trains on patches")
+        proj = patches.to(act) @ params["projector"]["w"].to(act)
+        x = torch.cat([proj, x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    elif cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("the encdec family trains on frames")
+        enc = frames.to(act)
+        enc_pos = torch.arange(enc.shape[1], device=x.device)[None, :]
+        enc, _ = _scan_stack(
+            lambda e, lp: decoder_layer_apply(cfg, lp, e, positions=enc_pos,
+                                              causal=False),
+            enc, params["enc_layers"], remat=remat)
+        cross = norm_apply(params["ln_enc"], enc, cfg.norm)
+    x, aux = _scan_stack(
+        lambda h, lp: decoder_layer_apply(cfg, lp, h, positions=positions,
+                                          cross_kv=cross),
+        x, params["layers"], remat=remat)
+    if cfg.family == "vlm":
+        x = x[:, patches.shape[1]:]
+    x = norm_apply(params["ln_f"], x, cfg.norm)
+    return head_apply(params["head"], x), aux
