@@ -184,12 +184,13 @@ printed:
               timed beside their bounds; the decode step on graphs and
               eager, one exact-length prefill's time, tokens/s, TTFT and
               peak memory; each arm's engine freed before the next;
-  4i. recurrent rwkv6-1.6b (ssm) at full width and depth (24 layers, d
-              2048, 32 heads of 64, f 7168, vocab 65,536) with seeded
-              weights drawn on the card: phase 4's 8 requests greedy, then
+  4i. recurrent rwkv6-1.6b (ssm) at full width (d 2048, 32 heads of 64,
+              f 7168, vocab 65,536) and 6 of its 24 layers (phase 4l
+              serves it at full depth) with seeded weights drawn on the
+              card: phase 4's 8 requests greedy, then
               sampled (T 0.8, top-k 50, top-p 0.95, seed = rid), run to
               completion with exact-length prefill (the wkv recurrence a
-              time loop of plain tensor ops); 240 #1 launches a decode
+              time loop of plain tensor ops); 60 #1 launches a decode
               step and no other kernel of the table; scheduler ==
               lockstep for 2 requests an arm; the decode step on CUDA
               graphs and on an eager twin (tokens equal) with a profiler
@@ -296,6 +297,36 @@ printed:
               tokens' sha256; #1 at layer 0's QKV and #2 at its FFN on the
               trained served weights bitwise their plain versions, timed
               beside their bounds;
+  4l. train  the recurrent families' training: (a) full-width rwkv6-1.6b
+      recurrent (24 layers, d 2048) with f32 masters drawn on the card,
+              4 make_train_step steps of batch 4 x 256 (bf16 activations,
+              layer and chunk remat, peak lr 3e-5 after 1 warmup step),
+              each step's loss, grad norm and synchronized ms, the peak;
+              gates as 4k (a) (the last step's loss the run's lowest);
+              (d) (a)'s trained masters quantized and
+              served at full width and depth: phase 4's first 4 requests
+              greedy, 240 #1 launches a decode step, scheduler ==
+              lockstep for rid 0, the graph decode step, #1 at the
+              trained layer 0's wk_c bitwise its plain version; (b)
+              reduced rwkv6 and reduced jamba at f32 from the same
+              masters, step 1 card against CPU: on the card's own
+              forward the first int8 parting a knife-edge; with the
+              CPU's int8 activations and ternary weights (each QAT
+              BitLinear's input and ternary weight replaced by the CPU's
+              in value, the partings knife-edges) the loss within 1e-4
+              and the pre-clip grad norm within 1e-4 of itself; then 12
+              steps on the card whose last-5 mean loss falls below the
+              first-5; (c) one full-width jamba Mamba sublayer (d 8192,
+              Di 16,384) trained forward and backward at 1 x 512 tokens
+              (8 remat'd chunks), timed with its peak, its f32 gradients
+              at T 16 card (on the CPU's int8 activations and ternary
+              weights) against CPU within 1e-4; (e) one
+              data-parallel step of reduced rwkv6 (batch 8 x 32) with
+              the int8 gradient compression (CompressedMean) over 2 gloo
+              ranks on cuda:0: both ranks' masters bitwise each other
+              and a single-process mesh's step, the error feedback's
+              running mean converging, one compressed all-reduce of a
+              2048 x 7168 gradient timed beside the plain f32 one;
   4f. sp     (run last, the earlier engines freed) the reference's
               production decode path: full-width bitnet-3b drawn from the
               seeded generator, phase 4's first 4 prompts prefilled
@@ -322,9 +353,10 @@ the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
 ``shared_select``, ``pos_offset+return_stats`` and ``cross`` — each with
 its launches on the path that runs it and the numbers of the phase that
 checked it; the launches of #1–#5 also count phase 4i's and 4j's serve
-runs and phase 4k's serve run; #1, #3, #4 and #5 list phase 4j's
-checks under ``shapes``, #1 and #2 phase 4k's on trained weights);
-the last line is ``{"ok": true, "device": {...}}``.
+runs and phase 4k's and 4l's serve runs; #1, #3, #4 and #5 list phase
+4j's checks under ``shapes``, #1 and #2 phase 4k's on trained weights,
+#1 phase 4l's), each phase's seconds printed before it; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -356,6 +388,17 @@ MIN_PROMPT, MAX_PROMPT = 128, 1536
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def tests_module(name: str):
+    """A JAX-free helper module of ``tests/`` that the card tests share
+    (``torch_knife_edges``, ``torch_dp_rank``), imported by its own name
+    as pytest imports it (another ``tests`` package may be installed)."""
+    import importlib
+
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    return importlib.import_module(name)
 
 
 def fail(msg: str) -> int:
@@ -3417,6 +3460,9 @@ def families_phase(torch, np, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 RWKV_ROWS = ("w_lora_a", "w_lora_b", "wk_c", "wv_c")
+# 4i serves rwkv6 at full width and 6 of its 24 layers; the trained
+# model is served at full depth in phase 4l (d)
+RWKV_SERVE_LAYERS = 6
 JAMBA_REQUESTS, JAMBA_MIN_PROMPT, JAMBA_MAX_PROMPT = 8, 8, 96
 JAMBA_GEN = 16
 JAMBA_MAX_LEN = JAMBA_MAX_PROMPT + 96      # room for the steady steps' 96
@@ -3500,13 +3546,14 @@ def step_split(torch, sched, label: str, card: str, n_prof: int = 4):
 
 
 def recurrent_serve(torch, np, engine, reqs, label, card, capacity: int,
-                    launched, idle) -> dict:
-    """One serve run of phase 4i: launches, tokens, scheduler == lockstep
-    for rids 0 and 1. → stats with the scheduler's prefill times."""
+                    launched, idle, lockstep=(0, 1)) -> dict:
+    """One serve run of phase 4i (and 4l): launches, tokens, scheduler ==
+    lockstep for the rids ``lockstep``. → stats with the scheduler's
+    prefill times."""
     run = serve_run(torch, np, engine, reqs, label, card, capacity=capacity)
     check_counts(run["counts"], label, launched, idle=idle)
     check_tokens(engine.cfg, run["results"], reqs[0].max_new_tokens, label)
-    check_lockstep(engine, reqs, run["results"], (0, 1), label)
+    check_lockstep(engine, reqs, run["results"], lockstep, label)
     sched = run.pop("sched")
     pre = sched.full_prefill_seconds
     log(f"  [{label}] {len(pre)} exact-length prefills, p50 "
@@ -3520,12 +3567,12 @@ def recurrent_serve(torch, np, engine, reqs, label, card, capacity: int,
 
 
 def rwkv_arm(torch, np, card: str) -> dict:
-    """rwkv6-1.6b at full width and depth (24 layers, d 2048, 32 heads of
-    64, f 7168, vocab 65,536): seeded weights drawn and quantized on the
-    card one layer at a time, phase 4's
-    8 requests greedy, then sampled, through the Scheduler on 4 slots (run
-    to completion, exact-length prefill), #1 the only kernel of the table
-    (240 launches a decode step). → stats."""
+    """rwkv6-1.6b at full width (d 2048, 32 heads of 64, f 7168, vocab
+    65,536) and 6 of its 24 layers: seeded weights drawn and quantized on
+    the card one layer at a time (the first 6 layers of the full draw),
+    phase 4's 8 requests greedy, then sampled, through the Scheduler on 4
+    slots (run to completion, exact-length prefill), #1 the only kernel of
+    the table (60 launches a decode step). → stats."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3535,7 +3582,7 @@ def rwkv_arm(torch, np, card: str) -> dict:
     from repro_torch.serving.quantize import init_serving_params
     from repro_torch.serving.scheduler import Scheduler
 
-    cfg = get_config("rwkv6-1.6b")
+    cfg = get_config("rwkv6-1.6b").replace(n_layers=RWKV_SERVE_LAYERS)
     free_cuda(torch)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3736,7 +3783,7 @@ def mamba_card_vs_cpu(torch, np, cfg, mp, card) -> dict:
     from repro_torch.models import mamba
     from repro_torch.models.layers import linear_apply
     from repro_torch.models.rwkv6 import silu
-    from repro_torch.models.scan_utils import chunked_scan
+    from repro_torch.models.scan_utils import chunked_scan, stepwise
 
     weights = {"cpu": to_cpu(mp), "cuda": mp}
     rng = np.random.default_rng(SEED + 16)
@@ -3758,7 +3805,8 @@ def mamba_card_vs_cpu(torch, np, cfg, mp, card) -> dict:
         return silu(y), st
 
     def scan(p, h, *xs):
-        return chunked_scan(mamba._scan_step(p["A_log"], p["D"]), h,
+        step = mamba._scan_step(p["A_log"], p["D"])
+        return chunked_scan(stepwise(step), h,
                             tuple(a.transpose(0, 1) for a in xs))
 
     h = torch.zeros((1, cfg.d_inner, cfg.mamba_d_state))
@@ -4528,12 +4576,16 @@ class StopAfter:
 
 
 def train_full_arm(torch, np, card: str, lr: float = TRAIN_LR,
-                   warmup: int = TRAIN_WARMUP):
-    """(a) bitnet-3b at full width and depth: masters drawn on the card,
-    then ``TRAIN_STEPS`` steps of ``make_train_step`` (batch 4 × 512,
-    peak ``lr`` after ``warmup`` steps) with every step's loss, grad norm,
-    lr and synchronized ms, the peak, and no kernel of the table
-    launched. → (trained masters, stats)."""
+                   warmup: int = TRAIN_WARMUP, arch: str = "bitnet-3b",
+                   steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ):
+    """(a) ``arch`` (bitnet-3b; rwkv6-1.6b in phase 4l) at full width and
+    depth: masters drawn on the card, then ``steps`` steps of
+    ``make_train_step`` (batch 4 × ``seq``, peak ``lr`` after ``warmup``
+    steps) with every step's loss, grad norm, lr and synchronized ms, the
+    peak, and no kernel of the table launched. Gates: finite, and the
+    last step's loss the lowest of the run (AdamW's first sign-like
+    steps can raise the loss for a step or two; a run that ends above any
+    earlier step did not train). → (trained masters, stats)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.kernels import ops
@@ -4541,26 +4593,28 @@ def train_full_arm(torch, np, card: str, lr: float = TRAIN_LR,
     from repro_torch.training.optimizer import adamw_init
     from repro_torch.training.train import make_train_step
 
-    cfg = get_config("bitnet-3b")
+    cfg = get_config(arch)
+    tag = f"[train {arch}]"
     params, draw_s, draw_peak = drawn(torch, lambda: init_params(
         cfg, SEED, "cuda"))
     n_params = sum(p.numel() for _, p in leaves(params))
     opt = adamw_init(params)
     step_fn = make_train_step(cfg, peak_lr=lr, warmup=warmup,
-                              total_steps=TRAIN_STEPS)
-    data = SyntheticDataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                              total_steps=steps)
+    data = SyntheticDataset(cfg, seq_len=seq, global_batch=TRAIN_BATCH,
                             seed=SEED)
     held = torch.cuda.memory_allocated()
-    log(f"  [train bitnet-3b] {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads of {cfg.hd}, ffn {cfg.d_ff}: {n_params:,} "
-        f"f32 masters drawn on the card in {draw_s:.1f} s (peak "
-        f"{draw_peak / 2**30:.2f} GiB); {held / 2**30:.2f} GiB with the "
-        f"AdamW moments; peak lr {lr}, warmup {warmup} [{card}]")
+    log(f"  {tag} {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd}, ffn {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params:,} f32 masters drawn on the card in "
+        f"{draw_s:.1f} s (peak {draw_peak / 2**30:.2f} GiB); "
+        f"{held / 2**30:.2f} GiB with the AdamW moments; batch "
+        f"{TRAIN_BATCH} x {seq}, peak lr {lr}, warmup {warmup} [{card}]")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     losses, norms, step_ms = [], [], []
-    for n in range(TRAIN_STEPS):
+    for n in range(steps):
         batch = {k: torch.from_numpy(v).cuda()
                  for k, v in data.batch(n).items()}
         torch.cuda.synchronize()
@@ -4570,24 +4624,23 @@ def train_full_arm(torch, np, card: str, lr: float = TRAIN_LR,
         step_ms.append((time.monotonic() - t0) * 1e3)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-        log(f"  [train bitnet-3b] step {n + 1}: loss {losses[-1]:.4f}, grad "
-            f"norm {norms[-1]:.4f}, lr {float(m['lr']):.3e}, param norm "
+        log(f"  {tag} step {n + 1}: loss {losses[-1]:.4f}, grad norm "
+            f"{norms[-1]:.4f}, lr {float(m['lr']):.3e}, param norm "
             f"{float(m['param_norm']):.2f}, {step_ms[-1]:.1f} ms")
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if any(counts.values()):
-        raise AssertionError(f"[train bitnet-3b] training launched serving "
-                             f"kernels: {counts}")
+        raise AssertionError(f"{tag} training launched serving kernels: "
+                             f"{counts}")
     if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"[train bitnet-3b] non-finite losses {losses} "
-                             f"or norms {norms}")
-    first, last = np.mean(losses[:2]), np.mean(losses[-2:])
-    if not last < first:
-        raise AssertionError(f"[train bitnet-3b] loss did not fall: steps "
-                             f"1–2 {first:.4f}, {TRAIN_STEPS - 1}–"
-                             f"{TRAIN_STEPS} {last:.4f}")
-    log(f"  [train bitnet-3b] loss {first:.4f} (steps 1–2) → {last:.4f} "
-        f"(steps {TRAIN_STEPS - 1}–{TRAIN_STEPS}); step ms p50 "
+        raise AssertionError(f"{tag} non-finite losses {losses} or norms "
+                             f"{norms}")
+    low = min(losses[:-1])
+    if not losses[-1] < low:
+        raise AssertionError(f"{tag} loss did not fall: step {steps} "
+                             f"{losses[-1]:.4f}, an earlier step {low:.4f}")
+    log(f"  {tag} loss {losses[0]:.4f} (step 1) → {losses[-1]:.4f} (step "
+        f"{steps}, the lowest; earlier low {low:.4f}); step ms p50 "
         f"{np.percentile(step_ms[1:], 50):.1f} (first {step_ms[0]:.1f}); "
         f"peak {peak / 2**30:.2f} GiB; launch counts while training "
         f"{counts} [{card}]")
@@ -4854,6 +4907,371 @@ def train_phase(torch, np, card: str) -> dict:
     log(f"  phase 4k's serve run launched {json.dumps(launches)}; phase 4k "
         f"took {time.monotonic() - t0:.1f} s")
     return dict(full=full, reduced=red, serve=serve, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: training of the recurrent families — train, quantize, serve;
+# the int8 gradient compression over gloo
+# ---------------------------------------------------------------------------
+
+# at seq 512 a full-width rwkv6 step took 8.1 s (the wkv time loop of
+# plain ops, run three times under the nested remat, is host-bound), so
+# (a) trains at seq 256. At peak lr 1e-4 its loss rises after step 2
+# (11.60, 8.87, 9.41, 9.44; the grad norm 38,715 at step 3) and at 3e-5
+# it falls at every step (scripts/train_lr_check.py --arch rwkv6-1.6b)
+REC_TRAIN_STEPS, REC_TRAIN_SEQ, REC_TRAIN_LR = 4, 256, 3e-5
+REC_RED_STEPS, REC_RED_LR = 12, 3e-3
+MAMBA_TRAIN_T, MAMBA_HELD_T = 512, 16
+DP_RANKS, DP_BATCH, DP_SEQ, EF_ROUNDS = 2, 8, 32, 16
+COMPRESS_SHAPE = (2048, 7168)             # rwkv6's wk_c gradient
+
+
+def rec_reduced_arm(torch, np, arch: str, card: str) -> dict:
+    """(b) reduced ``arch`` (rwkv6 or jamba) at f32 from the same masters
+    (drawn on the CPU), step 1 on the CPU and on the card: on its own
+    forward the card parts from the CPU at knife-edges (the first parting
+    BitLinear call's elements within 1e-4 of a half-integer; f32
+    rounding of the two devices, which a flip carries through the
+    recurrences), printed; with the CPU's int8 activations and ternary
+    weights (``tests/torch_knife_edges.py``'s replay, the partings
+    knife-edges) step 1's loss within 1e-4 and its pre-clip grad norm
+    within 1e-4 of itself. Then ``train_loop`` on the card (bf16, batch
+    8 x 32, lr 3e-3) whose last-5 mean loss falls below its first-5
+    mean. → stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.transformer import init_params
+
+    ke = tests_module("torch_knife_edges")
+    knife_edges, step1_grads = ke.knife_edges, ke.step1_grads
+    cfg = get_config(f"{arch}-reduced")
+    f32 = cfg.replace(act_dtype="float32")
+    masters = init_params(f32, SEED, "cpu")
+    batch = SyntheticDataset(f32, seq_len=RED_SEQ, global_batch=RED_BATCH,
+                             seed=SEED).batch(0)
+    l_cpu, n_cpu, xs = step1_grads(f32, masters, batch, "cpu")
+    l_own, n_own, own = step1_grads(f32, masters, batch, "cuda")
+    flips, codes, first, _ = knife_edges(own, xs, 1e-4, first_only=True)
+    l_sub, n_sub, sub = step1_grads(f32, masters, batch, "cuda", replay=xs)
+    edges, sub_codes, _, widest = knife_edges(sub, xs, 1e-4)
+    diff, gn_rel = abs(l_sub - l_cpu), abs(n_sub / n_cpu - 1)
+    kw = dict(steps=REC_RED_STEPS, global_batch=RED_BATCH, seq_len=RED_SEQ,
+              peak_lr=REC_RED_LR, log_every=10 ** 6)
+    t0 = time.monotonic()
+    losses = train_loop(cfg, device="cuda", **kw)["losses"]
+    secs = time.monotonic() - t0
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"  [train {cfg.name}] f32 step 1 from the same masters, CPU / card"
+        f" on its own forward: loss {l_cpu:.6f} / {l_own:.6f} "
+        f"({abs(l_own - l_cpu):.2e} apart), pre-clip grad norm "
+        f"{n_cpu:.6f} / {n_own:.6f} ({abs(n_own / n_cpu - 1):.2e} of it); "
+        f"the first of {len(xs)} BitLinear calls that parts: {first} "
+        f"({flips} int8 value(s), {codes} ternary code(s), knife-edges); "
+        f"with the CPU's int8 activations and ternary weights "
+        f"({edges} int8 knife-edges within {widest:.1e} of a half-integer, "
+        f"{sub_codes} ternary): "
+        f"loss {l_sub:.6f}, {diff:.2e} apart (tol {RED_TOL}), grad norm "
+        f"{n_sub:.6f}, {gn_rel:.2e} of it (tol {RED_GNORM_TOL}); then "
+        f"{REC_RED_STEPS} steps at {cfg.act_dtype} in {secs:.1f} s, loss "
+        f"first-5 mean {first5:.4f} → last-5 mean {last5:.4f} [{card}]")
+    if diff > RED_TOL or gn_rel > RED_GNORM_TOL or not last5 < first5:
+        raise AssertionError(f"[train {cfg.name}] step 1 CPU {l_cpu}, "
+                             f"{n_cpu}; card on the CPU's int8 {l_sub}, "
+                             f"{n_sub}; first-5 {first5}, last-5 {last5}")
+    free_cuda(torch)
+    return dict(own_loss_diff=abs(l_own - l_cpu),
+                own_grad_norm_rel=abs(n_own / n_cpu - 1), partings=flips,
+                step1_diff=diff, step1_grad_norm_rel=gn_rel,
+                first5=float(first5), last5=float(last5), seconds=secs)
+
+
+def mamba_train_arm(torch, np, card: str) -> dict:
+    """(c) one full-width jamba Mamba sublayer (d 8192, Di 16,384, S 16,
+    dt_rank 512) drawn on the card: the training ``mamba_forward`` plus
+    its backward at batch 1 x 512 bf16 tokens (8 remat'd chunks of 64),
+    timed (host clock to a synchronize) and its peak; then at f32, T 16,
+    every master's gradient card against CPU (the same masters and
+    input; the card on the CPU's int8 activations and ternary weights,
+    which part from its own only at knife-edges: x/scale within 1e-3 of
+    a half-integer, |w|/γ within 1e-5 of ½) within rtol = atol = 1e-4.
+    → stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba
+    from repro_torch.tree_util import flatten_with_path, tree_map
+
+    ke = tests_module("torch_knife_edges")
+    cfg = get_config("jamba-1.5-large-398b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 41)
+    mp = mamba.mamba_init(gen, cfg, device="cuda")
+
+    def grads(p, u, c, replay=None, record=False):
+        masters = [t for _, t in flatten_with_path(p)]
+        for t in masters:
+            t.grad = None
+            t.requires_grad_(True)
+        with (ke.bitlinear_inputs(replay) if record
+              else contextlib.nullcontext()) as rec:
+            y, st = mamba.mamba_forward(c, p, u, train=True)
+            (y.float().mean() + st["ssm"].mean()).backward()
+        out = {k: t.grad for k, t in flatten_with_path(p)}
+        for t in masters:
+            t.requires_grad_(False)
+            t.grad = None
+        return out, rec
+
+    u = torch.randn((1, MAMBA_TRAIN_T, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ops.reset_launch_counts()
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        g = grads(mp, u, cfg)[0]
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        del g
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"[train jamba Mamba] launched serving kernels: "
+                             f"{ops.launch_counts()}")
+    f32 = cfg.replace(act_dtype="float32")
+    uh = torch.randn((1, MAMBA_HELD_T, cfg.d_model), generator=gen,
+                     device="cuda")
+    cpu_p = tree_map(lambda t: t.to("cpu", copy=True), mp)
+    want, xs = grads(cpu_p, uh.cpu(), f32, record=True)
+    got, own = grads(mp, uh, f32, replay=xs, record=True)
+    edges, codes, _, widest = ke.knife_edges(own, xs, 1e-3)
+    worst = {}
+    for k, w in want.items():
+        gk = got[k].cpu()
+        torch.testing.assert_close(gk, w, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+        worst[k] = float((gk - w).abs().max())
+    far = max(worst, key=worst.get)
+    log(f"  [train jamba Mamba] full width (d {cfg.d_model}, Di "
+        f"{cfg.d_inner}, S {cfg.mamba_d_state}, dt_rank "
+        f"{mamba.dt_rank(cfg)}): training forward + backward at 1 x "
+        f"{MAMBA_TRAIN_T} bf16 tokens ({MAMBA_TRAIN_T // 64} remat chunks) "
+        f"{ms[1]:.1f} / {ms[2]:.1f} ms (first {ms[0]:.1f}), peak "
+        f"{peak / 2**30:.2f} GiB above the masters; no kernel of the table; "
+        f"f32 gradients of {len(worst)} masters at T {MAMBA_HELD_T} card vs "
+        f"CPU, the card on the CPU's int8 activations and ternary weights "
+        f"({edges} int8 knife-edges, within {widest:.1e} of a "
+        f"half-integer: k up to 16,384 summed in two orders; {codes} "
+        f"ternary codes at |w|/γ = ½, γ a mean over up to 268M weights), "
+        f"within rtol = atol = 1e-4 "
+        f"(farthest {far}, {worst[far]:.2e} abs) [{card}]")
+    del mp, cpu_p, got, want, u, uh
+    free_cuda(torch)
+    return dict(ms=ms, peak_bytes=peak, grad_apart=worst)
+
+
+def rec_serve_arm(torch, np, params, card: str) -> dict:
+    """(d) (a)'s trained rwkv6-1.6b masters quantized on the card (then
+    dropped: ``params`` is emptied) and served at full width and depth:
+    phase 4's first 4 requests greedy through the Scheduler (run to
+    completion, exact-length prefill), 240 #1 launches a decode step and
+    no other kernel of the table, scheduler == lockstep for rid 0; #1 on
+    the trained layer 0's wk_c at m 4 and 1536 bitwise its plain version;
+    the graph decode step. → stats with the serve run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.quantize import quantize_params
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("rwkv6-1.6b")
+    t0 = time.monotonic()
+    qp = quantize_params(cfg, params)
+    torch.cuda.synchronize()
+    q_s = time.monotonic() - t0
+    params.clear()
+    free_cuda(torch)
+    # room for the steady steps' 96 (a recurrent state has no pages)
+    engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + 96, device="cuda")
+    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+                         max_prompt=MAX_PROMPT, gen=GEN,
+                         seed=SEED)[:TRAIN_REQUESTS]
+    log(f"  [trained rwkv6 serve] the trained masters quantized on the card "
+        f"in {q_s:.1f} s: {tree_bytes(qp) / 2**30:.3f} GiB served; prompt "
+        f"lengths " + ", ".join(str(len(r.prompt)) for r in reqs)
+        + f" [{card}]")
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:16],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    label = "trained rwkv6-1.6b greedy"
+    idle = tuple(k for k in KERNEL_NAMES if k != "fused_qlinear")
+    run = recurrent_serve(torch, np, engine, reqs, label, card, 0,
+                          ("fused_qlinear",), idle, lockstep=(0,))
+    step_ms, sched = decode_step_ms(torch, np, engine, reqs)
+    del sched
+    rows = projection_rows(
+        torch, np, {"wk_c": layer_slice(qp["layers"], 0)["tm"]["wk_c"]},
+        "trained rwkv6", "layer 0's trained served weights", card,
+        SEED + 30)
+    log(f"  [trained rwkv6 serve] {run['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{run['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA graph "
+        f"{step_ms:.2f} ms, peak {run['peak_bytes'] / 2**30:.2f} GiB; "
+        f"tokens sha256 {run['tokens']} [{card}]")
+    run.update(decode_step_ms_p50=step_ms, rows=rows, quantize_s=q_s)
+    del engine, qp
+    free_cuda(torch)
+    return run
+
+
+def dp_rank(mesh, masters, batch) -> dict:
+    """One process of phase 4l (e), a rank of a gloo group on cuda:0 (or,
+    given a single-process mesh, every shard in this process): one
+    data-parallel ``make_train_step`` of reduced rwkv6 on this rank's
+    share of ``batch`` with ``CompressedMean`` (the int8 psum with error
+    feedback, then the mean); the reference's error-feedback check on 2
+    shards of 64 (a row each); one compressed and one plain f32
+    all-reduce of a ``COMPRESS_SHAPE`` gradient timed. → the masters after
+    the step (on the CPU), the check's running-mean errors, the ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.distributed.partitioning import Mesh, psum
+    from repro_torch.tree_util import flatten_with_path, tree_map
+
+    t_in = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    n = mesh.size(mesh.axis_names)
+    data = Mesh(("data",), {"data": n}, mesh.group)
+    local = data.local
+    cfg = get_config("rwkv6-1.6b-reduced")
+    params = tree_map(lambda t: t.to("cuda", copy=True), masters)
+    rows = DP_BATCH // n
+    r = 0 if local else data.rank("data")
+    mine = {k: torch.from_numpy(v[r * rows:(r + 1) * rows] if not local
+                                else v).cuda() for k, v in batch.items()}
+    params, m = tests_module("torch_dp_rank").dp_step(cfg, params, mine,
+                                                      data)
+    out = {"params": {k: v.cpu() for k, v in flatten_with_path(params)},
+           "loss": float(m["loss"]), "step_s": time.monotonic() - t_in}
+    # error feedback: the running mean of the compressed sums converges
+    full = np.random.default_rng(0).standard_normal((n, 64)).astype(
+        np.float32)
+    x = torch.from_numpy(full if local else full[r:r + 1]).cuda()
+    exact = torch.from_numpy(full.sum(0)).cuda()
+    err = torch.zeros_like(x)
+    running, mean_err = torch.zeros(64, device="cuda"), []
+    for i in range(1, EF_ROUNDS + 1):
+        total, err = compressed_psum(x, "data", err, data)
+        running += total[0]
+        mean_err.append(float((running / i - exact).abs().max()))
+    out["ef_mean_err"] = mean_err
+    if not local:
+        g = torch.randn(COMPRESS_SHAPE, device="cuda")
+        e = torch.zeros_like(g)
+        for name, fn in (("compressed", lambda: compressed_psum(
+                g, "data", e, data)), ("f32", lambda: psum(g, "data", data))):
+            ts = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{name}_ms"] = float(np.median(ts[1:]))
+    return out
+
+
+def compress_arm(torch, np, card: str) -> dict:
+    """(e) ``dp_rank`` on 2 gloo ranks spawned on cuda:0 and on a
+    single-process mesh of 2 shards in this process, from the same
+    masters and batch: both ranks' masters after the step bitwise equal
+    and bitwise the single-process mesh's; the error-feedback check's
+    running mean after 16 rounds below half its first-round error on
+    every rank; one compressed all-reduce's ms beside the plain f32
+    one's. → stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch.mesh import local_mesh, spawn_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree_util import flatten_with_path
+
+    cfg = get_config("rwkv6-1.6b-reduced")
+    masters = init_params(cfg, SEED, "cpu")
+    batch = SyntheticDataset(cfg, seq_len=DP_SEQ, global_batch=DP_BATCH,
+                             seed=SEED).batch(0)
+    t0 = time.monotonic()
+    ranks = spawn_ranks("chip_smoke:dp_rank", DP_RANKS, (masters, batch),
+                        timeout=600)
+    rank_s = time.monotonic() - t0
+    one = dp_rank(local_mesh((DP_RANKS,), ("data",)), masters, batch)
+    for i, rk in enumerate(ranks):
+        for k, v in one["params"].items():
+            if not torch.equal(rk["params"][k], v):
+                raise AssertionError(f"[compress] rank {i}'s {k} != the "
+                                     f"single-process mesh's")
+    moved = sum(not torch.equal(one["params"][k], v)
+                for k, v in flatten_with_path(masters))
+    for who, rk in (("rank 0", ranks[0]), ("rank 1", ranks[1]),
+                    ("single-process mesh", one)):
+        e = rk["ef_mean_err"]
+        if not e[-1] < 0.5 * e[0]:
+            raise AssertionError(f"[compress] {who}: running-mean error "
+                                 f"{e}")
+    log(f"  [compress] reduced rwkv6, batch {DP_BATCH} x {DP_SEQ} over "
+        f"{DP_RANKS} gloo ranks on cuda:0 ({rank_s:.1f} s with the spawn, "
+        f"{ranks[0]['step_s']:.1f} s of it rank 0's step): "
+        f"one make_train_step with CompressedMean (int8 psum over gloo, "
+        f"int32 codes on CUDA tensors): both ranks' masters "
+        f"({len(one['params'])} leaves, {moved} moved) bitwise each other "
+        f"and the single-process mesh's; losses {ranks[0]['loss']:.4f} / "
+        f"{ranks[1]['loss']:.4f}; error feedback over {EF_ROUNDS} rounds, "
+        f"running-mean max error {ranks[0]['ef_mean_err'][0]:.4f} → "
+        f"{ranks[0]['ef_mean_err'][-1]:.4f}; one all-reduce of a "
+        f"{COMPRESS_SHAPE[0]} x {COMPRESS_SHAPE[1]} f32 gradient: compressed "
+        f"{ranks[0]['compressed_ms']:.2f} ms, plain f32 "
+        f"{ranks[0]['f32_ms']:.2f} ms (rank 0, host clock to a synchronize)"
+        f" [{card}]")
+    return dict(compressed_ms=ranks[0]["compressed_ms"],
+                f32_ms=ranks[0]["f32_ms"], ef_mean_err=ranks[0]["ef_mean_err"],
+                spawn_s=rank_s)
+
+
+def rec_train_phase(torch, np, card: str) -> dict:
+    """Phase 4l: (a) rwkv6-1.6b trained at full width and depth, (b)
+    reduced rwkv6 and jamba card against CPU and a short loop, (c) a
+    full-width jamba Mamba sublayer trained, (d) (a)'s masters quantized
+    and served at full width and depth, (e) the int8 gradient compression
+    over 2 gloo ranks on cuda:0. → stats with (d)'s launches."""
+    t0 = time.monotonic()
+    free_cuda(torch)
+    matmul = torch.backends.cuda.matmul
+    reduced_bf16 = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        params, full = train_full_arm(torch, np, card, arch="rwkv6-1.6b",
+                                      lr=REC_TRAIN_LR,
+                                      steps=REC_TRAIN_STEPS,
+                                      seq=REC_TRAIN_SEQ)
+        serve = rec_serve_arm(torch, np, params, card)
+        del params
+        reduced = {arch: rec_reduced_arm(torch, np, arch, card)
+                   for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b")}
+        width = mamba_train_arm(torch, np, card)
+        compress = compress_arm(torch, np, card)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced_bf16
+    launches = {k: serve["counts"][k] for k in KERNEL_NAMES}
+    log(f"  phase 4l's serve run launched {json.dumps(launches)}; phase 4l "
+        f"took {time.monotonic() - t0:.1f} s")
+    return dict(full=full, serve=serve, reduced=reduced, width=width,
+                compress=compress, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -5719,6 +6137,9 @@ def main() -> int:
     log(f"[device] {name} x{count}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
 
+    phase_s = {"1": time.monotonic() - t_start}
+    t_phase = time.monotonic()
+
     # ---- 2. build ----
     t0 = time.monotonic()
     libs = _build.build_all()
@@ -5729,15 +6150,24 @@ def main() -> int:
         for line in _build.ptxas_report(src).splitlines():
             log(f"  {src}: {line.strip()}")
 
+    phase_s["2"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 3. kernels ----
     log(f"[kernels] full-width shapes, held against the plain versions "
         f"(rtol=atol={TOL['rtol']}; projections bitwise) [{smi}]")
     rows = kernel_phase(torch, np)
 
+    phase_s["3"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4. serve ----
     log(f"[serve] bitnet-3b full width, {N_SLOTS} slots, {N_REQUESTS} "
         f"requests, gen {GEN} [{smi}]")
     engine, reqs, serve = serve_phase(torch, np, smi)
+
+    phase_s["4"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
 
     # ---- 4b. no-LOP serve ----
     log(f"[serve no-LOP] the same {N_REQUESTS} requests on a use_lop=False "
@@ -5748,6 +6178,9 @@ def main() -> int:
         f"({serve['eager_decode_step_ms_p50']:.2f}) ms, no-LOP "
         f"{nolop['decode_step_ms_p50']:.2f} "
         f"({nolop['eager_decode_step_ms_p50']:.2f}) ms [{smi}]")
+
+    phase_s["4b"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
 
     # ---- 4c. sampled serve and faults ----
     log(f"[serve sampled + faults] [{smi}]")
@@ -5760,6 +6193,9 @@ def main() -> int:
     launches = dict(serve["counts"])
     launches[DENSE] = nolop["counts"][DENSE] + sampled["dense_launches"]
 
+    phase_s["4c"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4d. prefix caching and speculative decoding ----
     log(f"[serve prefix + speculative] prefix traffic ({N_REQUESTS} "
         f"requests: a shared {SHARED_PREFIX}-token prefix + {MIN_SUFFIX}-"
@@ -5768,6 +6204,9 @@ def main() -> int:
         f" layers at k_keep {engine.draft_k}) [{smi}]")
     prefix_phase(torch, np, engine, smi)
     spec = spec_phase(torch, np, engine, nolop["dense"], reqs, smi)
+
+    phase_s["4d"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
 
     # ---- 4g. the HTTP front-end, /metrics, and the chaos trace ----
     t4g = time.monotonic()
@@ -5779,6 +6218,9 @@ def main() -> int:
     chaos_phase(torch, np, nolop["dense"], smi)
     log(f"  phase 4g took {time.monotonic() - t4g:.1f} s")
 
+    phase_s["4g"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4e. the MoE family: granite-moe-1b-a400m ----
     log(f"[serve moe] granite-moe-1b-a400m full width (24 layers, d 1024, "
         f"32 experts top-8, d_ff 512), {N_SLOTS} slots, {N_REQUESTS} "
@@ -5788,6 +6230,9 @@ def main() -> int:
     # #1's expert form runs in phase 3 only, so its count here is 0
     launches.update(moe["launches"])
 
+    phase_s["4e"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4h. the dense family's LayerNorm and QKV bias; the encdec
     #      family (whisper) ----
     log(f"[serve families] stablelm-1.6b (LayerNorm) full width and depth, "
@@ -5796,14 +6241,21 @@ def main() -> int:
         f"slots, {N_REQUESTS} requests, gen {GEN} [{smi}]")
     fam = families_phase(torch, np, smi)
 
+    phase_s["4h"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4i. the recurrent families: rwkv6 (ssm) and jamba (hybrid) ----
-    log(f"[serve recurrent] rwkv6-1.6b (ssm) full width and depth (24 "
-        f"layers, d 2048), phase 4's {N_REQUESTS} requests greedy and "
+    log(f"[serve recurrent] rwkv6-1.6b (ssm) full width (d 2048), "
+        f"{RWKV_SERVE_LAYERS} of 24 layers (full depth in 4l (d)), phase "
+        f"4's {N_REQUESTS} requests greedy and "
         f"sampled; jamba-1.5-large-398b reduced (hybrid: Mamba + attention "
         f"+ MoE), {JAMBA_REQUESTS} requests of {JAMBA_MIN_PROMPT}-"
         f"{JAMBA_MAX_PROMPT} tokens, LOP, no-LOP, sampled; {N_SLOTS} slots; "
         f"then a full-width jamba Mamba and attention sublayer [{smi}]")
     rec = recurrent_phase(torch, np, smi)
+
+    phase_s["4i"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
 
     # ---- 4j. the streamed draw; llava-next-34b (vlm) and
     #      mistral-nemo-12b at full width and depth ----
@@ -5815,6 +6267,9 @@ def main() -> int:
         f"width and depth, phase 4's {N_REQUESTS} requests; {N_SLOTS} slots "
         f"[{smi}]")
     vlm4j = vlm_phase(torch, np, smi)
+
+    phase_s["4j"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
 
     # ---- 5. standalone kernels and the per-head LOP decode ----
     log(f"[standalone kernels + per-head LOP decode] full width (d 3200, "
@@ -5839,6 +6294,9 @@ def main() -> int:
     del engine, nolop, sampled
     free_cuda(torch)
 
+    phase_s["5"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4k. the QAT training path: bitnet-3b trained at full width and
     #      depth, the reduced loop, then the trained masters served ----
     log(f"[train] bitnet-3b full width and depth, {TRAIN_STEPS} steps of "
@@ -5854,6 +6312,28 @@ def main() -> int:
     rows["fused_ffn"].setdefault("shapes", {}).update(
         {f"trained bitnet-3b {k}": v
          for k, v in train["serve"]["ffn_rows"].items()})
+    phase_s["4k"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
+    # ---- 4l. training of the recurrent families: rwkv6-1.6b trained at
+    #      full width and depth, then served; reduced rwkv6 and jamba card
+    #      vs CPU; a full-width jamba Mamba sublayer trained; the int8
+    #      gradient compression over 2 gloo ranks ----
+    log(f"[train recurrent] rwkv6-1.6b full width and depth, "
+        f"{REC_TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq "
+        f"{REC_TRAIN_SEQ}, then quantized and served ({TRAIN_REQUESTS} "
+        f"requests); reduced rwkv6 and jamba card vs CPU and "
+        f"{REC_RED_STEPS} steps; a full-width jamba Mamba sublayer trained; "
+        f"the int8 gradient compression over {DP_RANKS} gloo ranks on "
+        f"cuda:0 [{smi}]")
+    rtrain = rec_train_phase(torch, np, smi)
+    for kname, n in rtrain["launches"].items():
+        launches[kname] += n
+    rows["fused_qlinear"].setdefault("shapes", {}).update(
+        {f"trained rwkv6-1.6b {k}": v
+         for k, v in rtrain["serve"]["rows"].items()})
+    phase_s["4l"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
 
     log(f"[serve sp] bitnet-3b full width, sequence-parallel decode over "
         f"{SP_RANKS} gloo ranks on cuda:0 (kernels built above), with and "
@@ -5861,6 +6341,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before "
         f"it [{smi}]")
     sp = sp_phase(torch, np, smi)
+    phase_s["4f"] = time.monotonic() - t_phase
     mode_launches = {
         "fused_decode_attention": {
             "per_head": launches["fused_decode_attention"],
@@ -5935,6 +6416,9 @@ def main() -> int:
             for mode, r in row.get("modes", {}).items():
                 entry["modes"].setdefault(mode, dict(r))
         kernels.append(entry)
+    log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in phase_s.items())
+        + f" [{smi}]")
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

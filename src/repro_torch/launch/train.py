@@ -9,8 +9,9 @@ sharded data pipeline, the QAT step (STE ternary weights, absmax int8
 activations), gradient accumulation, warmup-cosine AdamW, step-level
 checkpoints (atomic manifests) and resume, SIGTERM → checkpoint and a
 clean exit, and straggler monitoring. Without ``--device`` it trains on
-the CUDA card and raises where there is none. The ssm and hybrid
-families do not train yet (``forward_train`` raises).
+the CUDA card and raises where there is none. Every family trains,
+the recurrent ones too (``--arch rwkv6-1.6b``,
+``--arch jamba-1.5-large-398b --reduced``).
 """
 
 from __future__ import annotations

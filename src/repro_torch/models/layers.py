@@ -57,6 +57,13 @@ def serving_linear(params, x: torch.Tensor, *, quant: str) -> torch.Tensor:
     return y
 
 
+def mixer_linear(train: bool):
+    """The recurrent mixers' projection: ``linear_apply`` (the QAT
+    product with f32 accumulation) in the training forward,
+    ``serving_linear`` when serving."""
+    return linear_apply if train else serving_linear
+
+
 def norm_init(d: int, kind: str, *, device) -> dict:
     """``{"g"}`` ones for RMSNorm; ``{"g", "b"}`` (ones, zeros) for
     LayerNorm."""

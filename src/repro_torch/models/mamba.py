@@ -1,5 +1,5 @@
-"""Mamba (selective SSM), the non-attention layer of jamba: serving
-forward (the reference's ``models/mamba.py``).
+"""Mamba (selective SSM), the non-attention layer of jamba: serving and
+training forwards (the reference's ``models/mamba.py``).
 
 Prefill projects x, z, dt, B and C for the whole prompt and runs the
 state recurrence ``h [B, Di, S]`` over it with :func:`chunked_scan`;
@@ -12,21 +12,28 @@ its bias) are #1 (``fused_qlinear``) in serving format; a smaller
 forward, as the reference serves it. The recurrence and the conv have no
 kernel in the reference and none here.
 
+``mamba_forward(..., train=True)`` is the training forward (the
+reference's ``superblock_apply`` call, on f32 masters): every projection,
+``dt_proj`` with its bias, takes ``linear_apply``'s QAT product (f32
+accumulation) instead of ``serving_linear``'s float64 one, and the scan's
+chunks of 64 steps are rematerialized in the backward.
+
 Numerics against XLA: softplus is the reference's ``logaddexp(x, 0)``
 (not ``torch.nn.functional.softplus``, which switches to x above 20),
 silu is x·sigmoid(x), and a step's ``einsum`` is a float64 product
-rounded once, so a lane does not depend on the others.
-The reference's ``shard`` constraints are no-ops off a mesh and are
-dropped; training (the remat'd scan's backward) is not ported yet
-(``forward_train`` raises for the hybrid family).
+rounded once, so a lane does not depend on the others. Training keeps
+that product (differentiable; its gradient is the f32 ``einsum``'s to
+well within 1e-4), so the trained and the served forward are one
+computation. The reference's ``shard`` constraints are no-ops off a mesh
+and are dropped.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import linear_init, serving_linear, silu
-from repro_torch.models.scan_utils import chunked_scan
+from repro_torch.models.layers import linear_init, mixer_linear, silu
+from repro_torch.models.scan_utils import chunked_scan, stepwise
 
 
 def dt_rank(cfg) -> int:
@@ -56,8 +63,12 @@ def mamba_init(gen: torch.Generator, cfg, *, device) -> dict:
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """The reference's softplus, logaddexp(x, 0) = max(x, 0) +
-    log1p(exp(−|x|))."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    log1p(exp(−|x|)). |x| is formed as ``where(x ≥ 0, x, −x)`` (the same
+    values) so that the gradient at x = 0 is logaddexp's ½: ``abs``'s
+    sign(0) = 0 would leave ``clamp_min``'s 1 alone (a ``dt_proj`` column
+    of ternary zeros puts every token there)."""
+    mag = torch.where(x >= 0, x, -x)
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-mag))
 
 
 def _causal_conv(x, conv_w, conv_b, conv_state=None):
@@ -76,19 +87,19 @@ def _causal_conv(x, conv_w, conv_b, conv_state=None):
     return y + conv_b, xp[:, xp.shape[1] - (ck - 1):]
 
 
-def _ssm_inputs(cfg, p, u):
+def _ssm_inputs(cfg, p, u, train: bool = False):
     """u [B, T, D] → x, z [B, T, Di] (``in_proj``, split)."""
-    xz = serving_linear(p["in_proj"], u, quant=cfg.quant)
+    xz = mixer_linear(train)(p["in_proj"], u, quant=cfg.quant)
     return torch.chunk(xz, 2, dim=-1)
 
 
-def _ssm_project(cfg, p, x):
+def _ssm_project(cfg, p, x, train: bool = False):
     """x [B, T, Di] → dt [B, T, Di] (softplus of ``dt_proj``), B and C
     [B, T, S]."""
-    s, r = cfg.mamba_d_state, dt_rank(cfg)
-    x_dbl = serving_linear(p["x_proj"], x, quant=cfg.quant)
+    s, r, lin = cfg.mamba_d_state, dt_rank(cfg), mixer_linear(train)
+    x_dbl = lin(p["x_proj"], x, quant=cfg.quant)
     dt, b_ssm, c_ssm = torch.split(x_dbl, [r, s, s], dim=-1)
-    dt = softplus(serving_linear(p["dt_proj"], dt, quant=cfg.quant))
+    dt = softplus(lin(p["dt_proj"], dt, quant=cfg.quant))
     return dt, b_ssm, c_ssm
 
 
@@ -108,26 +119,30 @@ def _scan_step(a_log, d_resid):
     return body
 
 
-def _gated_out(cfg, p, x, z, dt, b_ssm, c_ssm, h, dtype):
-    """Run the recurrence from ``h`` over T = x.shape[1] steps, gate with
-    silu(z) and project out. → (out [B, T, D], the state after T)."""
+def _gated_out(cfg, p, x, z, dt, b_ssm, c_ssm, h, dtype,
+               train: bool = False):
+    """Run the recurrence from ``h`` over T = x.shape[1] steps (chunks of
+    64, recomputed in the backward when ``train``), gate with silu(z) and
+    project out. → (out [B, T, D], the state after T)."""
     xs = tuple(a.transpose(0, 1) for a in (x, dt, b_ssm, c_ssm))
-    h, ys = chunked_scan(_scan_step(p["A_log"], p["D"]), h, xs)
+    h, ys = chunked_scan(stepwise(_scan_step(p["A_log"], p["D"])), h, xs,
+                         remat=train)
     y = ys.transpose(0, 1) * silu(z)
-    return serving_linear(p["out_proj"], y.to(dtype), quant=cfg.quant), h
+    return mixer_linear(train)(p["out_proj"], y.to(dtype), quant=cfg.quant), h
 
 
-def mamba_forward(cfg, p, u):
-    """Prefill from zero states. u [B, T, D] → (y [B, T, D], {"ssm": h
-    [B, Di, S], "conv": [B, ck − 1, Di]})."""
+def mamba_forward(cfg, p, u, *, train: bool = False):
+    """Prefill (or, with ``train``, the training forward) from zero
+    states. u [B, T, D] → (y [B, T, D], {"ssm": h [B, Di, S], "conv": [B,
+    ck − 1, Di]})."""
     b = u.shape[0]
-    x, z = _ssm_inputs(cfg, p, u)
+    x, z = _ssm_inputs(cfg, p, u, train)
     x, conv_state = _causal_conv(x, p["conv_w"], p["conv_b"])
     x = silu(x)
-    dt, b_ssm, c_ssm = _ssm_project(cfg, p, x)
+    dt, b_ssm, c_ssm = _ssm_project(cfg, p, x, train)
     h0 = torch.zeros((b, cfg.d_inner, cfg.mamba_d_state),
                      dtype=torch.float32, device=u.device)
-    out, h = _gated_out(cfg, p, x, z, dt, b_ssm, c_ssm, h0, u.dtype)
+    out, h = _gated_out(cfg, p, x, z, dt, b_ssm, c_ssm, h0, u.dtype, train)
     return out, {"ssm": h, "conv": conv_state}
 
 

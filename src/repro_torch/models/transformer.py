@@ -26,9 +26,12 @@ gives other numbers, so tests carry the reference's weights over with
 
 :func:`forward_train` is the training forward (QAT BitLinear everywhere,
 f32 norms, softmax and logits; the residual stream in ``act_dtype``) of
-the dense, moe, vlm and encdec families, over the f32 master tree, with
-per-layer rematerialization. The ssm and hybrid training forwards
-(``rwkv_layer_apply``, ``superblock_apply``) are not ported yet.
+every family, over the f32 master tree, with per-layer
+rematerialization: decoder layers (dense, moe, vlm; encdec's encoder and
+decoder stacks), :func:`rwkv_layer_apply` over ``layers`` (ssm) and
+:func:`superblock_apply` over ``blocks`` (hybrid), whose recurrent scans
+also rematerialize each chunk of 64 steps inside the layer's own
+checkpoint.
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ from repro_torch.models.attention import attention_apply
 from repro_torch.models.layers import (embedding_apply, ffn_apply,
                                        head_apply, linear_init, norm_apply,
                                        norm_init)
-from repro_torch.models.mamba import mamba_init
+from repro_torch.models import rwkv6
+from repro_torch.models.mamba import mamba_forward, mamba_init
 from repro_torch.models.moe import train_moe_apply
-from repro_torch.models.rwkv6 import rwkv_init
 
 
 def stack_trees(trees: list) -> dict:
@@ -111,7 +114,7 @@ def rwkv_layer_init(gen, cfg, *, device) -> dict:
     ``ln2``."""
     d = cfg.d_model
     return {"ln1": norm_init(d, cfg.norm, device=device),
-            "tm": rwkv_init(gen, cfg, device=device),
+            "tm": rwkv6.rwkv_init(gen, cfg, device=device),
             "ln2": norm_init(d, cfg.norm, device=device)}
 
 
@@ -179,7 +182,7 @@ def init_params(cfg, seed: int, device="cpu") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# training forward (dense, moe, vlm, encdec)
+# training forward
 # ---------------------------------------------------------------------------
 
 def decoder_layer_apply(cfg, p, x, *, positions, causal=True, cross_kv=None,
@@ -201,13 +204,54 @@ def decoder_layer_apply(cfg, p, x, *, positions, causal=True, cross_kv=None,
         h = norm_apply(p["ln_x"], x, cfg.norm)
         x = x + attention_apply(cfg, p["xattn"], h, kv_x=cross_kv,
                                 use_rope=False)
-    h = norm_apply(p["ln2"], x, cfg.norm)
-    if "moe" in p:
-        y, aux = train_moe_apply(cfg, p["moe"], h)
+    return _mixer_ffn(cfg, p, x)
+
+
+def _mixer_ffn(cfg, sub, x):
+    """A sublayer's second half, ``ln2`` then the MoE (odd positions) or
+    the FFN, with its residual. → (x, aux)."""
+    h = norm_apply(sub["ln2"], x, cfg.norm)
+    if "moe" in sub:
+        y, aux = train_moe_apply(cfg, sub["moe"], h)
     else:
-        y = ffn_apply(cfg, p["ffn"], h)
+        y = ffn_apply(cfg, sub["ffn"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
+
+
+def superblock_apply(cfg, p, x, *, positions):
+    """One jamba superblock on f32 masters: per sublayer ``sub{j}``, ``ln1``
+    then attention (the one attention position) or the training Mamba
+    forward, then the MoE or FFN. → (x, the MoE aux summed over the
+    superblock)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(cfg.attn_every):
+        sub = p[f"sub{j}"]
+        h = norm_apply(sub["ln1"], x, cfg.norm)
+        if "attn" in sub:
+            x = x + attention_apply(cfg, sub["attn"], h, positions=positions)
+        else:
+            x = x + mamba_forward(cfg, sub["mamba"], h, train=True)[0]
+        x, a = _mixer_ffn(cfg, sub, x)
+        aux = aux + a
+    return x, aux
+
+
+def rwkv_layer_apply(cfg, p, x):
+    """One rwkv6 layer on f32 masters, from a zero token shift and a zero
+    wkv state: ``ln1`` → the time mix, ``ln2`` → the channel mix, each
+    with its residual."""
+    b = x.shape[0]
+    zeros_prev = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    state0 = torch.zeros((b, cfg.n_heads, cfg.hd, cfg.hd),
+                         dtype=torch.float32, device=x.device)
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    x = x + rwkv6.rwkv_time_mix(cfg, p["tm"], h, zeros_prev, state0,
+                                train=True)[0]
+    h = norm_apply(p["ln2"], x, cfg.norm)
+    return x + rwkv6.rwkv_channel_mix(cfg, p["tm"], h, zeros_prev,
+                                      train=True)[0]
 
 
 class _LayerOf(torch.autograd.Function):
@@ -278,10 +322,6 @@ def forward_train(cfg, params, tokens, *, frames=None, patches=None,
     in the activation dtype ahead of the text, whose positions alone
     come out). The residual stream runs in ``cfg.act_dtype``; norms,
     softmax and the logits stay f32; the masters are f32, cast at use."""
-    if cfg.family not in ("dense", "moe", "vlm", "encdec"):
-        raise NotImplementedError(
-            f"forward_train for the {cfg.family} family is not ported yet "
-            "(ROADMAP queue 1: ssm and hybrid training come next)")
     act = getattr(torch, cfg.act_dtype)
     x = embedding_apply(params["embed"], tokens).to(act)
     t = tokens.shape[1]
@@ -303,10 +343,18 @@ def forward_train(cfg, params, tokens, *, frames=None, patches=None,
                                               causal=False),
             enc, params["enc_layers"], remat=remat)
         cross = norm_apply(params["ln_enc"], enc, cfg.norm)
-    x, aux = _scan_stack(
-        lambda h, lp: decoder_layer_apply(cfg, lp, h, positions=positions,
-                                          cross_kv=cross),
-        x, params["layers"], remat=remat)
+    if cfg.family == "ssm":
+        body = lambda h, lp: (rwkv_layer_apply(cfg, lp, h),  # noqa: E731
+                              torch.zeros((), dtype=torch.float32,
+                                          device=h.device))
+    elif cfg.family == "hybrid":
+        body = lambda h, bp: superblock_apply(  # noqa: E731
+            cfg, bp, h, positions=positions)
+    else:
+        body = lambda h, lp: decoder_layer_apply(  # noqa: E731
+            cfg, lp, h, positions=positions, cross_kv=cross)
+    x, aux = _scan_stack(body, x, params["blocks" if cfg.family == "hybrid"
+                                         else "layers"], remat=remat)
     if cfg.family == "vlm":
         x = x[:, patches.shape[1]:]
     x = norm_apply(params["ln_f"], x, cfg.norm)

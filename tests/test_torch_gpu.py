@@ -2151,3 +2151,113 @@ def test_train_kernels_on_trained_weights(cuda):
             gated=True, act="silu")
         torch.cuda.synchronize()
         assert torch.equal(got, want), m
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families' training and the int8 gradient compression on the
+# card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_train_recurrent_on_card_matches_cpu(cuda, arch):
+    """Reduced rwkv6 / jamba at f32 from the same masters (drawn on the
+    CPU), step 1 without remat: on its own forward the card's first int8
+    parting from the CPU is a knife-edge (x/scale within 1e-4 of a
+    half-integer on both sides: the two devices' f32 rounding, which a
+    flip carries on); with every QAT BitLinear input replaced by the
+    CPU's in value (the partings knife-edges) the loss is within 1e-4 and
+    the pre-clip grad norm within 1e-4 of itself; then 30 steps on the
+    card (bf16, batch 8 x 32, lr 3e-3) whose last-5 mean loss is below
+    the first-5 mean (``chip_smoke.py`` phase 4l (b))."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.transformer import init_params
+    from torch_knife_edges import knife_edges, step1_grads
+
+    cfg = get_config(f"{arch}-reduced")
+    f32 = cfg.replace(act_dtype="float32")
+    masters = init_params(f32, 0)
+    batch = SyntheticDataset(f32, seq_len=32, global_batch=8).batch(0)
+    l0, n0, xs = step1_grads(f32, masters, batch, "cpu")
+    _, _, own = step1_grads(f32, masters, batch, str(cuda))
+    knife_edges(own, xs, 1e-4, first_only=True)
+    l1, n1, sub = step1_grads(f32, masters, batch, str(cuda),
+                              replay=xs)
+    knife_edges(sub, xs, 1e-4)
+    assert abs(l1 - l0) <= 1e-4 and abs(n1 / n0 - 1) <= 1e-4, (l0, l1,
+                                                               n0, n1)
+    losses = train_loop(cfg, device=cuda, steps=30, global_batch=8,
+                        seq_len=32, peak_lr=3e-3, log_every=1000)["losses"]
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+
+
+def test_train_compressed_psum_on_card_bitwise_cpu(cuda):
+    """``compressed_psum`` on a single-process mesh of 8 shards of 64 on
+    CUDA tensors: one shot and 16 rounds of error feedback, sums and
+    error states bitwise the CPU's; ``compressed_psum_tree`` likewise."""
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     compressed_psum_tree,
+                                                     init_error_state)
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.tree_util import leaves
+
+    mesh = local_mesh((8,), ("data",))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32))
+    errs = {"cpu": torch.zeros(8, 64), "cuda": torch.zeros(8, 64,
+                                                            device=cuda)}
+    for _ in range(17):
+        tot_c, errs["cpu"] = compressed_psum(x, "data", errs["cpu"], mesh)
+        tot_g, errs["cuda"] = compressed_psum(x.to(cuda), "data",
+                                              errs["cuda"], mesh)
+        assert torch.equal(tot_g.cpu(), tot_c)
+        assert torch.equal(errs["cuda"].cpu(), errs["cpu"])
+    tree = {"a": torch.from_numpy(rng.standard_normal((8, 5, 7)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(
+            (8, 3)).astype(np.float32))}
+    gtree = {k: v.to(cuda) for k, v in tree.items()}
+    got, gerr = compressed_psum_tree(gtree, "data", init_error_state(gtree),
+                                     mesh)
+    want, err = compressed_psum_tree(tree, "data", init_error_state(tree),
+                                     mesh)
+    for a, b in zip(leaves(got) + leaves(gerr), leaves(want) + leaves(err)):
+        assert torch.equal(a.cpu(), b)
+
+
+def _gloo_compress_rank(mesh, x):
+    """A rank of :func:`test_train_compressed_mean_over_gloo_on_card`: its
+    row of ``x`` on cuda:0 through ``compressed_psum`` 4 rounds."""
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.distributed.partitioning import Mesh
+
+    data = Mesh(("data",), {"data": mesh.size("model")}, mesh.group)
+    r = data.rank("data")
+    mine = x[r:r + 1].cuda()
+    err, out = torch.zeros_like(mine), []
+    for _ in range(4):
+        total, err = compressed_psum(mine, "data", err, data)
+        out.append((total.cpu(), err.cpu()))
+    return out
+
+
+def test_train_compressed_mean_over_gloo_on_card(cuda):
+    """2 gloo ranks on cuda:0, a row of x each, 4 rounds: each round's sum
+    bitwise on both ranks and the single-process mesh's on the card, each
+    rank's error state its row of the single-process mesh's (the int32
+    codes reduced by gloo on CUDA tensors)."""
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.launch.mesh import local_mesh, spawn_ranks
+
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 300)).astype(np.float32))
+    ranks = spawn_ranks("test_torch_gpu:_gloo_compress_rank", 2, (x,),
+                        timeout=300)
+    mesh = local_mesh((2,), ("data",))
+    xs = x.to(cuda)
+    err = torch.zeros_like(xs)
+    for i in range(4):
+        total, err = compressed_psum(xs, "data", err, mesh)
+        for r in range(2):
+            assert torch.equal(ranks[r][i][0], total.cpu())
+            assert torch.equal(ranks[r][i][1], err[r:r + 1].cpu())

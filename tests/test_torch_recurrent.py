@@ -41,7 +41,7 @@ from repro_torch.convert import from_numpy_tree
 from repro_torch.core.quantization import absmax_scale, quantize
 from repro_torch.models import mamba, rwkv6
 from repro_torch.models.layers import linear_apply
-from repro_torch.models.scan_utils import chunked_scan
+from repro_torch.models.scan_utils import chunked_scan, stepwise
 from repro_torch.models.transformer import init_params, layer_slice
 from repro_torch.serving.quantize import quantize_params
 
@@ -113,7 +113,8 @@ def _int8_close(ours_f32, ref_f32, max_ties: int = 2):
                                                     "two-chunks"])
 def test_chunked_scan_matches_reference(t):
     """The reference at chunk 8 over T below, at and above it (the port
-    takes no chunk: one loop of the steps): a body free of products
+    at its default chunk 64: its forward is one loop of the steps
+    whatever the chunk): a body free of products
     (XLA's CPU backend contracts a product feeding a sum into one fused
     multiply-add, which the port's eager ops do not) gives the carry and
     every y bitwise the reference's — the same steps in the same order;
@@ -126,16 +127,18 @@ def test_chunked_scan_matches_reference(t):
     jc, jy = jchunked_scan(lambda c, x: (jnp.maximum(c, x[0]) + x[1],
                                          c - x[1]),
                            jnp.asarray(c0), xs_j, chunk=8)
-    tc, ty = chunked_scan(lambda c, x: (torch.maximum(c, x[0]) + x[1],
-                                        c - x[1]), _t(c0), xs_t)
+    tc, ty = chunked_scan(stepwise(lambda c, x: (torch.maximum(c, x[0])
+                                                 + x[1], c - x[1])),
+                          _t(c0), xs_t)
     assert ty.shape == (t, 2, 3)
     assert np.array_equal(tc.numpy(), np.asarray(jc))
     assert np.array_equal(ty.numpy(), np.asarray(jy))
     jc, jy = jchunked_scan(lambda c, x: (c * x[0] + jnp.tanh(x[1]),
                                          c * 2.0 + x[0]),
                            jnp.asarray(c0), xs_j, chunk=8)
-    tc, ty = chunked_scan(lambda c, x: (c * x[0] + torch.tanh(x[1]),
-                                        c * 2.0 + x[0]), _t(c0), xs_t)
+    tc, ty = chunked_scan(stepwise(lambda c, x: (c * x[0] + torch.tanh(x[1]),
+                                                 c * 2.0 + x[0])),
+                          _t(c0), xs_t)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-6,
                                atol=1e-6)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-6,
@@ -330,7 +333,7 @@ def test_mamba_forward_and_decode_match_reference(served):
     ys = _ys(jmamba._scan_step(jp["A_log"], jp["D"]), h0, xs)
     y_ref = ys.transpose(1, 0, 2) * jax.nn.silu(z)
     txs = tuple(_t(a).transpose(0, 1) for a in (xc, dt, b, c))
-    _, tys = chunked_scan(mamba._scan_step(tp["A_log"], tp["D"]),
+    _, tys = chunked_scan(stepwise(mamba._scan_step(tp["A_log"], tp["D"])),
                           _t(h0), txs)
     y_in = tys.transpose(0, 1) * rwkv6.silu(_t(z))
     np.testing.assert_allclose(y_in.numpy(), np.asarray(y_ref), **TOL)

@@ -10,10 +10,13 @@ with the reference's weights and the same seeded numpy inputs:
     padded tail chunk, cross (non-causal), dh 100 — within 2e-6; the
     chunk-carry of ``attention_apply`` / ``decoder_layer_apply`` (a
     suffix chunk == the whole stream's rows, and the reference's);
-  * per family (bitnet-3b, granite-moe-1b-a400m, llava-next-34b and
-    whisper-small reduced): at ``act_dtype="float32"`` the loss (and the
-    MoE aux) within rtol 1e-5 and every gradient leaf within rtol = atol
-    = 1e-4; at bf16 the loss within 2e-2. llava's reduced forward parts
+  * per family (bitnet-3b, granite-moe-1b-a400m, llava-next-34b,
+    whisper-small, rwkv6-1.6b and jamba-1.5-large-398b reduced): at
+    ``act_dtype="float32"`` the loss (and the MoE aux) within rtol 1e-5
+    and every gradient leaf within rtol = atol = 1e-4; at bf16 the loss
+    within 2e-2. jamba's f32 gradients are held at one superblock (its
+    second parts at a knife-edge of block 1's attention input, which
+    ``tests/test_torch_recurrent_training.py`` pins). llava's reduced forward parts
     from the reference at one knife-edge (an int8 activation of layer 0's
     FFN input at x/scale = −90.5 ± 3e-5, the f32 inputs within 2 ulps),
     which ``test_vlm_parts_from_reference_at_one_knife_edge`` pins; its
@@ -25,8 +28,7 @@ with the reference's weights and the same seeded numpy inputs:
     planted fault (no clip, a flipped or a skipped update); ``n_micro`` 2
     against 1 (and against a dropped microbatch); remat on and off
     bitwise (values and gradients);
-  * ``SyntheticDataset`` batches bitwise for every family, and
-    ``forward_train`` raising for the ssm and hybrid families.
+  * ``SyntheticDataset`` batches bitwise for every family.
 
 The reference's ``value_and_grad`` runs under ``jax.jit``.
 """
@@ -64,7 +66,8 @@ torch.set_num_threads(1)
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 FAMILIES = {"bitnet-3b": 32, "granite-moe-1b-a400m": 32,
-            "llava-next-34b": 48, "whisper-small": 32}   # arch → seq_len
+            "llava-next-34b": 48, "whisper-small": 32,
+            "rwkv6-1.6b": 32, "jamba-1.5-large-398b": 32}   # arch → seq_len
 
 
 def _t(a):
@@ -259,10 +262,14 @@ def _family_batch(cfg, arch):
 def test_loss_and_grads_match_reference_f32(arch):
     """At ``act_dtype="float32"``: the loss and the MoE aux within rtol
     1e-5, every gradient leaf within rtol = atol = 1e-4 (measured: at most
-    ~1e-6 apart). llava at 1 layer (its knife-edge: see below)."""
+    ~1e-6 apart). llava at 1 layer (its knife-edge: see below), jamba at
+    one superblock of 4 sublayers (Mamba; Mamba + MoE; attention + FFN;
+    Mamba + MoE)."""
     kw = dict(act_dtype="float32")
     if arch == "llava-next-34b":
         kw["n_layers"] = 1
+    if arch == "jamba-1.5-large-398b":
+        kw["n_layers"] = 4
     jcfg, cfg = _pair(arch, **kw)
     jp, tp = _masters(jcfg)
     batch = _family_batch(cfg, arch)
@@ -504,10 +511,3 @@ def test_synthetic_batches_bitwise(arch):
         for k in want:
             assert got[k].dtype == want[k].dtype
             assert np.array_equal(got[k], want[k]), (k, step)
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
-def test_forward_train_raises_for_recurrent_families(arch):
-    cfg = get_config(f"{arch}-reduced")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_train(cfg, {}, torch.zeros((1, 4), dtype=torch.int64))
