@@ -346,6 +346,45 @@ printed:
               rank, and where the SP tokens first part from single-card
               decode (token index, top-2 margins).
 
+  4n. chunk  (after phase 4, on its engine's weights) the prefill chunk
+      widths width: 4 requests (phase 4's rids 0 and 1; rids 2 and 3 as
+              their first 256 tokens behind one shared 1024-token
+              prefix), 3 slots, greedy LOP, prefix cache on, at chunk
+              widths 128 (phase 4's engine), 48 and 256 (engines
+              sharing the weights): tokens at 48 and 256 equal the 128
+              run's; #3 26 launches a chunk; the second sharer's hit
+              resumes at 1024, a block multiple, and chunks from there;
+              scheduler == lockstep for it; TTFT p50 and one chunk's ms
+              by width;
+  4m. dist   (last) the distributed modules over gloo ranks on cuda:0,
+              each sub-arm spawned once and gone before the next: (a)
+              ``ep_moe_apply`` on granite-moe-1b-a400m's layer at full
+              width (bf16 mode, capacity factor 8), x [4, 512, 1024] on
+              (data 2, model 2), every rank returning the whole batch's
+              rows: within 2e-3 of ``moe_apply`` at moe_group 1024, the
+              ranks bitwise the card's single-process mesh; (b)
+              ``ring_reduce_matmul`` and ``allgather_matmul`` at bitnet-3b's O shape (k 3200 cut 4
+              ways, n 3200, 64 rows) over 4 ranks within 1e-4 of
+              ``psum(x_loc @ w_loc)`` and X @ W_loc, timed beside one
+              plain all_reduce; (c) the sharded training step of
+              stablelm-1.6b at full width, 2 layers, f32, batch 8 x 128
+              on (data 2, model 2), lr 1e-4 at step 1: loss and grad
+              norm within rtol 1e-4 of the single-process step, each
+              leaf's update and both moments held to its by the step
+              check of ``tests/torch_step_check.py`` (each rank checks
+              its shards against the single-process step saved to
+              disk), which fails on the same step with the update
+              skipped, flipped, or each rank's gradient block taken at
+              its model neighbour's coordinates; each rank holding a
+              quarter of every leaf cut on both axes; the state
+              gathered and checkpointed; (d) the elastic restart: 3
+              survivors, plan (1, 2), the spare sits out, one more step
+              from the checkpoint held by the same check to the
+              single-process step from it; (e)
+              ``serve_step(sp_axes=("model",))`` of reduced jamba and
+              rwkv6-1.6b at full width and 6 layers over 2 ranks, LOP
+              and dense: greedy tokens equal the unsharded engine's.
+
 The line before the last two is the ``kernels`` JSON (eleven entries:
 the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
 #2, #3 and the two decode entries also list the modes they ran — #1
@@ -353,7 +392,8 @@ the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
 ``shared_select``, ``pos_offset+return_stats`` and ``cross`` — each with
 its launches on the path that runs it and the numbers of the phase that
 checked it; the launches of #1–#5 also count phase 4i's and 4j's serve
-runs and phase 4k's and 4l's serve runs; #1, #3, #4 and #5 list phase
+runs, phase 4k's and 4l's serve runs and phase 4n's, and the
+``pos_offset+return_stats`` modes phase 4m (e)'s rank 0; #1, #3, #4 and #5 list phase
 4j's checks under ``shapes``, #1 and #2 phase 4k's on trained weights,
 #1 phase 4l's), each phase's seconds printed before it; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -1213,14 +1253,14 @@ DENSE = "fused_dense_decode_attention"
 
 
 def serve_run(torch, np, engine, reqs, label: str, card: str,
-              capacity: int = 1664, **sched_kw):
+              capacity: int = 1664, n_slots: int = N_SLOTS, **sched_kw):
     """Serve ``reqs`` through a Scheduler on ``engine`` with the launch
     counts (by mode too) zeroed just before and read just after. →
     dict."""
     from repro_torch.kernels import ops
     from repro_torch.serving.scheduler import Scheduler
 
-    sched = Scheduler(engine, n_slots=N_SLOTS, **sched_kw)
+    sched = Scheduler(engine, n_slots=n_slots, **sched_kw)
     if sched.capacity != capacity:
         raise AssertionError(f"pool capacity {sched.capacity} != {capacity}")
     torch.cuda.synchronize()
@@ -6107,6 +6147,656 @@ def steady_phase(torch, np, engine, reqs, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4n: the prefill chunk width on the main path
+# ---------------------------------------------------------------------------
+
+CHUNK_WIDTHS = (48, 256)          # off the 16-row / 32-key tile; two blocks
+CHUNK_SHARED, CHUNK_SUFFIX, CHUNK_SLOTS = 1024, 256, 3
+
+
+def chunk_ms(torch, engine, c: int, reps: int = 5) -> float:
+    """One c-token prefill chunk at start 3·c of a fresh 1-slot pool
+    (host clock around a synchronized call, p50 of ``reps``)."""
+    import numpy as np
+    pool = engine.init_pool(1)
+    tokens = np.arange(c, dtype=np.int32)[None] % engine.cfg.vocab
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine.prefill_chunk(pool, 0, tokens, 3 * c, 4 * c, False)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    return float(np.median(times[1:]) * 1e3)
+
+
+def chunk_width_phase(torch, np, engine, reqs, card: str) -> dict:
+    """Phase 4n: phase 4's engine weights served at prefill chunk widths
+    48 and 256 against phase 4's 128: 4 requests (phase 4's rids 0 and
+    1, and rids 2 and 3 as their first 256 tokens behind one shared
+    1024-token prefix), greedy LOP, prefix cache on, 3 slots (the second
+    sharer is admitted after the first interned the prefix). Gates: every
+    width's tokens equal the 128-token run's; #3 launches 26 times a
+    chunk; the hit resumes at the block boundary, 1024; scheduler ==
+    lockstep for the hit. → launches of #3 by width."""
+    from dataclasses import replace
+
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.cache import capacity_for
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab, (CHUNK_SHARED,)).astype(np.int32)
+    sub = {r.rid: r for r in reqs[:2]}
+    for rid in (2, 3):
+        sub[rid] = replace(reqs[rid], prompt=np.concatenate(
+            [shared, reqs[rid].prompt[:CHUNK_SUFFIX]]))
+    order = [sub[2], sub[0], sub[1], sub[3]]
+    log(f"  prompts (rid: tokens) "
+        + ", ".join(f"{r.rid}: {len(r.prompt)}" for r in order)
+        + f"; rids 2 and 3 share {CHUNK_SHARED} tokens; {CHUNK_SLOTS} slots")
+    runs, out = {}, {}
+    for c in (engine.chunk_tokens,) + CHUNK_WIDTHS:
+        eng = engine if c == engine.chunk_tokens else PooledEngine(
+            cfg, engine.qp, max_len=engine.max_len, device="cuda",
+            chunk_tokens=c)
+        label = f"chunk {c}"
+        run = serve_run(torch, np, eng, order, label, card,
+                        capacity=capacity_for(cfg, eng.max_len),
+                        n_slots=CHUNK_SLOTS)
+        check_counts(run["counts"], label, LOP_PATH, idle=(DENSE,))
+        check_tokens(cfg, run["results"], GEN, label)
+        res = run["results"]
+        if res[3].cached_len != CHUNK_SHARED or \
+                CHUNK_SHARED % cfg.lop_block:
+            raise AssertionError(f"[{label}] the sharer resumed at "
+                                 f"{res[3].cached_len}, not {CHUNK_SHARED}")
+        plan = run["sched"]._plan_chunks(sub[3], skip=CHUNK_SHARED)[1]
+        chunks = sum(-(-(r.prompt_len - r.cached_len) // c)
+                     for r in res.values())
+        got = run["counts"]["fused_prefill_attention"]
+        if got != cfg.n_layers * chunks:
+            raise AssertionError(f"[{label}] #3 launched {got} times for "
+                                 f"{chunks} chunks of {cfg.n_layers} layers")
+        if c != engine.chunk_tokens:
+            base = runs[engine.chunk_tokens]["results"]
+            parted = [rid for rid in res if res[rid].tokens
+                      != base[rid].tokens]
+            if parted:
+                raise AssertionError(f"[{label}] tokens part from the "
+                                     f"{engine.chunk_tokens}-token run's "
+                                     f"for rids {parted}")
+            check_lockstep(eng, sub, res, (3,), label)
+        ms = chunk_ms(torch, eng, c)
+        log(f"  [{label}] {chunks} chunks, #3 {got} launches "
+            f"({cfg.n_layers} a chunk); the hit resumed at {CHUNK_SHARED} "
+            f"(chunk starts {plan[:3]}...); TTFT p50 "
+            f"{run['ttft_p50_ms']:.1f} ms, {run['tokens_per_s']:.2f} tok/s; "
+            f"one chunk at start {3 * c} {ms:.2f} ms (host clock, "
+            f"synchronized); tokens sha256 {tokens_digest(res)}"
+            + (f" == the {engine.chunk_tokens}-token run's"
+               if c != engine.chunk_tokens else "") + f" [{card}]")
+        run.pop("sched")
+        runs[c] = run
+        out[c] = dict(prefill_launches=got, ttft_p50_ms=run["ttft_p50_ms"],
+                      chunk_ms=ms, counts=dict(run["counts"]))
+        if eng is not engine:
+            del eng
+            free_cuda(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4m: the distributed modules, gloo ranks on cuda:0
+# ---------------------------------------------------------------------------
+
+EP_MESH, EP_X = (2, 2), (4, 512)         # (data, model); x [B, S] at d 1024
+CM_RANKS, CM_ROWS = 4, 64                # bitnet-3b's O: k 3200 → n 3200
+FSDP_MESH, FSDP_LAYERS, FSDP_BATCH, FSDP_SEQ = (2, 2), 2, 8, 128
+ELASTIC_SURVIVORS = 3                    # plan (1, 2): one spare
+SPR_RANKS, SPR_STEPS, SPR_LANES = 2, 8, 4
+SPR_ARCHS = {"jamba": ("jamba-1.5-large-398b-reduced", None, 96, 255),
+             "rwkv6": ("rwkv6-1.6b", RWKV_SERVE_LAYERS, 256, 1024)}
+
+
+def ep_inputs(torch):
+    """granite-moe-1b-a400m's MoE layer at full width (d 1024, E 32, top
+    8, f 512), bf16 mode, capacity factor 8 (no drops), as the
+    reference's check runs it; the layer and x [4, 512, 1024] drawn on
+    the card from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import moe_init
+    cfg = get_config("granite-moe-1b-a400m").replace(
+        quant="bf16", capacity_factor=8.0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    p = moe_init(gen, cfg, device="cuda")
+    x = torch.randn((*EP_X, cfg.d_model), generator=gen, device="cuda")
+    return cfg, p, x
+
+
+def ep_rank(mesh) -> dict:
+    """4m (a), one rank (or the single-process mesh): ``ep_moe_apply``
+    on the whole batch, cut over the data axis, twice (the second
+    timed); → the whole batch's rows."""
+    import torch
+
+    from repro_torch.distributed.expert_parallel import ep_moe_apply
+    cfg, p, x = ep_inputs(torch)
+    ep_moe_apply(cfg, p, x, mesh)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    y = ep_moe_apply(cfg, p, x, mesh)
+    torch.cuda.synchronize()
+    return {"y": y.cpu(), "ms": (time.monotonic() - t0) * 1e3,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def cm_rank(mesh) -> dict:
+    """4m (b), one of 4 model ranks: ``ring_reduce_matmul`` of x_loc [64,
+    800] @ w_loc [800, 3200] against ``psum(x_loc @ w_loc)`` and X @ W,
+    and ``allgather_matmul`` of x rows [16, 3200] @ W's 800 columns
+    against X @ W_loc; each timed (p50 of 5, synchronized host clock)
+    beside one plain all_reduce of the [64, 3200] product."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.collective_matmul import (allgather_matmul,
+                                                           ring_reduce_matmul)
+    from repro_torch.distributed.partitioning import psum
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    k = n = 3200
+    x = torch.randn((CM_ROWS, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    r, nr = mesh.rank("model"), mesh.size("model")
+    kl, bl = k // nr, CM_ROWS // nr
+    x_loc, w_loc = x[:, r * kl:(r + 1) * kl], w[r * kl:(r + 1) * kl]
+    x_rows, w_cols = x[r * bl:(r + 1) * bl], w[:, r * kl:(r + 1) * kl]
+
+    def timed(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        return out, float(np.median(times) * 1e3)
+    ring, ring_ms = timed(lambda: ring_reduce_matmul(x_loc, w_loc, "model",
+                                                     chunks=4, mesh=mesh))
+    plain, plain_ms = timed(lambda: psum(x_loc.contiguous()
+                                         @ w_loc.contiguous(), "model", mesh))
+    ag, ag_ms = timed(lambda: allgather_matmul(x_rows, w_cols, "model",
+                                               mesh=mesh))
+    want_ag = x @ w_cols.contiguous()
+    return {"ring_vs_psum": float((ring - plain).abs().max()),
+            "ring_vs_full": float((ring - x @ w).abs().max()),
+            "ring_ok": bool(torch.allclose(ring, plain, rtol=1e-4,
+                                           atol=1e-4)),
+            "ag_ok": bool(torch.allclose(ag, want_ag, rtol=1e-4, atol=1e-4)),
+            "ag_err": float((ag - want_ag).abs().max()),
+            "scale": float(plain.abs().max()),
+            "ring_ms": ring_ms, "ag_ms": ag_ms, "all_reduce_ms": plain_ms,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def fsdp_inputs(torch):
+    """stablelm-1.6b at full width (d 2048, vocab 100,352), 2 layers as
+    the reference's check cuts it, f32 activations; f32 masters drawn on
+    the card from seed 0; SyntheticDataset batch 8 x 128 (seed 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("stablelm-1.6b").replace(n_layers=FSDP_LAYERS,
+                                              act_dtype="float32")
+    batch = SyntheticDataset(cfg, seq_len=FSDP_SEQ, global_batch=FSDP_BATCH,
+                             seed=0).batch(0)
+    return cfg, init_params(cfg, SEED, "cuda"), {
+        k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+
+
+def _checked_steps(torch, cfg, mesh, params, opt, batch, want: str,
+                   faults=()) -> dict:
+    """This rank's shards of ``params`` and ``opt`` (whole trees on the
+    card), one sharded step (``make_train_step(mesh=)``, the step check's
+    schedule) and the step check's sums of its shards against the step
+    saved at ``want`` (``torch.save`` of p, m, v by path; read through a
+    memory map, a shard at a time); then the same
+    step from the same shards with each planted fault of ``faults`` and
+    its sums. → the loss, grad norm, ms and peak of the sound step, the
+    bytes held against the whole, the sums (the leaves this rank owns),
+    and its new shards (``p``, ``o``)."""
+    from repro_torch.distributed.partitioning import owns, shard_of
+    from repro_torch.training.train import (make_train_step, shard_dims,
+                                            shard_tree)
+    from repro_torch.tree_util import flatten_with_path, tree_map
+    sc = tests_module("torch_step_check")
+    dims = shard_dims(cfg, params, mesh)
+    both = [path for path, d in dims.items() if all(d[-2:])]
+    whole = sum(x.numel() * 4 for path, x in flatten_with_path(params)
+                if path in both)
+    p0 = shard_tree(params, dims, mesh)
+    o0 = shard_tree(opt, dims, mesh)
+    del params, opt
+    free_cuda(torch)
+    held = sum(x.numel() * 4 for path, x in flatten_with_path(p0)
+               if path in both)
+    step = make_train_step(cfg, mesh=mesh, dims=dims, **sc.STEP)
+    ref = torch.load(want, mmap=True, map_location="cpu")
+    coords = mesh.coords()
+    start = dict(flatten_with_path(p0))
+
+    def clone(tree):
+        return tree_map(lambda x: x.clone(), tree)
+
+    def run(fault):
+        p = clone(p0)
+        o = o0._replace(step=o0.step.clone(), m=clone(o0.m), v=clone(o0.v))
+        torch.cuda.reset_peak_memory_stats()
+        with sc.planted(fault):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            p, o, m = step(p, o, batch)
+            torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        got = {part: dict(flatten_with_path(tree))
+               for part, tree in (("p", p), ("m", o.m), ("v", o.v))}
+        sums = {path: sc.leaf_sums(x, [got[part][path] for part in "pmv"],
+                                   [shard_of(ref[part][path], dims[path],
+                                             coords, mesh).to(x.device)
+                                    for part in "pmv"])
+                for path, x in start.items() if owns(dims[path], coords,
+                                                     mesh)}
+        return p, o, m, sums, ms
+    p, o, m, sums, ms = run(None)
+    out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               ms=ms, peak=torch.cuda.max_memory_allocated(), dims=dims,
+               held=held, whole=whole, sums=sums, p=p, o=o)
+    for fault in faults:
+        _, _, _, out[f"sums/{fault}"], out[f"ms/{fault}"] = run(fault)
+    return out
+
+
+def fsdp_rank(mesh, ckpt_dir: str) -> dict:
+    """4m (c), one rank of (data 2, model 2): the masters drawn, this
+    rank's shards of them and of fresh moments, one sharded step checked
+    against the ranks' single-process emulation (``ckpt_dir``/want_c.pt),
+    then each planted fault's; the sound step's state gathered and
+    checkpointed by rank 0 (the step the restart resumes from)."""
+    import torch
+
+    from repro_torch.checkpoint.store import save_checkpoint
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train import gather_tree
+    sc = tests_module("torch_step_check")
+    t0 = time.monotonic()
+    cfg, params, batch = fsdp_inputs(torch)
+    torch.cuda.synchronize()
+    drawn = time.monotonic() - t0
+    out = _checked_steps(torch, cfg, mesh, params, adamw_init(params), batch,
+                         f"{ckpt_dir}/want_c.pt", sc.FAULTS)
+    t0 = time.monotonic()
+    state = {"params": gather_tree(out.pop("p"), out["dims"], mesh),
+             "opt": gather_tree(out.pop("o"), out["dims"], mesh)}
+    torch.cuda.synchronize()
+    gathered = time.monotonic() - t0
+    if mesh.rank(mesh.axis_names) == 0:
+        save_checkpoint(f"{ckpt_dir}/ckpt", 1, state)
+    return dict(out, draw_s=drawn, gather_s=gathered,
+                save_s=time.monotonic() - t0 - gathered)
+
+
+def elastic_rank(mesh, ckpt_dir: str) -> dict:
+    """4m (d), one of 3 survivors (a fresh process group: the restart):
+    ``elastic_restart`` builds (1, 2) over the first two and loads the
+    checkpoint; the spare returns; the others take one more sharded
+    step, checked against the ranks' single-process emulation from the
+    same checkpoint (``ckpt_dir``/want_d.pt)."""
+    import torch
+
+    from repro_torch.distributed.fault_tolerance import elastic_restart
+    from repro_torch.training.optimizer import adamw_init
+    t0 = time.monotonic()
+    cfg, like, batch = fsdp_inputs(torch)
+    emesh, state, step, _ = elastic_restart(
+        f"{ckpt_dir}/ckpt", {"params": like, "opt": adamw_init(like)}, None,
+        model=FSDP_MESH[1])
+    del like
+    torch.cuda.synchronize()
+    loaded = time.monotonic() - t0
+    if emesh is None:
+        return {"spare": True, "step": step}
+    out = _checked_steps(torch, cfg, emesh, state["params"], state["opt"],
+                         batch, f"{ckpt_dir}/want_d.pt")
+    out.pop("p"), out.pop("o")
+    return dict(out, step=step, shape=dict(emesh.shape), load_s=loaded)
+
+
+def sp_rec_rank(mesh) -> dict:
+    """4m (e), one rank (or the single-process mesh, or None: unsharded):
+    per arch of ``SPR_ARCHS`` its seeded weights on the card, 4 prompts
+    prefilled whole, then ``SPR_STEPS`` greedy ``serve_step`` calls with
+    ``sp_axes=("model",)`` on this rank's token shard (the hybrid
+    model's attention pages; the Mamba and rwkv states whole), LOP and
+    dense. → tokens, launch counts and step ms by arm."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partitioning import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine as teng
+    from repro_torch.serving.quantize import init_serving_params
+    out = {}
+    for arch, (name, layers, plen, max_len) in SPR_ARCHS.items():
+        cfg = get_config(name)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        qp = init_serving_params(cfg, SEED, "cuda")
+        prompts = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, (SPR_LANES, plen))).to("cuda")
+        for use_lop in (True, False):
+            logits, cache = teng.prefill(cfg, qp, prompts, max_len=max_len)
+            tok = logits.argmax(-1)
+            toks, times = [tok], []
+            ops.reset_launch_counts()
+            with use_mesh(mesh):
+                if mesh is not None:
+                    cache = teng.shard_cache(cache)
+                for _ in range(SPR_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    logits, cache = teng.serve_step(
+                        cfg, qp, cache, tok[:, None], use_lop=use_lop,
+                        sp_axes=None if mesh is None else ("model",))
+                    tok = logits.argmax(-1)
+                    torch.cuda.synchronize()
+                    times.append(time.monotonic() - t0)
+                    toks.append(tok)
+            out[f"{arch}/{'lop' if use_lop else 'dense'}"] = dict(
+                tokens=torch.stack(toks, 1).cpu().numpy(),
+                counts=ops.launch_counts(modes=True),
+                step_ms=float(np.median(times) * 1e3),
+                peak=torch.cuda.max_memory_allocated())
+        del qp, cache
+        free_cuda(torch)
+    return out
+
+
+def _rank_peaks(ranks) -> str:
+    return " / ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks
+                      if "peak" in r) + " GiB"
+
+
+def distributed_phase(torch, np, card: str) -> dict:
+    """Phase 4m: (a) EP MoE, (b) the ring collective matmuls, (c) the
+    sharded training step, (d) its elastic restart, (e) SP decode of the
+    hybrid and ssm families; each over gloo ranks on cuda:0, spawned once
+    and gone before the next. → #4/#5 launches of (e)'s rank 0."""
+    import os
+    import tempfile
+
+    from repro_torch.launch.mesh import local_mesh, spawn_ranks
+    from repro_torch.models.moe import train_moe_apply
+
+    # ---- (a) EP MoE ----
+    t0 = time.monotonic()
+    cfg, p, x = ep_inputs(torch)
+    n_tok = x.shape[0] * x.shape[1] // EP_MESH[0]
+    want, _ = train_moe_apply(cfg.replace(moe_group=n_tok), p, x)
+    local = ep_rank(local_mesh(EP_MESH, ("data", "model")))
+    del p, x
+    free_cuda(torch)
+    ranks = spawn_ranks("chip_smoke:ep_rank", math.prod(EP_MESH),
+                        shape=EP_MESH, axes=("data", "model"), timeout=600)
+    want = want.cpu()
+    err = max(float((y - want).abs().max()) for y in local["y"][0])
+    if not all(torch.allclose(y, want, rtol=2e-3, atol=2e-3)
+               for y in local["y"][0]):
+        raise AssertionError(f"(a) EP on the card's single-process mesh "
+                             f"{err:.3g} from moe_apply")
+    for r, res in enumerate(ranks):
+        if not torch.equal(res["y"], local["y"][0, r % EP_MESH[1]]):
+            raise AssertionError(f"(a) EP rank {r} != the single-process "
+                                 f"mesh's rows")
+    log(f"  (a) EP MoE, granite-moe-1b-a400m's layer (d {cfg.d_model}, E "
+        f"{cfg.n_experts} top-{cfg.top_k}, f {cfg.d_ff}; bf16 mode, capacity "
+        f"factor 8), x {list(EP_X)} x {cfg.d_model} on (data, model) "
+        f"{EP_MESH}, {cfg.n_experts // EP_MESH[1]} experts a rank: "
+        f"{err:.3g} from moe_apply at moe_group {n_tok} (gate 2e-3); "
+        f"{len(ranks)} ranks bitwise the single-process mesh; one call "
+        + " / ".join(f"{r['ms']:.1f}" for r in ranks)
+        + f" ms by rank (single-process mesh {local['ms']:.1f} ms; two "
+        f"all_to_all_singles and the rows' all_gather through gloo); "
+        f"peaks {_rank_peaks(ranks)}; "
+        f"{time.monotonic() - t0:.1f} s [{card}]")
+    del ranks, local, want
+    free_cuda(torch)
+
+    # ---- (b) ring collective matmuls ----
+    t0 = time.monotonic()
+    ranks = spawn_ranks("chip_smoke:cm_rank", CM_RANKS, shape=(CM_RANKS,),
+                        axes=("model",), timeout=600)
+    for r, res in enumerate(ranks):
+        if not (res["ring_ok"] and res["ag_ok"]):
+            raise AssertionError(f"(b) rank {r}: {res}")
+    log(f"  (b) bitnet-3b's O shape (k 3200 cut 4 ways, n 3200, "
+        f"{CM_ROWS} rows) over {CM_RANKS} model ranks: ring_reduce_matmul "
+        f"{max(r['ring_vs_psum'] for r in ranks):.3g} from psum(x_loc @ "
+        f"w_loc) ({max(r['ring_vs_full'] for r in ranks):.3g} from X @ W; "
+        f"values to {ranks[0]['scale']:.1f}), allgather_matmul "
+        f"{max(r['ag_err'] for r in ranks):.3g} from X @ W_loc (gates "
+        f"rtol = atol = 1e-4); ms by rank: ring "
+        + " / ".join(f"{r['ring_ms']:.2f}" for r in ranks) + ", all-gather "
+        + " / ".join(f"{r['ag_ms']:.2f}" for r in ranks)
+        + ", one plain all_reduce of the product "
+        + " / ".join(f"{r['all_reduce_ms']:.2f}" for r in ranks)
+        + f" (gloo on one card: no overlap to show); peaks "
+        f"{_rank_peaks(ranks)}; {time.monotonic() - t0:.1f} s [{card}]")
+    del ranks
+
+    # ---- (c) the sharded step, then (d) its elastic restart ----
+    sc = tests_module("torch_step_check")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_c, single_ms, m, em = fsdp_single(torch, f"{tmp}/want_c.pt")
+        ranks = spawn_ranks("chip_smoke:fsdp_rank", math.prod(FSDP_MESH),
+                            (tmp,), shape=FSDP_MESH, axes=("data", "model"),
+                            timeout=900)
+        os.remove(f"{tmp}/want_c.pt")
+        worst, bitwise, caught = fsdp_verdict(sc, ranks, m, em, "(c)",
+                                              sc.FAULTS)
+        res = ranks[0]
+        log(f"  (c) stablelm-1.6b full width (d {cfg_c.d_model}, vocab "
+            f"{cfg_c.vocab}), {cfg_c.n_layers} layers, f32, batch "
+            f"{FSDP_BATCH} x {FSDP_SEQ} on (data, model) {FSDP_MESH}, lr "
+            f"{float(em['lr']):.1e} at step 1: loss "
+            + " / ".join(f"{r['loss']:.6f}" for r in ranks)
+            + f" by rank, single-process step {float(m['loss']):.6f}; grad "
+            f"norm {res['grad_norm']:.6f} / {float(m['grad_norm']):.6f} "
+            f"(rtol 1e-4); against the ranks' emulation in one process "
+            f"(loss and grad norm within 1e-6; shards "
+            f"{'bitwise' if bitwise else 'not bitwise'}): update gap "
+            f"{worst['update']:.3g} of its norm (bound {sc.UPDATE_TOL}), "
+            f"{worst['element']:.3g} lr in an element (bound "
+            f"{sc.ELEM_TOL}; {worst['left_out']} of {worst['n']} elements "
+            f"left out, their gradients zero to rounding), m "
+            f"{worst['m']:.3g}, v {worst['v']:.3g} of their norms (bound "
+            f"{sc.MOMENT_TOL}); planted faults caught: "
+            + ", ".join(f"{f} ({n} leaves)" for f, n in caught.items())
+            + f"; a rank holds {res['held'] / 2**20:.1f} MiB of the "
+            f"{res['whole'] / 2**20:.1f} MiB of masters cut on both axes "
+            f"({res['held'] / res['whole']:.4f}; the two moments the same); "
+            f"step ms by rank "
+            + " / ".join(f"{r['ms']:.0f}" for r in ranks)
+            + f" (single-process {single_ms:.0f}; the emulation and its "
+            f"6-GB file {em['s']:.1f} s), rank 0's fault steps "
+            + " / ".join(f"{res[f'ms/{f}']:.0f}" for f in sc.FAULTS)
+            + " ms; rank 0's draw "
+            f"{res['draw_s']:.1f} s, gather of the state {res['gather_s']:.1f}"
+            f" s, checkpoint write {res['save_s']:.1f} s; peaks "
+            f"{_rank_peaks(ranks)}; {time.monotonic() - t0:.1f} s [{card}]")
+        del ranks
+        t0 = time.monotonic()
+        # the single-process step from the same checkpoint
+        _, _, m, em = fsdp_single(torch, f"{tmp}/want_d.pt",
+                                  f"{tmp}/ckpt")
+        ranks = spawn_ranks("chip_smoke:elastic_rank", ELASTIC_SURVIVORS,
+                            (tmp,), timeout=900)
+    on_mesh = [r for r in ranks if not r.get("spare")]
+    if len(on_mesh) != 2 or not ranks[-1].get("spare") or any(
+            r["step"] != 1 for r in ranks):
+        raise AssertionError(f"(d) elastic restart: {[r.get('shape') for r in ranks]}")
+    worst, bitwise, _ = fsdp_verdict(sc, on_mesh, m, em, "(d)", ())
+    log(f"  (d) elastic restart on {ELASTIC_SURVIVORS} survivors: plan "
+        f"{tuple(on_mesh[0]['shape'].values())} (rank 2 the spare), the "
+        f"checkpoint of (c)'s step 1 loaded; one more step (lr "
+        f"{float(em['lr']):.3e}): loss "
+        + " / ".join(f"{r['loss']:.6f}" for r in on_mesh)
+        + f", single-process step from the same checkpoint "
+        f"{float(m['loss']):.6f}; against the ranks' emulation from it "
+        f"(shards {'bitwise' if bitwise else 'not bitwise'}): update gap "
+        f"{worst['update']:.3g} of its norm, {worst['element']:.3g} lr in "
+        f"an element "
+        f"({worst['left_out']} left out), m {worst['m']:.3g}, v "
+        f"{worst['v']:.3g}; load s by rank "
+        + " / ".join(f"{r['load_s']:.1f}" for r in on_mesh)
+        + ", step ms by rank " + " / ".join(f"{r['ms']:.0f}" for r in on_mesh)
+        + f"; peaks {_rank_peaks(on_mesh)}; {time.monotonic() - t0:.1f} s "
+        f"[{card}]")
+    del ranks, on_mesh
+    free_cuda(torch)
+
+    # ---- (e) SP decode of the hybrid and ssm families ----
+    t0 = time.monotonic()
+    single = sp_rec_rank(None)
+    ranks = spawn_ranks("chip_smoke:sp_rec_rank", SPR_RANKS,
+                        shape=(SPR_RANKS,), axes=("model",), timeout=900)
+    for arm, want in single.items():
+        for r, res in enumerate(ranks):
+            if not np.array_equal(res[arm]["tokens"], want["tokens"]):
+                raise AssertionError(f"(e) [{arm}] rank {r} tokens "
+                                     f"{res[arm]['tokens'].tolist()} != "
+                                     f"unsharded {want['tokens'].tolist()}")
+        counts = {k: v for k, v in ranks[0][arm]["counts"].items() if v}
+        attn = ("fused_decode_attention" if arm.endswith("lop") else DENSE)
+        # every attention launch of a sequence-parallel step is in the
+        # pos_offset + return_stats mode (jamba's; rwkv6 has none)
+        need = ["fused_qlinear"] + ([attn] if arm.startswith("jamba")
+                                    else [])
+        if any(counts.get(k, 0) <= 0 for k in need):
+            raise AssertionError(f"(e) [{arm}] rank 0 launched {counts}, "
+                                 f"not {need}")
+        log(f"  (e) [{arm}] {SPR_LANES} lanes, {SPR_STEPS} greedy steps "
+            f"with sp_axes=('model',) over {SPR_RANKS} ranks == the "
+            f"unsharded engine's tokens; rank 0's launches {counts}; step "
+            f"p50 " + " / ".join(f"{r[arm]['step_ms']:.2f}" for r in ranks)
+            + f" ms by rank (unsharded {want['step_ms']:.2f}); peaks "
+            + " / ".join(f"{r[arm]['peak'] / 2**30:.2f}" for r in ranks)
+            + f" GiB [{card}]")
+    log(f"  (e) took {time.monotonic() - t0:.1f} s")
+    stats = {"lop": 0, "dense": 0}
+    for arm, res in ranks[0].items():
+        mode = arm.split("/")[1]
+        name = "fused_decode_attention" if mode == "lop" else DENSE
+        stats[mode] += res["counts"][name]
+    return stats
+
+
+def fsdp_single(torch, want: str, ckpt: str | None = None):
+    """The single-process steps on the card (the step check's schedule),
+    from the drawn masters and fresh moments, or from the checkpoint at
+    ``ckpt``: the mesh-less step on the whole batch (timed), and the
+    ranks' step emulated in this process on (data, model) ``FSDP_MESH``
+    (or (1, 2) from the checkpoint, the restart's mesh), whose p, m and v
+    are saved by path at ``want`` for the ranks' step check. → (the
+    config, the mesh-less step's ms and metrics, the emulation's
+    metrics)."""
+    from repro_torch.checkpoint.store import load_checkpoint
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train import make_train_step
+    from repro_torch.tree_util import flatten_with_path, tree_map
+    sc = tests_module("torch_step_check")
+    cfg, params, batch = fsdp_inputs(torch)
+    opt = adamw_init(params)
+    if ckpt is not None:
+        state, _, _ = load_checkpoint(ckpt, {"params": params, "opt": opt})
+        params, opt = state["params"], state["opt"]
+        del state
+
+    def clone(tree):
+        return tree_map(lambda x: x.clone(), tree)
+    p, o = clone(params), opt._replace(step=opt.step.clone(), m=clone(opt.m),
+                                       v=clone(opt.v))
+    step = make_train_step(cfg, **sc.STEP)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, _, m = step(p, o, batch)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    del p, o
+    mesh = local_mesh(FSDP_MESH if ckpt is None else (1, FSDP_MESH[1]),
+                      ("data", "model"))
+    t0 = time.monotonic()
+    params, opt, em = sc.local_sharded_step(cfg, mesh, params, opt, batch,
+                                            **sc.STEP)
+    torch.save({part: {path: x.cpu() for path, x in flatten_with_path(tree)}
+                for part, tree in (("p", params), ("m", opt.m),
+                                   ("v", opt.v))}, want)
+    del params, opt, batch
+    free_cuda(torch)
+    em = {k: v.cpu() for k, v in em.items()}
+    em["s"] = time.monotonic() - t0
+    return cfg, ms, {k: v.cpu() for k, v in m.items()}, em
+
+
+def fsdp_verdict(sc, ranks, m: dict, em: dict, label: str,
+                 faults) -> tuple:
+    """Each rank's loss and pre-clip grad norm within rtol 1e-4 of the
+    mesh-less single-process step's (metrics ``m``) and within 1e-6 of
+    the emulation's (``em``); the ranks' step-check sums against the
+    emulation added over the leaves' owners and the step check passed;
+    each planted fault of ``faults`` failing it. → (the worst measures,
+    whether every shard is bitwise the emulation's, the number of leaves
+    each fault failed)."""
+    for r, res in enumerate(ranks):
+        for key in ("loss", "grad_norm"):
+            if not math.isclose(res[key], float(m[key]), rel_tol=1e-4):
+                raise AssertionError(f"{label} rank {r} {key} {res[key]} "
+                                     f"!= {float(m[key])}")
+            if not math.isclose(res[key], float(em[key]), rel_tol=1e-6):
+                raise AssertionError(f"{label} rank {r} {key} {res[key]} "
+                                     f"!= the emulation's {float(em[key])}")
+
+    def total(key):
+        out = {}
+        for res in ranks:
+            for path, s in res[key].items():
+                out[path] = s if path not in out else sc.add_sums(out[path],
+                                                                  s)
+        return out
+    lr = float(em["lr"])
+    sums = total("sums")
+    bad = sc.step_faults(sums, lr)
+    if bad:
+        raise AssertionError(f"{label} the sharded step parts from the "
+                             f"ranks' emulation: {bad[:8]}")
+    bitwise = all(float(s[0]) == float(s[3]) == float(s[5]) == 0.0
+                  for s in sums.values())
+    caught = {}
+    for fault in faults:
+        caught[fault] = len({f[0] for f in sc.step_faults(
+            total(f"sums/{fault}"), lr)})
+        if not caught[fault]:
+            raise AssertionError(f"{label} the step check passed a step "
+                                 f"with the fault {fault!r} planted")
+    return sc.worst(sums, lr), bitwise, caught
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.monotonic()
@@ -6169,6 +6859,15 @@ def main() -> int:
     phase_s["4"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
+    # ---- 4n. the prefill chunk width on the main path ----
+    log(f"[serve chunk widths] bitnet-3b full width on phase 4's weights: "
+        f"chunks of {', '.join(map(str, CHUNK_WIDTHS))} against "
+        f"{engine.chunk_tokens}, greedy LOP, prefix cache on [{smi}]")
+    widths = chunk_width_phase(torch, np, engine, reqs, smi)
+
+    phase_s["4n"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4b. no-LOP serve ----
     log(f"[serve no-LOP] the same {N_REQUESTS} requests on a use_lop=False "
         f"engine sharing the weights [{smi}]")
@@ -6192,6 +6891,10 @@ def main() -> int:
         f"({sampled['sampled_eager_decode_step_ms_p50']:.2f}) ms [{smi}]")
     launches = dict(serve["counts"])
     launches[DENSE] = nolop["counts"][DENSE] + sampled["dense_launches"]
+    # phase 4n's serve runs at each chunk width
+    for run in widths.values():
+        for kname in LOP_PATH:
+            launches[kname] += run["counts"][kname]
 
     phase_s["4c"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
@@ -6342,13 +7045,27 @@ def main() -> int:
         f"it [{smi}]")
     sp = sp_phase(torch, np, smi)
     phase_s["4f"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
+    # ---- 4m. the distributed modules over gloo ranks on cuda:0 ----
+    free_cuda(torch)
+    log(f"[distributed] gloo ranks on cuda:0, each sub-arm spawned once: (a) "
+        f"EP MoE (granite-moe-1b-a400m's layer, (data, model) {EP_MESH}); "
+        f"(b) ring_reduce_matmul and allgather_matmul ({CM_RANKS} ranks); "
+        f"(c) the sharded training step (stablelm-1.6b full width, "
+        f"{FSDP_LAYERS} layers, {FSDP_MESH}); (d) its elastic restart on "
+        f"{ELASTIC_SURVIVORS} survivors; (e) SP decode of jamba reduced and "
+        f"rwkv6 ({RWKV_SERVE_LAYERS} layers) over {SPR_RANKS} ranks [{smi}]")
+    dist_stats = distributed_phase(torch, np, smi)
+    phase_s["4m"] = time.monotonic() - t_phase
     mode_launches = {
         "fused_decode_attention": {
             "per_head": launches["fused_decode_attention"],
             "shared_select": moe["shared_launches"],
-            "pos_offset+return_stats": sp["lop"]},
+            "pos_offset+return_stats": sp["lop"] + dist_stats["lop"]},
         DENSE: {"per_head": launches[DENSE],
-                "pos_offset+return_stats": sp["dense"]}}
+                "pos_offset+return_stats": sp["dense"]
+                + dist_stats["dense"]}}
     # phase 4h's modes: #1 with the QKV bias (qwen), #2 ungated, #3
     # non-causal and #4/#5 over the cross pages (whisper), each with its
     # launches on the path that runs it and phase 4h's check and times

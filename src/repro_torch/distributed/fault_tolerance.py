@@ -7,10 +7,13 @@ plan — the host half of the reference's ``distributed/fault_tolerance.py``
   * :class:`StragglerMonitor` keeps a rolling window of step times and
     flags a step slower than μ + k·σ.
   * :func:`plan_elastic_mesh` picks the largest (data, model) mesh the
-    surviving devices hold, keeping the model axis whole.
-
-The reference's ``make_elastic_mesh`` and ``elastic_restart`` build a
-device mesh; they come with the port's multi-device training.
+    surviving devices hold, keeping the model axis whole;
+  * :func:`make_elastic_mesh` builds that mesh over the surviving ranks
+    of a process group (a rank a device), and :func:`elastic_restart`
+    builds it and loads the last good checkpoint. A restart after a
+    device is lost is a fresh process group over the survivors
+    (:func:`repro_torch.launch.mesh.spawn_ranks`), each rank calling
+    :func:`elastic_restart`.
 """
 
 from __future__ import annotations
@@ -91,3 +94,34 @@ def plan_elastic_mesh(n_devices: int, *, model: int = 16,
             return plan_elastic_mesh(n_devices, model=model, pod=None)
         return (pod, data, model)
     return (n_devices // model, model)
+
+
+def make_elastic_mesh(ranks=None, *, model: int = 16, multi_pod=False):
+    """The largest healthy mesh over the surviving ``ranks`` of the
+    default process group (all of them by default): ``(data, model)``,
+    or ``(pod, data, model)`` with ``multi_pod`` (2 pods), over the first
+    ``prod(plan)`` survivors in rank order; the spares sit out. Every
+    rank of the group calls it (the mesh's groups are made
+    collectively); → the mesh, or None on a rank outside it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    ranks = sorted(range(dist.get_world_size()) if ranks is None
+                   else ranks)
+    shape = plan_elastic_mesh(len(ranks), model=model,
+                              pod=2 if multi_pod else None)
+    names = ("pod", "data", "model") if len(shape) == 3 else ("data",
+                                                              "model")
+    return make_host_mesh(shape, names, ranks=ranks)
+
+
+def elastic_restart(ckpt_dir: str, tree_like, surviving_ranks, *,
+                    model: int = 16):
+    """Recovery after a device is lost: the new mesh over the survivors
+    and the last good step. → (mesh, tree, step, extra), the tree whole
+    on the host as the checkpoint holds it (the caller cuts its shards
+    for the new mesh); mesh None on a spare rank."""
+    from repro_torch.checkpoint.store import load_checkpoint
+    mesh = make_elastic_mesh(surviving_ranks, model=model)
+    tree, step, extra = load_checkpoint(ckpt_dir, tree_like)
+    return mesh, tree, step, extra

@@ -8,13 +8,15 @@ reference's host mesh runs a ``shard_map``); :func:`spawn_ranks` starts
 one process a rank, joins them in a gloo group (which takes CPU and CUDA
 tensors, and any number of ranks on one card) through a ``file://``
 rendezvous under a fresh temporary directory (no port to collide on when
-several runs share a host), runs a function in each and returns what
-each rank returned. Nothing here touches a device.
+several runs share a host), builds a mesh of any shape over them, runs a
+function in each and returns what each rank returned. Nothing here
+touches a device.
 """
 
 from __future__ import annotations
 
 import importlib
+import itertools
 import math
 import os
 import tempfile
@@ -22,23 +24,43 @@ import time
 
 import torch
 
-from repro_torch.distributed.partitioning import Mesh
+from repro_torch.distributed.partitioning import Mesh, slice_ranks
 
 
-def make_host_mesh(shape=(2,), axes=("model",)) -> Mesh:
-    """A mesh over the initialized default process group, whose size must
-    be the mesh's."""
+def make_host_mesh(shape=(2,), axes=("model",), ranks=None) -> Mesh:
+    """A mesh over the initialized default process group: over its first
+    ``prod(shape)`` ranks, or over ``ranks`` (sorted), row-major. Every
+    rank of the default group must call it, in the same order of calls:
+    it makes the mesh's group and one subgroup for each slice of each
+    proper subset of its axes (``dist.new_group`` is collective). A rank
+    outside the mesh gets None."""
     import torch.distributed as dist
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs an initialized process "
                            "group (spawn_ranks makes one)")
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} does not name axes {axes}")
-    group = dist.group.WORLD
-    if dist.get_world_size(group) != math.prod(shape):
-        raise ValueError(f"a mesh of {shape} over "
-                         f"{dist.get_world_size(group)} ranks")
-    return Mesh(tuple(axes), dict(zip(axes, map(int, shape))), group)
+    world = dist.get_world_size()
+    n = math.prod(shape)
+    ranks = tuple(sorted(range(world) if ranks is None else ranks))[:n]
+    if len(ranks) != n or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"a mesh of {shape} over ranks {ranks} of a "
+                         f"world of {world}")
+    sizes = dict(zip(axes, map(int, shape)))
+    group = dist.group.WORLD if n == world else dist.new_group(list(ranks))
+    me = dist.get_rank()
+    subgroups = {}
+    for k in range(1, len(axes)):
+        for sub in itertools.combinations(axes, k):
+            if math.prod(sizes[a] for a in sub) == 1:
+                continue
+            for members in slice_ranks(tuple(axes), sizes, ranks, sub):
+                g = dist.new_group(members)
+                if me in members:
+                    subgroups[sub] = g
+    if me not in ranks:
+        return None
+    return Mesh(tuple(axes), sizes, group, subgroups)
 
 
 def local_mesh(shape=(2,), axes=("model",)) -> Mesh:
@@ -48,30 +70,34 @@ def local_mesh(shape=(2,), axes=("model",)) -> Mesh:
     return Mesh(tuple(axes), dict(zip(axes, map(int, shape))), None)
 
 
-def _rank_main(rank: int, target: str, world: int, tmp: str, args) -> None:
+def _rank_main(rank: int, target: str, world: int, tmp: str, args,
+               shape, axes) -> None:
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
                             world_size=world, rank=rank)
     try:
         module, name = target.split(":")
         fn = getattr(importlib.import_module(module), name)
-        result = fn(make_host_mesh((world,), ("model",)), *args)
+        result = fn(make_host_mesh(shape, axes), *args)
         torch.save(result, os.path.join(tmp, f"rank{rank}.pt"))
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(target: str, world: int, args=(), *,
-                timeout: float | None = None) -> list:
+def spawn_ranks(target: str, world: int, args=(), *, shape=None,
+                axes=("model",), timeout: float | None = None) -> list:
     """Run ``target`` ("module:function", importable in a fresh process)
-    as ``fn(mesh, *args)`` in ``world`` processes, a 1-D ``("model",)``
-    mesh over them; → each rank's return value, in rank order. A rank that
-    raises stops the others and raises here; so does a run past
-    ``timeout`` seconds. No rank outlives the call."""
+    as ``fn(mesh, *args)`` in ``world`` processes, ``mesh`` the mesh of
+    ``shape`` (default ``(world,)``) over axes ``axes`` built over them
+    (None on a rank past ``prod(shape)``); → each rank's return value, in
+    rank order. A rank that raises stops the others and raises here; so
+    does a run past ``timeout`` seconds. No rank outlives the call."""
+    shape = (world,) if shape is None else tuple(shape)
     with tempfile.TemporaryDirectory() as tmp:
         ctx = torch.multiprocessing.start_processes(
-            _rank_main, args=(target, world, tmp, tuple(args)),
+            _rank_main, args=(target, world, tmp, tuple(args), shape,
+                              tuple(axes)),
             nprocs=world, join=False, start_method="spawn")
         end = None if timeout is None else time.monotonic() + timeout
         try:

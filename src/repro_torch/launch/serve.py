@@ -6,6 +6,7 @@
                 jamba-1.5-large-398b,llava-next-34b} \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
+        [--chunk-tokens C] [--arrival-period SECONDS] \\
         [--shared-prefix-tokens N --prefix-reuse-frac F] [--no-prefix-cache] \\
         [--spec-decode --gamma G --draft-layers L --draft-k K] \\
         [--max-queue N] [--deadline-ms MS] [--stream] [--verify]
@@ -38,6 +39,10 @@ computed against served, and TTFT of hits against misses.
 ``--draft-layers`` layers and ``--draft-k`` LOP blocks, and verifies the
 γ+1 positions in one chunk; the run prints rounds, acceptance and
 full-model launches per token.
+``--chunk-tokens`` sets the prefill chunk width (default the arch's
+``lop_block``); ``--arrival-period`` spaces the arrivals: request ``rid``
+arrives ``rid × period`` seconds after the start, so lanes drain and
+refill mid-run as on a live server (0: all arrive at the start).
 ``--max-queue`` sheds submits past that queue depth and ``--deadline-ms``
 gives every request that latency budget. ``--verify`` replays every
 request that finished naturally (eos, stop, length; no fault recovery
@@ -115,18 +120,30 @@ def _sync(device: torch.device) -> None:
 def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
                max_queue: int | None = None, verify: bool = False,
                prefix_cache: bool = True, spec_decode: bool = False,
-               gamma: int = 4) -> dict:
-    """Serve ``reqs`` (all arriving at t0) → stats dict, its counters read
-    back off the run's own registry (``"metrics"``)."""
+               gamma: int = 4, arrival_period: float = 0.0) -> dict:
+    """Serve ``reqs`` → stats dict, its counters read back off the run's
+    own registry (``"metrics"``). Request ``rid`` arrives ``rid ×
+    arrival_period`` seconds after the start (all at once for 0); one not
+    yet arrived stays out of the queue, and the loop sleeps to the next
+    arrival when no lane has work."""
     registry = MetricsRegistry()
     sched = Scheduler(engine, n_slots=n_slots, max_queue=max_queue,
                       prefix_cache=prefix_cache, spec_decode=spec_decode,
                       gamma=gamma, metrics=registry)
     _sync(engine.device)
     t0 = time.monotonic()
-    for req in reqs:
-        sched.submit(req)
-    results = sorted(sched.run_to_completion(), key=lambda r: r.rid)
+    pending = list(reqs)
+    while pending or sched.has_work():
+        now = time.monotonic() - t0
+        while pending and now >= pending[0].rid * arrival_period:
+            sched.submit(replace(pending.pop(0), arrival=time.monotonic()))
+            now = time.monotonic() - t0
+        sched.admit()
+        if sched.n_active or sched.n_prefilling:
+            sched.step()
+        elif pending:
+            time.sleep(max(0.0, pending[0].rid * arrival_period - now))
+    results = sorted(sched.results, key=lambda r: r.rid)
     _sync(engine.device)
     wall = time.monotonic() - t0
     total = sum(len(r.tokens) for r in results)
@@ -150,6 +167,8 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
                                                 50) * 1e3,
         "decode_launches": sched.decode_launches,
         "chunked": sched.chunked,
+        "chunk_tokens": sched.chunk_tokens,
+        "arrival_period": arrival_period,
         "full_prefills": len(sched.full_prefill_seconds),
         "full_prefill_ms_p50": percentile(sched.full_prefill_seconds,
                                           50) * 1e3,
@@ -233,6 +252,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="base PRNG seed; request rid samples under "
                          "seed+rid")
+    ap.add_argument("--chunk-tokens", type=int, default=None,
+                    help="prefill chunk size (default: the arch's lop_block)")
+    ap.add_argument("--arrival-period", type=float, default=0.0,
+                    help="seconds between request arrivals (staggered)")
     ap.add_argument("--shared-prefix-tokens", type=int, default=0,
                     help="length of ONE common prompt prefix (a shared "
                          "system prompt) prepended to sharing requests")
@@ -274,6 +297,7 @@ def main(argv=None) -> int:
     engine = PooledEngine.from_seed(cfg, seed=args.seed, max_len=max_len,
                                     device=args.device,
                                     use_lop=not args.no_lop,
+                                    chunk_tokens=args.chunk_tokens,
                                     draft_layers=args.draft_layers,
                                     draft_k=args.draft_k)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -298,11 +322,14 @@ def main(argv=None) -> int:
     print(f"serving {cfg.name} on {engine.device}: {args.slots} slots, "
           f"{args.requests} requests (prompts {args.min_prompt}-"
           f"{args.max_prompt}, gen {args.gen}), lop="
-          f"{'off' if args.no_lop else 'on'}, sampling {mode}")
+          f"{'off' if args.no_lop else 'on'}, sampling {mode}, chunk "
+          f"{engine.chunk_tokens} tokens, arrivals every "
+          f"{args.arrival_period} s")
     out = serve_loop(engine, reqs, n_slots=args.slots,
                      max_queue=args.max_queue, verify=args.verify,
                      prefix_cache=not args.no_prefix_cache,
-                     spec_decode=args.spec_decode, gamma=args.gamma)
+                     spec_decode=args.spec_decode, gamma=args.gamma,
+                     arrival_period=args.arrival_period)
     for r in out["results"]:
         print(f"rid {r.rid:>3} prompt {r.prompt_len:>5} cached "
               f"{r.cached_len:>5} tokens {len(r.tokens):>4} ttft "

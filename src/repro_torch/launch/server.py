@@ -34,6 +34,7 @@ def build_scheduler(args) -> Scheduler:
     engine = PooledEngine.from_seed(cfg, seed=args.seed, max_len=args.max_len,
                                     device=args.device,
                                     use_lop=not args.no_lop,
+                                    chunk_tokens=args.chunk_tokens,
                                     draft_layers=args.draft_layers,
                                     draft_k=args.draft_k)
     return Scheduler(engine, n_slots=args.slots, max_queue=args.max_queue,
@@ -77,6 +78,8 @@ def parse_args(argv=None):
     ap.add_argument("--no-lop", action="store_true")
     ap.add_argument("--no-chunked", action="store_true",
                     help="prefill every prompt whole at its exact length")
+    ap.add_argument("--chunk-tokens", type=int, default=None,
+                    help="prefill chunk size (default: the arch's lop_block)")
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--spec-decode", action="store_true")
     ap.add_argument("--gamma", type=int, default=4)

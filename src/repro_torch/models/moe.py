@@ -174,6 +174,18 @@ def _prepare_expert_weights(cfg, p: dict, act_dtype) -> dict:
     return out
 
 
+def route_f32(router: torch.Tensor, x: torch.Tensor, k: int):
+    """The reference's f32 routing of x [T, d] → (probs f32 [T, E], the
+    normalized gates f32 [T, k], expert int64 [T, k]): the top k by a
+    stable descending sort (equal probabilities in index order, as
+    ``jax.lax.top_k``), each gate over max(Σ gates, 1e-9)."""
+    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+    vals, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, expert = vals[:, :k], expert[:, :k]
+    return probs, vals / torch.clamp_min(vals.sum(-1, keepdim=True),
+                                         1e-9), expert
+
+
 def _train_dispatch_group(cfg, p: dict, x: torch.Tensor):
     """One token group x [T, d] → (the MoE output [T, d] in x's dtype,
     the group's aux loss f32): the reference's ``_dispatch_group`` on
@@ -181,10 +193,7 @@ def _train_dispatch_group(cfg, p: dict, x: torch.Tensor):
     t = x.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(cfg, t)
-    probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
-    vals, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
-    vals, expert = vals[:, :k], expert[:, :k]
-    gates = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    probs, gates, expert = route_f32(p["router"], x, k)
     pos, keep, onehot = _positions(expert, e, cap)
     xe, slot = _gather_experts(x, expert, pos, keep, cap, e)
     if cfg.gated_ffn:

@@ -181,6 +181,56 @@ def init_params(cfg, seed: int, device="cpu") -> dict:
             for name, val in params.items()}
 
 
+# the reference's logical partition specs (its ``*_init`` functions' second
+# return value): a linear's ``w`` is (fsdp, tp) unless named here, its
+# bias the last entry of that; the other leaves by name
+_LINEAR_SPECS = {"wo": ("tp", "fsdp"), "w_down": ("tp", "fsdp"),
+                 "wv_c": ("tp", "fsdp"), "out_proj": ("tp", "fsdp"),
+                 "x_proj": ("tp", None), "dt_proj": (None, "tp"),
+                 "w_lora_a": ("fsdp", None), "w_lora_b": (None, "tp")}
+_LEAF_SPECS = {"table": ("tp", "fsdp"), "router": (None, None),
+               "mu": (None, None), "mu_c": (None, None), "u": (None, None),
+               "w_base": ("tp",), "ln_x": (None,), "conv_w": (None, "tp"),
+               "conv_b": ("tp",), "A_log": ("tp", None), "D": ("tp",)}
+_EXPERT_SPECS = {"w_gate": (None, "fsdp", "tp"), "w_up": (None, "fsdp", "tp"),
+                 "w_down": (None, "tp", "fsdp")}
+_STACKS = ("layers", "enc_layers", "blocks")
+
+
+def param_specs(cfg, params: dict) -> dict:
+    """The reference's ``init_params`` partition specs for the master tree
+    ``params`` (of ``cfg``'s family): a tree of the same structure whose
+    leaves are tuples of logical axes (``"fsdp"``, ``"tp"`` or None) for
+    the leading dims, with a leading None on every layer-stacked leaf.
+    :func:`repro_torch.distributed.partitioning.leaf_dims` resolves them
+    against a mesh."""
+    del cfg
+
+    def walk(node, name, parent):
+        if isinstance(node, dict):
+            if "w" in node and torch.is_tensor(node["w"]):
+                w = _LINEAR_SPECS.get(name, ("fsdp", "tp"))
+                return {k: w if k == "w" else (w[-1],) for k in node}
+            return {k: walk(v, k, name) for k, v in node.items()}
+        if parent == "moe" and name in _EXPERT_SPECS:
+            return _EXPERT_SPECS[name]
+        return _LEAF_SPECS.get(name, (None,))
+
+    out = {}
+    for name, node in params.items():
+        spec = walk(node, name, None)
+        if name in _STACKS:
+            spec = _map_specs(lambda sp: (None, *sp), spec)
+        out[name] = spec
+    return out
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 # ---------------------------------------------------------------------------
 # training forward
 # ---------------------------------------------------------------------------
@@ -288,13 +338,18 @@ def _layer_of(stacked, i: int):
     return stacked[i]
 
 
-def _scan_stack(body, x, stacked, *, remat: bool = True):
+def _scan_stack(body, x, stacked, *, remat: bool = True, gather=None):
     """``body(x, layer) → (x, aux)`` over a stacked tree's layers in order,
     aux summed from f32 zero. With ``remat`` each layer's activations are
     recomputed in the backward (``torch.utils.checkpoint``, non-reentrant),
-    as the reference checkpoints its scan step."""
+    as the reference checkpoints its scan step. ``gather`` (a layer's
+    shards → the whole layer) runs inside the layer's checkpoint, so a
+    gathered layer lives only while it runs, in the forward and again in
+    the backward."""
     n = next(iter(_leaves(stacked))).shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if gather is not None:
+        body = lambda h, lp, body=body: body(h, gather(lp))  # noqa: E731
     for i in range(n):
         lp = _layer_of(stacked, i)
         if remat and torch.is_grad_enabled():
@@ -314,14 +369,25 @@ def _leaves(tree):
 
 
 def forward_train(cfg, params, tokens, *, frames=None, patches=None,
-                  remat: bool = True):
+                  remat: bool = True, gather=None):
     """→ (logits f32 [B, T_text, vocab_padded], moe aux f32).
 
     tokens [B, T]; frames [B, S_audio, D] (encdec's stub frontend);
     patches [B, n_img, D] (vlm's stub vision tower: through the projector
     in the activation dtype ahead of the text, whose positions alone
     come out). The residual stream runs in ``cfg.act_dtype``; norms,
-    softmax and the logits stay f32; the masters are f32, cast at use."""
+    softmax and the logits stay f32; the masters are f32, cast at use.
+
+    ``gather(tree, name)`` (the sharded training step's) turns the shards
+    of the top-level entry ``name``, or of one layer of the stack
+    ``name``, into the whole tree: top-level entries are gathered here,
+    each stack's layers inside their remat."""
+    if gather is not None:
+        params = {k: v if k in _STACKS else gather(v, k)
+                  for k, v in params.items()}
+
+    def layer_gather(name):
+        return None if gather is None else (lambda lp: gather(lp, name))
     act = getattr(torch, cfg.act_dtype)
     x = embedding_apply(params["embed"], tokens).to(act)
     t = tokens.shape[1]
@@ -341,7 +407,8 @@ def forward_train(cfg, params, tokens, *, frames=None, patches=None,
         enc, _ = _scan_stack(
             lambda e, lp: decoder_layer_apply(cfg, lp, e, positions=enc_pos,
                                               causal=False),
-            enc, params["enc_layers"], remat=remat)
+            enc, params["enc_layers"], remat=remat,
+            gather=layer_gather("enc_layers"))
         cross = norm_apply(params["ln_enc"], enc, cfg.norm)
     if cfg.family == "ssm":
         body = lambda h, lp: (rwkv_layer_apply(cfg, lp, h),  # noqa: E731
@@ -353,8 +420,9 @@ def forward_train(cfg, params, tokens, *, frames=None, patches=None,
     else:
         body = lambda h, lp: decoder_layer_apply(  # noqa: E731
             cfg, lp, h, positions=positions, cross_kv=cross)
-    x, aux = _scan_stack(body, x, params["blocks" if cfg.family == "hybrid"
-                                         else "layers"], remat=remat)
+    stack = "blocks" if cfg.family == "hybrid" else "layers"
+    x, aux = _scan_stack(body, x, params[stack], remat=remat,
+                         gather=layer_gather(stack))
     if cfg.family == "vlm":
         x = x[:, patches.shape[1]:]
     x = norm_apply(params["ln_f"], x, cfg.norm)

@@ -235,12 +235,16 @@ class PooledEngine:
     (:class:`repro_torch.serving.graphs.StepGraphs`, ``self.graphs``);
     ``graphs=False`` runs them eagerly instead, which only a caller holding
     the graphs to the eager step (or timing the two) asks for. The CPU
-    builds no graph. ``draft_layers`` (default ``n_layers // 2``) and
-    ``draft_k`` (default 1) shape the speculative draft.
+    builds no graph. ``chunk_tokens`` (default ``lop_block``) is the
+    prefill chunk width; prefix pages stay ``lop_block``-aligned, so a
+    prefix hit resumes at a block multiple and chunks from there.
+    ``draft_layers`` (default ``n_layers // 2``) and ``draft_k`` (default
+    1) shape the speculative draft.
     """
 
     def __init__(self, cfg, qp, *, max_len: int, use_lop: bool = True,
                  device=None, graphs: bool = True,
+                 chunk_tokens: int | None = None,
                  draft_layers: int | None = None,
                  draft_k: int | None = None):
         self.device = resolve_device(device)
@@ -252,7 +256,7 @@ class PooledEngine:
         self.qp = qp
         self.max_len = max_len
         self.use_lop = use_lop
-        self.chunk_tokens = cfg.lop_block
+        self.chunk_tokens = chunk_tokens or cfg.lop_block
         # ---- capability declarations (family → behaviour, once) ----
         self.supports_chunked = chunks_prefill(cfg)
         self.exact_length_prefill = not self.supports_chunked

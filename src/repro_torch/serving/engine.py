@@ -280,8 +280,9 @@ def _write_token(cl, ki, vi, ksc, vsc, feat, lengths, active=None) -> None:
 def shard_cache(cache, sp_axes=("model",)) -> dict:
     """This rank's token shard of a whole (replicated) cache: rows
     ``[rank·M/n, (rank + 1)·M/n)`` of every leaf of the self-attention
-    pages (and of the cross pages, each against its own capacity),
-    copied, with the other entries kept. A single-process mesh keeps the
+    pages (a hybrid model's attention sublayers' too; and of the cross
+    pages, each against its own capacity), copied, with the other entries
+    (recurrent states) kept whole. A single-process mesh keeps the
     whole cache (its shards are views of it). Each capacity M must cut
     into whole ``lop_block`` blocks a shard."""
     from repro_torch.distributed.partitioning import current_mesh
@@ -291,16 +292,19 @@ def shard_cache(cache, sp_axes=("model",)) -> dict:
     if mesh.local:
         return cache
     n, r = mesh.size(sp_axes), mesh.rank(sp_axes)
-    out = dict(cache)
-    for tree in ("layers", "cross"):
-        if tree not in cache:
-            continue
-        m = cache[tree]["k"].shape[3]
+    def cut(pages):
+        m = pages["k"].shape[3]
         if m % n:
             raise ValueError(f"capacity {m} does not cut into {n} shards")
         m_loc = m // n
-        out[tree] = {key: v[:, :, :, r * m_loc:(r + 1) * m_loc].clone()
-                     for key, v in cache[tree].items()}
+        return {key: v[:, :, :, r * m_loc:(r + 1) * m_loc].clone()
+                for key, v in pages.items()}
+    out = dict(cache)
+    for tree in ("layers", "cross"):
+        if tree in cache and "k" in cache[tree]:
+            out[tree] = cut(cache[tree])
+    if "blocks" in cache:
+        out["blocks"] = dict(cache["blocks"], attn=cut(cache["blocks"]["attn"]))
     return out
 
 
@@ -582,8 +586,10 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
 
     An ssm or hybrid model steps every lane's recurrent state, active or
     not, as the reference's bodies do; a hybrid model's attention pages
-    follow ``active``. Their sequence-parallel decode is not ported
-    (``sp_axes`` raises).
+    follow ``active``. Under ``sp_axes`` a hybrid model's attention
+    sublayers run sequence-parallel over their sharded pages while every
+    rank steps the whole Mamba state; an ssm model has no pages and
+    ignores ``sp_axes``, as the reference's body does.
     """
     cfg = resolve_decode_flags(cfg)
     _check_family(cfg)
@@ -594,12 +600,9 @@ def serve_step(cfg, qp, cache, tokens, *, use_lop=True, active=None,
         active = cache.get("active")
     x = embedding_apply(qp["embed"], tokens)
     if cfg.family in ("ssm", "hybrid"):
-        if sp_axes:
-            raise NotImplementedError(
-                f"sequence-parallel decode of family {cfg.family!r} is not "
-                f"ported")
         x = _recurrent_stack(cfg, qp, cache, x, lengths=lengths,
-                             use_lop=use_lop, active=active)
+                             use_lop=use_lop, active=active,
+                             sp_axes=sp_axes)
         lengths.add_(1 if active is None else active.to(torch.int32))
         return _logits(cfg, qp, x[:, -1]), cache
     for i in range(cfg.n_layers if n_layers is None else n_layers):

@@ -90,10 +90,12 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale ``grads`` in place by min(1, max_norm / (norm + 1e-9)). →
-    (grads, norm)."""
-    norm = global_norm(grads)
+    (grads, norm). ``norm``: the whole tree's, where the caller has it (a
+    sharded tree's, from every rank's shards); else ``global_norm``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in leaves(grads):
         for sl in _blocks(g):

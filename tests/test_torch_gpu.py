@@ -221,6 +221,26 @@ def test_prefill_kernel_matches_plain(cuda, b, h, hkv, c, dh, m, window,
         assert not got[1].any()
 
 
+@pytest.mark.parametrize("c,dh,start", [
+    (40, 100, 24), (48, 100, 200), (256, 100, 72),
+    (40, 32, 8), (48, 32, 88), (256, 32, 328)])
+def test_prefill_kernel_chunk_widths(cuda, c, dh, start):
+    """#3 at the chunk widths ``--chunk-tokens`` serves (40, 48 and 256,
+    which spans two LOP blocks of 128), at starts that are multiples of
+    neither its 16-row nor its 32-key tile, GQA (G 4); the second lane's
+    keys end 7 rows into the chunk, as a padded tail chunk's do."""
+    rng = np.random.default_rng(c + dh + start)
+    m = 1664 if dh == 100 else 640
+    arrs = _dev(_attn(rng, 2, 8, 2, c, dh, m), cuda)
+    kv_len = torch.tensor([start + c, start + 7], dtype=torch.int32,
+                          device=cuda)
+    got = ops.prefill_attention(*arrs, kv_len, q_offset=start, causal=True)
+    want = plain.prefill_attention_ref(*arrs, kv_len, start, causal=True,
+                                       window=0, softmax_scale=dh ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+
+
 @pytest.mark.parametrize("h,hkv,c,window", [
     (32, 32, 128, 0), (8, 2, 40, 0), (32, 32, 128, 48), (8, 2, 40, 48)])
 def test_prefill_chunked_bitwise_whole_on_card(cuda, h, hkv, c, window):
@@ -604,6 +624,109 @@ def test_sp_decode_two_gloo_ranks_on_card(cuda):
                                  use_lop=False).cpu().numpy()
     err = np.abs(local["out/1.0"] - dense).max()
     assert err / np.abs(dense).max() < 1e-3
+
+
+GLOO_PROBE = ("all_reduce", "broadcast", "all_gather",
+              "all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_to_all", "all_to_all_single", "isend_irecv")
+
+
+def gloo_probe_rank(mesh, op):
+    """One rank of 2 running gloo's ``op`` on CUDA tensors as they are
+    (no host copy) → the result on the host."""
+    import torch.distributed as dist
+    r = mesh.rank("model")
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * r
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        return x.cpu()
+    if op == "broadcast":
+        dist.broadcast(x, 0)
+        return x.cpu()
+    if op == "all_gather":
+        out = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(out, x)
+        return torch.cat(out).cpu()
+    if op == "all_gather_into_tensor":
+        out = torch.empty(8, device="cuda")
+        dist.all_gather_into_tensor(out, x)
+        return out.cpu()
+    if op == "reduce_scatter_tensor":
+        out = torch.empty(2, device="cuda")
+        dist.reduce_scatter_tensor(out, x)
+        return out.cpu()
+    if op == "all_to_all":
+        out = [torch.empty(2, device="cuda") for _ in range(2)]
+        dist.all_to_all(out, list(x.split(2)))
+        return torch.cat(out).cpu()
+    if op == "all_to_all_single":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        return out.cpu()
+    out = torch.empty_like(x)
+    reqs = [dist.isend(x, 1 - r), dist.irecv(out, 1 - r)]
+    for q in reqs:
+        q.wait()
+    return out.cpu()
+
+
+def _probe_want(op):
+    a, b = torch.arange(4.), torch.arange(4.) + 10
+    return {"all_reduce": [a + b] * 2, "broadcast": [a, a],
+            "all_gather": [torch.cat([a, b])] * 2,
+            "all_gather_into_tensor": [torch.cat([a, b])] * 2,
+            "reduce_scatter_tensor": [(a + b)[:2], (a + b)[2:]],
+            "all_to_all": [torch.cat([a[:2], b[:2]]),
+                           torch.cat([a[2:], b[2:]])],
+            "all_to_all_single": [torch.cat([a[:2], b[:2]]),
+                                  torch.cat([a[2:], b[2:]])],
+            "isend_irecv": [b, a]}[op]
+
+
+def gloo_wrappers_rank(mesh):
+    """The port's collectives on CUDA tensors over 2 gloo ranks."""
+    from repro_torch.distributed import partitioning as part
+    r = mesh.rank("model")
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * r
+    out = {"psum": part.psum(x, "model", mesh),
+           "pmax": part.pmax(x, "model", mesh),
+           "all_gather": part.all_gather(x, "model", 0, mesh),
+           "all_to_all": part.all_to_all(x.reshape(2, 2), "model", 0, 0,
+                                         mesh),
+           "ppermute": part.ppermute(x, "model", mesh)}
+    assert all(v.is_cuda for v in out.values())
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def test_gloo_cuda_collectives_probe(cuda):
+    """Which gloo collectives take CUDA tensors as they are (each probed
+    in its own 2-rank group, a crash or a hang counting as no), and the
+    port's wrappers on CUDA tensors: those of
+    ``partitioning.GLOO_CUDA_OPS`` direct, the ring hop through explicit
+    host copies."""
+    from repro_torch.distributed.partitioning import GLOO_CUDA_OPS
+    from repro_torch.launch.mesh import spawn_ranks
+    takes = {}
+    for op in GLOO_PROBE:
+        try:
+            got = spawn_ranks("test_torch_gpu:gloo_probe_rank", 2, (op,),
+                              timeout=120)
+            takes[op] = all(torch.equal(g, w)
+                            for g, w in zip(got, _probe_want(op)))
+        except Exception as exc:                   # a crash, a hang
+            takes[op] = f"no ({type(exc).__name__})"
+    print(f"gloo on CUDA tensors: {takes}")
+    assert all(takes[op] is True for op in GLOO_CUDA_OPS)
+    ranks = spawn_ranks("test_torch_gpu:gloo_wrappers_rank", 2, timeout=300)
+    a, b = torch.arange(4.), torch.arange(4.) + 10
+    for r, res in enumerate(ranks):
+        assert torch.equal(res["psum"], a + b)
+        assert torch.equal(res["pmax"], b)
+        assert torch.equal(res["all_gather"], torch.cat([a, b]))
+        assert torch.equal(res["all_to_all"].flatten(),
+                           torch.cat([a, b]).reshape(2, 2, 2)[:, r]
+                           .flatten())
+        assert torch.equal(res["ppermute"], [b, a][r])
 
 
 def test_cuda_tensor_never_takes_plain_path(cuda):

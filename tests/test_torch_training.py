@@ -437,7 +437,7 @@ def test_train_step_check_catches_planted_fault(reference_step, monkeypatch,
     update = ttrain.adamw_update
     if fault == "no_clip":
         monkeypatch.setattr(ttrain, "clip_by_global_norm",
-                            lambda g, m: (g, topt.global_norm(g)))
+                            lambda g, m, norm: (g, norm))
     else:
         scale = -1.0 if fault == "sign" else 0.0
         monkeypatch.setattr(ttrain, "adamw_update",
