@@ -71,8 +71,10 @@ printed:
               must not; scheduler == lockstep for 2 requests; its steady
               decode step (graph and eager) beside the LOP engine's, and a
               torch.profiler breakdown of its decode steps;
-  4c. sampled the 8 requests sampled (T 0.8, top-k 50, top-p 0.95, seed =
-      + faults rid) on the LOP engine, scheduler == sampled lockstep for 2
+  4c. sampled (4c, 4d and 4g's chaos trace on phase 4's weights cut to
+      + faults their first 13 of 26 layers, for the run's time) the 8
+              requests sampled (T 0.8, top-k 50, top-p 0.95, seed =
+              rid) on the LOP engine, scheduler == sampled lockstep for 2
               requests and the steady sampled decode step (graph and
               eager); then on the
               no-LOP engine 4 requests clean and under transient NaN
@@ -89,8 +91,8 @@ printed:
               1024 tokens; hits, prefill tokens computed against served,
               TTFT, tokens/s, the store's bytes and the time of one match
               and one intern), then on under a flipped page bit and a
-              store outage (each detected, tokens unchanged); then 4 of
-              phase 4's requests speculatively (γ 4, the draft 13 of 26
+              store outage (each detected, tokens unchanged); then 2 of
+              phase 4's requests speculatively (γ 4, the draft 6 of 13
               layers at k_keep 1, no watchdog): no-LOP greedy and sampled
               against plain decode of the same requests (equal, or a
               first divergence where the decode and chunk kernels round
@@ -125,15 +127,16 @@ printed:
               thread or a client timeout fails the phase. Then the
               200-request chaos trace of tests/test_faults.py (seeded
               FaultPlan.random(31, ...), max_queue 150, 4 slots, the
-              virtual clock, check_invariants) twice on the no-LOP
-              engine, with a 1024-token shared prefix in place of 32
+              virtual clock, check_invariants) twice on the 13-layer
+              no-LOP engine, with a 1024-token shared prefix in place of 32
               tokens (so the store interns 8 blocks and the plan's flip
               of the 8th fires): every request terminal, 50 shed, >= 1
               deadline and cancelled, >= 100 length, fault events,
               recoveries and injected NaNs >= 1, the two runs bitwise
               alike, the first 8 length-finished streams == lockstep;
-  4e. moe    full-width granite-moe-1b-a400m (24 layers, d 1024, 16 heads
-              of 64 over 8 KV heads, 32 experts top-8, d_ff 512) with
+  4e. moe    full-width granite-moe-1b-a400m (12 of its 24 layers, a cut
+              for the run's time; d 1024, 16 heads of 64 over 8 KV
+              heads, 32 experts top-8, d_ff 512) with
               seeded random weights, served run-to-completion (each prompt
               prefilled whole at its exact length, batch 1): phase 4's 8
               requests greedy with LOP, on a no-LOP engine sharing the
@@ -147,22 +150,23 @@ printed:
               rtol = atol = 2e-5); tokens/s, TTFT, the
               exact-length prefills and the stalls they caused, peak
               memory, and the clean decode step on CUDA graphs and eager
-              (tokens equal; 48 / 24 / 24 launches of #1 / #2 with E 32 /
+              (tokens equal; 24 / 12 / 12 launches of #1 / #2 with E 32 /
               the decode kernel a step); one exact-length prefill's time
               at 128, 512, 1024 and 1536 tokens; then a greedy LOP arm
               with gqa_shared_select=True (one candidate set a kv head)
               on the same weights, through the same checks, its tokens/s
               and step ms beside the per-head arm's;
-  4h. families stablelm-1.6b (LayerNorm) at full width and depth (24
-              layers, d 2048, 32 heads of 64, f 5632) and qwen1.5-32b (QKV
+  4h. families stablelm-1.6b (LayerNorm) at full width and 12 of its 24
+              layers (the run's time; d 2048, 32 heads of 64, f 5632)
+              and qwen1.5-32b (QKV
               bias, drawn nonzero from a seeded generator before
               quantization) at full width (d 5120, 40 heads of 128, f
               27,392, vocab 152,064) and 8 of its 64 layers (the f32
               master tree's peak): phase 4's 8 requests greedy LOP,
               chunked, through the Scheduler on 4 slots, scheduler ==
               lockstep for 2 requests, the clean decode step on graphs
-              and eager with its launches (#1 / #2 / decode kernel 48 /
-              24 / 24 and 16 / 8 / 8 a step), #1 at qwen's QKV shape with
+              and eager with its launches (#1 / #2 / decode kernel 24 /
+              12 / 12 and 16 / 8 / 8 a step), #1 at qwen's QKV shape with
               its bias bitwise its plain version on layer 0's served
               weights, half of qwen's #1 launches carrying the bias; then
               whisper-small (encoder-decoder) at full width and depth (12
@@ -227,14 +231,15 @@ printed:
               drawn both ways (the whole f32 master tree, then
               quantize_params; and layer by layer), every served leaf
               bitwise, both peaks printed; llava-next-34b (vlm) at full
-              width and depth (60 layers, d 7168, 56 heads of 128 over
-              8, f 20,480, vocab 64,000, 2,880 image rows), its draw's
-              peak under 30 GiB: 8 requests (default_rng(4)) of 2,880
+              width (d 7168, 56 heads of 128 over 8, f 20,480, vocab
+              64,000, 2,880 image rows), drawn at full depth (60 layers,
+              the draw's peak under 30 GiB) and served at its first 16
+              (a cut for the run's time): 8 requests (default_rng(4)) of 2,880
               patch rows of 0.02·N(0, 1) and 64–512 text tokens, 32 new,
               4 slots, chunked (the image rides the first chunk:
               2,880 + 128 rows at start 0), greedy LOP and no-LOP, each
               scheduler == lockstep for 2 requests and its decode step
-              on CUDA graphs and eager (120 / 60 / 60 launches of #1 /
+              on CUDA graphs and eager (32 / 16 / 16 launches of #1 /
               #2 / the decode kernel a step); one request's chunks
               timed and bitwise its whole-prompt prefill; #3 causal at
               the first chunk's shape (R = 7 x 3,008 rows a kv lane)
@@ -244,10 +249,10 @@ printed:
               recovered through the retry (a clean lane == its
               lockstep); the prefix store (image requests never match
               or intern; text-only requests sharing 1,024 tokens hit);
-              2 requests speculatively (γ 4, the draft 30 of 60 layers)
+              2 requests speculatively (γ 4, the draft 8 of 16 layers)
               against plain no-LOP decode, equal or a near-tie of
-              rounding; then mistral-nemo-12b (40 layers, d 5120, q_dim
-              4096) at full width and depth: phase 4's 8 requests
+              rounding; then mistral-nemo-12b (d 5120, q_dim 4096) at
+              full width and 20 of its 40 layers: phase 4's 8 requests
               greedy LOP, scheduler == lockstep, the decode step graph
               and eager, #1 at its O projection (k 4096 → n 5120)
               bitwise its plain version; each arm freed before the
@@ -328,9 +333,10 @@ printed:
               running mean converging, one compressed all-reduce of a
               2048 x 7168 gradient timed beside the plain f32 one;
   4f. sp     (run last, the earlier engines freed) the reference's
-              production decode path: full-width bitnet-3b drawn from the
+              production decode path: full-width bitnet-3b at 13 of its
+              26 layers (the run's time) drawn from the
               seeded generator, phase 4's first 4 prompts prefilled
-              replicated into a 2048-slot pool, 16 greedy eager
+              replicated into a 2048-slot pool, 8 greedy eager
               serve_step(sp_axes=("model",)) steps, LOP, LOP with f-axis
               TP of the FFN (use_ffn_tp) and dense; once on a
               single-process mesh holding both token shards, then in 2
@@ -338,7 +344,7 @@ printed:
               every kernel is built), each holding its shard. Gates: (a)
               each rank's tokens and cache shard (sha256 of every leaf
               and layer) bitwise the single-process run, #1 / #2 / the
-              decode kernel 52 / 26 / 26 launches a rank a step; (b) at
+              decode kernel 26 / 13 / 13 launches a rank a step; (b) at
               lop_keep 1 the SP attention on one layer of the pooled K/V
               within 1e-3 (err/ref) of the local dense decode; (c) each
               rank's #4 (out, m, ℓ) at the quota on its own shard
@@ -356,6 +362,24 @@ printed:
               resumes at 1024, a block multiple, and chunks from there;
               scheduler == lockstep for it; TTFT p50 and one chunk's ms
               by width;
+  6. tune    (after 4n, on phase 4's weights) the tile autotuner
+              (``kernels/autotune.py``) at full width: (a) 4 of phase 4's
+              requests through a fresh engine with ``shape_log=`` a
+              temporary file, whose shapes must be exactly the main
+              path's (QKV, O and FFN at m 4 and 128, the 128-row prefill
+              chunk over 1664 slots, the B = 4 decode step); (b)
+              ``run_sweep`` over ``merged_shapes`` of that log into a
+              temporary table, at most 6 candidates a shape, each
+              checked bitwise against the default launch and timed in a
+              CUDA graph with L2 cold; the default's and the winner's ms
+              and the winner's knobs a line per shape; (c) the requests
+              through a fresh engine reading that table: tokens and launch
+              counts equal (a)'s; nothing written at the repository root;
+  7. sched   ``core/schedule.py`` at bitnet-3b's attention width (x [1,
+              1024, 3200], 32 heads of 100, f32, causal): the streamed
+              schedule at groups 1, 4, 8 and 32 within rtol = atol = 1e-4
+              of the materialized one, each with its ms and the peak
+              memory it allocated above its inputs;
   4m. dist   (last) the distributed modules over gloo ranks on cuda:0,
               each sub-arm spawned once and gone before the next: (a)
               ``ep_moe_apply`` on granite-moe-1b-a400m's layer at full
@@ -367,7 +391,7 @@ printed:
               ways, n 3200, 64 rows) over 4 ranks within 1e-4 of
               ``psum(x_loc @ w_loc)`` and X @ W_loc, timed beside one
               plain all_reduce; (c) the sharded training step of
-              stablelm-1.6b at full width, 2 layers, f32, batch 8 x 128
+              stablelm-1.6b at full width, 1 layer, f32, batch 8 x 128
               on (data 2, model 2), lr 1e-4 at step 1: loss and grad
               norm within rtol 1e-4 of the single-process step, each
               leaf's update and both moments held to its by the step
@@ -392,7 +416,7 @@ the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
 ``shared_select``, ``pos_offset+return_stats`` and ``cross`` — each with
 its launches on the path that runs it and the numbers of the phase that
 checked it; the launches of #1–#5 also count phase 4i's and 4j's serve
-runs, phase 4k's and 4l's serve runs and phase 4n's, and the
+runs, phase 4k's and 4l's serve runs, phase 4n's and phase 6's, and the
 ``pos_offset+return_stats`` modes phase 4m (e)'s rank 0; #1, #3, #4 and #5 list phase
 4j's checks under ``shapes``, #1 and #2 phase 4k's on trained weights,
 #1 phase 4l's), each phase's seconds printed before it; the last line
@@ -415,9 +439,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
-F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 TOL = dict(rtol=2e-5, atol=2e-5)
 TOL_STANDALONE = dict(rtol=1e-4, atol=1e-4)   # the reference's kernel tests
 
@@ -501,8 +522,13 @@ def copies(torch, args, min_bytes: float = 100e6, cap: int = 16) -> list:
 
 def bound_ms(nbytes: float, int8_ops: float = 0.0,
              f32_ops: float = 0.0) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    """The least time the card could take: bytes over the HBM rate or the
+    operations over their peak rates (``repro_torch.analysis.roofline``'s
+    data-sheet figures), whichever is larger, and which it was."""
+    from repro_torch.analysis.roofline import (HBM_BW, PEAK_FLOPS_F32,
+                                               PEAK_OPS_INT8)
+    t_bytes = nbytes / HBM_BW
+    t_ops = int8_ops / PEAK_OPS_INT8 + f32_ops / PEAK_FLOPS_F32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -799,7 +825,7 @@ def kernel_phase(torch, np) -> dict:
         + h * sel_blocks * blk * (2 * dh + 8) + bh * dh * 4,
         int8_ops=2.0 * h * (sum(nl) + live_tok) * dh,
         f32_ops=2.0 * h * live_tok * dh)
-    kind = "ILb1EE"                  # the instance <kOne = one query row>
+    kind = "ILb1ELi2EE"              # <kOne = one query row, 2 ring stages>
     log(f"  fused_decode_attention B={b} M={m_cap} k_keep={k_keep}: "
         f"{ms:.4f} ms, in a CUDA graph {g_ms:.4f} ms (plain {p_ms:.3f} ms, "
         f"bound {b_ms:.4f} ms by {b_by}; {b_ms / ms:.1%} of bound, "
@@ -919,7 +945,7 @@ def decode_modes(torch, np, rng, t) -> dict:
     dev = torch.device("cuda")
     out = {"fused_decode_attention": {}, DENSE: {}}
     ptx = {one: ptxas_summary(_build, "decode_attention",
-                              f"lop_decode_kernelILb{one}EE")
+                              f"lop_decode_kernelILb{one}ELi2EE")
            for one in (0, 1)}
 
     def data(b, h, hkv, m, dh):
@@ -1083,7 +1109,7 @@ def decode_modes(torch, np, rng, t) -> dict:
                 f"graph); (out, m, ℓ) max |err| {err:.3g}, empty rows exact, "
                 f"merge max |err| {merr:.3g} against the plain merge; "
                 f"{fmt_decode_shape(decode_launch_shape(b * h, 1, m_loc, dh, blk, k_keep=k_keep, lop=lop))}"
-                f"; {ptxas_summary(_build, 'decode_attention', ('lop' if lop else 'dense') + '_decode_kernelILb1EE')}")
+                f"; {ptxas_summary(_build, 'decode_attention', ('lop' if lop else 'dense') + '_decode_kernelILb1ELi2EE')}")
             if row is None:
                 row = dict(ms=ms, graph_ms=g_ms, plain_ms=p_ms, bound_ms=b_ms,
                            bound_by=by, max_abs_err=max(err, merr),
@@ -1158,6 +1184,7 @@ def squared_relu_check(torch, np, rng, t) -> None:
 
 
 MOE_D, MOE_F, MOE_E = 1024, 512, 32        # granite-moe-1b-a400m
+MOE_LAYERS = 12                            # of 24 (the smoke run's time)
 
 
 def expert_kernels(torch, np, rng, t) -> dict:
@@ -1373,6 +1400,21 @@ def check_lockstep(engine, reqs, results, rids, label: str) -> None:
         f"{graph_memory(engine)}, bound {GRAPH_BOUND})")
 
 
+HALF_LAYERS = 13    # of 26: 4c, 4d and 4g's chaos trace (the run's time)
+
+
+def half_engines(engine):
+    """Phase 4's weights cut to their first ``HALF_LAYERS`` layers (views
+    of the stacked leaves, no copy): a LOP and a no-LOP engine for phases
+    4c, 4d and 4g's chaos trace. → (LOP engine, no-LOP engine)."""
+    from repro_torch.serving.api import PooledEngine
+
+    cfg = engine.cfg.replace(n_layers=HALF_LAYERS)
+    qp = dict(engine.qp, layers=leaves_cut(engine.qp["layers"], HALF_LAYERS))
+    return tuple(PooledEngine(cfg, qp, max_len=engine.max_len, use_lop=lop,
+                              device="cuda") for lop in (True, False))
+
+
 def serve_phase(torch, np, card: str):
     """Phase 4: the greedy LOP serve. → (engine, reqs, stats)."""
     from repro_torch.configs import get_config
@@ -1440,10 +1482,13 @@ def serve_phase(torch, np, card: str):
     return engine, reqs, dict(stats, **steady)
 
 
-def decode_step_ms(torch, np, engine, reqs, sampling=None):
+def decode_step_ms(torch, np, engine, reqs, sampling=None, eager=False):
     """p50 of 10 decode steps over 4 active lanes with no prefill in flight
     (host clock around work that ends in a synchronize), the prefix store
-    off: the steps read none of its pages. → (ms, sched)."""
+    off: the steps read none of its pages. ``eager``: the lanes' prefill
+    (with the decode steps of the lanes already prefilled) on ``engine``'s
+    CUDA graphs, then its graphs dropped: the timed steps, and every later
+    step of the returned scheduler, run eagerly. → (ms, sched)."""
     from dataclasses import replace
 
     from repro_torch.serving.scheduler import Scheduler
@@ -1458,6 +1503,8 @@ def decode_step_ms(torch, np, engine, reqs, sampling=None):
         sched.step()
     if sched.n_active != N_SLOTS:
         raise AssertionError(f"{sched.n_active} lanes active, want {N_SLOTS}")
+    if eager:
+        engine.graphs = None
     from repro_torch.kernels import ops
     step_s = []
     ops.reset_launch_counts()
@@ -1515,14 +1562,15 @@ def check_step_counts(counts: dict, engine, steps: int) -> None:
 def decode_arms(torch, np, engine, reqs, label: str, card: str,
                 sampling=None) -> dict:
     """The clean decode step on an eager twin of ``engine`` (the same
-    weights, ``graphs=False``) and on ``engine``'s CUDA graphs, one after
-    the other: both lanes' tokens must agree. → dict of both p50s and
-    schedulers."""
+    weights; its prefill on graphs of its own, its steps eager) and on
+    ``engine``'s CUDA graphs, one after the other: both lanes' tokens must
+    agree. → dict of both p50s and schedulers."""
     from repro_torch.serving.api import PooledEngine
 
     eager = PooledEngine(engine.cfg, engine.qp, max_len=engine.max_len,
-                         use_lop=engine.use_lop, device="cuda", graphs=False)
-    eager_ms, eager_sched = decode_step_ms(torch, np, eager, reqs, sampling)
+                         use_lop=engine.use_lop, device="cuda")
+    eager_ms, eager_sched = decode_step_ms(torch, np, eager, reqs, sampling,
+                                           eager=True)
     graph_ms_, sched = decode_step_ms(torch, np, engine, reqs, sampling)
     want = [lane.tokens for lane in eager_sched.lanes]
     if [lane.tokens for lane in sched.lanes] != want:
@@ -1703,6 +1751,7 @@ def sampled_fault_phase(torch, np, engine, dense, reqs, card: str) -> dict:
 
 SHARED_PREFIX, MIN_SUFFIX, MAX_SUFFIX = 1024, 64, 512
 GAMMA = 4
+SPEC_REQUESTS = 2                  # phase 4's first two (the run's time)
 NO_WATCHDOG = 10 ** 6       # random weights accept little: every cycle drafts
 
 
@@ -2094,15 +2143,15 @@ def spec_run(torch, np, engine, reqs, label, card) -> dict:
 
 
 def spec_phase(torch, np, engine, dense, reqs, card) -> dict:
-    """Phase 4d, speculative traffic: 4 of phase 4's requests, γ 4, the
-    draft 13 of 26 layers at k_keep 1. No-LOP greedy and sampled against
-    plain decode of the same requests (equal, or a near-tie); LOP greedy
-    completes with #4 in its draft."""
+    """Phase 4d, speculative traffic: 2 of phase 4's requests, γ 4, the
+    draft the first half of ``engine``'s layers at k_keep 1. No-LOP
+    greedy and sampled against plain decode of the same requests (equal,
+    or a near-tie); LOP greedy completes with #4 in its draft."""
     from dataclasses import replace
 
     from repro_torch.serving.api import SamplingParams
 
-    sreqs = [replace(r, arrival=None) for r in reqs[:N_SLOTS]]
+    sreqs = [replace(r, arrival=None) for r in reqs[:SPEC_REQUESTS]]
     out, ties = {}, []
 
     def pair(kind, rs):
@@ -2139,7 +2188,7 @@ def spec_phase(torch, np, engine, dense, reqs, card) -> dict:
     out["lop"] = {k: spec[k] for k in ("tokens_per_s", "draft_ms",
                                        "verify_ms", "accept_rate", "rounds")}
     out["near_ties"] = ties
-    log(f"  speculative vs plain (4 requests, no-LOP): greedy "
+    log(f"  speculative vs plain ({SPEC_REQUESTS} requests, no-LOP): greedy "
         f"{out['greedy']['spec_tokens_per_s']:.2f} vs "
         f"{out['greedy']['plain_tokens_per_s']:.2f} tok/s, sampled "
         f"{out['sampled']['spec_tokens_per_s']:.2f} vs "
@@ -2792,14 +2841,14 @@ def moe_kernel_checks(torch, np, engine, pool, card: str) -> None:
 
 
 def moe_phase(torch, np, card: str) -> dict:
-    """Phase 4e: granite-moe-1b-a400m at full width and depth (24 layers,
-    d 1024, 16 heads of 64 over 8 KV heads, 32 experts top-8, d_ff 512)
-    through the run-to-completion regime: phase 4's 8 requests greedy with
-    LOP, then on a no-LOP engine sharing the weights, then sampled. Each
+    """Phase 4e: granite-moe-1b-a400m at full width (d 1024, 16 heads of
+    64 over 8 KV heads, 32 experts top-8, d_ff 512), its first
+    ``MOE_LAYERS`` of 24 layers (the smoke run's time), through the
+    run-to-completion regime: phase 4's 8 requests greedy with LOP, then on a no-LOP engine sharing the weights, then sampled. Each
     run: every kernel of its path launched, #2 only in its grouped-expert
     form, scheduler == lockstep for 2 rids; the decode step in CUDA graphs
-    bitwise its eager twin, 48 / 24 / 24 launches of #1 / #2 (E = 32) /
-    the decode kernel a step. → stats."""
+    bitwise its eager twin, 2 / 1 / 1 launches a layer of #1 / #2 (E =
+    32) / the decode kernel a step. → stats."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -2811,7 +2860,7 @@ def moe_phase(torch, np, card: str) -> dict:
                                          SamplingParams)
     from repro_torch.serving.scheduler import Scheduler
 
-    cfg = get_config("granite-moe-1b-a400m")
+    cfg = get_config("granite-moe-1b-a400m").replace(n_layers=MOE_LAYERS)
     t0 = time.monotonic()
     engine = PooledEngine.from_seed(cfg, seed=SEED, max_len=MAX_PROMPT + GEN,
                                     device="cuda")
@@ -2920,6 +2969,7 @@ def moe_phase(torch, np, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 QWEN_LAYERS = 8                    # of 64: these 8 layers' token digest
+STABLELM_LAYERS = 12               # of 24 (the smoke run's time)
 #                                    is held from run to run
 WHISPER_MAX_LEN = 448              # whisper's decoder context
 WHISPER_FRAMES = 1500              # a full 30-s window (cross_ctx)
@@ -3455,7 +3505,8 @@ def whisper_arm(torch, np, card: str) -> dict:
 
 
 def families_phase(torch, np, card: str) -> dict:
-    """Phase 4h: (a) stablelm-1.6b (LayerNorm) at full width and depth,
+    """Phase 4h: (a) stablelm-1.6b (LayerNorm) at full width and
+    ``STABLELM_LAYERS`` of its 24 layers,
     (b) qwen1.5-32b (QKV bias drawn nonzero) at full width and 8 of its 64
     layers, (c) whisper-small (encdec) at full width and depth; each
     arm's engine and master tree freed before the next. → stats, with the
@@ -3464,8 +3515,10 @@ def families_phase(torch, np, card: str) -> dict:
     from repro_torch.configs import get_config
 
     t0 = time.monotonic()
-    stable = dense_feature_arm(torch, np, get_config("stablelm-1.6b"),
-                               "stablelm LOP greedy", card)
+    stable = dense_feature_arm(
+        torch, np, get_config("stablelm-1.6b").replace(
+            n_layers=STABLELM_LAYERS),
+        f"stablelm ({STABLELM_LAYERS} layers) LOP greedy", card)
     qwen = dense_feature_arm(
         torch, np, get_config("qwen1.5-32b").replace(n_layers=QWEN_LAYERS),
         f"qwen ({QWEN_LAYERS} layers) LOP greedy", card, bias_seed=SEED + 1)
@@ -4100,10 +4153,18 @@ def recurrent_phase(torch, np, card: str) -> dict:
 VLM_SEED = 4                       # the vlm traffic's request rng
 VLM_MIN_TEXT, VLM_MAX_TEXT = 64, 512
 VLM_SPEC_REQUESTS = 2
+VLM_SERVE_LAYERS = 16              # of 60: drawn whole, served cut (time)
+MISTRAL_LAYERS = 20                # of 40: drawn and served cut (time)
 VLM_SHARED_TEXT = 1024             # the text-only prefix-store arm
 DRAW_PEAK_LIMIT = 30 * 2 ** 30     # llava's streamed draw (its whole f32
 #                                    master tree would not fit the card)
 VLM_NAN_CALLS = frozenset({(3, 1)})   # (decode call, lane): one NaN lane
+
+
+def leaves_cut(tree: dict, n: int) -> dict:
+    """The first ``n`` layers of a layer-stacked tree (views, no copies)."""
+    return {k: leaves_cut(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
 
 
 def leaves(tree, path=()):
@@ -4318,7 +4379,7 @@ def vlm_prefix_arm(torch, np, engine, reqs, card: str) -> dict:
 
 
 def vlm_spec_arm(torch, np, dense, reqs, cap: int, card: str) -> dict:
-    """2 image requests speculatively (γ 4, the draft 30 of 60 layers at
+    """2 image requests speculatively (γ 4, the draft 15 of 30 layers at
     k_keep 1) on the no-LOP engine against plain decode of the same
     requests: equal, or a first divergence that is a near-tie of rounding
     (:func:`rounding_verdict`)."""
@@ -4349,9 +4410,11 @@ def vlm_spec_arm(torch, np, dense, reqs, cap: int, card: str) -> dict:
 
 
 def vlm_arm(torch, np, card: str) -> dict:
-    """(b) llava-next-34b at full width and depth (60 layers, d 7168, 56
-    heads of 128 over 8, f 20,480, vocab 64,000, 2,880 image rows) drawn
-    on the card one layer at a time: 8 image requests (default_rng(4):
+    """(b) llava-next-34b at full width (d 7168, 56 heads of 128 over 8, f
+    20,480, vocab 64,000, 2,880 image rows), drawn on the card one layer
+    at a time at full depth (60 layers) and served at its first
+    ``VLM_SERVE_LAYERS``: 8
+    image requests (default_rng(4):
     64–512 text tokens and 2,880 patch rows of 0.02·N(0, 1) each), 32
     new tokens, 4 slots, chunked; greedy LOP, no-LOP, then 4 sampled with
     a NaN lane through the retry; the decode step on graphs and eager, a
@@ -4375,16 +4438,22 @@ def vlm_arm(torch, np, card: str) -> dict:
     if draw_peak >= DRAW_PEAK_LIMIT:
         raise AssertionError(f"llava's draw peaked at "
                              f"{draw_peak / 2**30:.2f} GiB")
+    drawn_layers = cfg.n_layers
+    # served at the first VLM_SERVE_LAYERS layers of the full-depth draw
+    # (views of the stacked leaves), to keep the smoke run in its time
+    cfg = cfg.replace(n_layers=VLM_SERVE_LAYERS)
+    qp = dict(qp, layers=leaves_cut(qp["layers"], VLM_SERVE_LAYERS))
     max_len = VLM_MAX_TEXT + GEN + n_img
     cap = capacity_for(cfg, max_len)
     engine = PooledEngine(cfg, qp, max_len=max_len, device="cuda")
     by_part = {name: tree_bytes(qp[name]) for name in qp}
     log(f"  [llava] seeded weights drawn and quantized one layer at a time "
-        f"in {draw_s:.1f} s ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"in {draw_s:.1f} s ({drawn_layers} layers, served at the first "
+        f"{cfg.n_layers}; d {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads}, f "
         f"{cfg.d_ff}, vocab {cfg.vocab}, {n_img} image rows): peak while "
         f"drawing {draw_peak / 2**30:.2f} GiB (limit "
-        f"{DRAW_PEAK_LIMIT / 2**30:.0f}); serving weights "
+        f"{DRAW_PEAK_LIMIT / 2**30:.0f}); served weights "
         f"{tree_bytes(qp) / 2**30:.3f} GiB ("
         + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in by_part.items())
         + f" GiB); a {N_SLOTS}-slot pool of capacity {cap} "
@@ -4499,9 +4568,10 @@ def vlm_arm(torch, np, card: str) -> dict:
 
 
 def mistral_arm(torch, np, card: str) -> dict:
-    """(c) mistral-nemo-12b at full width and depth (40 layers, d 5120, 32
-    heads of 128 over 8 — q_dim 4096 ≠ d —, f 14,336, vocab 131,072) drawn
-    on the card one layer at a time: phase 4's 8 requests greedy LOP,
+    """(c) mistral-nemo-12b at full width (d 5120, 32 heads of 128 over 8
+    — q_dim 4096 ≠ d —, f 14,336, vocab 131,072), its first
+    ``MISTRAL_LAYERS`` of 40 layers (the smoke run's time), drawn on the
+    card one layer at a time: phase 4's 8 requests greedy LOP,
     scheduler == lockstep for 2 rids, the decode step on graphs and eager,
     #1 at the O projection (k 4096 → n 5120) bitwise its plain version.
     → stats."""
@@ -4512,7 +4582,7 @@ def mistral_arm(torch, np, card: str) -> dict:
     from repro_torch.serving.quantize import init_serving_params
     from repro_torch.serving.scheduler import Scheduler
 
-    cfg = get_config("mistral-nemo-12b")
+    cfg = get_config("mistral-nemo-12b").replace(n_layers=MISTRAL_LAYERS)
     qp, draw_s, draw_peak = drawn(torch, lambda: init_serving_params(
         cfg, SEED, "cuda"))
     engine = PooledEngine(cfg, qp, max_len=MAX_PROMPT + GEN, device="cuda")
@@ -5318,7 +5388,8 @@ def rec_train_phase(torch, np, card: str) -> dict:
 # phase 4f: sequence-parallel decode over 2 gloo ranks on the card
 # ---------------------------------------------------------------------------
 
-SP_RANKS, SP_CAPACITY, SP_STEPS = 2, 2048, 16
+SP_RANKS, SP_CAPACITY, SP_STEPS = 2, 2048, 8
+SP_LAYERS = 13                     # of bitnet-3b's 26 (the smoke run's time)
 # arm → (use_lop, f-axis TP of the FFN, sequence-parallel)
 SP_ARMS = {"sp": (True, False, True), "sp-tp": (True, True, True),
            "sp-dense": (False, False, True), "single": (True, False, False)}
@@ -5445,7 +5516,7 @@ def sp_rank(mesh, prompts, steps: int) -> dict:
     from repro_torch.serving import engine as E
     from repro_torch.serving.api import PooledEngine
 
-    cfg = get_config("bitnet-3b")
+    cfg = get_config("bitnet-3b").replace(n_layers=SP_LAYERS)
     eng = PooledEngine.from_seed(cfg, seed=SEED, max_len=SP_CAPACITY - 1,
                                  device="cuda")
     n = mesh.size("model")
@@ -5531,7 +5602,7 @@ def sp_phase(torch, np, card: str) -> dict:
     from repro_torch.launch.mesh import local_mesh, spawn_ranks
     from repro_torch.launch.serve import make_requests
 
-    cfg = get_config("bitnet-3b")
+    cfg = get_config("bitnet-3b").replace(n_layers=SP_LAYERS)
     reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
                          max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
     prompts = [r.prompt for r in reqs[:N_SLOTS]]
@@ -6057,11 +6128,12 @@ def _dev_us(evt) -> float:
 def profiled(torch, fn, calls=None):
     """Run ``fn`` under torch.profiler. → (device µs by kernel name, device
     µs in all, wall µs up to a synchronize); ``calls``, a dict, also gets
-    the device events' count by name."""
+    the device events' count by name. Device activity only: the host's
+    ops of an eager step (tens of thousands) would cost seconds of trace
+    processing a call and count nothing here."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -6247,12 +6319,217 @@ def chunk_width_phase(torch, np, engine, reqs, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the tile autotuner at full width, on phase 4's weights
+# ---------------------------------------------------------------------------
+
+TUNE_REQUESTS, TUNE_CANDIDATES, TUNE_REPEATS = 4, 6, 5
+
+
+def main_path_shapes(cfg, n_slots: int, chunk: int, capacity: int) -> dict:
+    """The kernel shapes bitnet-3b's greedy LOP serve dispatches, under
+    the shape log's names: QKV, O and the FFN at the decode rows (one a
+    slot) and at the chunk width, the prefill chunk over one lane's pages,
+    and the decode step over every slot."""
+    from repro_torch.serving.lop_select import k_keep_blocks
+
+    d, hd, hkv = cfg.d_model, cfg.hd, cfg.n_kv_heads
+    g = cfg.n_heads // hkv
+    k_keep = max(1, min(k_keep_blocks(cfg, capacity),
+                        capacity // cfg.lop_block))
+    rows = (n_slots, chunk)
+    return {
+        "qlinear": [{"e": 1, "m": m, "k": d, "n": n} for m in rows
+                    for n in (cfg.q_dim + 2 * cfg.kv_dim, d)],
+        "ffn": [{"e": 1, "m": m, "k": d, "f": cfg.d_ff, "n": d}
+                for m in rows],
+        "prefill": [{"bhg": hkv, "r": g * chunk, "d": hd, "m": capacity,
+                     "chunk": chunk}],
+        "decode": [{"bhg": n_slots * hkv, "g": g, "d": hd, "m": capacity,
+                    "block": cfg.lop_block, "k_keep": k_keep}]}
+
+
+def autotune_phase(torch, np, engine, reqs, card: str) -> dict:
+    """Phase 6: the tile autotuner at bitnet-3b's full width on phase 4's
+    weights (no new draw). (a) 4 of phase 4's requests through a fresh
+    engine with ``shape_log=`` a temporary file: the log must hold exactly
+    the main path's shapes; (b) ``run_sweep`` over ``merged_shapes`` of
+    that log into a temporary table, at most 6 candidates a shape, every
+    candidate checked bitwise against the default launch on the same
+    inputs (a difference raises) and timed (CUDA graph, L2 cold); (c) the
+    same requests through a fresh engine reading that table: tokens and
+    launch counts equal (a)'s. Nothing is written at the repository root.
+    → the winners by shape."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.api import PooledEngine
+    from repro_torch.serving.cache import capacity_for
+
+    cfg = engine.cfg
+    sub = reqs[:TUNE_REQUESTS]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path, table = Path(tmp) / "shapes.json", Path(tmp) / "table.json"
+        # (a) the shape log of a served run
+        eng = PooledEngine(cfg, engine.qp, max_len=engine.max_len,
+                           device="cuda", shape_log=str(log_path))
+        try:
+            untuned = serve_run(torch, np, eng, sub, "autotune (a) logged",
+                                card)
+        finally:
+            autotune.stop_shape_log()
+        untuned.pop("sched")
+        del eng
+        check_counts(untuned["counts"], "autotune (a)", LOP_PATH,
+                     idle=(DENSE,))
+        logged = autotune.load_shape_log(log_path)
+        want = main_path_shapes(cfg, N_SLOTS, engine.chunk_tokens,
+                                capacity_for(cfg, engine.max_len))
+        for kernel, shapes in sorted(logged.items()):
+            log(f"  (a) logged {kernel}: "
+                + "; ".join(autotune.shape_key(kernel, d) for d in shapes))
+        norm = {k: sorted(map(json.dumps, v)) for k, v in logged.items()}
+        if norm != {k: sorted(map(json.dumps, v)) for k, v in want.items()}:
+            raise AssertionError(f"autotune (a): the log {logged} is not the "
+                                 f"main path's shapes {want}")
+        # (b) the sweep over the log's shapes and the defaults
+        t0 = time.monotonic()
+        lines = []
+        swept = autotune.run_sweep(
+            shapes=autotune.merged_shapes(log_path), out_path=table,
+            repeats=TUNE_REPEATS, max_candidates=TUNE_CANDIDATES,
+            log=lines.append)
+        entries = swept["configs"][autotune.config_key()]
+        n_cands = sum(e["candidates"] for v in entries.values()
+                      for e in v.values())
+        log(f"  (b) swept {sum(len(v) for v in entries.values())} shapes, "
+            f"{n_cands} candidates, each bitwise the default launch on the "
+            f"same inputs, in {time.monotonic() - t0:.1f} s (device ms a "
+            f"launch: CUDA graph of 20, L2 cold, median of "
+            f"{TUNE_REPEATS}) [{card}]")
+        for kernel, by_shape in entries.items():
+            for skey, e in by_shape.items():
+                gain = e["default_ms"] / e["ms"]
+                log(f"    {kernel} {skey}: default {e['default_ms']:.5f} ms, "
+                    f"winner {e['params']} {e['ms']:.5f} ms ({gain:.3f}x) of "
+                    f"{e['candidates']}")
+                out[f"{kernel} {skey}"] = dict(
+                    default_ms=e["default_ms"], ms=e["ms"],
+                    params=e["params"], candidates=e["candidates"])
+        if autotune.validate_table(table):
+            raise AssertionError(f"autotune (b): {autotune.validate_table(table)}")
+        # (c) the same requests served with the table
+        before = os.environ.get(autotune.TABLE_ENV)
+        os.environ[autotune.TABLE_ENV] = str(table)
+        try:
+            tuned_knobs = {f"{k} {autotune.shape_key(k, d)}":
+                           autotune.lookup(k, d)
+                           for k, shapes in want.items() for d in shapes}
+            eng = PooledEngine(cfg, engine.qp, max_len=engine.max_len,
+                               device="cuda")
+            tuned = serve_run(torch, np, eng, sub, "autotune (c) tuned",
+                              card)
+            tuned.pop("sched")
+            del eng
+        finally:
+            if before is None:
+                os.environ.pop(autotune.TABLE_ENV)
+            else:
+                os.environ[autotune.TABLE_ENV] = before
+        log(f"  (c) knobs the table names on the path: {tuned_knobs}")
+        if tokens_digest(tuned["results"]) != tokens_digest(untuned["results"]):
+            raise AssertionError("autotune (c): the tuned serve's tokens "
+                                 "part from the untuned serve's")
+        if tuned["counts"] != untuned["counts"]:
+            raise AssertionError(f"autotune (c): launch counts "
+                                 f"{tuned['counts']} != {untuned['counts']}")
+        log(f"  (c) tuned tokens sha256 {tokens_digest(tuned['results'])} == "
+            f"untuned, launch counts equal; tok/s {tuned['tokens_per_s']:.2f}"
+            f" tuned / {untuned['tokens_per_s']:.2f} untuned, TTFT p50 "
+            f"{tuned['ttft_p50_ms']:.1f} / {untuned['ttft_p50_ms']:.1f} ms "
+            f"(one run each: host-bound, not a comparison) [{card}]")
+    free_cuda(torch)
+    return dict(winners=out, counts=untuned["counts"],
+                tuned_counts=tuned["counts"])
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the head-level schedule at bitnet-3b's attention width
+# ---------------------------------------------------------------------------
+
+SCHED_SEQ, SCHED_GROUPS = 1024, (1, 4, 8, 32)
+SCHED_TOL = dict(rtol=1e-4, atol=1e-4)      # the reference test's atol
+
+
+def schedule_phase(torch, np, card: str) -> dict:
+    """Phase 7: ``core/schedule.py`` at bitnet-3b's attention width: x [1,
+    1024, 3200], 32 heads of 100, f32 weights (scaled by d^-1/2) from a
+    seeded ``torch.Generator`` on the card, causal. ``materialized_mha``
+    against ``streamed_mha`` at groups 1, 4, 8 and 32: allclose at rtol =
+    atol = 1e-4 (the sums' order differs), each with its ms (CUDA events,
+    mean of 3 after a warm-up) and the peak memory it allocated above its
+    inputs (``max_memory_allocated`` after ``reset_peak_memory_stats``).
+    Plain ``torch.matmul`` and softmax: no kernel of the port runs."""
+    from repro_torch.core import schedule
+
+    dev = torch.device("cuda")
+    d, h, hd = 3200, 32, 100
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((1, SCHED_SEQ, d), generator=gen, device=dev)
+    ws = [torch.randn((d, h * hd), generator=gen, device=dev) * d ** -0.5
+          for _ in range(3)]
+    wo = torch.randn((h * hd, d), generator=gen, device=dev) * d ** -0.5
+    attn = schedule.standard_softmax_attention
+
+    def run(group):
+        if group is None:
+            return schedule.materialized_mha(x, *ws, wo, n_heads=h,
+                                             head_dim=hd, attn_fn=attn)
+        return schedule.streamed_mha(x, *ws, wo, n_heads=h, head_dim=hd,
+                                     attn_fn=attn, group=group)
+
+    rows, want = {}, None
+    for group in (None, *SCHED_GROUPS):
+        label = "materialized" if group is None else f"streamed g={group}"
+        run(group)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = run(group)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            run(group)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 3
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"schedule {label}: non-finite output")
+        err = 0.0
+        if want is None:
+            want = got
+        else:
+            err = check_close(torch, f"schedule {label}", got, want,
+                              tol=SCHED_TOL)
+        rows[label] = dict(ms=ms, peak_bytes=peak, max_abs_err=err)
+        log(f"  {label}: {ms:.3f} ms, peak {peak / 2**20:.1f} MiB above the "
+            f"inputs, max |err| against materialized {err:.3g} [{card}]")
+    del x, ws, wo, want
+    free_cuda(torch)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4m: the distributed modules, gloo ranks on cuda:0
 # ---------------------------------------------------------------------------
 
 EP_MESH, EP_X = (2, 2), (4, 512)         # (data, model); x [B, S] at d 1024
 CM_RANKS, CM_ROWS = 4, 64                # bitnet-3b's O: k 3200 → n 3200
-FSDP_MESH, FSDP_LAYERS, FSDP_BATCH, FSDP_SEQ = (2, 2), 2, 8, 128
+FSDP_MESH, FSDP_LAYERS, FSDP_BATCH, FSDP_SEQ = (2, 2), 1, 8, 128
 ELASTIC_SURVIVORS = 3                    # plan (1, 2): one spare
 SPR_RANKS, SPR_STEPS, SPR_LANES = 2, 8, 4
 SPR_ARCHS = {"jamba": ("jamba-1.5-large-398b-reduced", None, 96, 255),
@@ -6343,8 +6620,9 @@ def cm_rank(mesh) -> dict:
 
 
 def fsdp_inputs(torch):
-    """stablelm-1.6b at full width (d 2048, vocab 100,352), 2 layers as
-    the reference's check cuts it, f32 activations; f32 masters drawn on
+    """stablelm-1.6b at full width (d 2048, vocab 100,352), 1 layer (the
+    reference's check cuts it to 2; 1 for the smoke run's time), f32
+    activations; f32 masters drawn on
     the card from seed 0; SyntheticDataset batch 8 x 128 (seed 0)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticDataset
@@ -6868,6 +7146,27 @@ def main() -> int:
     phase_s["4n"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
+    # ---- 6. the tile autotuner at full width on phase 4's weights ----
+    log(f"[autotune] bitnet-3b full width on phase 4's weights: "
+        f"{TUNE_REQUESTS} requests served with a shape log, the logged and "
+        f"default shapes swept (at most {TUNE_CANDIDATES} candidates a "
+        f"shape, each bitwise the default), the requests served again "
+        f"with the swept table [{smi}]")
+    tune = autotune_phase(torch, np, engine, reqs, smi)
+
+    phase_s["6"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
+    # ---- 7. the head-level schedule at bitnet-3b's attention width ----
+    log(f"[schedule] materialized vs streamed multi-head attention, x [1, "
+        f"{SCHED_SEQ}, 3200], 32 heads of 100, causal, groups "
+        f"{', '.join(map(str, SCHED_GROUPS))} (rtol=atol="
+        f"{SCHED_TOL['rtol']}) [{smi}]")
+    schedule_phase(torch, np, smi)
+
+    phase_s["7"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4b. no-LOP serve ----
     log(f"[serve no-LOP] the same {N_REQUESTS} requests on a use_lop=False "
         f"engine sharing the weights [{smi}]")
@@ -6881,32 +7180,38 @@ def main() -> int:
     phase_s["4b"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
-    # ---- 4c. sampled serve and faults ----
-    log(f"[serve sampled + faults] [{smi}]")
-    sampled = sampled_fault_phase(torch, np, engine, nolop["dense"], reqs, smi)
+    # ---- 4c. sampled serve and faults (4c, 4d and 4g's chaos trace on
+    #      phase 4's weights cut to HALF_LAYERS layers) ----
+    half, half_dense = half_engines(engine)
+    log(f"[serve sampled + faults] bitnet-3b full width at {HALF_LAYERS} of "
+        f"26 layers, phase 4's weights [{smi}]")
+    sampled = sampled_fault_phase(torch, np, half, half_dense, reqs, smi)
     log(f"  decode step (B={N_SLOTS}, no prefill in flight), LOP, CUDA "
         f"graph (eager): greedy {serve['decode_step_ms_p50']:.2f} "
-        f"({serve['eager_decode_step_ms_p50']:.2f}) ms, sampled "
-        f"{sampled['sampled_decode_step_ms_p50']:.2f} "
-        f"({sampled['sampled_eager_decode_step_ms_p50']:.2f}) ms [{smi}]")
+        f"({serve['eager_decode_step_ms_p50']:.2f}) ms at 26 layers, "
+        f"sampled {sampled['sampled_decode_step_ms_p50']:.2f} "
+        f"({sampled['sampled_eager_decode_step_ms_p50']:.2f}) ms at "
+        f"{HALF_LAYERS} [{smi}]")
     launches = dict(serve["counts"])
     launches[DENSE] = nolop["counts"][DENSE] + sampled["dense_launches"]
-    # phase 4n's serve runs at each chunk width
-    for run in widths.values():
+    # phase 4n's serve runs at each chunk width, phase 6's two serve runs
+    for counts in (*(run["counts"] for run in widths.values()),
+                   tune["counts"], tune["tuned_counts"]):
         for kname in LOP_PATH:
-            launches[kname] += run["counts"][kname]
+            launches[kname] += counts[kname]
 
     phase_s["4c"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
     # ---- 4d. prefix caching and speculative decoding ----
-    log(f"[serve prefix + speculative] prefix traffic ({N_REQUESTS} "
+    log(f"[serve prefix + speculative] bitnet-3b at {HALF_LAYERS} of 26 "
+        f"layers: prefix traffic ({N_REQUESTS} "
         f"requests: a shared {SHARED_PREFIX}-token prefix + {MIN_SUFFIX}-"
         f"{MAX_SUFFIX} unique tokens, greedy, LOP), then speculative traffic"
-        f" (γ {GAMMA}, draft {engine.draft_layers} of {engine.cfg.n_layers}"
-        f" layers at k_keep {engine.draft_k}) [{smi}]")
-    prefix_phase(torch, np, engine, smi)
-    spec = spec_phase(torch, np, engine, nolop["dense"], reqs, smi)
+        f" (γ {GAMMA}, draft {half.draft_layers} of {half.cfg.n_layers}"
+        f" layers at k_keep {half.draft_k}) [{smi}]")
+    prefix_phase(torch, np, half, smi)
+    spec = spec_phase(torch, np, half, half_dense, reqs, smi)
 
     phase_s["4d"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
@@ -6916,16 +7221,19 @@ def main() -> int:
     log(f"[serve http + chaos] the port's HTTP server on phase 4's engine "
         f"({N_REQUESTS} concurrent SSE streams against the direct run, "
         f"errors, /metrics), then the 200-request chaos trace twice on the "
-        f"no-LOP engine (shared prefix {CHAOS_SHARED} tokens) [{smi}]")
+        f"no-LOP engine at {HALF_LAYERS} of 26 layers (shared prefix "
+        f"{CHAOS_SHARED} tokens) [{smi}]")
     http_phase(torch, np, engine, reqs, serve, spec, smi)
-    chaos_phase(torch, np, nolop["dense"], smi)
+    chaos_phase(torch, np, half_dense, smi)
+    del half, half_dense
     log(f"  phase 4g took {time.monotonic() - t4g:.1f} s")
 
     phase_s["4g"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
     # ---- 4e. the MoE family: granite-moe-1b-a400m ----
-    log(f"[serve moe] granite-moe-1b-a400m full width (24 layers, d 1024, "
+    log(f"[serve moe] granite-moe-1b-a400m full width ({MOE_LAYERS} of 24 "
+        f"layers, d 1024, "
         f"32 experts top-8, d_ff 512), {N_SLOTS} slots, {N_REQUESTS} "
         f"requests, gen {GEN}: greedy LOP, no-LOP, sampled [{smi}]")
     moe = moe_phase(torch, np, smi)
@@ -6938,7 +7246,8 @@ def main() -> int:
 
     # ---- 4h. the dense family's LayerNorm and QKV bias; the encdec
     #      family (whisper) ----
-    log(f"[serve families] stablelm-1.6b (LayerNorm) full width and depth, "
+    log(f"[serve families] stablelm-1.6b (LayerNorm) full width at "
+        f"{STABLELM_LAYERS} of 24 layers, "
         f"qwen1.5-32b (QKV bias) full width at {QWEN_LAYERS} of 64 layers, "
         f"whisper-small (encoder-decoder) full width and depth; {N_SLOTS} "
         f"slots, {N_REQUESTS} requests, gen {GEN} [{smi}]")
@@ -6960,14 +7269,17 @@ def main() -> int:
     phase_s["4i"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
-    # ---- 4j. the streamed draw; llava-next-34b (vlm) and
-    #      mistral-nemo-12b at full width and depth ----
+    # ---- 4j. the streamed draw; llava-next-34b (vlm) at full width
+    #      (served at VLM_SERVE_LAYERS of 60 layers) and mistral-nemo-12b
+    #      at full width (MISTRAL_LAYERS of 40 layers) ----
     log(f"[serve vlm + streamed draw] bitnet-3b drawn whole and one layer at "
-        f"a time (bitwise); llava-next-34b (vlm) full width and depth, "
+        f"a time (bitwise); llava-next-34b (vlm) full width, drawn at full "
+        f"depth, served at {VLM_SERVE_LAYERS} of 60 layers, "
         f"{N_REQUESTS} image requests of 2880 patch rows and "
         f"{VLM_MIN_TEXT}-{VLM_MAX_TEXT} text tokens, LOP, no-LOP, sampled "
         f"with a NaN lane, prefix store, speculation; mistral-nemo-12b full "
-        f"width and depth, phase 4's {N_REQUESTS} requests; {N_SLOTS} slots "
+        f"width at {MISTRAL_LAYERS} of 40 layers, phase 4's {N_REQUESTS} "
+        f"requests; {N_SLOTS} slots "
         f"[{smi}]")
     vlm4j = vlm_phase(torch, np, smi)
 

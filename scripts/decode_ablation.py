@@ -44,15 +44,15 @@ CORE, KERN = "int8_decode.cuh", "decode_attention.cu"
 NO_MERGE = (CORE, "  const int split = gridDim.x, rank = blockIdx.x;\n  cg::cluster_group",
             "  if (blockIdx.x) return;\n  const int split = 1, rank = 0;\n  cg::cluster_group")
 NO_PV = (CORE, "  else fold_values<kMasked>(ln, smem, L, stage, g0, g1, tstart, end, st);", "  else {}")
-NO_SCREEN = (KERN, "  ring(smem, L.stage, max(a1 - a0, 0),", "  ring(smem, L.stage, 0,")
-NO_EXACT = (KERN, "  ring(smem, L.stage, 2 * mine[n_cand],", "  ring(smem, L.stage, 0,")
+NO_SCREEN = (KERN, "  ring<S>(smem, L.stage, max(a1 - a0, 0),", "  ring<S>(smem, L.stage, 0,")
+NO_EXACT = (KERN, "  ring<S>(smem, L.stage, 2 * mine[n_cand],", "  ring<S>(smem, L.stage, 0,")
 NO_GATHER = (KERN, "  if (split > 1) {\n    cluster.sync();\n    for (int i = threadIdx.x; i < R * nb;",
              "  if (split > 1 && G < 0) {\n    cluster.sync();\n    for (int i = threadIdx.x; i < R * nb;")
 FIRST_K = (KERN, "    rank_row(blk + g * nb, rnk + g * nb, nb, k_keep);",
            "    for (int j = 0; j < nb; ++j) rnk[g * nb + j] = j < k_keep ? j : nb + k_keep + 1;")
-NO_FOLD = (KERN, "  ring(smem, L.stage, 2 * max(a1 - a0, 0),", "  ring(smem, L.stage, 0,")
-LAUNCH_ONLY = (KERN, "  const Layout L = layout(G, nb, d, block, 0, false);",
-               "  if (G > 0) return;\n  const Layout L = layout(G, nb, d, block, 0, false);")
+NO_FOLD = (KERN, "  ring<S>(smem, L.stage, 2 * max(a1 - a0, 0),", "  ring<S>(smem, L.stage, 0,")
+LAUNCH_ONLY = (KERN, "  const Layout L = layout(G, nb, d, block, 0, false, S);",
+               "  if (G > 0) return;\n  const Layout L = layout(G, nb, d, block, 0, false, S);")
 SMEM_STATE = (CORE, "  return G == 1 && block <= kThreads;", "  return false;")
 SPLIT5 = (CORE, "constexpr int kMaxSplit = 8;", "constexpr int kMaxSplit = 5;")
 
@@ -258,12 +258,12 @@ def main() -> int:
         if lop:
             rc = lib.repro_lop_decode_attention(
                 *ptrs, feat.data_ptr(), nl.data_ptr(), out.data_ptr(), None,
-                None, bh, 1, m, dh, h, blk, k_keep, 0, 0, 0, dh ** -0.5,
+                None, bh, 1, m, dh, h, blk, k_keep, 0, 0, 0, 0, dh ** -0.5,
                 stream)
         else:
             rc = lib.repro_dense_decode_attention(
                 *ptrs, nl.data_ptr(), out.data_ptr(), None, None, bh, 1, m,
-                dh, h, blk, 0, 0, dh ** -0.5, stream)
+                dh, h, blk, 0, 0, 0, dh ** -0.5, stream)
         if rc:
             raise RuntimeError(f"launch failed with CUDA error {rc}")
         return out
@@ -289,8 +289,8 @@ def main() -> int:
         for lop in (True, False):
             if (lop and name in DENSE_ONLY) or (not lop and name in LOP_ONLY):
                 continue
-            shape = (1, m // blk, dh, blk, k_keep if lop else 0, int(lop))
-            plan, occ = (ctypes.c_int * 4)(), (ctypes.c_int * 2)()
+            shape = (1, m // blk, dh, blk, k_keep if lop else 0, int(lop), 0)
+            plan, occ = (ctypes.c_int * 5)(), (ctypes.c_int * 2)()
             if (lib.repro_decode_plan(*shape, ctypes.addressof(plan))
                     or lib.repro_decode_occupancy(*shape, ctypes.addressof(occ))):
                 raise RuntimeError(f"{name}: plan or occupancy query failed")

@@ -106,6 +106,34 @@ def resolve_decode_flags(cfg: ModelConfig) -> ModelConfig:
                        int8_logits=bool(cfg.int8_logits))
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's assigned set — seq_len × global_batch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# smoke-scale variants of the same shapes (CPU tests)
+SMOKE_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 64, 2, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 128, 2, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 128, 2, "decode"),
+    "long_500k": ShapeConfig("long_500k", 256, 1, "decode"),
+}
+
+
 def text_len(cfg: ModelConfig, seq_len: int, kind: str) -> int:
     """Token length of the decoder's text stream for a cell's ``seq_len``
     (the reference's): encdec counts audio frames, its text is a quarter;

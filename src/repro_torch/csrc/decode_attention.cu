@@ -58,6 +58,12 @@
 // (r + 1)·share) in index order, all G query rows of a block from one copy
 // of its K/V, and the core merges the CTAs in rank order.
 //
+// The ring's depth (2, 3 or 4 stages; stages = 0 takes the default 2) is
+// the tile sweep's one knob here: a template parameter of both kernels, so
+// each depth is its own instance. It moves only how far ahead the copies
+// run; every fold, merge and rank runs in the same order, so every depth
+// gives the same bits.
+//
 // Why the split never depends on the batch or on new_len: the split count
 // and shares come from nb = M / block alone, so a lane's output is bitwise
 // the same whatever the other lanes hold and at any B — the recovery retry
@@ -172,8 +178,8 @@ __device__ void screen_block(const Lane& ln, unsigned char* smem,
 }
 
 // kOne: one_row(G, block), the warps' state in registers and eight CTAs
-// an SM.
-template <bool kOne>
+// an SM (at two stages); S: the ring's depth.
+template <bool kOne, int S>
 __global__ void __launch_bounds__(kThreads, kOne ? 8 : 1)
 lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
                   const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
@@ -188,7 +194,7 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
   const int nb = M / block, share = share_of(nb);
   const int split = gridDim.x, rank = blockIdx.x;
   const int R = shared ? 1 : G;              // rows that select
-  const Layout L = layout(G, nb, d, block, k_keep, true);
+  const Layout L = layout(G, nb, d, block, k_keep, true, S);
   const Lane ln = make_lane(qi, qsc, kc, vc, ksc, vsc, new_len, out, m_out,
                             l_out, G, M, d, hkv, block, window, pos_offset,
                             softmax_scale);
@@ -206,7 +212,7 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
   const int a0 = max(j0, jb_lo), a1 = min(j1, jb_hi);
   const uint8_t* f_lane = feat + static_cast<size_t>(blockIdx.y) * M * (d / 2);
   const int f_bytes = block * d / 2;
-  ring(smem, L.stage, max(a1 - a0, 0),
+  ring<S>(smem, L.stage, max(a1 - a0, 0),
        [&](int i, unsigned char* stage) {
          const uint8_t* src = f_lane + static_cast<size_t>(a0 + i) * f_bytes;
          for (int c = threadIdx.x; c < f_bytes / 16; c += kThreads)
@@ -266,7 +272,7 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
 
   // ---- exact: this CTA's candidates, K half then V half each; a shared
   //      candidate folds every row of the lane ----
-  ring(smem, L.stage, 2 * mine[n_cand],
+  ring<S>(smem, L.stage, 2 * mine[n_cand],
        [&](int i, unsigned char* stage) {
          issue_half(ln, stage, cand[mine[i >> 1]], i & 1);
        },
@@ -279,7 +285,7 @@ lop_decode_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc,
   finish(ln, smem, L, st);
 }
 
-template <bool kOne>
+template <bool kOne, int S>
 __global__ void __launch_bounds__(kThreads, kOne ? 8 : 1)
 dense_decode_kernel(const int8_t* __restrict__ qi,
                     const float* __restrict__ qsc,
@@ -293,7 +299,7 @@ dense_decode_kernel(const int8_t* __restrict__ qi,
                     int pos_offset, float softmax_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = M / block, share = share_of(nb), rank = blockIdx.x;
-  const Layout L = layout(G, nb, d, block, 0, false);
+  const Layout L = layout(G, nb, d, block, 0, false, S);
   const Lane ln = make_lane(qi, qsc, kc, vc, ksc, vsc, new_len, out, m_out,
                             l_out, G, M, d, hkv, block, window, pos_offset,
                             softmax_scale);
@@ -302,7 +308,7 @@ dense_decode_kernel(const int8_t* __restrict__ qi,
   const int a0 = max(rank * share, jb_lo);
   const int a1 = min(min(rank * share + share, nb), jb_hi);
   Warp<kOne> st;
-  ring(smem, L.stage, 2 * max(a1 - a0, 0),
+  ring<S>(smem, L.stage, 2 * max(a1 - a0, 0),
        [&](int i, unsigned char* stage) {
          issue_half(ln, stage, a0 + (i >> 1), i & 1);
        },
@@ -313,64 +319,86 @@ dense_decode_kernel(const int8_t* __restrict__ qi,
   finish(ln, smem, L, st);
 }
 
-// [kOne]: cudaFuncSetAttribute done, per device
-bool lop_ready[2][kMaxDevices];
-bool dense_ready[2][kMaxDevices];
+constexpr int kDepths = kMaxStages - 1;   // ring depths 2 .. kMaxStages
 
-using LopKernel = decltype(lop_decode_kernel<false>);
-using DenseKernel = decltype(dense_decode_kernel<false>);
-LopKernel* const lop_kernels[2] = {&lop_decode_kernel<false>,
-                                   &lop_decode_kernel<true>};
-DenseKernel* const dense_kernels[2] = {&dense_decode_kernel<false>,
-                                       &dense_decode_kernel<true>};
+// [depth − 2][kOne]: cudaFuncSetAttribute done, per device
+bool lop_ready[kDepths][2][kMaxDevices];
+bool dense_ready[kDepths][2][kMaxDevices];
+
+using LopKernel = decltype(lop_decode_kernel<false, 2>);
+using DenseKernel = decltype(dense_decode_kernel<false, 2>);
+LopKernel* const lop_kernels[kDepths][2] = {
+    {&lop_decode_kernel<false, 2>, &lop_decode_kernel<true, 2>},
+    {&lop_decode_kernel<false, 3>, &lop_decode_kernel<true, 3>},
+    {&lop_decode_kernel<false, 4>, &lop_decode_kernel<true, 4>}};
+DenseKernel* const dense_kernels[kDepths][2] = {
+    {&dense_decode_kernel<false, 2>, &dense_decode_kernel<true, 2>},
+    {&dense_decode_kernel<false, 3>, &dense_decode_kernel<true, 3>},
+    {&dense_decode_kernel<false, 4>, &dense_decode_kernel<true, 4>}};
+
+// The ring depth of a call (0 = the default); -1 if out of range.
+int depth_of(int stages) {
+  const int s = stages ? stages : kStages;
+  return s >= 2 && s <= kMaxStages ? s : -1;
+}
 
 }  // namespace
 
 extern "C" {
 
-// The launch plan of one call: {CTAs a lane (the cluster size, split),
-// blocks a CTA (share), warps a CTA, dynamic shared-memory bytes}. A
-// function of the lane's shape alone.
+// The launch plan of one call at ring depth `stages` (0 = the default 2):
+// {CTAs a lane (the cluster size, split), blocks a CTA (share), warps a
+// CTA, dynamic shared-memory bytes, ring stages}. A function of the lane's
+// shape and the depth alone.
 int repro_decode_plan(int G, int nb, int d, int block, int k_keep, int lop,
-                      void* info) {
+                      int stages, void* info) {
+  const int s = depth_of(stages);
+  if (s < 0) return static_cast<int>(cudaErrorInvalidValue);
   int* o = static_cast<int*>(info);
   o[0] = split_of(nb);
   o[1] = share_of(nb);
   o[2] = kWarps;
-  o[3] = layout(G, nb, d, block, k_keep, lop != 0).total;
+  o[3] = layout(G, nb, d, block, k_keep, lop != 0, s).total;
+  o[4] = s;
   return 0;
 }
 
 // What the card holds of that plan's kernel: {resident clusters, CTAs an
 // SM}. Reported only: the plan never depends on it.
 int repro_decode_occupancy(int G, int nb, int d, int block, int k_keep,
-                           int lop, void* info) {
+                           int lop, int stages, void* info) {
+  const int s = depth_of(stages);
+  if (s < 0) return static_cast<int>(cudaErrorInvalidValue);
   int* o = static_cast<int*>(info);
   const int one = one_row(G, block);
-  const int smem = layout(G, nb, d, block, k_keep, lop != 0).total;
+  const int smem = layout(G, nb, d, block, k_keep, lop != 0, s).total;
   return static_cast<int>(
-      lop ? occupancy(lop_kernels[one], lop_ready[one], split_of(nb), smem, &o[0], &o[1])
-          : occupancy(dense_kernels[one], dense_ready[one], split_of(nb), smem, &o[0],
-                      &o[1]));
+      lop ? occupancy(lop_kernels[s - 2][one], lop_ready[s - 2][one], split_of(nb),
+                      smem, &o[0], &o[1])
+          : occupancy(dense_kernels[s - 2][one], dense_ready[s - 2][one],
+                      split_of(nb), smem, &o[0], &o[1]));
 }
 
 // qi int8 [BH, G, d]; qsc f32 [BH, G]; k/v int8 [BH, M, d]; k/v scales
 // f32 [BH, M]; feat uint8 [BH, M, d/2]; new_len int32 [B] (global
 // lengths); out f32 [BH, G, d]; m_out, l_out f32 [BH, G] or both null
 // (return_stats); pos_offset the global position of cache row 0, a
-// multiple of block; shared != 0: one candidate set a lane. d % 4 == 0,
-// d ≤ 256, block % 8 == 0, M % block == 0, every pointer 16-byte aligned.
+// multiple of block; shared != 0: one candidate set a lane; stages: the
+// ring's depth (0 = 2). d % 4 == 0, d ≤ 256, block % 8 == 0, M % block ==
+// 0, every pointer 16-byte aligned.
 int repro_lop_decode_attention(const void* qi, const void* qsc, const void* k,
                                const void* v, const void* ks, const void* vs,
                                const void* feat, const void* new_len,
                                void* out, void* m_out, void* l_out, int BH,
                                int G, int M, int d, int hkv, int block,
                                int k_keep, int window, int pos_offset,
-                               int shared, float softmax_scale, void* stream) {
-  const int nb = M / block, one = one_row(G, block);
-  const int smem = layout(G, nb, d, block, k_keep, true).total;
+                               int shared, int stages, float softmax_scale,
+                               void* stream) {
+  const int nb = M / block, one = one_row(G, block), s = depth_of(stages);
+  if (s < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = layout(G, nb, d, block, k_keep, true, s).total;
   return static_cast<int>(launch(
-      lop_kernels[one], lop_ready[one], split_of(nb), BH, smem,
+      lop_kernels[s - 2][one], lop_ready[s - 2][one], split_of(nb), BH, smem,
       static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(qi),
       static_cast<const float*>(qsc), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(ks),
@@ -383,19 +411,20 @@ int repro_lop_decode_attention(const void* qi, const void* qsc, const void* k,
 // qi int8 [BH, G, d]; qsc f32 [BH, G]; k/v int8 [BH, M, d]; k/v scales
 // f32 [BH, M]; new_len int32 [B] (global lengths); out f32 [BH, G, d];
 // m_out, l_out f32 [BH, G] or both null; pos_offset the global position
-// of cache row 0. d % 4 == 0, d ≤ 256, block % 8 == 0, M % block == 0,
-// every pointer 16-byte aligned.
+// of cache row 0; stages: the ring's depth (0 = 2). d % 4 == 0, d ≤ 256,
+// block % 8 == 0, M % block == 0, every pointer 16-byte aligned.
 int repro_dense_decode_attention(const void* qi, const void* qsc,
                                  const void* k, const void* v, const void* ks,
                                  const void* vs, const void* new_len,
                                  void* out, void* m_out, void* l_out, int BH,
                                  int G, int M, int d, int hkv, int block,
-                                 int window, int pos_offset,
+                                 int window, int pos_offset, int stages,
                                  float softmax_scale, void* stream) {
-  const int nb = M / block, one = one_row(G, block);
-  const int smem = layout(G, nb, d, block, 0, false).total;
+  const int nb = M / block, one = one_row(G, block), s = depth_of(stages);
+  if (s < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = layout(G, nb, d, block, 0, false, s).total;
   return static_cast<int>(launch(
-      dense_kernels[one], dense_ready[one], split_of(nb), BH, smem,
+      dense_kernels[s - 2][one], dense_ready[s - 2][one], split_of(nb), BH, smem,
       static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(qi),
       static_cast<const float*>(qsc), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(ks),

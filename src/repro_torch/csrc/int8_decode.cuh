@@ -47,7 +47,11 @@
 //  * A two-stage cp.async ring of 16-byte copies, whose steps are half
 //    blocks: a block's K rows + k scales, then its V rows + v scales.
 //    While one half is computed on, the next is in flight; a stage stays
-//    at block·d + 4·block bytes (13 KB at d 100).
+//    at block·d + 4·block bytes (13 KB at d 100). #4/#5 take the ring's
+//    depth as the tile sweep's knob (kMaxStages: 2, 3 or 4 stages, the
+//    counterpart of the TPU kernel's n_slots): only how far ahead the
+//    copies run changes, never the order of a fold, so every depth gives
+//    the same bits.
 //  * One query row (G = 1, block ≤ 128: bitnet-3b's shape) keeps each
 //    warp's online-softmax state and each token's logit in registers
 //    (Warp<true>; thread t forms token t's logit and folds it), so a CTA
@@ -81,7 +85,8 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 2;
+constexpr int kStages = 2;            // the ring's default depth
+constexpr int kMaxStages = 4;
 constexpr int kMaxSplit = 8;          // the portable cluster size
 
 // A lane's blocks are cut into shares of share_of(nb) blocks, one CTA each.
@@ -115,7 +120,8 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout layout(int G, int nb, int d, int block,
-                                         int k_keep, bool lop) {
+                                         int k_keep, bool lop,
+                                         int stages = kStages) {
   Layout L;
   const int f_part = lop ? up16(block * d / 2) : 0;
   L.stage = max(up16(block * d) + up16(4 * block), f_part);
@@ -136,7 +142,7 @@ __host__ __device__ inline Layout layout(int G, int nb, int d, int block,
     L.wl = take(4 * kWarps * G);
     L.wacc = take(4 * kWarps * G * d);
   }
-  o = max(o, kStages * L.stage);
+  o = max(o, stages * L.stage);
   L.q = take(G * d);
   if (!one) {
     L.s = take(4 * G * block);
@@ -324,27 +330,27 @@ __device__ __forceinline__ void issue_half(const Lane& ln, unsigned char* stage,
     cp_async16(stage + rows + 16 * i, sc + 4 * i, 16);
 }
 
-// The ring: items 0 .. n−1 through kStages stages. issue(i, stage) starts
-// item i's copies; setup() runs once the first copies are in flight (so
-// its own global loads overlap them); consume(i, stage) runs on item i
-// with every thread of the CTA, between two __syncthreads.
-template <class Issue, class Setup, class Consume>
+// The ring: items 0 .. n−1 through S stages. issue(i, stage) starts item
+// i's copies; setup() runs once the first copies are in flight (so its own
+// global loads overlap them); consume(i, stage) runs on item i with every
+// thread of the CTA, between two __syncthreads.
+template <int S = kStages, class Issue, class Setup, class Consume>
 __device__ __forceinline__ void ring(unsigned char* stages, int stage_bytes,
                                      int n, Issue issue, Setup setup,
                                      Consume consume) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < S - 1; ++s) {
     if (s < n) issue(s, stages + s * stage_bytes);
     cp_async_commit();
   }
   setup();
   for (int i = 0; i < n; ++i) {
-    const int nx = i + kStages - 1;
-    if (nx < n) issue(nx, stages + (nx % kStages) * stage_bytes);
+    const int nx = i + S - 1;
+    if (nx < n) issue(nx, stages + (nx % S) * stage_bytes);
     cp_async_commit();
-    cp_async_wait<kStages - 1>();
+    cp_async_wait<S - 1>();
     __syncthreads();
-    consume(i, stages + (i % kStages) * stage_bytes);
+    consume(i, stages + (i % S) * stage_bytes);
     __syncthreads();
   }
 }

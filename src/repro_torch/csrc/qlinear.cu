@@ -31,7 +31,8 @@
 //    once for all its column tiles.
 //  * The GEMM is #7's (decode tile 16 × 128 for m ≤ 16, chunk tile
 //    128 × 128 above; split-k over a cluster where the tiles alone leave
-//    SMs idle) with an epilogue on each CTA's share of the summed tile:
+//    SMs idle; the tile sweep may name the tile and the split, which
+//    changes no bit) with an epilogue on each CTA's share of the summed tile:
 //    dequant · γ (+ bias)(+ act) for a projection; for gate‖up a CTA's
 //    128 columns are 64 gate columns from n0 and the matching 64 up
 //    columns from f + n0 (warps 0–1 gate, 2–3 up), which meet in the
@@ -266,36 +267,52 @@ using GateUpKernel = void (*)(const int8_t*, const float*, const uint8_t*,
                               const float*, float*, int, int, int, int);
 
 // The launch of the GEMM over `experts` × m rows and n_out output columns
-// (64 a tile for gate‖up, whose n_out is f), and its kernel.
+// (64 a tile for gate‖up, whose n_out is f), and its kernel. split: the
+// CTAs a tile's k is split over (0 = the planner's choice).
 template <class T, class K>
 cudaError_t plan_tiles(K kernel, int experts, int m, int k, int n_out,
-                       bool paired, Launch* l) {
+                       bool paired, int split, Launch* l) {
   const int cols = paired ? T::BN / 2 : T::BN;
   const long long tiles = static_cast<long long>(experts)
                           * ((m + T::BM - 1) / T::BM)
                           * ((n_out + cols - 1) / cols);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  return ternary_tile::plan<T>(kernel, tiles, pad16(k), l);
+  return ternary_tile::plan<T>(kernel, tiles, pad16(k), split, l);
 }
 
-cudaError_t plan_project(int experts, int m, int k, int n, ProjectKernel* kernel,
-                         Launch* l) {
-  if (m <= DecodeTile::BM) {
+// Whether m rows take the decode tile: by m (tile 0), or the tile of
+// `tile` rows (16 or 128) that a caller names.
+cudaError_t decode_tile(int m, int tile, bool* decode) {
+  if (tile != 0 && tile != DecodeTile::BM && tile != ChunkTile::BM)
+    return cudaErrorInvalidValue;
+  *decode = tile ? tile == DecodeTile::BM : m <= DecodeTile::BM;
+  return cudaSuccess;
+}
+
+cudaError_t plan_project(int experts, int m, int k, int n, int split, int tile,
+                         ProjectKernel* kernel, Launch* l) {
+  bool decode;
+  const cudaError_t err = decode_tile(m, tile, &decode);
+  if (err != cudaSuccess) return err;
+  if (decode) {
     *kernel = qlinear_decode_kernel;
-    return plan_tiles<DecodeTile>(*kernel, experts, m, k, n, false, l);
+    return plan_tiles<DecodeTile>(*kernel, experts, m, k, n, false, split, l);
   }
   *kernel = qlinear_chunk_kernel;
-  return plan_tiles<ChunkTile>(*kernel, experts, m, k, n, false, l);
+  return plan_tiles<ChunkTile>(*kernel, experts, m, k, n, false, split, l);
 }
 
-cudaError_t plan_gate_up(int experts, int m, int k, int f, GateUpKernel* kernel,
-                         Launch* l) {
-  if (m <= DecodeTile::BM) {
+cudaError_t plan_gate_up(int experts, int m, int k, int f, int split, int tile,
+                         GateUpKernel* kernel, Launch* l) {
+  bool decode;
+  const cudaError_t err = decode_tile(m, tile, &decode);
+  if (err != cudaSuccess) return err;
+  if (decode) {
     *kernel = gate_up_decode_kernel;
-    return plan_tiles<DecodeTile>(*kernel, experts, m, k, f, true, l);
+    return plan_tiles<DecodeTile>(*kernel, experts, m, k, f, true, split, l);
   }
   *kernel = gate_up_chunk_kernel;
-  return plan_tiles<ChunkTile>(*kernel, experts, m, k, f, true, l);
+  return plan_tiles<ChunkTile>(*kernel, experts, m, k, f, true, split, l);
 }
 
 cudaError_t barrier(const float* x, int8_t* xq, float* xs, int rows, int k,
@@ -306,10 +323,11 @@ cudaError_t barrier(const float* x, int8_t* xq, float* xs, int rows, int k,
 
 cudaError_t project(const int8_t* xq, const float* xs, const uint8_t* packed,
                     const float* gamma, const float* bias, float* out,
-                    int experts, int m, int k, int n, int act, cudaStream_t s) {
+                    int experts, int m, int k, int n, int act, int split,
+                    int tile, cudaStream_t s) {
   ProjectKernel kernel;
   Launch l;
-  const cudaError_t err = plan_project(experts, m, k, n, &kernel, &l);
+  const cudaError_t err = plan_project(experts, m, k, n, split, tile, &kernel, &l);
   if (err != cudaSuccess) return err;
   return ternary_tile::launch(kernel, l, s, xq, xs, packed, gamma, bias, out,
                               m, k, n, act);
@@ -320,18 +338,20 @@ cudaError_t project(const int8_t* xq, const float* xs, const uint8_t* packed,
 extern "C" {
 
 // The GEMM launch of a projection x [E, m, k] × packed [E, k/4, n] (gated =
-// 0) or of the gate‖up stage of an FFN of hidden width n (gated = 1):
-// info ← {CTAs, warps per CTA, dynamic shared-memory bytes, output tiles,
-// CTAs a tile's k is split over}.
-int repro_qlinear_shape(int experts, int m, int k, int n, int gated, void* info) {
+// 0) or of the gate‖up stage of an FFN of hidden width n (gated = 1), at
+// the tile sweep's split and tile (0, 0: the planner's): info ← {CTAs,
+// warps per CTA, dynamic shared-memory bytes, output tiles, CTAs a tile's
+// k is split over, rows a tile}.
+int repro_qlinear_shape(int experts, int m, int k, int n, int gated, int split,
+                        int tile, void* info) {
   Launch l;
   cudaError_t err;
   if (gated) {
     GateUpKernel kernel;
-    err = plan_gate_up(experts, m, k, n, &kernel, &l);
+    err = plan_gate_up(experts, m, k, n, split, tile, &kernel, &l);
   } else {
     ProjectKernel kernel;
-    err = plan_project(experts, m, k, n, &kernel, &l);
+    err = plan_project(experts, m, k, n, split, tile, &kernel, &l);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   ternary_tile::launch_info(l, static_cast<int*>(info));
@@ -341,10 +361,13 @@ int repro_qlinear_shape(int experts, int m, int k, int n, int gated, void* info)
 // y = act(((xq·W)·xs)·γ + bias), expert by expert. x f32 [E, m, k]; packed
 // uint8 [E, k/4, n]; gamma f32 [E, n]; bias f32 [E, n] or null; out f32
 // [E, m, n]; scratch: xq int8 [E·m, k rounded up to 16] and xs f32 [E·m],
-// 16-byte aligned. k % 4 == 0, E ≥ 1, m ≥ 1, n ≥ 1.
+// 16-byte aligned. k % 4 == 0, E ≥ 1, m ≥ 1, n ≥ 1. split (1..8) and tile
+// (16, 128) name the GEMM's cluster and row tile, 0 the planner's choice:
+// the same bits at every setting.
 int repro_qlinear(const void* x, const void* packed, const void* gamma,
                   const void* bias, void* out, void* xq, void* xs, int experts,
-                  int m, int k, int n, int act, void* stream) {
+                  int m, int k, int n, int act, int split, int tile,
+                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<int8_t*>(xq);
   auto qs = static_cast<float*>(xs);
@@ -354,7 +377,7 @@ int repro_qlinear(const void* x, const void* packed, const void* gamma,
   err = project(q, qs, static_cast<const uint8_t*>(packed),
                 static_cast<const float*>(gamma),
                 static_cast<const float*>(bias), static_cast<float*>(out),
-                experts, m, k, n, act, s);
+                experts, m, k, n, act, split, tile, s);
   return static_cast<int>(err);
 }
 
@@ -364,11 +387,13 @@ int repro_qlinear(const void* x, const void* packed, const void* gamma,
 // d_out]; out f32 [E, m, d_out]; scratch, 16-byte aligned: xq int8 [E·m,
 // k16], xs f32 [E·m], h f32 [E·m, f], hq int8 [E·m, f16], hs f32 [E·m]
 // (k16, f16: rounded up to 16). k % 4 == f % 4 == 0, E ≥ 1, m ≥ 1,
-// d_out ≥ 1.
+// d_out ≥ 1. split_gu / split_down name the two GEMMs' clusters and tile
+// their row tile (0: the planner's choice; the same bits at any setting).
 int repro_ffn(const void* x, const void* gu_packed, const void* gu_scale,
               const void* down_packed, const void* down_scale, void* out,
               void* xq, void* xs, void* h, void* hq, void* hs, int experts,
-              int m, int k, int f, int d_out, int gated, int act, void* stream) {
+              int m, int k, int f, int d_out, int gated, int act, int split_gu,
+              int split_down, int tile, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<int8_t*>(xq);
   auto qs = static_cast<float*>(xs);
@@ -383,20 +408,22 @@ int repro_ffn(const void* x, const void* gu_packed, const void* gu_scale,
   if (gated) {
     GateUpKernel kernel;
     Launch l;
-    err = plan_gate_up(experts, m, k, f, &kernel, &l);
+    err = plan_gate_up(experts, m, k, f, split_gu, tile, &kernel, &l);
     if (err == cudaSuccess)
       err = ternary_tile::launch(kernel, l, s, static_cast<const int8_t*>(q),
                                  static_cast<const float*>(qs), gu, gus, hf, m,
                                  k, f, act);
   } else {
-    err = project(q, qs, gu, gus, nullptr, hf, experts, m, k, f, act, s);
+    err = project(q, qs, gu, gus, nullptr, hf, experts, m, k, f, act, split_gu,
+                  tile, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = barrier(hf, hq8, hsc, rows, f, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = project(hq8, hsc, static_cast<const uint8_t*>(down_packed),
                 static_cast<const float*>(down_scale), nullptr,
-                static_cast<float*>(out), experts, m, f, d_out, 0, s);
+                static_cast<float*>(out), experts, m, f, d_out, 0, split_down,
+                tile, s);
   return static_cast<int>(err);
 }
 

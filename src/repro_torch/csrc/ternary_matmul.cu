@@ -88,44 +88,54 @@ ternary_matmul_chunk_kernel(const int8_t* __restrict__ x,
 using Kernel = void (*)(const int8_t*, const uint8_t*, int*, int, int, int);
 
 template <class T>
-cudaError_t plan(Kernel kernel, int m, int k, int n, Launch* l) {
+cudaError_t plan(Kernel kernel, int m, int k, int n, int split, Launch* l) {
   const long long tiles = static_cast<long long>((m + T::BM - 1) / T::BM)
                           * ((n + T::BN - 1) / T::BN);
-  return ternary_tile::plan<T>(kernel, tiles, k, l);
+  return ternary_tile::plan<T>(kernel, tiles, k, split, l);
 }
 
-// The kernel for m rows and its launch.
-cudaError_t plan(int m, int k, int n, Kernel* kernel, Launch* l) {
-  if (m <= DecodeTile::BM) {
+// The kernel for m rows and its launch: the decode tile for m ≤ 16 and the
+// chunk tile above, or the tile of `tile` rows (16, 128) a caller names;
+// `split` CTAs a tile's k (0: the planner's choice). Every setting gives
+// the same exact sums.
+cudaError_t plan(int m, int k, int n, int split, int tile, Kernel* kernel,
+                 Launch* l) {
+  if (tile != 0 && tile != DecodeTile::BM && tile != ChunkTile::BM)
+    return cudaErrorInvalidValue;
+  if (tile ? tile == DecodeTile::BM : m <= DecodeTile::BM) {
     *kernel = ternary_matmul_decode_kernel;
-    return plan<DecodeTile>(*kernel, m, k, n, l);
+    return plan<DecodeTile>(*kernel, m, k, n, split, l);
   }
   *kernel = ternary_matmul_chunk_kernel;
-  return plan<ChunkTile>(*kernel, m, k, n, l);
+  return plan<ChunkTile>(*kernel, m, k, n, split, l);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch for x [m, k] × packed [k/4, n]: info ← {CTAs, warps per CTA,
-// dynamic shared-memory bytes, output tiles, CTAs a tile's k is split over}.
-int repro_ternary_matmul_shape(int m, int k, int n, void* info) {
+// The launch for x [m, k] × packed [k/4, n] at the tile sweep's split and
+// tile (0, 0: the planner's): info ← {CTAs, warps per CTA, dynamic
+// shared-memory bytes, output tiles, CTAs a tile's k is split over, rows a
+// tile}.
+int repro_ternary_matmul_shape(int m, int k, int n, int split, int tile,
+                               void* info) {
   Kernel kernel;
   Launch l;
-  const cudaError_t err = plan(m, k, n, &kernel, &l);
+  const cudaError_t err = plan(m, k, n, split, tile, &kernel, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   ternary_tile::launch_info(l, static_cast<int*>(info));
   return 0;
 }
 
 // out = x · W. x int8 [m, k] and packed uint8 [k/4, n], both 4-byte
-// aligned; out int32 [m, n]. k % 4 == 0, m ≥ 1, n ≥ 1.
+// aligned; out int32 [m, n]. k % 4 == 0, m ≥ 1, n ≥ 1. split, tile: as
+// for repro_ternary_matmul_shape.
 int repro_ternary_matmul(const void* x, const void* packed, void* out, int m,
-                         int k, int n, void* stream) {
+                         int k, int n, int split, int tile, void* stream) {
   Kernel kernel;
   Launch l;
-  cudaError_t err = plan(m, k, n, &kernel, &l);
+  cudaError_t err = plan(m, k, n, split, tile, &kernel, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = ternary_tile::launch(kernel, l, static_cast<cudaStream_t>(stream),
                              static_cast<const int8_t*>(x),

@@ -47,7 +47,7 @@
 //  * Where the tiles alone leave SMs idle, a tile's k is split over a
 //    cluster of up to kMaxSplit CTAs, the largest cluster for which every
 //    tile's cluster is resident at once (plan: one wave, no SM waits on a
-//    second). run_tile then sums the cluster's staged partial tiles
+//    second), or the cluster a caller names (the tile sweep's `split`). run_tile then sums the cluster's staged partial tiles
 //    through distributed shared memory, each CTA a share of the rows,
 //    with exact integer sums (no atomics, no zeroed output, the same bits
 //    every call), and hands each 4-column group to the kernel's epilogue.
@@ -383,9 +383,9 @@ __device__ __forceinline__ void run_tile(const A& a, const PackedB& b, int k,
 }
 
 // One launch of a run_tile kernel: grid tiles × split, split CTAs a
-// cluster.
+// cluster, tiles of bm rows.
 struct Launch {
-  int tiles, split, threads, smem;
+  int tiles, split, threads, smem, bm;
 };
 
 // How many clusters of s CTAs of ``kernel`` the card holds at once, for
@@ -439,9 +439,12 @@ cudaError_t resident_clusters(K kernel, int threads, int smem, const int** clust
 // Each of the `tiles` output tiles takes its k (k_steps(k) stages) on
 // the largest cluster (up to kMaxSplit CTAs) for which every tile's
 // cluster is resident at once: one wave, no SM waiting on a second; one
-// CTA a tile where the tiles alone fill the card.
+// CTA a tile where the tiles alone fill the card. A `split` of 1 ..
+// kMaxSplit (the tile sweep's knob) takes that cluster instead; any split
+// gives the same exact sums, so the same bits. 0 = the planner's choice.
 template <class T, class K>
-cudaError_t plan(K kernel, long long tiles, int k, Launch* l) {
+cudaError_t plan(K kernel, long long tiles, int k, int split_req, Launch* l) {
+  if (split_req < 0 || split_req > kMaxSplit) return cudaErrorInvalidValue;
   const int* fit = nullptr;
   const cudaError_t err = resident_clusters(kernel, T::kThreads, T::kSmemBytes, &fit);
   if (err != cudaSuccess) return err;
@@ -452,10 +455,15 @@ cudaError_t plan(K kernel, long long tiles, int k, Launch* l) {
       break;
     }
   }
+  if (split_req) {
+    if (fit[split_req] < 1) return cudaErrorInvalidConfiguration;
+    split = split_req;
+  }
   l->tiles = static_cast<int>(tiles);
   l->split = split;
   l->threads = T::kThreads;
   l->smem = T::kSmemBytes;
+  l->bm = T::BM;
   return cudaSuccess;
 }
 
@@ -479,13 +487,14 @@ cudaError_t launch(K kernel, const Launch& l, cudaStream_t stream, Args... args)
 }
 
 // Info for a planned launch: {CTAs, warps per CTA, dynamic shared-memory
-// bytes, output tiles, CTAs a tile's k is split over}.
+// bytes, output tiles, CTAs a tile's k is split over, rows a tile}.
 inline void launch_info(const Launch& l, int* o) {
   o[0] = l.tiles * l.split;
   o[1] = l.threads / 32;
   o[2] = l.smem;
   o[3] = l.tiles;
   o[4] = l.split;
+  o[5] = l.bm;
 }
 
 }  // namespace ternary_tile

@@ -36,9 +36,9 @@ _F = ctypes.c_float
 # C signatures of every entry point: name → (argtypes, restype)
 SIGNATURES = {
     "qlinear": {
-        "repro_qlinear": ([_P] * 7 + [_I] * 5 + [_P], _I),
-        "repro_ffn": ([_P] * 11 + [_I] * 7 + [_P], _I),
-        "repro_qlinear_shape": ([_I] * 5 + [_P], _I),
+        "repro_qlinear": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        "repro_ffn": ([_P] * 11 + [_I] * 10 + [_P], _I),
+        "repro_qlinear_shape": ([_I] * 7 + [_P], _I),
     },
     "prefill_attention": {
         "repro_prefill_attention": ([_P] * 8 + [_I] * 9 + [_F, _P], _I),
@@ -48,16 +48,16 @@ SIGNATURES = {
         "repro_prefill_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "decode_attention": {
-        "repro_decode_plan": ([_I] * 6 + [_P], _I),
-        "repro_decode_occupancy": ([_I] * 6 + [_P], _I),
-        "repro_lop_decode_attention": ([_P] * 11 + [_I] * 10 + [_F, _P],
+        "repro_decode_plan": ([_I] * 7 + [_P], _I),
+        "repro_decode_occupancy": ([_I] * 7 + [_P], _I),
+        "repro_lop_decode_attention": ([_P] * 11 + [_I] * 11 + [_F, _P],
                                        _I),
-        "repro_dense_decode_attention": ([_P] * 10 + [_I] * 8 + [_F, _P],
+        "repro_dense_decode_attention": ([_P] * 10 + [_I] * 9 + [_F, _P],
                                          _I),
     },
     "ternary_matmul": {
-        "repro_ternary_matmul": ([_P] * 3 + [_I] * 3 + [_P], _I),
-        "repro_ternary_matmul_shape": ([_I] * 3 + [_P], _I),
+        "repro_ternary_matmul": ([_P] * 3 + [_I] * 5 + [_P], _I),
+        "repro_ternary_matmul_shape": ([_I] * 5 + [_P], _I),
     },
     "lop_scores": {
         "repro_lop_scores": ([_P] * 3 + [_I] * 4 + [_P], _I),

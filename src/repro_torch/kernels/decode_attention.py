@@ -24,8 +24,11 @@ Each (batch·kv-head) lane runs on a cluster of CTAs whose count depends on
 the lane's shape alone (:func:`launch_shape`), so a lane's output is
 bitwise the same whatever the other lanes hold and at any batch size.
 One call is one launch from one C entry, with no scratch; the launch plan
-is computed once per shape. The plain version in ``kernels/ref.py``
-implements the same modes.
+is computed once per shape. ``stages`` (2, 3 or 4; 0 = 2) is the depth of
+the kernels' ``cp.async`` ring, the tile sweep's knob
+(:mod:`repro_torch.kernels.autotune`): it moves only how far ahead the
+copies run, so every depth gives the same bits. The plain version in
+``kernels/ref.py`` implements the same modes.
 """
 
 from __future__ import annotations
@@ -35,10 +38,10 @@ import functools
 
 import torch
 
+from repro_torch.analysis.roofline import SMEM_PER_CTA
 from repro_torch.kernels import _build
 from repro_torch.kernels.qlinear import _stream, require
 
-SMEM_LIMIT = 232448          # bytes of shared memory one CTA may use
 MAX_D = 256                  # head dims a lane's value sum covers
 
 
@@ -95,46 +98,50 @@ def _outputs(bh: int, g: int, d: int, device, return_stats: bool):
 
 
 def _check_smem(smem: int) -> None:
-    if smem > SMEM_LIMIT:
+    if smem > SMEM_PER_CTA:
         raise ValueError(f"one CTA needs {smem} B of shared memory "
-                         f"(limit {SMEM_LIMIT})")
+                         f"(limit {SMEM_PER_CTA})")
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(g: int, nb: int, d: int, block: int, k_keep: int,
-          lop: bool) -> dict:
-    """The launch plan of one lane shape (checked once)."""
-    info = (ctypes.c_int * 4)()
+def _plan(g: int, nb: int, d: int, block: int, k_keep: int, lop: bool,
+          stages: int = 0) -> dict:
+    """The launch plan of one lane shape and ring depth (checked once)."""
+    info = (ctypes.c_int * 5)()
     _build.check(_build.load("decode_attention").repro_decode_plan(
-        g, nb, d, block, k_keep, int(lop), ctypes.addressof(info)),
+        g, nb, d, block, k_keep, int(lop), stages, ctypes.addressof(info)),
         "repro_decode_plan")
-    plan = dict(zip(("split", "share", "warps", "smem"), info))
+    plan = dict(zip(("split", "share", "warps", "smem", "stages"), info))
     _check_smem(plan["smem"])
     return plan
 
 
 def launch_shape(bh: int, g: int, m: int, d: int, block: int, *,
-                 k_keep: int = 0, lop: bool = True) -> dict:
+                 k_keep: int = 0, lop: bool = True, stages: int = 0) -> dict:
     """CTAs, warps per CTA, dynamic shared-memory bytes, CTAs a lane
-    (``split``, one cluster) and blocks a CTA (``share``) of one call over
-    ``bh`` lanes of G = ``g`` query rows, capacity ``m``, head dim ``d``;
-    and what the card holds of that launch at once (``resident_clusters``,
-    ``ctas_per_sm``), which the plan never depends on."""
+    (``split``, one cluster), blocks a CTA (``share``) and the ring's depth
+    (``stages``) of one call over ``bh`` lanes of G = ``g`` query rows,
+    capacity ``m``, head dim ``d`` at ring depth ``stages`` (0: the
+    default); and what the card holds of that launch at once
+    (``resident_clusters``, ``ctas_per_sm``), which the plan never depends
+    on."""
     args = (g, m // block, d, block, k_keep if lop else 0, lop)
-    plan = _plan(*args)
+    plan = _plan(*args, stages)
     occ = (ctypes.c_int * 2)()
     _build.check(_build.load("decode_attention").repro_decode_occupancy(
-        *args[:5], int(lop), ctypes.addressof(occ)), "repro_decode_occupancy")
+        *args[:5], int(lop), stages, ctypes.addressof(occ)),
+        "repro_decode_occupancy")
     return dict(ctas=bh * plan["split"], warps=plan["warps"],
                 smem=plan["smem"], split=plan["split"], share=plan["share"],
-                resident_clusters=occ[0], ctas_per_sm=occ[1])
+                stages=plan["stages"], resident_clusters=occ[0],
+                ctas_per_sm=occ[1])
 
 
 def fused_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
                            new_len, *, hkv: int, block: int, k_keep: int,
                            window: int, softmax_scale: float,
                            shared_select: bool = False, pos_offset: int = 0,
-                           return_stats: bool = False):
+                           return_stats: bool = False, stages: int = 0):
     """LOP mode. qi int8 [BH, G, d], qsc f32 [BH, G], k/v int8 [BH, M, d],
     k/v scales f32 [BH, M], feat uint8 [BH, M, d/2], new_len int32 [B] →
     f32 [BH, G, d] (with ``return_stats`` also m, ℓ f32 [BH, G]); a
@@ -147,14 +154,14 @@ def fused_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
     require(feat, "feat", torch.uint8, (bh, m, d // 2))
     _check_aligned(feat=feat)
     po = _check_offset(pos_offset, block)
-    _plan(g, m // block, d, block, k_keep, True)
+    _plan(g, m // block, d, block, k_keep, True, stages)
     outs, ptrs = _outputs(bh, g, d, qi.device, return_stats)
     if bh:
         rc = lib.repro_lop_decode_attention(
             qi.data_ptr(), qsc.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             feat.data_ptr(), new_len.data_ptr(), *ptrs, bh, g, m, d, hkv,
-            block, k_keep, int(window), po, int(bool(shared_select)),
+            block, k_keep, int(window), po, int(bool(shared_select)), stages,
             float(softmax_scale), _stream(qi))
         _build.check(rc, "repro_lop_decode_attention")
         fused_decode_attention.launches += 1
@@ -169,7 +176,7 @@ def fused_dense_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale,
                                  new_len, *, hkv: int, block: int,
                                  window: int, softmax_scale: float,
                                  pos_offset: int = 0,
-                                 return_stats: bool = False):
+                                 return_stats: bool = False, stages: int = 0):
     """Dense mode. qi int8 [BH, G, d], qsc f32 [BH, G], k/v int8
     [BH, M, d], k/v scales f32 [BH, M], new_len int32 [B] → f32
     [BH, G, d] (with ``return_stats`` also m, ℓ f32 [BH, G]); a lane's
@@ -178,14 +185,14 @@ def fused_dense_decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale,
     bh, g, m, d = _check_common(qi, qsc, k_cache, v_cache, k_scale, v_scale,
                                 new_len, hkv=hkv, block=block)
     po = _check_offset(pos_offset, block)
-    _plan(g, m // block, d, block, 0, False)
+    _plan(g, m // block, d, block, 0, False, stages)
     outs, ptrs = _outputs(bh, g, d, qi.device, return_stats)
     if bh:
         rc = lib.repro_dense_decode_attention(
             qi.data_ptr(), qsc.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             new_len.data_ptr(), *ptrs, bh, g, m, d, hkv, block, int(window),
-            po, float(softmax_scale), _stream(qi))
+            po, stages, float(softmax_scale), _stream(qi))
         _build.check(rc, "repro_dense_decode_attention")
         fused_dense_decode_attention.launches += 1
     return outs if return_stats else outs[0]

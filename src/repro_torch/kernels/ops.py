@@ -13,6 +13,12 @@ and, under a mode's name, those that launched it in that mode
 counts for a call given ``mode="cross"``); :func:`reset_launch_counts` and
 :func:`launch_counts` read them around a run, and :func:`add_launches`
 adds the launches a CUDA graph's replay makes, which no wrapper sees.
+
+The entries of the five kernels the reference tunes feed the tile
+autotuner (:mod:`repro_torch.kernels.autotune`), as the reference's do:
+each dispatch's shape goes to ``observe`` (a no-op unless a shape log is
+armed), and on a CUDA tensor ``lookup`` names the launch's knobs — ``{}``
+with no table and no override, the kernels' own plan. Neither syncs.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.core.lop import pot
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as _tune
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import (
     fused_decode_attention, fused_dense_decode_attention)
@@ -106,10 +113,15 @@ def ternary_matmul(x, tw):
     k, n = tw.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
+    dims = {"m": x2.shape[0], "k": k, "n": n}
+    _tune.observe("ternary_matmul", dims)
     if not _on_cuda(x):
         out = _ref.ternary_matmul_ref(x2, tw.packed, k)
     else:
-        out = ternary_matmul_kernel(x2.contiguous(), tw.packed.contiguous())
+        tuned = _tune.lookup("ternary_matmul", dims)
+        out = ternary_matmul_kernel(x2.contiguous(), tw.packed.contiguous(),
+                                    split=tuned.get("split", 0),
+                                    tile=tuned.get("tile", 0))
     return out.reshape(*lead, n)
 
 
@@ -195,9 +207,16 @@ def qlinear_fused(x, packed, scale, bias=None, *, act=None):
     k = packed.shape[-2] * 4
     n = packed.shape[-1]
     scale_row = _col_scale(scale, n)
+    expert = packed.dim() == 3
+    dims = {"e": x.shape[0] if expert else 1,
+            "m": x.shape[1] if expert else math.prod(x.shape[:-1]),
+            "k": k, "n": n}
+    _tune.observe("qlinear", dims)
     if not _on_cuda(x):
         return _ref.qlinear_ref(x, packed, scale_row, bias, act=act)
-    if packed.dim() == 3:
+    tuned = _tune.lookup("qlinear", dims)
+    knobs = dict(split=tuned.get("split", 0), tile=tuned.get("tile", 0))
+    if expert:
         e = packed.shape[0]
         if x.dim() != 3 or x.shape[0] != e:
             raise ValueError(f"x {tuple(x.shape)} is not [E={e}, C, k]")
@@ -206,13 +225,13 @@ def qlinear_fused(x, packed, scale, bias=None, *, act=None):
             scale_row.reshape(e, n).contiguous(),
             None if bias is None else
             bias.to(torch.float32).expand(e, 1, n).reshape(e, n).contiguous(),
-            act=act)
+            act=act, **knobs)
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     out = fused_qlinear(x2, packed.contiguous(),
                         scale_row.reshape(n).contiguous(),
                         None if bias is None else
                         bias.reshape(n).to(torch.float32).contiguous(),
-                        act=act)
+                        act=act, **knobs)
     return out.reshape(*x.shape[:-1], n)
 
 
@@ -228,10 +247,19 @@ def ffn_fused(x, gu_packed, gu_scale, down_packed, down_scale, *,
     d_out = down_packed.shape[-1]
     gu_row = _col_scale(gu_scale, gu_packed.shape[-1])
     down_row = _col_scale(down_scale, d_out)
+    expert = gu_packed.dim() == 3
+    dims = {"e": x.shape[0] if expert else 1,
+            "m": x.shape[1] if expert else math.prod(x.shape[:-1]),
+            "k": k, "f": down_packed.shape[-2] * 4, "n": d_out}
+    _tune.observe("ffn", dims)
     if not _on_cuda(x):
         return _ref.ffn_fused_ref(x, gu_packed, gu_row, down_packed,
                                   down_row, gated=gated, act=act)
-    if gu_packed.dim() == 3:
+    tuned = _tune.lookup("ffn", dims)
+    knobs = dict(split_gu=tuned.get("split_gu", 0),
+                 split_down=tuned.get("split_down", 0),
+                 tile=tuned.get("tile", 0))
+    if expert:
         e = gu_packed.shape[0]
         if x.dim() != 3 or x.shape[0] != e:
             raise ValueError(f"x {tuple(x.shape)} is not [E={e}, C, d]")
@@ -239,11 +267,13 @@ def ffn_fused(x, gu_packed, gu_scale, down_packed, down_scale, *,
         return fused_ffn_experts(
             x.to(torch.float32).contiguous(), gu_packed.contiguous(),
             gu_row.reshape(e, -1).contiguous(), down_packed.contiguous(),
-            down_row.reshape(e, -1).contiguous(), gated=gated, act=act)
+            down_row.reshape(e, -1).contiguous(), gated=gated, act=act,
+            **knobs)
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     out = fused_ffn(x2, gu_packed.contiguous(),
                     gu_row.reshape(-1).contiguous(), down_packed.contiguous(),
-                    down_row.reshape(-1).contiguous(), gated=gated, act=act)
+                    down_row.reshape(-1).contiguous(), gated=gated, act=act,
+                    **knobs)
     return out.reshape(*x.shape[:-1], d_out)
 
 
@@ -266,6 +296,10 @@ def prefill_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, kv_len, *,
         softmax_scale = dh ** -0.5
     kv_len = kv_len.to(torch.int32)
     q_off = 0 if q_offset is None else int(q_offset)
+    # no knob: the tiles are fixed by the fragment layout (autotune's
+    # KERNEL_PARAMS["prefill"] is empty); the shape is logged all the same
+    _tune.observe("prefill", {"bhg": b * hkv, "r": g * c, "d": dh, "m": m,
+                              "chunk": c})
     if not _on_cuda(qi):
         return _ref.prefill_attention_ref(
             qi, qsc, k_cache, v_cache, k_scale, v_scale, kv_len, q_off,
@@ -310,6 +344,9 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
     if softmax_scale is None:
         softmax_scale = dh ** -0.5
     new_len = new_len.to(torch.int32)
+    dims = {"bhg": b * hkv, "g": g, "d": dh, "m": m, "block": block,
+            "k_keep": k_keep}
+    _tune.observe("decode", dims)
     if not _on_cuda(qi):
         return _ref.decode_attention_ref(
             qi, qsc, k_cache, v_cache, k_scale, v_scale, feat, new_len,
@@ -325,6 +362,7 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
              k_scale.reshape(bh, m).contiguous(),
              v_scale.reshape(bh, m).contiguous())
     po = 0 if pos_offset is None else int(pos_offset)
+    stages = _tune.lookup("decode", dims).get("stages", 0)
     kernel = fused_decode_attention if use_lop else \
         fused_dense_decode_attention
     before = kernel.launches
@@ -334,14 +372,14 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
             new_len.contiguous(), hkv=hkv, block=block, k_keep=k_keep,
             window=window, softmax_scale=softmax_scale,
             shared_select=shared_select, pos_offset=po,
-            return_stats=return_stats)
+            return_stats=return_stats, stages=stages)
     else:
         # the dense body never reads the selection, so shared_select is
         # moot there (as in the reference kernel)
         out = fused_dense_decode_attention(
             *lanes, new_len.contiguous(), hkv=hkv, block=block,
             window=window, softmax_scale=softmax_scale, pos_offset=po,
-            return_stats=return_stats)
+            return_stats=return_stats, stages=stages)
     if mode is not None and kernel.launches > before:
         _build.count_mode(kernel, mode)
     if return_stats:

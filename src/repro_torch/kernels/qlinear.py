@@ -20,6 +20,11 @@ buffer with ``torch.empty``, launches on the current stream, raises on a
 CUDA error, and counts its calls that launched in ``<fn>.launches`` (a
 projection's with a bias also under ``<fn>.modes["bias"]``, an ungated
 FFN's under ``["ungated"]``).
+
+The tile sweep's knobs (:mod:`repro_torch.kernels.autotune`) reach the
+GEMMs as ``split`` (CTAs a tile's k is split over, 1–8) and ``tile`` (rows
+a tile, 16 or 128); 0 is the planner's choice, and every setting gives
+the same bits (exact int32 sums, the same epilogue an element).
 """
 
 from __future__ import annotations
@@ -79,7 +84,8 @@ def _scratch(device, sizes):
     return buf, [buf.data_ptr() + o for o in offsets]
 
 
-def _qlinear(x, packed, gamma, bias, act, counter) -> torch.Tensor:
+def _qlinear(x, packed, gamma, bias, act, counter, split: int = 0,
+             tile: int = 0) -> torch.Tensor:
     """One launch of ``repro_qlinear`` over x [E, m, k] × packed [E, k//4,
     n], gamma [E, n], bias [E, n] or None → f32 [E, m, n]; a launch adds
     one to ``counter.launches``."""
@@ -103,7 +109,7 @@ def _qlinear(x, packed, gamma, bias, act, counter) -> torch.Tensor:
                                gamma.data_ptr(),
                                None if bias is None else bias.data_ptr(),
                                out.data_ptr(), xq, xs, e, m, k, n, act_code,
-                               _stream(x))
+                               split, tile, _stream(x))
         _build.check(rc, "repro_qlinear")
         counter.launches += 1
         if bias is not None:
@@ -113,7 +119,8 @@ def _qlinear(x, packed, gamma, bias, act, counter) -> torch.Tensor:
 
 def fused_qlinear(x: torch.Tensor, packed: torch.Tensor, gamma: torch.Tensor,
                   bias: torch.Tensor | None = None, *,
-                  act: str | None = None) -> torch.Tensor:
+                  act: str | None = None, split: int = 0,
+                  tile: int = 0) -> torch.Tensor:
     """f32 x [m, k] × packed ternary [k//4, n] → f32 [m, n].
 
     ``gamma`` f32 [n] is the per-column γ row; ``bias`` f32 [n] or None.
@@ -123,24 +130,27 @@ def fused_qlinear(x: torch.Tensor, packed: torch.Tensor, gamma: torch.Tensor,
                          f"{tuple(x.shape)} and {tuple(packed.shape)}")
     return _qlinear(x[None], packed[None], gamma[None],
                     None if bias is None else bias[None], act,
-                    fused_qlinear)[0]
+                    fused_qlinear, split, tile)[0]
 
 
 def fused_qlinear_experts(x: torch.Tensor, packed: torch.Tensor,
                           gamma: torch.Tensor,
                           bias: torch.Tensor | None = None, *,
-                          act: str | None = None) -> torch.Tensor:
+                          act: str | None = None, split: int = 0,
+                          tile: int = 0) -> torch.Tensor:
     """The grouped-expert projection: f32 x [E, C, k] × packed ternary
     [E, k//4, n] → f32 [E, C, n], expert e's rows against expert e's
     weights, every expert in one launch. ``gamma`` f32 [E, n]; ``bias``
     f32 [E, n] or None."""
     if x.dim() != 3:
         raise ValueError(f"x: expected [E, C, k], got {tuple(x.shape)}")
-    return _qlinear(x, packed, gamma, bias, act, fused_qlinear_experts)
+    return _qlinear(x, packed, gamma, bias, act, fused_qlinear_experts,
+                    split, tile)
 
 
 def _ffn(x, gu_packed, gu_scale, down_packed, down_scale, gated, act,
-         counter) -> torch.Tensor:
+         counter, split_gu: int = 0, split_down: int = 0,
+         tile: int = 0) -> torch.Tensor:
     """One launch of ``repro_ffn`` over x [E, m, k] → f32 [E, m, d_out]; a
     launch adds one to ``counter.launches``."""
     lib = _build.load("qlinear")
@@ -169,7 +179,8 @@ def _ffn(x, gu_packed, gu_scale, down_packed, down_scale, gated, act,
     rc = lib.repro_ffn(x.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(),
                        down_packed.data_ptr(), down_scale.data_ptr(),
                        out.data_ptr(), xq, xs, h, hq, hs, e, m, k, f, d_out,
-                       int(gated), act_code, _stream(x))
+                       int(gated), act_code, split_gu, split_down, tile,
+                       _stream(x))
     _build.check(rc, "repro_ffn")
     counter.launches += 1
     if not gated:
@@ -179,7 +190,8 @@ def _ffn(x, gu_packed, gu_scale, down_packed, down_scale, gated, act,
 
 def fused_ffn(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor,
               down_packed: torch.Tensor, down_scale: torch.Tensor, *,
-              gated: bool, act: str) -> torch.Tensor:
+              gated: bool, act: str, split_gu: int = 0, split_down: int = 0,
+              tile: int = 0) -> torch.Tensor:
     """f32 x [m, k] → f32 [m, d_out] through the whole FFN.
 
     gu_packed uint8 [k//4, 2f] (gate ‖ up; [k//4, f] ungated), gu_scale
@@ -189,13 +201,15 @@ def fused_ffn(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor,
     if x.dim() != 2 or gu_packed.dim() != 2 or down_packed.dim() != 2:
         raise ValueError("fused_ffn: expected x [m, k] and 2-D weights")
     return _ffn(x[None], gu_packed[None], gu_scale[None], down_packed[None],
-                down_scale[None], gated, act, fused_ffn)[0]
+                down_scale[None], gated, act, fused_ffn, split_gu, split_down,
+                tile)[0]
 
 
 def fused_ffn_experts(x: torch.Tensor, gu_packed: torch.Tensor,
                       gu_scale: torch.Tensor, down_packed: torch.Tensor,
-                      down_scale: torch.Tensor, *, gated: bool,
-                      act: str) -> torch.Tensor:
+                      down_scale: torch.Tensor, *, gated: bool, act: str,
+                      split_gu: int = 0, split_down: int = 0,
+                      tile: int = 0) -> torch.Tensor:
     """The grouped-expert FFN: f32 x [E, C, k] → f32 [E, C, d_out], expert
     e's rows through expert e's gate‖up [E, k//4, 2f] (γ [E, 2f]) and down
     [E, f//4, d_out] (γ [E, d_out]) streams, every expert in the same four
@@ -203,7 +217,7 @@ def fused_ffn_experts(x: torch.Tensor, gu_packed: torch.Tensor,
     if x.dim() != 3:
         raise ValueError(f"x: expected [E, C, k], got {tuple(x.shape)}")
     return _ffn(x, gu_packed, gu_scale, down_packed, down_scale, gated, act,
-                fused_ffn_experts)
+                fused_ffn_experts, split_gu, split_down, tile)
 
 
 for _fn in (fused_qlinear, fused_qlinear_experts, fused_ffn,
@@ -214,14 +228,17 @@ del _fn
 
 
 def launch_shape(m: int, k: int, n: int, *, gated: bool = False,
-                 experts: int = 1) -> dict:
-    """CTAs, warps per CTA, dynamic shared-memory bytes, output tiles and
-    the CTAs each tile's k is split over (``split``) of the GEMM launch of
-    :func:`fused_qlinear` at x [m, k] × [k//4, n] (``gated``: of
-    :func:`fused_ffn`'s gate‖up stage at hidden width n; ``experts``: of
-    the grouped-expert form with m rows an expert) on the current card."""
-    info = (ctypes.c_int * 5)()
+                 experts: int = 1, split: int = 0, tile: int = 0) -> dict:
+    """CTAs, warps per CTA, dynamic shared-memory bytes, output tiles, the
+    CTAs each tile's k is split over (``split``) and the rows a tile
+    (``tile``) of the GEMM launch of :func:`fused_qlinear` at x [m, k] ×
+    [k//4, n] (``gated``: of :func:`fused_ffn`'s gate‖up stage at hidden
+    width n; ``experts``: of the grouped-expert form with m rows an
+    expert) on the current card, at the knobs ``split`` and ``tile`` (0:
+    the planner's choice)."""
+    info = (ctypes.c_int * 6)()
     _build.check(_build.load("qlinear").repro_qlinear_shape(
-        experts, m, k, n, int(gated), ctypes.addressof(info)),
+        experts, m, k, n, int(gated), split, tile, ctypes.addressof(info)),
         "repro_qlinear_shape")
-    return dict(zip(("ctas", "warps", "smem", "tiles", "split"), info))
+    return dict(zip(("ctas", "warps", "smem", "tiles", "split", "tile"),
+                    info))

@@ -19,8 +19,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.qlinear import _stream, require
 
 
-def ternary_matmul(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """int8 x [m, k] × packed uint8 [k//4, n] → int32 [m, n]."""
+def ternary_matmul(x: torch.Tensor, packed: torch.Tensor, *, split: int = 0,
+                   tile: int = 0) -> torch.Tensor:
+    """int8 x [m, k] × packed uint8 [k//4, n] → int32 [m, n]. ``split``
+    (CTAs a tile's k is split over, 1–8) and ``tile`` (rows a tile, 16 or
+    128) are the tile sweep's knobs, 0 the planner's choice: the same bits
+    at every setting."""
     lib = _build.load("ternary_matmul")
     require(x, "x", torch.int8)
     if x.dim() != 2:
@@ -36,7 +40,8 @@ def ternary_matmul(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m and n:
         rc = lib.repro_ternary_matmul(x.data_ptr(), packed.data_ptr(),
-                                      out.data_ptr(), m, k, n, _stream(x))
+                                      out.data_ptr(), m, k, n, split, tile,
+                                      _stream(x))
         _build.check(rc, "repro_ternary_matmul")
         ternary_matmul.launches += 1
     return out
@@ -46,11 +51,15 @@ ternary_matmul.launches = 0
 ternary_matmul.modes = {}
 
 
-def launch_shape(m: int, k: int, n: int) -> dict:
-    """CTAs, warps per CTA, dynamic shared-memory bytes, output tiles and
-    the CTAs each tile's k is split over (``split``) of one
-    :func:`ternary_matmul` launch on the current card."""
-    info = (ctypes.c_int * 5)()
+def launch_shape(m: int, k: int, n: int, *, split: int = 0,
+                 tile: int = 0) -> dict:
+    """CTAs, warps per CTA, dynamic shared-memory bytes, output tiles, the
+    CTAs each tile's k is split over (``split``) and the rows a tile
+    (``tile``) of one :func:`ternary_matmul` launch on the current card, at
+    the knobs ``split`` and ``tile`` (0: the planner's choice)."""
+    info = (ctypes.c_int * 6)()
     _build.check(_build.load("ternary_matmul").repro_ternary_matmul_shape(
-        m, k, n, ctypes.addressof(info)), "repro_ternary_matmul_shape")
-    return dict(zip(("ctas", "warps", "smem", "tiles", "split"), info))
+        m, k, n, split, tile, ctypes.addressof(info)),
+        "repro_ternary_matmul_shape")
+    return dict(zip(("ctas", "warps", "smem", "tiles", "split", "tile"),
+                    info))

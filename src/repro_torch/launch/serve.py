@@ -6,7 +6,7 @@
                 jamba-1.5-large-398b,llava-next-34b} \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
-        [--chunk-tokens C] [--arrival-period SECONDS] \\
+        [--no-chunked] [--chunk-tokens C] [--arrival-period SECONDS] \\
         [--shared-prefix-tokens N --prefix-reuse-frac F] [--no-prefix-cache] \\
         [--spec-decode --gamma G --draft-layers L --draft-k K] \\
         [--max-queue N] [--deadline-ms MS] [--stream] [--verify]
@@ -39,6 +39,9 @@ computed against served, and TTFT of hits against misses.
 ``--draft-layers`` layers and ``--draft-k`` LOP blocks, and verifies the
 γ+1 positions in one chunk; the run prints rounds, acceptance and
 full-model launches per token.
+``--no-chunked`` prefills every prompt whole at its exact length, run to
+completion before the next decode step (the reference's run-to-completion
+regime; the prefix store and speculation need chunks and are then off).
 ``--chunk-tokens`` sets the prefill chunk width (default the arch's
 ``lop_block``); ``--arrival-period`` spaces the arrivals: request ``rid``
 arrives ``rid × period`` seconds after the start, so lanes drain and
@@ -119,8 +122,9 @@ def _sync(device: torch.device) -> None:
 
 def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
                max_queue: int | None = None, verify: bool = False,
-               prefix_cache: bool = True, spec_decode: bool = False,
-               gamma: int = 4, arrival_period: float = 0.0) -> dict:
+               chunked: bool = True, prefix_cache: bool = True,
+               spec_decode: bool = False, gamma: int = 4,
+               arrival_period: float = 0.0) -> dict:
     """Serve ``reqs`` → stats dict, its counters read back off the run's
     own registry (``"metrics"``). Request ``rid`` arrives ``rid ×
     arrival_period`` seconds after the start (all at once for 0); one not
@@ -128,8 +132,8 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
     arrival when no lane has work."""
     registry = MetricsRegistry()
     sched = Scheduler(engine, n_slots=n_slots, max_queue=max_queue,
-                      prefix_cache=prefix_cache, spec_decode=spec_decode,
-                      gamma=gamma, metrics=registry)
+                      chunked=chunked, prefix_cache=prefix_cache,
+                      spec_decode=spec_decode, gamma=gamma, metrics=registry)
     _sync(engine.device)
     t0 = time.monotonic()
     pending = list(reqs)
@@ -252,6 +256,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="base PRNG seed; request rid samples under "
                          "seed+rid")
+    ap.add_argument("--no-chunked", action="store_true",
+                    help="run-to-completion prefill (disable chunked "
+                         "prefill/decode interleaving)")
     ap.add_argument("--chunk-tokens", type=int, default=None,
                     help="prefill chunk size (default: the arch's lop_block)")
     ap.add_argument("--arrival-period", type=float, default=0.0,
@@ -316,17 +323,19 @@ def main(argv=None) -> int:
                          shared_prefix_tokens=args.shared_prefix_tokens,
                          prefix_reuse_frac=args.prefix_reuse_frac,
                          deadline_ms=args.deadline_ms, on_token=on_token)
+    regime = ("run-to-completion prefill" if args.no_chunked
+              else f"chunk {engine.chunk_tokens} tokens")
     mode = "greedy" if sampling.greedy else (
         f"T={sampling.temperature} top_k={sampling.top_k} "
         f"top_p={sampling.top_p}")
     print(f"serving {cfg.name} on {engine.device}: {args.slots} slots, "
           f"{args.requests} requests (prompts {args.min_prompt}-"
           f"{args.max_prompt}, gen {args.gen}), lop="
-          f"{'off' if args.no_lop else 'on'}, sampling {mode}, chunk "
-          f"{engine.chunk_tokens} tokens, arrivals every "
-          f"{args.arrival_period} s")
+          f"{'off' if args.no_lop else 'on'}, sampling {mode}, {regime}, "
+          f"arrivals every {args.arrival_period} s")
     out = serve_loop(engine, reqs, n_slots=args.slots,
                      max_queue=args.max_queue, verify=args.verify,
+                     chunked=not args.no_chunked,
                      prefix_cache=not args.no_prefix_cache,
                      spec_decode=args.spec_decode, gamma=args.gamma,
                      arrival_period=args.arrival_period)

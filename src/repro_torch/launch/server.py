@@ -14,7 +14,10 @@ tokenizer):
 ``GET /metrics`` serves the Prometheus-text registry the scheduler writes
 into: the series ``repro_torch.launch.serve`` reports, under the names
 ``repro.launch.server`` exports, so a serve-loop run, a live server and the
-JAX reference's server are diffable dashboards.
+JAX reference's server are diffable dashboards. ``--shape-log PATH`` arms
+the tile autotuner's shape log: every distinct kernel dispatch shape the
+engine runs lands in that JSON file, which ``python -m
+repro_torch.kernels.autotune --from-log PATH`` later sweeps on the card.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ def build_scheduler(args) -> Scheduler:
                                     use_lop=not args.no_lop,
                                     chunk_tokens=args.chunk_tokens,
                                     draft_layers=args.draft_layers,
-                                    draft_k=args.draft_k)
+                                    draft_k=args.draft_k,
+                                    shape_log=args.shape_log)
     return Scheduler(engine, n_slots=args.slots, max_queue=args.max_queue,
                      chunked=not args.no_chunked,
                      prefix_cache=not args.no_prefix_cache,
@@ -85,6 +89,10 @@ def parse_args(argv=None):
     ap.add_argument("--gamma", type=int, default=4)
     ap.add_argument("--draft-layers", type=int, default=None)
     ap.add_argument("--draft-k", type=int, default=None)
+    ap.add_argument("--shape-log", default=None,
+                    help="JSON sidecar recording kernel dispatch shapes "
+                         "(swept later by python -m "
+                         "repro_torch.kernels.autotune --from-log)")
     return ap.parse_args(argv)
 
 

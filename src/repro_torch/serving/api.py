@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune
 from repro_torch.serving import cache as _cache
 from repro_torch.serving import faults as _faults
 from repro_torch.serving.engine import (chunks_prefill, guard_logits,
@@ -239,15 +240,21 @@ class PooledEngine:
     prefill chunk width; prefix pages stay ``lop_block``-aligned, so a
     prefix hit resumes at a block multiple and chunks from there.
     ``draft_layers`` (default ``n_layers // 2``) and ``draft_k`` (default
-    1) shape the speculative draft.
+    1) shape the speculative draft. ``shape_log`` (a path) arms the tile
+    autotuner's shape log: every distinct kernel dispatch shape the engine
+    runs lands in that JSON file, which ``python -m
+    repro_torch.kernels.autotune --from-log PATH`` sweeps on the card.
     """
 
     def __init__(self, cfg, qp, *, max_len: int, use_lop: bool = True,
                  device=None, graphs: bool = True,
                  chunk_tokens: int | None = None,
                  draft_layers: int | None = None,
-                 draft_k: int | None = None):
+                 draft_k: int | None = None,
+                 shape_log: str | None = None):
         self.device = resolve_device(device)
+        if shape_log is not None:
+            autotune.start_shape_log(shape_log)
         if self.device.type == "cuda":
             # the f32 head matmul (outside any kernel) runs in full f32
             torch.backends.cuda.matmul.allow_tf32 = False

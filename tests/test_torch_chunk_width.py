@@ -176,3 +176,25 @@ def test_serve_cli_chunk_width_and_arrivals(capsys):
     out = capsys.readouterr().out
     assert "chunk 8 tokens, arrivals every 0.01 s" in out
     assert "token equivalence: OK" in out
+
+
+def test_serve_cli_no_chunked(capsys, monkeypatch):
+    """``--no-chunked``: every prompt prefilled whole at its exact length,
+    run to completion (the reference CLI's flag); ``chunked`` false in the
+    stats, scheduler == lockstep."""
+    stats = {}
+    serve_loop = tserve.serve_loop
+
+    def keep(*args, **kw):
+        stats.update(serve_loop(*args, **kw))
+        return stats
+    monkeypatch.setattr(tserve, "serve_loop", keep)
+    assert tserve.main(["--reduced", "--device", "cpu", "--requests", "3",
+                        "--min-prompt", "9", "--max-prompt", "40",
+                        "--gen", "3", "--no-chunked", "--verify"]) == 0
+    out = capsys.readouterr().out
+    assert stats["chunked"] is False and stats["full_prefills"] == 3
+    assert stats["prefix_cache"] is False
+    assert "run-to-completion prefill, arrivals" in out
+    assert "full-prompt prefills (exact length, run to completion): 3" in out
+    assert "token equivalence: OK" in out

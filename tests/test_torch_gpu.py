@@ -2384,3 +2384,196 @@ def test_train_compressed_mean_over_gloo_on_card(cuda):
         for r in range(2):
             assert torch.equal(ranks[r][i][0], total.cpu())
             assert torch.equal(ranks[r][i][1], err[r:r + 1].cpu())
+
+
+
+# ---- the tile autotuner's knobs (kernels/autotune.py) ----
+
+def _tune_cases():
+    """Each swept kernel at the main path's full-width shapes
+    (``autotune.DEFAULT_SHAPES``: bitnet-3b's) and at a dh-32 reduced
+    shape (bitnet-3b-reduced's widths)."""
+    from repro_torch.kernels import autotune
+    reduced = {
+        "ternary_matmul": {"m": 8, "k": 128, "n": 384},
+        "qlinear": {"e": 1, "m": 2, "k": 128, "n": 384},
+        "ffn": {"e": 1, "m": 32, "k": 128, "f": 256, "n": 128},
+        "decode": {"bhg": 8, "g": 1, "d": 32, "m": 64, "block": 32,
+                   "k_keep": 1}}
+    return [(k, d) for k in reduced
+            for d in (*autotune.DEFAULT_SHAPES[k], reduced[k])]
+
+
+@pytest.mark.parametrize("kernel,dims", _tune_cases(),
+                         ids=lambda v: v if isinstance(v, str) else
+                         ",".join(f"{a}={b}" for a, b in v.items()))
+def test_every_tune_candidate_bitwise_default(cuda, kernel, dims):
+    """Every legal candidate of the sweep (not only the first few), on the
+    sweep's own operands, is bitwise the default launch (every knob 0);
+    the default is the plain version's result where the output is exact
+    (the integer GEMM), within the serving tolerance elsewhere."""
+    from repro_torch.kernels import autotune
+    args, runner = autotune._make_runner(kernel, dims)
+    cands = autotune.candidates(kernel, dims, max_candidates=10_000)
+    assert len(cands) > 1 and cands[0] == dict.fromkeys(cands[0], 0)
+
+    def outputs(p):
+        got = runner(p)(*args)
+        torch.cuda.synchronize()
+        return got if isinstance(got, tuple) else (got,)
+
+    want = outputs(cands[0])
+    for p in cands[1:]:
+        for a, b in zip(outputs(p), want):
+            assert torch.equal(a, b), p
+    if kernel == "ternary_matmul":
+        x, w = args
+        assert torch.equal(want[0], plain.ternary_matmul_ref(x, w, x.shape[1]))
+
+
+@pytest.mark.parametrize("kernel,knobs", [
+    ("qlinear", {"split": 2, "tile": 128}),
+    ("qlinear", {"split": 1, "tile": 16}),
+    ("ffn", {"split_gu": 3, "split_down": 5, "tile": 128}),
+    ("ternary_matmul", {"split": 4, "tile": 128}),
+    ("decode", {"stages": 4}),
+    ("decode", {"stages": 3})])
+def test_override_reaches_the_launch(cuda, kernel, knobs, monkeypatch):
+    """An ``override`` reaches the C entry through ``ops``: the knobs the
+    wrapper receives are the override's, the launch plan at those knobs
+    (``launch_shape``, the plan the entry launches) is what they ask for
+    and differs from the default plan, and the result is bitwise the
+    default's."""
+    import importlib
+
+    from repro_torch.kernels import autotune
+    # the package re-exports ops' entries under these modules' names
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    ql = importlib.import_module("repro_torch.kernels.qlinear")
+    tmm = importlib.import_module("repro_torch.kernels.ternary_matmul")
+
+    rng = np.random.default_rng(11)
+    seen = {}
+
+    def spy(name):
+        real = getattr(ops, name)
+
+        def call(*a, **kw):
+            seen.update({k: kw[k] for k in knobs if k in kw})
+            return real(*a, **kw)
+        call.launches, call.modes = real.launches, real.modes
+        monkeypatch.setattr(ops, name, call)
+
+    if kernel in ("qlinear", "ffn", "ternary_matmul"):
+        m, k, n, f = 4, 3200, 3200, 8640
+        if kernel == "qlinear":
+            spy("fused_qlinear")
+            x, w, g = _dev((rng.standard_normal((m, k)).astype(np.float32),
+                            rng.integers(0, 256, (k // 4, n), np.uint8),
+                            rng.uniform(0.01, 0.05, (1, n)).astype(
+                                np.float32)), cuda)
+            call = lambda: ops.qlinear_fused(x, w, g)  # noqa: E731
+            plan = lambda **kn: ql.launch_shape(m, k, n, **kn)  # noqa: E731
+        elif kernel == "ffn":
+            spy("fused_ffn")
+            x, gu, gs, dn, ds = _dev((
+                rng.standard_normal((m, k)).astype(np.float32),
+                rng.integers(0, 256, (k // 4, 2 * f), np.uint8),
+                rng.uniform(0.01, 0.05, (1, 2 * f)).astype(np.float32),
+                rng.integers(0, 256, (f // 4, n), np.uint8),
+                rng.uniform(0.01, 0.05, (1, 1)).astype(np.float32)), cuda)
+            call = lambda: ops.ffn_fused(  # noqa: E731
+                x, gu, gs, dn, ds, gated=True, act="silu")
+
+            def plan(split_gu=0, split_down=0, tile=0):
+                return ql.launch_shape(m, k, f, gated=True, split=split_gu,
+                                       tile=tile)
+        else:
+            from repro_torch.core.ternary import TernaryWeight
+            spy("ternary_matmul_kernel")
+            m = 128
+            x, w = _dev((rng.integers(-127, 128, (m, k), np.int8),
+                         rng.integers(0, 256, (k // 4, n), np.uint8)), cuda)
+            tw = TernaryWeight(packed=w, scale=None, shape=(k, n))
+            call = lambda: ops.ternary_matmul(x, tw)  # noqa: E731
+            plan = lambda **kn: tmm.launch_shape(m, k, n, **kn)  # noqa: E731
+    else:
+        spy("fused_decode_attention")
+        b, h, m, dh, blk = 4, 32, 1664, 100, 128
+        qi, qsc, kc, vc, ks, vs, feat = _dev((
+            rng.integers(-127, 128, (b, h, dh), np.int8),
+            rng.uniform(0.01, 0.02, (b, h, 1)).astype(np.float32),
+            rng.integers(-127, 128, (b, h, m, dh), np.int8),
+            rng.integers(-127, 128, (b, h, m, dh), np.int8),
+            rng.uniform(0.01, 0.02, (b, h, m)).astype(np.float32),
+            rng.uniform(0.01, 0.02, (b, h, m)).astype(np.float32),
+            rng.integers(0, 256, (b, h, m, dh // 2), np.uint8)), cuda)
+        nl = torch.tensor([1600, 0, 700, 1200], dtype=torch.int32,
+                          device=cuda)
+        call = lambda: ops.decode_attention(  # noqa: E731
+            qi, qsc, kc, vc, ks, vs, feat, nl, block=blk, k_keep=2)
+        plan = lambda **kn: dec.launch_shape(  # noqa: E731
+            b * h, 1, m, dh, blk, k_keep=2, **kn)
+    want = call()
+    default = plan()
+    with autotune.override(kernel, **knobs):
+        got = call()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert seen == knobs
+    shape = plan(**knobs)
+    for name, value in knobs.items():
+        key = {"split_gu": "split", "split_down": None}.get(name, name)
+        if key is not None:
+            assert shape[key] == value, (name, shape)
+    assert shape != default
+    print(f"{kernel} {knobs}: default {default}, tuned {shape}")
+
+
+def test_no_table_launch_shape_is_the_plan(cuda, monkeypatch, tmp_path):
+    """With no table and no override, ``lookup`` names no knob at every
+    main-path shape, so every launch is the kernels' own plan: the tile
+    by m (16 rows to m 16, 128 above) and the decode kernels' two-stage
+    ring, and the launch at knobs 0 is the launch at the plan's own split
+    and tile, named explicitly."""
+    import importlib
+
+    from repro_torch.kernels import autotune
+    # the package re-exports ops' entries under these modules' names
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    ql = importlib.import_module("repro_torch.kernels.qlinear")
+    tmm = importlib.import_module("repro_torch.kernels.ternary_matmul")
+    monkeypatch.setenv(autotune.TABLE_ENV, str(tmp_path / "absent.json"))
+    monkeypatch.delenv(autotune.TUNE_ENV, raising=False)
+    for kernel, shapes in autotune.DEFAULT_SHAPES.items():
+        for d in shapes:
+            assert autotune.lookup(kernel, d) == {}, (kernel, d)
+            if kernel == "decode":
+                for lop in (True, False):
+                    s = dec.launch_shape(d["bhg"], d["g"], d["m"], d["d"],
+                                         d["block"], k_keep=d["k_keep"],
+                                         lop=lop)
+                    assert s["stages"] == 2
+                    assert s == dec.launch_shape(
+                        d["bhg"], d["g"], d["m"], d["d"], d["block"],
+                        k_keep=d["k_keep"], lop=lop, stages=2)
+                    assert s["smem"] == autotune.decode_smem(d, 2, lop=lop)
+                    print(f"decode {d} lop={lop}: {s}")
+                continue
+            tile = 16 if d["m"] <= 16 else 128
+            if kernel == "ffn":
+                plans = [(lambda **kn: ql.launch_shape(
+                    d["m"], d["k"], d["f"], gated=True, **kn)),
+                    (lambda **kn: ql.launch_shape(d["m"], d["f"], d["n"],
+                                                  **kn))]
+            elif kernel == "qlinear":
+                plans = [lambda **kn: ql.launch_shape(d["m"], d["k"], d["n"],
+                                                      **kn)]
+            else:
+                plans = [lambda **kn: tmm.launch_shape(d["m"], d["k"],
+                                                       d["n"], **kn)]
+            for plan in plans:
+                s = plan()
+                assert s["tile"] == tile
+                assert s == plan(split=s["split"], tile=tile)
+                print(f"{kernel} {d}: {s}")

@@ -458,7 +458,8 @@ def test_reference_and_port_servers_send_the_same_payloads(stack):
 # the launcher
 # ---------------------------------------------------------------------------
 
-def test_launcher_builds_on_cpu_and_raises_without_a_card(monkeypatch):
+def test_launcher_builds_on_cpu_and_raises_without_a_card(monkeypatch,
+                                                          tmp_path):
     args = launch_server.parse_args(["--reduced", "--device", "cpu",
                                      "--max-len", "63", "--slots", "2",
                                      "--no-lop", "--max-queue", "5"])
@@ -471,8 +472,18 @@ def test_launcher_builds_on_cpu_and_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_server.build_scheduler(launch_server.parse_args(
             ["--reduced"]))
-    with pytest.raises(SystemExit):
-        launch_server.parse_args(["--reduced", "--shape-log", "x.json"])
+    # --shape-log arms the tile autotuner's shape log, as the reference's
+    from repro_torch.kernels import autotune
+    log = tmp_path / "shapes.json"
+    args = launch_server.parse_args(["--reduced", "--device", "cpu",
+                                     "--max-len", "63", "--shape-log",
+                                     str(log)])
+    monkeypatch.undo()
+    try:
+        launch_server.build_scheduler(args)
+        assert autotune.shape_log_path() == log
+    finally:
+        autotune.stop_shape_log()
 
 
 def test_launcher_no_chunked_prefills_whole(stack):
