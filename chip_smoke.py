@@ -72,7 +72,7 @@ printed:
               decode step (graph and eager) beside the LOP engine's, and a
               torch.profiler breakdown of its decode steps;
   4c. sampled (4c, 4d and 4g's chaos trace on phase 4's weights cut to
-      + faults their first 13 of 26 layers, for the run's time) the 8
+      + faults their first 8 of 26 layers, for the run's time) the 8
               requests sampled (T 0.8, top-k 50, top-p 0.95, seed =
               rid) on the LOP engine, scheduler == sampled lockstep for 2
               requests and the steady sampled decode step (graph and
@@ -233,13 +233,13 @@ printed:
               bitwise, both peaks printed; llava-next-34b (vlm) at full
               width (d 7168, 56 heads of 128 over 8, f 20,480, vocab
               64,000, 2,880 image rows), drawn at full depth (60 layers,
-              the draw's peak under 30 GiB) and served at its first 16
+              the draw's peak under 30 GiB) and served at its first 12
               (a cut for the run's time): 8 requests (default_rng(4)) of 2,880
               patch rows of 0.02·N(0, 1) and 64–512 text tokens, 32 new,
               4 slots, chunked (the image rides the first chunk:
               2,880 + 128 rows at start 0), greedy LOP and no-LOP, each
               scheduler == lockstep for 2 requests and its decode step
-              on CUDA graphs and eager (32 / 16 / 16 launches of #1 /
+              on CUDA graphs and eager (24 / 12 / 12 launches of #1 /
               #2 / the decode kernel a step); one request's chunks
               timed and bitwise its whole-prompt prefill; #3 causal at
               the first chunk's shape (R = 7 x 3,008 rows a kv lane)
@@ -249,10 +249,10 @@ printed:
               recovered through the retry (a clean lane == its
               lockstep); the prefix store (image requests never match
               or intern; text-only requests sharing 1,024 tokens hit);
-              2 requests speculatively (γ 4, the draft 8 of 16 layers)
+              2 requests speculatively (γ 4, the draft 6 of 12 layers)
               against plain no-LOP decode, equal or a near-tie of
               rounding; then mistral-nemo-12b (d 5120, q_dim 4096) at
-              full width and 20 of its 40 layers: phase 4's 8 requests
+              full width and 12 of its 40 layers: phase 4's 8 requests
               greedy LOP, scheduler == lockstep, the decode step graph
               and eager, #1 at its O projection (k 4096 → n 5120)
               bitwise its plain version; each arm freed before the
@@ -380,6 +380,25 @@ printed:
               schedule at groups 1, 4, 8 and 32 within rtol = atol = 1e-4
               of the materialized one, each with its ms and the peak
               memory it allocated above its inputs;
+  8. dryrun  (after 7, on phase 4's engine) the meta-device dry-run
+              (``launch/dryrun.py``): kernel_cost at each phase-3 shape
+              of #1–#5 exactly the bytes and operations phase 3's bound
+              used; (a) ``run_cell`` at full width on pod16x16 (in a
+              process of its own, started after the build, tracing
+              beside phases 3–7) for
+              bitnet-3b train_4k / prefill_32k / decode_32k,
+              mixtral-8x22b decode_32k and rwkv6-1.6b long_500k (each
+              must end ``ok``; status, fits, peak, dominant term, trace
+              seconds); (b) one decode step of phase 4's weights (4
+              slots, capacity 1664, LOP and no-LOP) traced on meta and
+              run eagerly on a fresh pool: the predicted launches by
+              kernel equal the counted ones (52 #1, 26 #2, 26 #4 or #5),
+              the predicted argument bytes equal the served tree's, the
+              pool's and the tokens' nbytes, the predicted peak within
+              10 % of ``max_memory_allocated`` from a reset (less what
+              was allocated besides the arguments); (c), inside 4k,
+              4k (a)'s training step traced on meta: no kernel record,
+              the predicted peak within 10 % of 4k (a)'s;
   4m. dist   (last) the distributed modules over gloo ranks on cuda:0,
               each sub-arm spawned once and gone before the next: (a)
               ``ep_moe_apply`` on granite-moe-1b-a400m's layer at full
@@ -647,8 +666,9 @@ def kernel_phase(torch, np) -> dict:
         g_ms = graph_ms(torch, fused_qlinear, arg_sets)
         p_ms = cuda_ms(torch, lambda a, b, c: plain.qlinear_ref(a, b, c[None]),
                        [args], 3)
-        b_ms, b_by = bound_ms(nbytes(x, packed, gamma) + m * n * 4,
-                              int8_ops=2.0 * m * k * n)
+        b_ms, b_by = bounded("fused_qlinear", dict(m=m, k=k, n=n),
+                             nbytes(x, packed, gamma) + m * n * 4,
+                             int8_ops=2.0 * m * k * n)
         log(f"  fused_qlinear {label} m={m} k={k} n={n}: {ms:.4f} ms, in a "
             f"CUDA graph {g_ms:.4f} ms (plain {p_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms by {b_by}; {b_ms / ms:.1%} of bound, "
@@ -689,8 +709,9 @@ def kernel_phase(torch, np) -> dict:
         ms = cuda_ms(torch, kern, arg_sets, 30)
         g_ms = graph_ms(torch, kern, arg_sets)
         p_ms = cuda_ms(torch, ref, [args], 3)
-        b_ms, b_by = bound_ms(nbytes(*args) + m * d * 4,
-                              int8_ops=2.0 * m * d * 2 * f + 2.0 * m * f * d)
+        b_ms, b_by = bounded("fused_ffn", dict(m=m, k=d, f=f, n=d),
+                             nbytes(*args) + m * d * 4,
+                             int8_ops=2.0 * m * d * 2 * f + 2.0 * m * f * d)
         log(f"  fused_ffn m={m} d={d} f={f}: {ms:.4f} ms, in a CUDA graph "
             f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
             f"{b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
@@ -754,7 +775,9 @@ def kernel_phase(torch, np) -> dict:
         p_ms = cuda_ms(torch, ref, [args], 2)
         kvl = q_off + r
         visible = sum(q_off + i + 1 for i in range(r))      # causal pairs
-        b_ms, b_by = bound_ms(
+        b_ms, b_by = bounded(
+            "fused_prefill_attention", dict(b=1, h=h, hkv=h, c=r, dh=dh,
+                                            kvl=kvl, q_off=q_off),
             nbytes(qi, qsc) + h * kvl * (2 * dh + 8) + h * r * dh * 4,
             int8_ops=2.0 * h * visible * dh, f32_ops=2.0 * h * visible * dh)
         # library yardstick: SDPA on the dequantized tensors, causal at the
@@ -820,7 +843,9 @@ def kernel_phase(torch, np) -> dict:
     nl = new_len.tolist()
     live_tok = sum(min(n_, k_keep * blk) for n_ in nl if n_)  # ≤ K blocks
     sel_blocks = sum(min(k_keep, -(-n_ // blk)) for n_ in nl if n_)
-    b_ms, b_by = bound_ms(
+    b_ms, b_by = bounded(
+        "fused_decode_attention", dict(b=b, h=h, hkv=h, dh=dh, block=blk,
+                                       k_keep=k_keep, new_len=nl),
         nbytes(qi, qsc, new_len) + h * sum(nl) * (dh // 2)
         + h * sel_blocks * blk * (2 * dh + 8) + bh * dh * 4,
         int8_ops=2.0 * h * (sum(nl) + live_tok) * dh,
@@ -861,7 +886,9 @@ def kernel_phase(torch, np) -> dict:
     d_ms = cuda_ms(torch, dkern, arg_sets, 50)
     dg_ms = graph_ms(torch, dkern, arg_sets)
     dp_ms = cuda_ms(torch, dref, [dargs], 3)
-    db_ms, db_by = bound_ms(
+    db_ms, db_by = bounded(
+        "fused_dense_decode_attention", dict(b=b, h=h, hkv=h, dh=dh,
+                                             block=blk, new_len=nl),
         nbytes(qi, qsc, new_len) + h * sum(nl) * (2 * dh + 8) + bh * dh * 4,
         int8_ops=2.0 * h * sum(nl) * dh, f32_ops=2.0 * h * sum(nl) * dh)
     # library yardstick: SDPA over the dequantized f32 K/V with the
@@ -1400,7 +1427,7 @@ def check_lockstep(engine, reqs, results, rids, label: str) -> None:
         f"{graph_memory(engine)}, bound {GRAPH_BOUND})")
 
 
-HALF_LAYERS = 13    # of 26: 4c, 4d and 4g's chaos trace (the run's time)
+HALF_LAYERS = 8     # of 26: 4c, 4d and 4g's chaos trace (the run's time)
 
 
 def half_engines(engine):
@@ -4153,8 +4180,8 @@ def recurrent_phase(torch, np, card: str) -> dict:
 VLM_SEED = 4                       # the vlm traffic's request rng
 VLM_MIN_TEXT, VLM_MAX_TEXT = 64, 512
 VLM_SPEC_REQUESTS = 2
-VLM_SERVE_LAYERS = 16              # of 60: drawn whole, served cut (time)
-MISTRAL_LAYERS = 20                # of 40: drawn and served cut (time)
+VLM_SERVE_LAYERS = 12              # of 60: drawn whole, served cut (time)
+MISTRAL_LAYERS = 12                # of 40: drawn and served cut (time)
 VLM_SHARED_TEXT = 1024             # the text-only prefix-store arm
 DRAW_PEAK_LIMIT = 30 * 2 ** 30     # llava's streamed draw (its whole f32
 #                                    master tree would not fit the card)
@@ -4714,6 +4741,8 @@ def train_full_arm(torch, np, card: str, lr: float = TRAIN_LR,
     data = SyntheticDataset(cfg, seq_len=seq, global_batch=TRAIN_BATCH,
                             seed=SEED)
     held = torch.cuda.memory_allocated()
+    state = (tree_bytes(params) + tree_bytes(opt.m) + tree_bytes(opt.v)
+             + nbytes(opt.step))
     log(f"  {tag} {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.hd}, ffn {cfg.d_ff}, vocab "
         f"{cfg.vocab}: {n_params:,} f32 masters drawn on the card in "
@@ -4757,8 +4786,8 @@ def train_full_arm(torch, np, card: str, lr: float = TRAIN_LR,
     del opt, batch, m
     free_cuda(torch)
     return params, dict(losses=losses, grad_norms=norms, step_ms=step_ms,
-                        peak_bytes=peak, draw_s=draw_s,
-                        draw_peak_bytes=draw_peak)
+                        peak_bytes=peak, other_bytes=held - state,
+                        draw_s=draw_s, draw_peak_bytes=draw_peak)
 
 
 def step_parting(torch, cfg, masters, batch) -> dict:
@@ -5009,6 +5038,8 @@ def train_phase(torch, np, card: str) -> dict:
     matmul.allow_bf16_reduced_precision_reduction = False
     try:
         params, full = train_full_arm(torch, np, card)
+        # phase 8 (c): the dry-run's prediction of (a)'s step
+        dry = dryrun_train_arm(torch, full, card)
         red = train_reduced_arm(torch, np, card)
     finally:
         matmul.allow_bf16_reduced_precision_reduction = reduced_bf16
@@ -5016,7 +5047,8 @@ def train_phase(torch, np, card: str) -> dict:
     launches = {k: serve["counts"][k] for k in KERNEL_NAMES}
     log(f"  phase 4k's serve run launched {json.dumps(launches)}; phase 4k "
         f"took {time.monotonic() - t0:.1f} s")
-    return dict(full=full, reduced=red, serve=serve, launches=launches)
+    return dict(full=full, reduced=red, serve=serve, launches=launches,
+                dryrun=dry)
 
 
 # ---------------------------------------------------------------------------
@@ -6524,6 +6556,274 @@ def schedule_phase(torch, np, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the dry-run on the card's terms
+# ---------------------------------------------------------------------------
+
+# (a) cells traced on the host at full width on pod16x16 (the depth
+# probes off: the full-depth trace alone)
+DRYRUN_CELLS = (("bitnet-3b", "train_4k"), ("bitnet-3b", "prefill_32k"),
+                ("bitnet-3b", "decode_32k"), ("mixtral-8x22b", "decode_32k"),
+                ("rwkv6-1.6b", "long_500k"))
+DRYRUN_PEAK_TOL = 0.10          # predicted peak against the card's
+DRYRUN_LENGTHS = (1500, 700, 1200, 100)   # (b)'s lanes: tokens cached
+# phase 3's bound inputs for #1–#5, by kernel: [(kernel_cost dims,
+# (bytes, int8 operations, f32 operations))], filled by kernel_phase
+BOUND_INPUTS: dict = {}
+
+
+def bounded(name: str, dims: dict, nbytes_: float, int8_ops: float = 0.0,
+            f32_ops: float = 0.0) -> tuple[float, str]:
+    """``bound_ms`` of one phase-3 shape, its inputs kept for phase 8's
+    check of ``roofline.kernel_cost``."""
+    BOUND_INPUTS.setdefault(name, []).append(
+        (dims, (nbytes_, int8_ops, f32_ops)))
+    return bound_ms(nbytes_, int8_ops, f32_ops)
+
+
+def dryrun_host_child(out_path: str) -> int:
+    """(a)'s traces in a process of their own (``python3 chip_smoke.py
+    --dryrun-host PATH``, started after the build, so the host traces
+    while the card runs phases 3–7): ``run_cell`` at full width on
+    pod16x16 for DRYRUN_CELLS, the records written to ``PATH`` as JSON.
+    Needs no card."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.dryrun import run_cell
+
+    out = {f"{arch} {shape}": run_cell(arch, shape, differential=False,
+                                       verbose=False)
+           for arch, shape in DRYRUN_CELLS}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def start_dryrun_host():
+    """Start :func:`dryrun_host_child` in a temporary directory; an atexit
+    hook stops it if the run ends first. → (the process, its JSON path)."""
+    import atexit
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_host_"))
+    path = tmp / "cells.json"
+    log_file = open(tmp / "child.log", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-host", str(path)], stdout=log_file,
+                            stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+    atexit.register(stop)
+    return proc, path
+
+
+def dryrun_host_arm(card: str, host) -> dict:
+    """(a) the cells :func:`start_dryrun_host` traced: each must end
+    ``ok``. → each cell's record."""
+    proc, path = host
+    t0 = time.monotonic()
+    rc = proc.wait(timeout=900)
+    if rc != 0:
+        raise AssertionError(f"dry-run (a): the host traces exited {rc}: "
+                             + path.with_name("child.log").read_text()[-3000:])
+    log(f"  (a) the host traces, run beside phases 3–7, waited for "
+        f"{time.monotonic() - t0:.1f} s more")
+    out = json.loads(path.read_text())
+    for (arch, shape), r in zip(DRYRUN_CELLS, out.values()):
+        if r["status"] != "ok":
+            raise AssertionError(f"dry-run (a) {arch} x {shape}: "
+                                 f"{r['status']} {r.get('reason', '')}")
+        peak = r["memory"]["peak_estimate_bytes"]
+        log(f"  (a) {arch} x {shape} x pod16x16: {r['status']}, fits "
+            f"{r['fits']}, peak_estimate {peak} B ({peak / 2**30:.2f} GiB "
+            f"a rank), dominant {r['roofline']['dominant']}, kernels "
+            f"{r['raw_scan_cost']['kernels']}, trace {r['trace_s']} s "
+            f"(host) [{card}]")
+    return out
+
+
+def traced_decode_step(torch, cfg, n_slots: int, max_len: int,
+                       use_lop: bool):
+    """One decode step of the served tree over an ``n_slots`` pool traced
+    on meta, no mesh. → (the trace, its memory record)."""
+    from repro_torch.analysis.op_trace import OpTrace
+    from repro_torch.serving.cache import init_cache_pool
+    from repro_torch.serving.engine import serve_step
+    from repro_torch.serving.quantize import init_serving_params
+
+    qp = init_serving_params(cfg, SEED, "meta")
+    pool = init_cache_pool(cfg, n_slots, max_len, "meta")
+    tokens = torch.empty((n_slots, 1), dtype=torch.int64, device="meta")
+    tr = OpTrace()
+    tr.arguments(qp, pool, tokens)
+    with tr:
+        out = serve_step(cfg, qp, pool, tokens, use_lop=use_lop)
+    return tr, tr.memory(out)
+
+
+def dryrun_decode_arm(torch, engine, card: str) -> dict:
+    """(b) one decode step of the main path (phase 4's bitnet-3b weights,
+    B 4, capacity 1664), LOP and no-LOP: traced on meta, then one eager
+    step on the card over a fresh pool (lanes at DRYRUN_LENGTHS, active).
+    Gates: the predicted launches by kernel (and mode) equal the counted
+    ones; the predicted argument bytes equal the nbytes of the served tree,
+    the pool and the tokens; the predicted peak within DRYRUN_PEAK_TOL of
+    the card's (``max_memory_allocated`` from a reset, less what was
+    allocated besides the step's arguments)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.cache import init_cache_pool
+    from repro_torch.serving.engine import serve_step
+
+    cfg = engine.cfg
+    out = {}
+    for use_lop in (True, False):
+        label = "LOP" if use_lop else "no-LOP"
+        tr, mem = traced_decode_step(torch, cfg, N_SLOTS, engine.max_len,
+                                     use_lop)
+        pool = init_cache_pool(cfg, N_SLOTS, engine.max_len, "cuda")
+        pool["active"].fill_(True)
+        pool["lengths"].copy_(torch.tensor(DRYRUN_LENGTHS,
+                                           dtype=torch.int32))
+        tokens = torch.tensor([[17], [42], [99], [7]], dtype=torch.int64,
+                              device="cuda")
+        args = tree_bytes(engine.qp) + tree_bytes(pool) + nbytes(tokens)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        logits, _ = serve_step(cfg, engine.qp, pool, tokens, use_lop=use_lop)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counted = {k: v for k, v in ops.launch_counts(modes=True).items()
+                   if v}
+        if logits.shape != (N_SLOTS, cfg.vocab_padded) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"dry-run (b) {label}: the card's step gave "
+                                 f"{tuple(logits.shape)} or non-finite "
+                                 f"logits")
+        measured = peak - base + args
+        pred = mem["peak_estimate_bytes"]
+        rel = pred / measured - 1
+        log(f"  (b) {label} decode step, bitnet-3b B {N_SLOTS} capacity "
+            f"{pool['layers']['k'].shape[3]}: launches predicted "
+            f"{dict(sorted(tr.kernels.items()))}, counted "
+            f"{dict(sorted(counted.items()))}; argument bytes predicted "
+            f"{mem['argument_bytes']}, the card's tree + pool + tokens "
+            f"{args}; peak predicted {pred} B (temporaries "
+            f"{pred - mem['argument_bytes']} B), the card's {measured} B "
+            f"(max_memory_allocated {peak} − allocated before {base} + the "
+            f"arguments; temporaries {peak - base} B), {rel:+.2%} "
+            f"[{card}]")
+        if tr.kernels != counted:
+            raise AssertionError(f"dry-run (b) {label}: predicted launches "
+                                 f"{tr.kernels} != counted {counted}")
+        if mem["argument_bytes"] != args:
+            raise AssertionError(f"dry-run (b) {label}: predicted argument "
+                                 f"bytes {mem['argument_bytes']} != the "
+                                 f"card's {args}")
+        if abs(rel) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dry-run (b) {label}: predicted peak {pred}"
+                                 f" B is {rel:+.2%} off the card's "
+                                 f"{measured} B (limit "
+                                 f"{DRYRUN_PEAK_TOL:.0%})")
+        out[label] = dict(launches=counted, argument_bytes=args,
+                          peak_pred=pred, peak_card=measured, rel=rel,
+                          temp_pred=pred - mem["argument_bytes"],
+                          temp_card=peak - base)
+        del pool, tokens, logits
+    want = {"LOP": {"fused_qlinear": 52, "fused_ffn": 26,
+                    "fused_decode_attention": 26},
+            "no-LOP": {"fused_qlinear": 52, "fused_ffn": 26,
+                       "fused_dense_decode_attention": 26}}
+    for label, counts in want.items():
+        if out[label]["launches"] != counts:
+            raise AssertionError(f"dry-run (b) {label}: launches "
+                                 f"{out[label]['launches']} != {counts}")
+    free_cuda(torch)
+    return out
+
+
+def dryrun_train_arm(torch, full: dict, card: str) -> dict:
+    """(c) phase 4k (a)'s training step (bitnet-3b, batch TRAIN_BATCH x
+    TRAIN_SEQ, full depth, n_micro 1) traced on meta, against the peak
+    4k (a) measured (less what was allocated besides the masters and
+    moments at its reset). Gates: no kernel record, the predicted peak
+    within DRYRUN_PEAK_TOL."""
+    from repro_torch.analysis.op_trace import OpTrace
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train import make_train_step
+
+    t0 = time.monotonic()
+    cfg = get_config("bitnet-3b")
+    params = init_params(cfg, SEED, "meta")
+    opt = adamw_init(params)
+    batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    tr = OpTrace()
+    tr.arguments(params, opt, batch)
+    with tr:
+        out = step(params, opt, batch)
+    mem = tr.memory(out)
+    pred = mem["peak_estimate_bytes"]
+    measured = full["peak_bytes"] - full["other_bytes"]
+    rel = pred / measured - 1
+    secs = time.monotonic() - t0
+    log(f"  (c) bitnet-3b training step {TRAIN_BATCH} x {TRAIN_SEQ}, 26 "
+        f"layers: predicted peak {pred} B ({pred / 2**30:.2f} GiB; "
+        f"arguments {mem['argument_bytes']} B, temporaries "
+        f"{mem['temp_bytes']} B), 4k (a)'s {measured} B "
+        f"({measured / 2**30:.2f} GiB: max_memory_allocated "
+        f"{full['peak_bytes']} less {full['other_bytes']} B besides the "
+        f"masters and moments), {rel:+.2%}; kernel records {tr.kernels}; "
+        f"traced in {secs:.1f} s (host) [{card}]")
+    if tr.kernels:
+        raise AssertionError(f"dry-run (c): a training step recorded kernel "
+                             f"launches {tr.kernels}")
+    if abs(rel) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dry-run (c): predicted peak {pred} B is "
+                             f"{rel:+.2%} off the card's {measured} B "
+                             f"(limit {DRYRUN_PEAK_TOL:.0%})")
+    return dict(peak_pred=pred, peak_card=measured, rel=rel, seconds=secs)
+
+
+def cost_consistency(card: str) -> None:
+    """``roofline.kernel_cost`` at each phase-3 shape of #1–#5 gives
+    exactly the bytes and operations phase 3's bound used."""
+    from repro_torch.analysis.roofline import kernel_cost
+
+    n = 0
+    for name, shapes in BOUND_INPUTS.items():
+        for dims, (nb, i8, f32) in shapes:
+            got = kernel_cost(name, **dims)
+            if (got["bytes"], got["int8_ops"], got["flops"]) != (nb, i8, f32):
+                raise AssertionError(f"kernel_cost({name}, {dims}) = {got}, "
+                                     f"phase 3's bound used bytes {nb}, "
+                                     f"int8 {i8}, f32 {f32}")
+            n += 1
+    want = {"fused_qlinear", "fused_ffn", "fused_prefill_attention",
+            "fused_decode_attention", "fused_dense_decode_attention"}
+    if set(BOUND_INPUTS) != want:
+        raise AssertionError(f"phase 3 kept bound inputs for "
+                             f"{sorted(BOUND_INPUTS)}, not {sorted(want)}")
+    log(f"  kernel_cost equals phase 3's bound inputs at all {n} shapes of "
+        f"#1–#5 [{card}]")
+
+
+def dryrun_phase(torch, engine, card: str, host) -> dict:
+    """Phase 8 (a) and (b), and the cost check; (c) runs in phase 4k.
+    ``host``: :func:`start_dryrun_host`'s."""
+    cost_consistency(card)
+    host = dryrun_host_arm(card, host)
+    decode = dryrun_decode_arm(torch, engine, card)
+    return dict(host=host, decode=decode)
+
+
+# ---------------------------------------------------------------------------
 # phase 4m: the distributed modules, gloo ranks on cuda:0
 # ---------------------------------------------------------------------------
 
@@ -7118,6 +7418,9 @@ def main() -> int:
         for line in _build.ptxas_report(src).splitlines():
             log(f"  {src}: {line.strip()}")
 
+    # phase 8 (a)'s host traces, beside the card's phases 3–7
+    dryrun_host = start_dryrun_host()
+
     phase_s["2"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
@@ -7165,6 +7468,19 @@ def main() -> int:
     schedule_phase(torch, np, smi)
 
     phase_s["7"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
+    # ---- 8. the dry-run on the card's terms: (a) cells traced on the
+    #      host, (b) one decode step of phase 4's engine predicted and run
+    #      ((c), the training step, runs in phase 4k) ----
+    log(f"[dryrun] the meta-device dry-run (launch/dryrun.py): (a) "
+        f"{len(DRYRUN_CELLS)} cells at full width on pod16x16; (b) one "
+        f"decode step of phase 4's bitnet-3b ({N_SLOTS} slots), LOP and "
+        f"no-LOP, predicted on meta and run eagerly: launches and argument "
+        f"bytes equal, peak within {DRYRUN_PEAK_TOL:.0%} [{smi}]")
+    dryrun = dryrun_phase(torch, engine, smi, dryrun_host)
+
+    phase_s["8"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
     # ---- 4b. no-LOP serve ----
@@ -7319,6 +7635,9 @@ def main() -> int:
         f"steps, card vs CPU, resume at step {RED_RESUME}; the trained "
         f"masters quantized and served ({TRAIN_REQUESTS} requests) [{smi}]")
     train = train_phase(torch, np, smi)
+    log(f"  phase 8 (c), the dry-run's training step inside 4k: predicted "
+        f"peak {train['dryrun']['rel']:+.2%} off the card's, traced in "
+        f"{train['dryrun']['seconds']:.1f} s [{smi}]")
     for kname, n in train["launches"].items():
         launches[kname] += n
     rows["fused_qlinear"].setdefault("shapes", {}).update(
@@ -7457,4 +7776,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-host"]:
+        sys.exit(dryrun_host_child(sys.argv[2]))
     sys.exit(main())

@@ -145,6 +145,48 @@ def text_len(cfg: ModelConfig, seq_len: int, kind: str) -> int:
     return seq_len
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped), the reference's rule: ``long_500k``
+    runs only for the sub-quadratic families (ssm, hybrid); the reason is
+    the reference's, word for word."""
+    if shape.name == "long_500k":
+        if cfg.family in ("ssm", "hybrid"):
+            return True, ""
+        return False, ("long_500k needs sub-quadratic attention; "
+                       f"{cfg.name} is full-attention — skipped per brief "
+                       "(noted in DESIGN.md §Arch-applicability)")
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="meta") -> dict:
+    """Stand-ins for every model input of a cell: the reference's
+    ``input_specs`` with tensors on ``device`` (``meta``: shapes and
+    dtypes, no storage) in place of its ``ShapeDtypeStruct``s. The dtypes
+    are the ones the port's entry points take: tokens and labels int32;
+    ``frames`` (encdec) and ``patches`` (vlm) f32, where the reference
+    gives bf16 (the port's trainer and engine take them as f32, as its
+    data pipeline makes them, and cast at use). Train: tokens, labels
+    (and frames or patches); prefill: tokens (and frames or patches);
+    decode: one new token a sequence (the cache is passed apart)."""
+    import torch
+    b, s = shape.global_batch, shape.seq_len
+
+    def make(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device=device)
+    if shape.kind == "decode":
+        return {"tokens": make((b, 1), torch.int32)}
+    t = text_len(cfg, s, shape.kind)
+    specs = {"tokens": make((b, t), torch.int32)}
+    if shape.kind == "train":
+        specs["labels"] = make((b, t), torch.int32)
+    if cfg.family == "encdec":
+        specs["frames"] = make((b, s, cfg.d_model), torch.float32)
+    if cfg.family == "vlm":
+        specs["patches"] = make((b, cfg.n_img_tokens, cfg.d_model),
+                                torch.float32)
+    return specs
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 

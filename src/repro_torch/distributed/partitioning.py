@@ -12,7 +12,7 @@ Model code names *logical* axes, resolved against the active mesh:
   ``sp``    sequence parallel, ``"model"``: the decode cache's token axis.
 
 A :class:`Mesh` names axes over ranks laid out row-major. It runs in one
-of two ways, chosen when it is built (:mod:`repro_torch.launch.mesh`):
+of three ways, chosen when it is built (:mod:`repro_torch.launch.mesh`):
 
 * over a ``torch.distributed`` process group, one rank a process: each
   process holds its own shard and :meth:`Mesh.rank` is its index along
@@ -22,7 +22,18 @@ of two ways, chosen when it is built (:mod:`repro_torch.launch.mesh`):
 * in one process (``group`` None), as a JAX host mesh runs every shard
   of a ``shard_map`` in one program: a value's leading dims are the
   mesh's axes, in order (size 1 along an axis where every rank holds the
-  same value), and a collective maps them as the ranks would.
+  same value), and a collective maps them as the ranks would;
+* abstract (``at`` the coordinates of one rank, all 0 by default): one
+  rank's view of a mesh of any size (the dry-run's 256 or 512 ranks),
+  with no process group and no other rank. It takes ``meta`` tensors
+  only — a real value would go through a collective that moves nothing —
+  and each collective returns a meta tensor of the shape and dtype the
+  rank would receive, recording ``(kind, result bytes)`` in the active
+  :class:`repro_torch.analysis.op_trace.OpTrace` under the reference's
+  kind names (``psum``/``pmax`` all-reduce, ``all_gather`` all-gather,
+  ``psum_scatter`` reduce-scatter, ``all_to_all`` all-to-all,
+  ``ppermute`` collective-permute). A collective over axes of size 1
+  moves nothing and records nothing.
 
 On a process group the reductions are ``all_reduce``s (or
 ``reduce_scatter_tensor``s), the gathers ``all_gather``s and the
@@ -63,16 +74,23 @@ class Mesh:
     """Axes ``axis_names`` of sizes ``shape`` over the ranks of ``group``
     (a ``torch.distributed`` process group; ``None`` for every shard in
     this process). ``subgroups`` maps a proper subset of the axes (in
-    mesh order) to this rank's slice group."""
+    mesh order) to this rank's slice group. ``at`` (axis → coordinate)
+    makes the mesh abstract: the one rank at ``at``, no group."""
     axis_names: tuple
     shape: dict = field(default_factory=dict)
     group: object | None = None
     subgroups: dict = field(default_factory=dict)
+    at: dict | None = None
+
+    @property
+    def abstract(self) -> bool:
+        """Whether the mesh is one rank's view, traced on meta tensors."""
+        return self.at is not None
 
     @property
     def local(self) -> bool:
         """Whether every shard of the mesh lives in this process."""
-        return self.group is None
+        return self.group is None and self.at is None
 
     def size(self, axes) -> int:
         return math.prod(int(self.shape[a]) for a in _axes(axes))
@@ -82,6 +100,8 @@ class Mesh:
         if self.local:
             raise ValueError("a single-process mesh has no rank: loop over "
                              "its shards")
+        if self.abstract:
+            return dict(self.at)
         import torch.distributed as dist
         coord, r = {}, dist.get_rank(self.group)
         for a in reversed(self.axis_names):
@@ -271,6 +291,23 @@ def _stacked(outs: list, sizes: list):
 # collectives
 # ---------------------------------------------------------------------------
 
+def _abstract(x: torch.Tensor, mesh: Mesh, axes, kind: str, shape):
+    """A collective of an abstract mesh: a meta tensor of ``shape`` (x's
+    dtype), its bytes recorded as ``kind`` in the active trace; ``x``
+    itself where the axes' size is 1."""
+    if x.device.type != "meta":
+        raise ValueError(f"an abstract mesh takes meta tensors only, got "
+                         f"{x.device}")
+    if mesh.size(axes) == 1:
+        return x.contiguous()
+    from repro_torch.analysis import op_trace
+    tr = op_trace.current()
+    out = torch.empty(tuple(shape), dtype=x.dtype, device="meta")
+    if tr is not None:
+        tr.collective(kind, out.numel() * out.element_size())
+    return out
+
+
 def _mesh_dims(mesh: Mesh, axes) -> list:
     return [mesh.axis_names.index(a) for a in mesh.ordered(axes)]
 
@@ -287,6 +324,8 @@ def _reduce(x: torch.Tensor, axes, mesh: Mesh | None, op: str):
     mesh = mesh or current_mesh()
     if mesh is None:
         raise ValueError(f"p{op} needs an active mesh")
+    if mesh.abstract:
+        return _abstract(x, mesh, axes, "all-reduce", x.shape)
     if mesh.local:
         # shards stacked on the leading mesh dims; summed in shard order
         dims = _mesh_dims(mesh, axes)
@@ -320,6 +359,10 @@ def psum_scatter(x: torch.Tensor, axes, dim: int,
     half an all-reduce's traffic."""
     mesh = mesh or current_mesh()
     n = mesh.size(axes)
+    if mesh.abstract:
+        shape = list(x.shape)
+        shape[dim] //= n
+        return _abstract(x, mesh, axes, "reduce-scatter", shape)
     if mesh.local:
         nd = len(mesh.axis_names)
         dims = _mesh_dims(mesh, axes)
@@ -351,6 +394,10 @@ def all_gather(x: torch.Tensor, axes, dim: int = 0,
     tensor), row-major over ``axes`` in mesh order. On a single-process
     mesh the gathered mesh dims come out at size 1."""
     mesh = mesh or current_mesh()
+    if mesh.abstract:
+        shape = list(x.shape)
+        shape[dim] *= mesh.size(axes)
+        return _abstract(x, mesh, axes, "all-gather", shape)
     if mesh.local:
         nd = len(mesh.axis_names)
         pos = _mesh_dims(mesh, axes)
@@ -385,6 +432,13 @@ def all_to_all(x: torch.Tensor, axis: str, split_axis: int,
     at ``concat_axis`` of the result, block j from rank j."""
     mesh = mesh or current_mesh()
     n = mesh.size(axis)
+    if mesh.abstract:
+        if x.shape[split_axis] != n:
+            raise ValueError(f"all_to_all over {axis!r} of size {n}: dim "
+                             f"{split_axis} has size {x.shape[split_axis]}")
+        shape = list(x.shape)
+        shape.insert(concat_axis, shape.pop(split_axis))
+        return _abstract(x, mesh, axis, "all-to-all", shape)
     if mesh.local:
         nd = len(mesh.axis_names)
         p = mesh.axis_names.index(axis)
@@ -414,6 +468,8 @@ def ppermute(x: torch.Tensor, axis: str,
     ``axis``; → what rank i − 1 sent."""
     mesh = mesh or current_mesh()
     n = mesh.size(axis)
+    if mesh.abstract:
+        return _abstract(x, mesh, axis, "collective-permute", x.shape)
     if mesh.local:
         p = mesh.axis_names.index(axis)
         full = list(x.shape)

@@ -19,6 +19,15 @@ autotuner (:mod:`repro_torch.kernels.autotune`), as the reference's do:
 each dispatch's shape goes to ``observe`` (a no-op unless a shape log is
 armed), and on a CUDA tensor ``lookup`` names the launch's knobs — ``{}``
 with no table and no override, the kernels' own plan. Neither syncs.
+
+A meta tensor runs through an entry only under an active
+:class:`repro_torch.analysis.op_trace.OpTrace` (the dry-run's trace of
+one rank's program): the entry computes nothing, makes ``torch.empty``
+outputs of the kernel's shapes and dtypes on ``meta`` and records one
+launch of the kernel (under its mode, the keys of
+:func:`launch_counts`) with its :func:`repro_torch.analysis.roofline.
+kernel_cost`. With no trace a meta tensor raises, as any device but the
+CPU and CUDA does; the meta branch is no fallback.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import math
 
 import torch
 
+from repro_torch.analysis import op_trace as _trace
+from repro_torch.analysis.roofline import kernel_cost
 from repro_torch.core.lop import pot
 from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as _tune
@@ -94,6 +105,31 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def _traced(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a meta tensor under an active trace (the entry
+    then records the launch); any other meta tensor raises."""
+    if t.device.type != "meta":
+        return False
+    if _trace.current() is None:
+        raise ValueError("unsupported device meta: a meta tensor runs "
+                         "through a kernel entry only under an OpTrace")
+    return True
+
+
+def _record(kernel: str, mode, cost: dict, *outputs):
+    """One traced launch of ``kernel``: ``outputs`` ((shape, dtype) each)
+    made on meta, the launch recorded with its cost — unless the first
+    output is empty, which the kernel's wrapper launches nothing for.
+    → the outputs."""
+    tr = _trace.current()
+    with tr.paused():
+        made = [torch.empty(shape, dtype=dtype, device="meta")
+                for shape, dtype in outputs]
+    if made[0].numel():
+        tr.kernel(kernel, mode, cost)
+    return made[0] if len(made) == 1 else made
+
+
 def _col_scale(scale: torch.Tensor, n: int) -> torch.Tensor:
     """Per-node γ (scalar or per-column row) → per-column f32 row [.., 1, n]."""
     return scale.to(torch.float32).expand(*scale.shape[:-2], 1, n)
@@ -115,6 +151,10 @@ def ternary_matmul(x, tw):
     x2 = x.reshape(-1, k)
     dims = {"m": x2.shape[0], "k": k, "n": n}
     _tune.observe("ternary_matmul", dims)
+    if _traced(x):
+        return _record("ternary_matmul", None,
+                       kernel_cost("ternary_matmul", **dims),
+                       ((*lead, n), torch.int32))
     if not _on_cuda(x):
         out = _ref.ternary_matmul_ref(x2, tw.packed, k)
     else:
@@ -138,6 +178,10 @@ def lop_screen(q, feat_packed):
     m = feat_packed.shape[-2]
     n_lanes = _lanes(q, lead, "q")
     rows = q.shape[len(lead):-1]
+    if _traced(q):
+        return _record("lop_scores_kernel", None, kernel_cost(
+            "lop_scores_kernel", lanes=n_lanes, r=math.prod(rows), m=m,
+            d=d), ((*lead, *rows, m), torch.int32))
     qp = pot(q).reshape(n_lanes, -1, d)
     feat = feat_packed.reshape(n_lanes, m, feat_packed.shape[-1])
     if not _on_cuda(q):
@@ -152,6 +196,11 @@ def flash_prefill(q, k, v, q_scale, k_scale, v_scale, *,
     """One head of int8 flash attention: q/k/v int8 [s, d], per-token
     scales f32 [s, 1] → f32 [s, d]; causal, sliding-window (``window``)
     or non-causal."""
+    if _traced(q):
+        s, d = q.shape
+        return _record("int8_flash_prefill", None, kernel_cost(
+            "int8_flash_prefill", s=s, d=d, causal=causal, window=window),
+            ((s, d), torch.float32))
     fn = int8_flash_prefill if _on_cuda(q) else _ref.flash_prefill_ref
     return fn(*(t.contiguous() for t in (q, k, v, q_scale, k_scale,
                                           v_scale)),
@@ -184,6 +233,11 @@ def sparse_decode(q, k_cache, v_cache, q_scale, k_scale, v_scale, block_idx,
         raise ValueError(f"cache lanes {tuple(cache_lead)} are not a prefix "
                          f"of the lanes {tuple(lead)}")
     n_cache = math.prod(cache_lead)
+    if _traced(q):
+        # a meta trace has no gates to read: every listed block is live
+        return _record("sparse_decode_attention", None, kernel_cost(
+            "sparse_decode_attention", lanes=n_lanes, g=g, d=d, nb=nb,
+            live=n_lanes * nb * block), ((*lead, g, d), torch.float32))
     args = (q.reshape(n_lanes, g, d), k_cache.reshape(n_cache, m, d),
             v_cache.reshape(n_cache, m, d), q_scale.reshape(n_lanes, g, 1),
             k_scale.reshape(n_cache, m, 1), v_scale.reshape(n_cache, m, 1),
@@ -206,12 +260,17 @@ def qlinear_fused(x, packed, scale, bias=None, *, act=None):
     """
     k = packed.shape[-2] * 4
     n = packed.shape[-1]
-    scale_row = _col_scale(scale, n)
     expert = packed.dim() == 3
     dims = {"e": x.shape[0] if expert else 1,
             "m": x.shape[1] if expert else math.prod(x.shape[:-1]),
             "k": k, "n": n}
     _tune.observe("qlinear", dims)
+    if _traced(x):
+        name = "fused_qlinear_experts" if expert else "fused_qlinear"
+        return _record(name, None if bias is None else "bias", kernel_cost(
+            name, **dims, bias=bias is not None),
+            ((*x.shape[:-1], n), torch.float32))
+    scale_row = _col_scale(scale, n)
     if not _on_cuda(x):
         return _ref.qlinear_ref(x, packed, scale_row, bias, act=act)
     tuned = _tune.lookup("qlinear", dims)
@@ -245,13 +304,18 @@ def ffn_fused(x, gu_packed, gu_scale, down_packed, down_scale, *,
     the same launches."""
     k = gu_packed.shape[-2] * 4
     d_out = down_packed.shape[-1]
-    gu_row = _col_scale(gu_scale, gu_packed.shape[-1])
-    down_row = _col_scale(down_scale, d_out)
     expert = gu_packed.dim() == 3
     dims = {"e": x.shape[0] if expert else 1,
             "m": x.shape[1] if expert else math.prod(x.shape[:-1]),
             "k": k, "f": down_packed.shape[-2] * 4, "n": d_out}
     _tune.observe("ffn", dims)
+    if _traced(x):
+        name = "fused_ffn_experts" if expert else "fused_ffn"
+        return _record(name, None if gated else "ungated", kernel_cost(
+            name, **dims, gated=gated), ((*x.shape[:-1], d_out),
+                                         torch.float32))
+    gu_row = _col_scale(gu_scale, gu_packed.shape[-1])
+    down_row = _col_scale(down_scale, d_out)
     if not _on_cuda(x):
         return _ref.ffn_fused_ref(x, gu_packed, gu_row, down_packed,
                                   down_row, gated=gated, act=act)
@@ -300,6 +364,18 @@ def prefill_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, kv_len, *,
     # KERNEL_PARAMS["prefill"] is empty); the shape is logged all the same
     _tune.observe("prefill", {"bhg": b * hkv, "r": g * c, "d": dh, "m": m,
                               "chunk": c})
+    if _traced(qi):
+        if k_cache.shape[0] != b or kv_len.shape[0] != b:
+            raise ValueError(f"lanes: qi {b}, cache {k_cache.shape[0]}, "
+                             f"kv_len {kv_len.shape[0]}")
+        # the keys a causal chunk attends end at its last row; a
+        # non-causal call's kv_len is data, so every row of the view
+        kvl = min(m, q_off + c) if causal else m
+        return _record("fused_prefill_attention",
+                       None if causal else "non_causal", kernel_cost(
+                           "fused_prefill_attention", b=b, h=h, hkv=hkv,
+                           c=c, dh=dh, kvl=kvl, q_off=q_off, causal=causal,
+                           window=window), ((b, h, c, dh), torch.float32))
     if not _on_cuda(qi):
         return _ref.prefill_attention_ref(
             qi, qsc, k_cache, v_cache, k_scale, v_scale, kv_len, q_off,
@@ -347,6 +423,12 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
     dims = {"bhg": b * hkv, "g": g, "d": dh, "m": m, "block": block,
             "k_keep": k_keep}
     _tune.observe("decode", dims)
+    if _traced(qi):
+        if k_cache.shape[0] != b or new_len.shape[0] != b:
+            raise ValueError(f"lanes: qi {b}, cache {k_cache.shape[0]}, "
+                             f"new_len {new_len.shape[0]}")
+        return _traced_decode(b, h, hkv, dh, m, block, k_keep, use_lop,
+                              pos_offset, return_stats, mode)
     if not _on_cuda(qi):
         return _ref.decode_attention_ref(
             qi, qsc, k_cache, v_cache, k_scale, v_scale, feat, new_len,
@@ -387,3 +469,25 @@ def decode_attention(qi, qsc, k_cache, v_cache, k_scale, v_scale, feat,
         return (out.reshape(b, h, dh), mx.reshape(b, h, 1),
                 l.reshape(b, h, 1))
     return out.reshape(b, h, dh)
+
+
+def _traced_decode(b, h, hkv, dh, m, block, k_keep, use_lop, pos_offset,
+                   return_stats, mode):
+    """A decode launch under a trace. ``new_len`` is data: each lane holds
+    the trace's ``seq_len`` tokens (global; this call's rows past
+    ``pos_offset``), or every row of the capacity without one and over
+    cross pages."""
+    seq = _trace.current().seq_len
+    if seq is None or mode == "cross":
+        rows = m
+    else:
+        rows = max(0, min(m, seq - (pos_offset or 0)))
+    name = "fused_decode_attention" if use_lop else \
+        "fused_dense_decode_attention"
+    cost = kernel_cost(name, b=b, h=h, hkv=hkv, dh=dh, block=block,
+                       k_keep=k_keep, new_len=[rows] * b,
+                       return_stats=return_stats)
+    outs = [((b, h, dh), torch.float32)]
+    if return_stats:
+        outs += [((b, h, 1), torch.float32)] * 2
+    return _record(name, mode, cost, *outs)

@@ -9,8 +9,10 @@ one process a rank, joins them in a gloo group (which takes CPU and CUDA
 tensors, and any number of ranks on one card) through a ``file://``
 rendezvous under a fresh temporary directory (no port to collide on when
 several runs share a host), builds a mesh of any shape over them, runs a
-function in each and returns what each rank returned. Nothing here
-touches a device.
+function in each and returns what each rank returned.
+:func:`make_production_mesh` is the reference's production mesh as one
+rank's abstract view (:func:`abstract_mesh`), which the dry-run traces
+on meta tensors. Nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -68,6 +70,30 @@ def local_mesh(shape=(2,), axes=("model",)) -> Mesh:
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} does not name axes {axes}")
     return Mesh(tuple(axes), dict(zip(axes, map(int, shape))), None)
+
+
+def abstract_mesh(shape, axes, coords: dict | None = None) -> Mesh:
+    """One rank's view of a mesh of ``shape`` over ``axes``: the rank at
+    ``coords`` (axis → coordinate; all 0 by default), no process group;
+    its collectives take meta tensors only
+    (:mod:`repro_torch.distributed.partitioning`)."""
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} does not name axes {axes}")
+    sizes = dict(zip(axes, map(int, shape)))
+    at = {a: 0 for a in axes} if coords is None else {
+        a: int(coords[a]) for a in axes}
+    if any(not 0 <= at[a] < sizes[a] for a in axes):
+        raise ValueError(f"coordinates {at} outside the mesh {sizes}")
+    return Mesh(tuple(axes), sizes, at=at)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as rank 0's abstract view: 16 × 16
+    = 256 ranks over ("data", "model") (``pod16x16``), or 2 × 16 × 16 =
+    512 over ("pod", "data", "model") (``pod2x16x16``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return abstract_mesh(shape, axes)
 
 
 def _rank_main(rank: int, target: str, world: int, tmp: str, args,

@@ -116,6 +116,7 @@ def _scan_step(a_log, d_resid):
         hc = torch.matmul(h.to(torch.float64),
                           c_t[:, :, None].to(torch.float64))[..., 0]
         return h, hc.to(torch.float32) + d_resid * x_t
+    body.params = (a, d_resid)          # the tensors the body reads
     return body
 
 
@@ -125,8 +126,9 @@ def _gated_out(cfg, p, x, z, dt, b_ssm, c_ssm, h, dtype,
     64, recomputed in the backward when ``train``), gate with silu(z) and
     project out. → (out [B, T, D], the state after T)."""
     xs = tuple(a.transpose(0, 1) for a in (x, dt, b_ssm, c_ssm))
-    h, ys = chunked_scan(stepwise(_scan_step(p["A_log"], p["D"])), h, xs,
-                         remat=train)
+    step = _scan_step(p["A_log"], p["D"])
+    h, ys = chunked_scan(stepwise(step), h, xs, remat=train,
+                         params=step.params)
     y = ys.transpose(0, 1) * silu(z)
     return mixer_linear(train)(p["out_proj"], y.to(dtype), quant=cfg.quant), h
 

@@ -143,7 +143,8 @@ def _wkv(u, r, k, v, w, state, *, remat: bool = False):
     ``WKV_CHUNK`` steps through :func:`chunked_scan` (each chunk
     recomputed in the backward under ``remat``)."""
     return chunked_scan(lambda s, xs: _wkv_chunk(u, s, xs), state,
-                        (r, k, v, w), chunk=WKV_CHUNK, remat=remat)
+                        (r, k, v, w), chunk=WKV_CHUNK, remat=remat,
+                        params=(u,))
 
 
 def rwkv_time_mix(cfg, p, x, x_prev, state, *, train: bool = False):

@@ -137,9 +137,14 @@ def draw_params(cfg, seed: int, device="cpu"):
     each drawn only when it is asked for. :func:`init_params` and the
     streamed draw (:func:`repro_torch.serving.quantize.
     init_serving_params`) both walk it, so they make the same
-    ``torch.randn`` calls with the same shapes in the same order."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    ``torch.randn`` calls with the same shapes in the same order. On the
+    ``meta`` device nothing is drawn (there is no meta generator): the
+    entries carry the tree's shapes and dtypes alone, the dry-run's
+    abstract parameters."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d, vp = cfg.d_model, cfg.vocab_padded
     yield "embed", None, None, {"table": torch.randn(
         (vp, d), generator=gen, device=device) * 0.02}

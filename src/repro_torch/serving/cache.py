@@ -56,16 +56,20 @@ def round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-def capacity_for(cfg, max_len: int) -> int:
-    """Token capacity for ``max_len`` tokens plus one decode slot."""
-    return round_up(max_len + 1, cfg.lop_block)
+def capacity_for(cfg, max_len: int, align: int | None = None) -> int:
+    """Token capacity for ``max_len`` tokens plus one decode slot, a
+    multiple of ``align`` (default ``lop_block``; sequence-parallel decode
+    aligns it to the shard count × block, so every shard holds whole
+    blocks)."""
+    return round_up(max_len + 1, align or cfg.lop_block)
 
 
-def cross_capacity_for(cfg, frames: int = 0) -> int:
+def cross_capacity_for(cfg, frames: int = 0, align: int | None = None) -> int:
     """Token capacity of an encdec cache's cross-attention pages: the
-    block roundup of ``cross_ctx``, or of ``frames`` when that is more (a
-    prefill of a longer encoder input, as the reference sizes it)."""
-    return round_up(max(cfg.cross_ctx, frames), cfg.lop_block)
+    roundup of ``cross_ctx`` to ``align`` (default ``lop_block``), or of
+    ``frames`` when that is more (a prefill of a longer encoder input, as
+    the reference sizes it)."""
+    return round_up(max(cfg.cross_ctx, frames), align or cfg.lop_block)
 
 
 # how each served family keeps its per-sequence state (the reference's
@@ -90,6 +94,42 @@ _PER_LANE = ("lengths", "cross_len", "active", "seed", "sample_step")
 def slot_axis(name: str, leaf: torch.Tensor) -> int:
     """Index of the slot (batch) axis of the cache leaf ``name``."""
     return 0 if name in _PER_LANE else leaf.ndim - _LEAF_RANK[name]
+
+
+def _leaf_spec(name: str, *, batch_axes="dp", seq_axes="sp") -> tuple:
+    """Logical axes of one cache leaf from its slot axis on (the
+    reference's ``_leaf_spec``): pages cut their token axis over
+    ``seq_axes``, recurrent states their heads or inner width over
+    ``tp``, and the per-lane vectors stay whole."""
+    if name in ("k", "v", "feat"):
+        return (batch_axes, None, seq_axes, None)
+    if name in ("k_scale", "v_scale"):
+        return (batch_axes, None, seq_axes)
+    if name in _PER_LANE:
+        return (None,)
+    if name == "ssm":
+        return (batch_axes, "tp", None)
+    if name == "conv":
+        return (batch_axes, None, "tp")
+    if name == "wkv":
+        return (batch_axes, "tp", None, None)
+    if name in ("x_tm", "x_cm"):
+        return (batch_axes, None, None)
+    raise KeyError(name)
+
+
+def cache_pspecs(cfg, cache, *, batch_axes="dp", seq_axes="sp") -> dict:
+    """The logical-axis tree of a cache (the reference's
+    ``cache_pspecs``): each leaf's spec from its slot axis, after a None
+    for every stacked leading axis (layers, superblocks, sublayers)."""
+    del cfg
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        spec = _leaf_spec(name, batch_axes=batch_axes, seq_axes=seq_axes)
+        return (None,) * (node.ndim - len(spec)) + spec
+    return walk(cache, None)
 
 
 def _tree_leaves(tree, path=()):
@@ -131,16 +171,18 @@ def _zeros(lead: tuple, shapes: dict, device) -> dict:
 
 
 def init_cache(cfg, batch: int, max_len: int, device,
-               frames: int = 0) -> dict:
+               frames: int = 0, align: int | None = None) -> dict:
     """Zero cache for ``batch`` sequences of up to ``max_len`` tokens (an
-    encdec cache's cross pages hold ``max(cross_ctx, frames)``). An ssm
+    encdec cache's cross pages hold ``max(cross_ctx, frames)``), each
+    capacity a multiple of ``align`` (the reference's; default
+    ``lop_block``). An ssm
     cache holds each layer's rwkv6 state (``layers.{wkv, x_tm, x_cm}``) and
     no pages; a hybrid cache holds ``blocks.attn`` pages stacked over the
     superblocks and ``blocks.mamba.{ssm, conv}`` [n_sb, attn_every − 1, B,
     ...]."""
     kind = STATE_KINDS[cfg.family]
     cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device)}
-    cap = capacity_for(cfg, max_len)
+    cap = capacity_for(cfg, max_len, align)
     if kind == "recurrent":
         cache["layers"] = _zeros((cfg.n_layers,),
                                  rwkv_state_shape(cfg, batch), device)
@@ -155,7 +197,8 @@ def init_cache(cfg, batch: int, max_len: int, device,
     cache["layers"] = _attn_zeros(cfg, batch, cap, device)
     if kind == "paged-kv+cross":
         cache["cross"] = _attn_zeros(cfg, batch,
-                                     cross_capacity_for(cfg, frames), device)
+                                     cross_capacity_for(cfg, frames, align),
+                                     device)
         cache["cross_len"] = torch.zeros(batch, dtype=torch.int32,
                                          device=device)
     return cache

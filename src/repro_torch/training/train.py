@@ -97,13 +97,23 @@ def make_train_step(cfg, *, n_micro: int = 1, peak_lr: float = 3e-4,
             p.requires_grad_(True)
         try:
             losses, parts = [], []
-            for mb in ([batch] if n_micro == 1
-                       else _microbatches(batch, n_micro)):
+            tr, repeat = _tracing(masters, n_micro), None
+            for j, mb in enumerate([batch] if n_micro == 1
+                                   else _microbatches(batch, n_micro)):
+                if repeat is not None:
+                    # the dry-run's trace: the second microbatch's cost
+                    tr.absorb(repeat)
+                    losses.append(losses[-1])
+                    parts.append(parts[-1])
+                    continue
+                snap = tr.snapshot() if tr is not None else None
                 loss, part = loss_fn(cfg, params, mb, remat=remat,
                                      gather=gather)
                 loss.backward()
                 losses.append(loss.detach())
                 parts.append({k: v.detach() for k, v in part.items()})
+                if tr is not None and j == 1:
+                    repeat = tr.since(snap)
         finally:
             for p in masters:
                 p.requires_grad_(False)
@@ -138,6 +148,20 @@ def make_train_step(cfg, *, n_micro: int = 1, peak_lr: float = 3e-4,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _tracing(masters, n_micro: int):
+    """The active dry-run trace when the step's microbatches past the
+    second are replayed: meta masters and three or more microbatches.
+    Each of them runs the second's program on the same shapes (the
+    gradients already allocated, accumulated in place), so its cost is
+    the second's, recorded without running it again, and the peak is
+    the second's; a full-width step of 8 meta microbatches would take
+    minutes (a meta op costs ~0.2 ms)."""
+    if n_micro < 3 or masters[0].device.type != "meta":
+        return None
+    from repro_torch.analysis import op_trace
+    return op_trace.current()
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +264,12 @@ class _Gather(torch.autograd.Function):
 
 
 def _dp_shard(batch, mesh):
-    """This rank's data-parallel shard of the global ``batch``."""
+    """This rank's data-parallel shard of the global ``batch``; a batch
+    whose size the data axes do not divide stays whole on every rank (the
+    reference's rule for an axis that does not divide)."""
     n, i = mesh.size(_dp(mesh)), mesh.rank(_dp(mesh))
-    return {k: a[i * (a.shape[0] // n):(i + 1) * (a.shape[0] // n)]
+    return {k: a if a.shape[0] % n else
+            a[i * (a.shape[0] // n):(i + 1) * (a.shape[0] // n)]
             for k, a in batch.items()}
 
 

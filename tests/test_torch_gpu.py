@@ -2577,3 +2577,45 @@ def test_no_table_launch_shape_is_the_plan(cuda, monkeypatch, tmp_path):
                 assert s["tile"] == tile
                 assert s == plan(split=s["split"], tile=tile)
                 print(f"{kernel} {d}: {s}")
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's predictions against the card (launch/dryrun.py,
+# analysis/op_trace.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_lop", [True, False], ids=["lop", "dense"])
+def test_dryrun_decode_step_predicts_the_card(cuda, use_lop):
+    """One decode step of reduced bitnet-3b traced on meta: its launches
+    by kernel equal the card's counts, its argument bytes the nbytes of
+    the served tree, the pool and the tokens on the card."""
+    from repro_torch.analysis.op_trace import OpTrace
+    from repro_torch.configs import get_config
+    from repro_torch.serving.cache import init_cache_pool
+    from repro_torch.serving.engine import serve_step
+    from repro_torch.serving.quantize import init_serving_params
+    from repro_torch.tree_util import leaves
+
+    cfg = get_config("bitnet-3b-reduced")
+    b, max_len = 4, 63
+    qp_m = init_serving_params(cfg, 0, "meta")
+    pool_m = init_cache_pool(cfg, b, max_len, "meta")
+    tok_m = torch.empty((b, 1), dtype=torch.int64, device="meta")
+    tr = OpTrace()
+    tr.arguments(qp_m, pool_m, tok_m)
+    with tr:
+        serve_step(cfg, qp_m, pool_m, tok_m, use_lop=use_lop)
+    qp = init_serving_params(cfg, 0, cuda)
+    pool = init_cache_pool(cfg, b, max_len, cuda)
+    pool["active"].fill_(True)
+    pool["lengths"].copy_(torch.tensor([40, 1, 17, 62], dtype=torch.int32))
+    tokens = torch.tensor([[3], [5], [7], [11]], device=cuda)
+    ops.reset_launch_counts()
+    logits, _ = serve_step(cfg, qp, pool, tokens, use_lop=use_lop)
+    torch.cuda.synchronize()
+    counted = {k: v for k, v in ops.launch_counts(modes=True).items() if v}
+    assert tr.kernels == counted
+    assert torch.isfinite(logits).all()
+    card = sum(x.numel() * x.element_size() for t in (qp, pool, tokens)
+               for x in leaves(t))
+    assert tr.argument_bytes() == card
