@@ -72,7 +72,7 @@ printed:
               decode step (graph and eager) beside the LOP engine's, and a
               torch.profiler breakdown of its decode steps;
   4c. sampled (4c, 4d and 4g's chaos trace on phase 4's weights cut to
-      + faults their first 8 of 26 layers, for the run's time) the 8
+      + faults their first 4 of 26 layers, for the run's time) the 8
               requests sampled (T 0.8, top-k 50, top-p 0.95, seed =
               rid) on the LOP engine, scheduler == sampled lockstep for 2
               requests and the steady sampled decode step (graph and
@@ -127,14 +127,14 @@ printed:
               thread or a client timeout fails the phase. Then the
               200-request chaos trace of tests/test_faults.py (seeded
               FaultPlan.random(31, ...), max_queue 150, 4 slots, the
-              virtual clock, check_invariants) twice on the 13-layer
+              virtual clock, check_invariants) twice on the 4-layer
               no-LOP engine, with a 1024-token shared prefix in place of 32
               tokens (so the store interns 8 blocks and the plan's flip
               of the 8th fires): every request terminal, 50 shed, >= 1
               deadline and cancelled, >= 100 length, fault events,
               recoveries and injected NaNs >= 1, the two runs bitwise
               alike, the first 8 length-finished streams == lockstep;
-  4e. moe    full-width granite-moe-1b-a400m (12 of its 24 layers, a cut
+  4e. moe    full-width granite-moe-1b-a400m (6 of its 24 layers, a cut
               for the run's time; d 1024, 16 heads of 64 over 8 KV
               heads, 32 experts top-8, d_ff 512) with
               seeded random weights, served run-to-completion (each prompt
@@ -156,17 +156,18 @@ printed:
               with gqa_shared_select=True (one candidate set a kv head)
               on the same weights, through the same checks, its tokens/s
               and step ms beside the per-head arm's;
-  4h. families stablelm-1.6b (LayerNorm) at full width and 12 of its 24
+  4h. families stablelm-1.6b (LayerNorm) at full width and 6 of its 24
               layers (the run's time; d 2048, 32 heads of 64, f 5632)
               and qwen1.5-32b (QKV
               bias, drawn nonzero from a seeded generator before
-              quantization) at full width (d 5120, 40 heads of 128, f
-              27,392, vocab 152,064) and 8 of its 64 layers (the f32
-              master tree's peak): phase 4's 8 requests greedy LOP,
+              quantization) at full width and depth (d 5120, 40 heads
+              of 128, f 27,392, vocab 152,064, 64 layers; its served
+              tree, pool and draw peak printed): phase 4's 8 requests
+              greedy LOP,
               chunked, through the Scheduler on 4 slots, scheduler ==
               lockstep for 2 requests, the clean decode step on graphs
               and eager with its launches (#1 / #2 / decode kernel 24 /
-              12 / 12 and 16 / 8 / 8 a step), #1 at qwen's QKV shape with
+              12 / 12 and 128 / 64 / 64 a step), #1 at qwen's QKV shape with
               its bias bitwise its plain version on layer 0's served
               weights, half of qwen's #1 launches carrying the bias; then
               whisper-small (encoder-decoder) at full width and depth (12
@@ -189,12 +190,12 @@ printed:
               eager, one exact-length prefill's time, tokens/s, TTFT and
               peak memory; each arm's engine freed before the next;
   4i. recurrent rwkv6-1.6b (ssm) at full width (d 2048, 32 heads of 64,
-              f 7168, vocab 65,536) and 6 of its 24 layers (phase 4l
+              f 7168, vocab 65,536) and 3 of its 24 layers (phase 4l
               serves it at full depth) with seeded weights drawn on the
               card: phase 4's 8 requests greedy, then
               sampled (T 0.8, top-k 50, top-p 0.95, seed = rid), run to
               completion with exact-length prefill (the wkv recurrence a
-              time loop of plain tensor ops); 60 #1 launches a decode
+              time loop of plain tensor ops); 30 #1 launches a decode
               step and no other kernel of the table; scheduler ==
               lockstep for 2 requests an arm; the decode step on CUDA
               graphs and on an eager twin (tokens equal) with a profiler
@@ -211,9 +212,19 @@ printed:
               2 a step; #3 one a superblock a prefill), scheduler ==
               lockstep, graph == eager (a launch and parity check of
               the hybrid path at d 128, not its performance); then
-              jamba at full width, one sublayer of each mixer drawn on
-              the card (Mamba: d 8192, Di 16384, dt_rank 512;
-              attention: 64 heads of 128 over 8): #1 at in_proj, x_proj,
+              jamba at full width and one superblock of its 9 (7 Mamba
+              sublayers: d 8192, Di 16384, dt_rank 512; 1 attention: 64
+              heads of 128 over 8; 4 dense FFNs and 4 MoEs of 16
+              experts top-2, f 24,576), drawn and quantized on the card
+              a sublayer at a time through PooledEngine.from_seed (the
+              draw peak printed, below the card's memory): 4 requests of
+              64–256 tokens (default_rng(9)), 16 new, greedy LOP and
+              no-LOP, a prefill's launches, scheduler == lockstep, graph
+              == eager (#1 30, #2 4 dense and 4 expert, the decode
+              kernel 1 a step), #2 with E 16 at the decode C and the
+              longest prompt's against its plain version (a few experts
+              a call) with times and bound; on its first Mamba and its
+              attention sublayer: #1 at in_proj, x_proj,
               dt_proj + bias, out_proj, wqkv and wo at m 4 and 1536
               bitwise its plain version and timed beside its bound; the
               Mamba prefill (4 #1 launches) at 128, 512 and 1536 tokens
@@ -225,6 +236,24 @@ printed:
               versions; each arm's engine freed before the next (the
               whole full-width model is more than one card holds,
               even packed);
+  4o. mixtral mixtral-8x22b at full width and depth (56 layers, d 6144,
+              48 heads of 128 over 8, 8 experts top-2 of f 16,384,
+              swa_window 4096, moe_group 2048), run after phase 5 with
+              the earlier engines freed, drawn and quantized on the card
+              a layer at a time: 4 requests of 128–1536 tokens and 2 past
+              the window (4200, 4700; default_rng(8)), 32 new, 4 slots,
+              capacity 4736, run to completion (each prompt one
+              exact-length prefill, no chunk) greedy LOP, then the 2
+              long requests on a no-LOP engine sharing the weights;
+              launches, scheduler == lockstep (the first and the longest
+              request), graph == eager (112 / 56 / 56 launches of #1 /
+              #2 (E 8) / the decode kernel a step); #2 at the decode C 4
+              and a full group's C 640 on a layer's served experts, #4
+              and #5 at G 6 on the served pages with lanes past the
+              window, #3 over the longest prompt whole with the window,
+              each against its plain version with times and bound;
+              tokens/s, TTFT, the step ms and one exact-length prefill
+              of the longest prompt;
   4j. vlm   the streamed draw, then two models that only it fits on the
       + draw card, each drawn and quantized one layer at a time
               (init_serving_params): bitnet-3b at full width and depth
@@ -233,7 +262,7 @@ printed:
               bitwise, both peaks printed; llava-next-34b (vlm) at full
               width (d 7168, 56 heads of 128 over 8, f 20,480, vocab
               64,000, 2,880 image rows), drawn at full depth (60 layers,
-              the draw's peak under 30 GiB) and served at its first 12
+              the draw's peak under 30 GiB) and served at its first 6
               (a cut for the run's time): 8 requests (default_rng(4)) of 2,880
               patch rows of 0.02·N(0, 1) and 64–512 text tokens, 32 new,
               4 slots, chunked (the image rides the first chunk:
@@ -249,10 +278,10 @@ printed:
               recovered through the retry (a clean lane == its
               lockstep); the prefix store (image requests never match
               or intern; text-only requests sharing 1,024 tokens hit);
-              2 requests speculatively (γ 4, the draft 6 of 12 layers)
+              2 requests speculatively (γ 4, the draft 3 of 6 layers)
               against plain no-LOP decode, equal or a near-tie of
               rounding; then mistral-nemo-12b (d 5120, q_dim 4096) at
-              full width and 12 of its 40 layers: phase 4's 8 requests
+              full width and 6 of its 40 layers: phase 4's 8 requests
               greedy LOP, scheduler == lockstep, the decode step graph
               and eager, #1 at its O projection (k 4096 → n 5120)
               bitwise its plain version; each arm freed before the
@@ -333,7 +362,7 @@ printed:
               running mean converging, one compressed all-reduce of a
               2048 x 7168 gradient timed beside the plain f32 one;
   4f. sp     (run last, the earlier engines freed) the reference's
-              production decode path: full-width bitnet-3b at 13 of its
+              production decode path: full-width bitnet-3b at 8 of its
               26 layers (the run's time) drawn from the
               seeded generator, phase 4's first 4 prompts prefilled
               replicated into a 2048-slot pool, 8 greedy eager
@@ -399,8 +428,11 @@ printed:
               was allocated besides the arguments); (c), inside 4k,
               4k (a)'s training step traced on meta: no kernel record,
               the predicted peak within 10 % of 4k (a)'s;
-  4m. dist   (last) the distributed modules over gloo ranks on cuda:0,
-              each sub-arm spawned once and gone before the next: (a)
+  4m. dist   (last) the distributed modules over gloo ranks on cuda:0:
+              (a), (b), (c) and (e) in one spawn of 4 ranks, one after
+              the other, then (d) in a fresh spawn of 3; each spawn's
+              seconds split by the ranks' stamps (start, first CUDA
+              call, each sub-arm, exit): (a)
               ``ep_moe_apply`` on granite-moe-1b-a400m's layer at full
               width (bf16 mode, capacity factor 8), x [4, 512, 1024] on
               (data 2, model 2), every rank returning the whole batch's
@@ -425,7 +457,7 @@ printed:
               from the checkpoint held by the same check to the
               single-process step from it; (e)
               ``serve_step(sp_axes=("model",))`` of reduced jamba and
-              rwkv6-1.6b at full width and 6 layers over 2 ranks, LOP
+              rwkv6-1.6b at full width and 3 layers over 2 ranks, LOP
               and dense: greedy tokens equal the unsharded engine's.
 
 The line before the last two is the ``kernels`` JSON (eleven entries:
@@ -927,7 +959,7 @@ def kernel_phase(torch, np) -> dict:
 
 
 def selected(torch, qi, feat, new_len, *, b, hkv, g, m, dh, blk, k_keep,
-             shared=False, po=0):
+             shared=False, po=0, window=0):
     """What the LOP selection of the plain version reads on these inputs:
     (distinct gated blocks over the lanes, Σ live tokens of every (row,
     candidate) pair — a shared candidate counts for each of the G rows)."""
@@ -940,7 +972,7 @@ def selected(torch, qi, feat, new_len, *, b, hkv, g, m, dh, blk, k_keep,
     if shared:
         scores = scores.amax(2, keepdim=True)
     idx, gt = select_blocks(scores, new_len, block=blk, k_keep=k_keep,
-                            block_offset=po // blk)
+                            window=window, block_offset=po // blk)
     gate = gt[..., :k_keep] > 0
     live = ((gt[..., k_keep:2 * k_keep] - gt[..., 2 * k_keep:]) * gate).sum()
     hit = torch.zeros((b, hkv, m // blk), dtype=torch.int32,
@@ -1211,7 +1243,7 @@ def squared_relu_check(torch, np, rng, t) -> None:
 
 
 MOE_D, MOE_F, MOE_E = 1024, 512, 32        # granite-moe-1b-a400m
-MOE_LAYERS = 12                            # of 24 (the smoke run's time)
+MOE_LAYERS = 6                             # of 24 (the smoke run's time)
 
 
 def expert_kernels(torch, np, rng, t) -> dict:
@@ -1427,7 +1459,7 @@ def check_lockstep(engine, reqs, results, rids, label: str) -> None:
         f"{graph_memory(engine)}, bound {GRAPH_BOUND})")
 
 
-HALF_LAYERS = 8     # of 26: 4c, 4d and 4g's chaos trace (the run's time)
+HALF_LAYERS = 4     # of 26: 4c, 4d and 4g's chaos trace (the run's time)
 
 
 def half_engines(engine):
@@ -2991,13 +3023,294 @@ def moe_phase(torch, np, card: str) -> dict:
                 shared_launches=sh["counts"]["fused_decode_attention"])
 
 
+def expert_ffn_rows(torch, np, rng, node, cs, label: str, card: str,
+                    act: str = "silu") -> dict:
+    """#2 with the expert axis on one layer's served expert stacks
+    ``node`` (gu_packed [E, d/4, 2f], down_packed [E, f/4, d] and their
+    γ) at each capacity C of ``cs``: seeded rows x [E, C, d], the first
+    ceil(C/2) of every expert live and the rest zero (the dispatch's
+    empty slots), through the ops entry as the MoE layer calls it;
+    against the plain version run a few experts a call (an expert's rows
+    read that expert's weights alone, so the calls' rows are the whole
+    call's; at E 16 and f 24,576 the plain version's float64 gate‖up of
+    all the experts would be 51.5 GB), zero rows exact zeros; then the
+    kernel timed eagerly and in a CUDA graph (L2 cold) beside its bound.
+    No PyTorch call computes a batched packed-ternary FFN. → rows by
+    C."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels.qlinear import fused_ffn_experts
+    from repro_torch.kernels.qlinear import \
+        launch_shape as qlinear_launch_shape
+
+    gu, down = node["gu_packed"], node["down_packed"]
+    e, d, f2 = gu.shape[0], gu.shape[1] * 4, gu.shape[2]
+    f = f2 // 2
+    gu_row = ops._col_scale(node["gu_scale"], f2).reshape(e, f2).contiguous()
+    down_row = ops._col_scale(node["down_scale"], d).reshape(e, d).contiguous()
+    per_call = max(1, int(8e9 // (d * f2 * 8)))   # float64 gate‖up a call
+
+    def ref(x_):
+        return torch.cat([plain.ffn_fused_ref(
+            x_[i:i + per_call], gu[i:i + per_call], gu_row[i:i + per_call,
+                                                         None],
+            down[i:i + per_call], down_row[i:i + per_call, None],
+            gated=True, act=act) for i in range(0, e, per_call)])
+
+    def kern(*a):
+        return fused_ffn_experts(*a, gated=True, act=act)
+    rows = {}
+    for c in cs:
+        live = -(-c // 2)
+        xn = rng.standard_normal((e, c, d)).astype(np.float32)
+        xn[:, live:] = 0.0
+        x = torch.from_numpy(xn).cuda()
+        ops.reset_launch_counts()
+        got = ops.ffn_fused(x, gu, node["gu_scale"], down,
+                            node["down_scale"], gated=True, act=act)
+        if ops.launch_counts()["fused_ffn_experts"] != 1:
+            raise AssertionError(f"#2 [{label}, C={c}]: not one launch")
+        want = ref(x)
+        err = check_close(torch, f"fused_ffn_experts[{label}, C={c}]", got,
+                          want)
+        bitwise = bool(torch.equal(got, want))
+        if got[:, live:].any():
+            raise AssertionError(f"#2 [{label}, C={c}]: zero rows gave "
+                                 f"non-zeros")
+        del got, want
+        args = (x, gu, gu_row, down, down_row)
+        sets = copies(torch, args)
+        ms = cuda_ms(torch, kern, sets, 10)
+        g_ms = graph_ms(torch, kern, sets, per_graph=5, replays=3)
+        del sets
+        p_ms = cuda_ms(torch, lambda x_: ref(x_), [(x,)], 1)
+        b_ms, b_by = bound_ms(nbytes(*args) + e * c * d * 4,
+                              int8_ops=2.0 * e * c * (d * f2 + f * d))
+        gate_up = qlinear_launch_shape(c, d, f, gated=True, experts=e)
+        down_gemm = qlinear_launch_shape(c, f, d, experts=e)
+        log(f"  fused_ffn_experts {label} E={e} C={c} d={d} f={f} ({live} "
+            f"live rows an expert; a layer's served experts): max |err| "
+            f"{err:.3g}, bitwise={bitwise}, zero rows exact zeros (plain "
+            f"version {per_call} experts a call); {ms:.4f} ms, in a CUDA "
+            f"graph {g_ms:.4f} ms (plain {p_ms:.2f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
+            f"graph); library: none; gate‖up GEMM {fmt_shape(gate_up)}, "
+            f"down GEMM {fmt_shape(down_gemm)} [{card}]")
+        rows[f"{label} E={e} C={c}"] = dict(
+            max_abs_err=err, bitwise=bitwise, ms=ms, graph_ms=g_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"E={e} C={c} d={d} f={f}")
+        del x
+    return rows
+
+
+def kernel_rows(rows: dict, found: dict) -> None:
+    """Merge ``found`` (kernel → {shape label: row}) into the kernels
+    line's ``rows``: each under ``shapes``, its error into the entry's."""
+    for kname, by_shape in found.items():
+        rows[kname].setdefault("shapes", {}).update(by_shape)
+        rows[kname]["max_abs_err"] = max(
+            rows[kname]["max_abs_err"],
+            *(r["max_abs_err"] for r in by_shape.values()))
+
+
+# ---------------------------------------------------------------------------
+# phase 4o: mixtral-8x22b at full width and depth
+# ---------------------------------------------------------------------------
+
+MIXTRAL_SHORT = 4                  # requests of MIN_PROMPT–MAX_PROMPT tokens
+MIXTRAL_LONG = (4200, 4700)        # past swa_window 4096
+MIXTRAL_SEED = 8                   # the traffic's request rng
+MIXTRAL_NEW_LEN = (4700, 0, 1500, 4200)   # the kernel rows' lanes
+
+
+def mixtral_requests(np, cfg) -> list:
+    """4 requests of 128–1536 prompt tokens, then 2 past the sliding
+    window (4200 and 4700), 32 new tokens each; numpy
+    default_rng(MIXTRAL_SEED)."""
+    from repro_torch.serving.api import GenerateRequest
+    rng = np.random.default_rng(MIXTRAL_SEED)
+    lens = [*rng.integers(MIN_PROMPT, MAX_PROMPT + 1, MIXTRAL_SHORT).tolist(),
+            *MIXTRAL_LONG]
+    return [GenerateRequest(rid=rid, prompt=rng.integers(
+        0, cfg.vocab, (n,)).astype(np.int32), max_new_tokens=GEN)
+        for rid, n in enumerate(lens)]
+
+
+def mixtral_phase(torch, np, card: str) -> dict:
+    """Phase 4o: mixtral-8x22b at full width and depth (56 layers, d 6144,
+    48 heads of 128 over 8 KV heads, 8 experts top-2 of f 16,384,
+    swa_window 4096), drawn and quantized on the card one layer at a
+    time through ``PooledEngine.from_seed``; 4 requests of 128–1536
+    tokens and 2 past the window run to completion (each prompt
+    prefilled whole at its exact length) on 4 slots, greedy LOP, then
+    the 2 long requests on a no-LOP engine sharing the weights. Each run:
+    every kernel of its path launched (#2 only in its expert form),
+    scheduler == lockstep (LOP: the first and the longest request),
+    every prompt one exact-length prefill and no chunk, the run's
+    launches those of its prefills and of 112 / 56 / 56 launches of #1 /
+    #2 / the decode kernel a step; the LOP decode step on CUDA graphs
+    bitwise its eager twin with those launches; #2 (E 8) at the decode C
+    and a full
+    group's, #4 and #5 on the served pages with lanes past the window
+    and #3 over the longest whole prompt against their plain versions
+    with times and bounds. → stats, launches and kernel rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.cache import capacity_for
+    from repro_torch.serving.scheduler import Scheduler
+
+    t_phase = time.monotonic()
+    cfg = get_config("mixtral-8x22b")
+    reqs = mixtral_requests(np, cfg)
+    lens = [len(r.prompt) for r in reqs]
+    longest = int(np.argmax(lens))
+    max_len = max(lens) + GEN
+    cap = capacity_for(cfg, max_len)
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = PooledEngine.from_seed(cfg, seed=SEED, max_len=max_len,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    drawn_s = time.monotonic() - t0
+    draw_peak = torch.cuda.max_memory_allocated() - base
+    weights = tree_bytes(engine.qp)
+    experts = tree_bytes(engine.qp["layers"]["moe"])
+    f32_ends = tree_bytes({k: engine.qp[k] for k in ("embed", "head")})
+    log(f"  [mixtral] seeded weights drawn and quantized one layer at a "
+        f"time in {drawn_s:.1f} s ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of f {cfg.d_ff}, "
+        f"swa_window {cfg.swa_window}, moe_group {cfg.moe_group}, vocab "
+        f"{cfg.vocab}): serving weights {weights / 2**30:.3f} GiB (experts "
+        f"{experts / 2**30:.3f} GiB, embed and head f32 "
+        f"{f32_ends / 2**30:.3f} GiB); peak while drawing "
+        f"{draw_peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB the "
+        f"earlier phases hold; capacity {cap}; prompt lengths "
+        + ", ".join(map(str, lens)) + f" [{card}]")
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:64],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    dense = PooledEngine(cfg, engine.qp, max_len=max_len, use_lop=False,
+                         device="cuda")
+    out, launches, found = {}, {k: 0 for k in KERNEL_NAMES}, {}
+    for label, eng, rq, rids in (
+            ("mixtral LOP greedy", engine, reqs, (0, longest)),
+            ("mixtral no-LOP greedy, the long requests", dense,
+             reqs[MIXTRAL_SHORT:], (longest,))):
+        attn = "fused_decode_attention" if eng.use_lop else DENSE
+        run = serve_run(torch, np, eng, rq, label, card, capacity=cap)
+        check_counts(run["counts"], label,
+                     ("fused_qlinear", "fused_ffn_experts",
+                      "fused_prefill_attention", attn),
+                     idle=("fused_ffn", "fused_qlinear_experts",
+                           "fused_decode_attention" if attn == DENSE
+                           else DENSE))
+        check_tokens(cfg, run["results"], GEN, label)
+        check_lockstep(eng, reqs, run["results"], rids, label)
+        sched = run.pop("sched")
+        pre = sched.full_prefill_seconds
+        if (sched.chunked or len(pre) != len(rq)
+                or sched.prefill_tokens_computed
+                != sum(len(r.prompt) for r in rq)):
+            raise AssertionError(f"[{label}] {len(pre)} exact-length "
+                                 f"prefills of {len(rq)} prompts, "
+                                 f"{sched.prefill_tokens_computed} tokens "
+                                 f"computed, chunked {sched.chunked}")
+        log(f"  [{label}] {len(pre)} exact-length prefills (no chunk), p50 "
+            f"{np.percentile(pre, 50) * 1e3:.1f} ms, max "
+            f"{max(pre) * 1e3:.1f} ms; {sched.full_prefill_stalls} stalled "
+            f"the decoding lanes; pool of {N_SLOTS} slots x {cap} "
+            f"{tree_bytes(sched.pool) / 2**30:.3f} GiB [{card}]")
+        if eng is engine:
+            layer = cfg.n_layers // 2
+            cl = {key: sched.pool["layers"][key][layer]
+                  for key in ("k", "v", "k_scale", "v_scale")}
+            rng = np.random.default_rng(SEED + 34)
+            new_len = torch.tensor(MIXTRAL_NEW_LEN, dtype=torch.int32,
+                                   device="cuda")
+            dec = decode_rows(torch, np, rng, cfg, cl, new_len,
+                              f"mixtral layer {layer}'s served pages", card,
+                              window=cfg.swa_window)
+            found["fused_prefill_attention"] = {
+                "mixtral whole prompt, window": prefill_chunk_rows(
+                    torch, np, rng, cfg, cl, 0, lens[longest],
+                    f"mixtral's {lens[longest]}-token prompt whole", card)}
+            found["fused_decode_attention"] = {
+                "mixtral G 6, window": dec["fused_decode_attention"]}
+            found[DENSE] = {"mixtral G 6, window": dec[DENSE]}
+            found["fused_ffn_experts"] = expert_ffn_rows(
+                torch, np, rng, layer_slice(engine.qp["layers"]["moe"],
+                                            layer),
+                (capacity(cfg, N_SLOTS), capacity(cfg, cfg.moe_group)),
+                "mixtral", card)
+            del cl
+        # the run's launches, whole: a decode step's 2 / 1 / 1 a layer of
+        # #1 / #2 / the decode kernel, a prefill's 2 #1 and one #3 a layer
+        # and one #2 a layer a moe_group of prompt tokens
+        n, steps = cfg.n_layers, sched.decode_launches
+        groups = sum(-(-len(r.prompt) // cfg.moe_group) for r in rq)
+        want = {"fused_qlinear": 2 * n * (steps + len(rq)),
+                "fused_ffn_experts": n * (steps + groups),
+                "fused_prefill_attention": n * len(rq), attn: n * steps}
+        got = {k: run["counts"][k] for k in KERNEL_NAMES
+               if run["counts"][k]}
+        if got != want:
+            raise AssertionError(f"[{label}] launched {got}, want {want} "
+                                 f"for {steps} decode steps")
+        del sched
+        out[label] = dict(
+            counts=run["counts"], tokens=tokens_digest(run["results"]),
+            tokens_per_s=run["tokens_per_s"],
+            ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
+            prefill_ms_p50=float(np.percentile(pre, 50) * 1e3),
+            serve_cycle_decode_ms_p50=run["serve_cycle_decode_ms_p50"])
+        if eng is engine:
+            # graph == eager once, on the LOP engine (the no-LOP run's
+            # steps are held by its launches above)
+            step = decode_arms(torch, np, eng, reqs, label, card)
+            out[label].update(decode_step_ms_p50=step["ms"],
+                              eager_decode_step_ms_p50=step["eager_ms"])
+            del step
+        for k in KERNEL_NAMES:
+            launches[k] += run["counts"][k]
+        del run
+        free_cuda(torch)
+    by_len = prefill_ms_by_length(torch, np, engine, (lens[longest],),
+                                  reps=2, warm=False)
+    g, d = out["mixtral LOP greedy"], out[
+        "mixtral no-LOP greedy, the long requests"]
+    log(f"  [mixtral] LOP greedy {g['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{g['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA graph "
+        f"{g['decode_step_ms_p50']:.2f} ms, eager "
+        f"{g['eager_decode_step_ms_p50']:.2f} ms, peak while serving "
+        f"{g['peak_bytes'] / 2**30:.2f} GiB; no-LOP (the 2 long requests) "
+        f"{d['tokens_per_s']:.2f} tok/s, TTFT p50 {d['ttft_p50_ms']:.1f} ms, "
+        f"serve-cycle decode p50 {d['serve_cycle_decode_ms_p50']:.2f} ms; "
+        f"one exact-length prefill "
+        f"of {lens[longest]} tokens (batch 1, host ms to a synchronize) "
+        f"{by_len[lens[longest]]:.1f} ms; tokens sha256 {g['tokens']} / "
+        f"{d['tokens']}; phase 4o took {time.monotonic() - t_phase:.1f} s "
+        f"[{card}]")
+    del engine, dense
+    free_cuda(torch)
+    return dict(runs=out, launches=launches, rows=found,
+                draw_peak_bytes=draw_peak, weights_bytes=weights,
+                prefill_ms=by_len)
+
+
 # ---------------------------------------------------------------------------
 # phase 4h: the dense family's LayerNorm and QKV bias; the encdec family
 # ---------------------------------------------------------------------------
 
-QWEN_LAYERS = 8                    # of 64: these 8 layers' token digest
-STABLELM_LAYERS = 12               # of 24 (the smoke run's time)
-#                                    is held from run to run
+QWEN_LAYERS = 64                   # all of qwen1.5-32b's layers
+STABLELM_LAYERS = 6                # of 24 (the smoke run's time)
 WHISPER_MAX_LEN = 448              # whisper's decoder context
 WHISPER_FRAMES = 1500              # a full 30-s window (cross_ctx)
 WHISPER_MIN_PROMPT, WHISPER_MAX_PROMPT = 4, 64
@@ -3056,7 +3369,8 @@ def dense_feature_arm(torch, np, cfg, label: str, card: str,
     (``bias_seed``: the QKV biases drawn nonzero from a generator of that
     seed, the values a draw onto the master tree gave); then phase 4's 8 requests greedy LOP through the
     Scheduler on 4 slots (chunked), scheduler == lockstep for 2 requests,
-    and the clean decode step on CUDA graphs and eager with its launches.
+    and the clean decode step (over the 4 shortest prompts) on CUDA graphs
+    and eager with its launches.
     → stats."""
     from repro_torch.launch.serve import make_requests
     from repro_torch.serving.api import GenerateRequest, PooledEngine
@@ -3103,13 +3417,21 @@ def dense_feature_arm(torch, np, cfg, label: str, card: str,
     check_counts(run["counts"], label, LOP_PATH,
                  idle=(DENSE, "fused_qlinear_experts", "fused_ffn_experts"))
     check_tokens(cfg, run["results"], GEN, label)
+    pool = tree_bytes(run["sched"].pool)
+    log(f"  [{label}] served tree {tree_bytes(qp) / 2**30:.3f} GiB, pool "
+        f"of {N_SLOTS} slots x {run['sched'].capacity} "
+        f"{pool / 2**30:.3f} GiB ({pool / (N_SLOTS * run['sched'].capacity) / 1e3:.1f}"
+        f" KB a token), draw peak {(init_peak - base) / 2**30:.2f} GiB [{card}]")
     check_lockstep(engine, reqs, run["results"], (0, 1), label)
     bias = run["counts"].get("fused_qlinear:bias", 0)
     if cfg.qkv_bias and 2 * bias != run["counts"]["fused_qlinear"]:
         raise AssertionError(f"[{label}] {bias} of "
                              f"{run['counts']['fused_qlinear']} #1 launches "
                              f"carried the QKV bias, want half")
-    step = decode_arms(torch, np, engine, reqs, label, card)
+    # the steady lanes: the 4 shortest prompts (qwen's 64 layers prefill
+    # them eagerly twice)
+    step = decode_arms(torch, np, engine,
+                       sorted(reqs, key=lambda r: len(r.prompt)), label, card)
     out.update(counts=run["counts"], tokens=tokens_digest(run["results"]),
                tokens_per_s=run["tokens_per_s"],
                ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
@@ -3190,14 +3512,15 @@ def prefill_row(torch, np, rng, label, k, v, ks, vs, kv_len, c, dh,
 
 
 def decode_rows(torch, np, rng, cfg, cl, new_len, label: str,
-                card: str) -> dict:
+                card: str, window: int = 0) -> dict:
     """#4 (LOP) and #5 (dense) over one layer's pages ``cl`` (B, Hkv, M,
     dh) at ``cfg``'s query heads (G = H / Hkv rows a kv lane) and
-    ``new_len``, seeded queries, features recomputed (retiring a lane
-    zeroes them), through the ops entry against the plain version (the
-    pages untouched), then each kernel timed eagerly and in a CUDA graph
-    beside its bound (the blocks and live tokens the plain selection
-    reads on these inputs)."""
+    ``new_len`` (keys in the last ``window`` positions only, when set),
+    seeded queries, features recomputed (retiring a lane zeroes them),
+    through the ops entry against the plain version (the pages
+    untouched), then each kernel timed eagerly and in a CUDA graph beside
+    its bound (the blocks and live tokens the plain selection reads on
+    these inputs; a window's keys alone)."""
     from repro_torch.core.lop import lop_features, pack_features
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as plain
@@ -3218,10 +3541,10 @@ def decode_rows(torch, np, rng, cfg, cl, new_len, label: str,
         np.float32)).to(dev)
     scale = dh ** -0.5
     nl = new_len.tolist()
-    live = hkv * sum(nl)
+    live = hkv * sum(min(n_, window) if window else n_ for n_ in nl)
     rows = {}
     for name, use_lop in (("fused_decode_attention", True), (DENSE, False)):
-        kw = dict(block=blk, k_keep=k_keep, window=0, use_lop=use_lop)
+        kw = dict(block=blk, k_keep=k_keep, window=window, use_lop=use_lop)
         args = (qi, qsc, cl["k"], cl["v"], cl["k_scale"], cl["v_scale"],
                 feat, new_len)
         before = [cl[key].clone() for key in ("k", "v", "k_scale",
@@ -3246,11 +3569,11 @@ def decode_rows(torch, np, rng, cfg, cl, new_len, label: str,
 
             def kern(*a):
                 return fused_decode_attention(
-                    *a, hkv=hkv, block=blk, k_keep=k_keep, window=0,
+                    *a, hkv=hkv, block=blk, k_keep=k_keep, window=window,
                     softmax_scale=scale)
             blocks, live_sel = selected(torch, qi, feat, new_len, b=b,
                                         hkv=hkv, g=g, m=m, dh=dh, blk=blk,
-                                        k_keep=k_keep)
+                                        k_keep=k_keep, window=window)
             b_ms, b_by = bound_ms(
                 nbytes(qi, qsc, new_len) + live * (dh // 2)
                 + blocks * blk * (2 * dh + 8) + b * h * dh * 4,
@@ -3261,7 +3584,8 @@ def decode_rows(torch, np, rng, cfg, cl, new_len, label: str,
 
             def kern(*a):
                 return fused_dense_decode_attention(
-                    *a, hkv=hkv, block=blk, window=0, softmax_scale=scale)
+                    *a, hkv=hkv, block=blk, window=window,
+                    softmax_scale=scale)
             b_ms, b_by = bound_ms(
                 nbytes(qi, qsc, new_len) + live * (2 * dh + 8)
                 + b * h * dh * 4, int8_ops=2.0 * g * live * dh,
@@ -3272,14 +3596,16 @@ def decode_rows(torch, np, rng, cfg, cl, new_len, label: str,
         p_ms = cuda_ms(torch, lambda *a: plain.decode_attention_ref(
             *a, softmax_scale=scale, **kw), [args], 3)
         log(f"  {name} {label} (B={b}, H {h} over Hkv {hkv}, G {g}, dh "
-            f"{dh}, M={m}, new_len {nl}, k_keep {k_keep}, no write): max "
+            f"{dh}, M={m}, new_len {nl}, window {window}, k_keep {k_keep}, "
+            f"no write): max "
             f"|err| {err:.3g}, cache untouched; {ms:.4f} ms, in a CUDA graph "
             f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
             f"{b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
             f"graph) [{card}]")
         rows[name] = dict(max_abs_err=err, ms=ms, graph_ms=g_ms,
                           plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                          shape=f"B={b} H={h} Hkv={hkv} M={m} new_len={nl}")
+                          shape=f"B={b} H={h} Hkv={hkv} M={m} new_len={nl}"
+                          + (f" window={window}" if window else ""))
     return rows
 
 
@@ -3534,8 +3860,8 @@ def whisper_arm(torch, np, card: str) -> dict:
 def families_phase(torch, np, card: str) -> dict:
     """Phase 4h: (a) stablelm-1.6b (LayerNorm) at full width and
     ``STABLELM_LAYERS`` of its 24 layers,
-    (b) qwen1.5-32b (QKV bias drawn nonzero) at full width and 8 of its 64
-    layers, (c) whisper-small (encdec) at full width and depth; each
+    (b) qwen1.5-32b (QKV bias drawn nonzero) at full width and depth, (c)
+    whisper-small (encdec) at full width and depth; each
     arm's engine and master tree freed before the next. → stats, with the
     launches of the new kernel modes on the paths that run them and the
     kernel rows of the new shapes."""
@@ -3580,9 +3906,9 @@ def families_phase(torch, np, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 RWKV_ROWS = ("w_lora_a", "w_lora_b", "wk_c", "wv_c")
-# 4i serves rwkv6 at full width and 6 of its 24 layers; the trained
+# 4i serves rwkv6 at full width and 3 of its 24 layers; the trained
 # model is served at full depth in phase 4l (d)
-RWKV_SERVE_LAYERS = 6
+RWKV_SERVE_LAYERS = 3
 JAMBA_REQUESTS, JAMBA_MIN_PROMPT, JAMBA_MAX_PROMPT = 8, 8, 96
 JAMBA_GEN = 16
 JAMBA_MAX_LEN = JAMBA_MAX_PROMPT + 96      # room for the steady steps' 96
@@ -3688,11 +4014,11 @@ def recurrent_serve(torch, np, engine, reqs, label, card, capacity: int,
 
 def rwkv_arm(torch, np, card: str) -> dict:
     """rwkv6-1.6b at full width (d 2048, 32 heads of 64, f 7168, vocab
-    65,536) and 6 of its 24 layers: seeded weights drawn and quantized on
-    the card one layer at a time (the first 6 layers of the full draw),
+    65,536) and 3 of its 24 layers: seeded weights drawn and quantized on
+    the card one layer at a time (the first 3 layers of the full draw),
     phase 4's 8 requests greedy, then sampled, through the Scheduler on 4
     slots (run to completion, exact-length prefill), #1 the only kernel of
-    the table (60 launches a decode step). → stats."""
+    the table (30 launches a decode step). → stats."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3778,20 +4104,46 @@ def rwkv_arm(torch, np, card: str) -> dict:
                 draw_peak_bytes=draw_peak)
 
 
+def hybrid_prefill_launches(torch, engine, reqs, label: str):
+    """One exact-length prefill of the longest prompt of ``reqs`` on a
+    hybrid engine: its launches are the decode step's #1 and dense #2,
+    #2's expert form once a moe_group of tokens and #3 once a superblock.
+    → the prompt."""
+    from repro_torch.kernels import ops
+
+    cfg = engine.cfg
+    prompt = max((r.prompt for r in reqs), key=len)
+    ops.reset_launch_counts()
+    engine.prefill(prompt[None])
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    step = recurrent_step_launches(cfg, True)
+    groups = -(-len(prompt) // cfg.moe_group)
+    want = {"fused_qlinear": step["fused_qlinear"],
+            "fused_ffn": step["fused_ffn"],
+            "fused_ffn_experts": step["fused_ffn_experts"] * groups,
+            "fused_prefill_attention": step["fused_decode_attention"]}
+    if {k: v for k, v in got.items() if ":" not in k} != want:
+        raise AssertionError(f"a {label} prefill of {len(prompt)} tokens "
+                             f"launched {got}, want {want}")
+    log(f"  launches an exact-length prefill of {len(prompt)} tokens "
+        f"({label}): " + ", ".join(f"{k} {v}" for k, v in sorted(got.items()))
+        + "; prompt lengths " + ", ".join(str(len(r.prompt)) for r in reqs))
+    return prompt
+
+
 def jamba_arm(torch, np, card: str) -> dict:
     """jamba-1.5-large-398b-reduced (2 superblocks of Mamba, Mamba + MoE,
     attention, Mamba + MoE; d 128, 4 experts top-2, lop_block 32): 8
     requests of 8–96 prompt tokens (default_rng(3)), 16 new, greedy LOP,
     no-LOP on an engine sharing the weights, and sampled; every kernel of
     the path launches. A launch and parity check of the hybrid path at d
-    128, not its performance: :func:`jamba_width_arm` runs its sublayers
-    at full width, and the whole full-width model (about 100 GB even
-    packed) waits for drawing seeded weights a layer at a time. →
-    stats."""
+    128, not its performance: :func:`jamba_width_arm` serves one
+    superblock at full width (the whole model, about 100 GB even packed,
+    fits no card). → stats."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_requests
     from repro_torch.serving.api import GenerateRequest, PooledEngine
     from repro_torch.serving.cache import capacity_for
@@ -3817,25 +4169,7 @@ def jamba_arm(torch, np, card: str) -> dict:
                                 max_new_tokens=2))
     warm.run_to_completion()
     del warm
-    # one exact-length prefill's launches: the decode step's #1 and dense
-    # #2, #2's expert form once a moe_group of tokens, #3 a superblock
-    prompt = max((r.prompt for r in reqs), key=len)
-    ops.reset_launch_counts()
-    engine.prefill(prompt[None])
-    torch.cuda.synchronize()
-    got = {k: v for k, v in ops.launch_counts().items() if v}
-    step = recurrent_step_launches(cfg, True)
-    groups = -(-len(prompt) // cfg.moe_group)
-    want = {"fused_qlinear": step["fused_qlinear"],
-            "fused_ffn": step["fused_ffn"],
-            "fused_ffn_experts": step["fused_ffn_experts"] * groups,
-            "fused_prefill_attention": step["fused_decode_attention"]}
-    if got != want:
-        raise AssertionError(f"a jamba prefill of {len(prompt)} tokens "
-                             f"launched {got}, want {want}")
-    log(f"  launches an exact-length prefill of {len(prompt)} tokens "
-        f"(jamba reduced): " + ", ".join(f"{k} {v}" for k, v in
-                                         sorted(got.items())))
+    hybrid_prefill_launches(torch, engine, reqs, "jamba reduced")
     out = {}
     for label, eng, sampling in (("jamba LOP greedy", engine, None),
                                  ("jamba no-LOP greedy", dense, None),
@@ -4061,55 +4395,129 @@ def jamba_attention_checks(torch, np, cfg, ap, card) -> dict:
                 max_abs_err=errs)
 
 
+JAMBA_SB_REQUESTS, JAMBA_SB_MIN, JAMBA_SB_MAX, JAMBA_SB_GEN = 4, 64, 256, 16
+JAMBA_SB_MAX_LEN = JAMBA_SB_MAX + 96      # room for the steady steps' 96
+JAMBA_SB_SEED = 9                         # the superblock's request rng
+
+
 def jamba_width_arm(torch, np, card: str) -> dict:
-    """jamba-1.5-large-398b at full width, one sublayer of each mixer: a
-    Mamba sublayer (d 8192, Di 16384, S 16, conv 4, dt_rank 512) and an
-    attention sublayer (64 heads of 128 over 8 KV heads), drawn on the
-    card from the seed and put in serving format as the model's
-    superblocks are (``dt_proj`` packed with its bias). #1 at ``in_proj``,
+    """jamba-1.5-large-398b at full width and one superblock of its 9 (8
+    of 72 sublayers: 7 Mamba (d 8192, Di 16384, S 16, conv 4, dt_rank
+    512) and 1 attention (64 heads of 128 over 8 KV heads), 4 dense FFNs
+    and 4 MoEs of 16 experts top-2 of f 24,576), drawn and quantized on
+    the card a sublayer at a time through ``PooledEngine.from_seed`` (the
+    peak is the served tree and one sublayer's masters); 4 requests of
+    64–256 tokens, 16 new, run to completion greedy LOP and on a no-LOP
+    engine sharing the weights: every kernel of the path launched, one
+    exact-length prefill's launches, scheduler == lockstep for 2
+    requests, the decode step on CUDA graphs bitwise its eager twin (30
+    / 4 dense + 4 expert / 1 launches of #1 / #2 / the decode kernel);
+    #2 (E 16) at the decode C and the longest prompt's against its plain
+    version with times and bound. Then, on the served superblock's first
+    Mamba sublayer and its attention sublayer: #1 at ``in_proj``,
     ``x_proj``, ``dt_proj`` + bias, ``out_proj``, ``wqkv`` and ``wo``
     bitwise its plain version and timed beside its bound; the Mamba
     sublayer's prefill (4 #1 launches, the selective scan a time loop of
     plain ops) at 128, 512 and 1536 tokens and its decode step (4 lanes,
     eager and in a CUDA graph); the Mamba sublayer card against CPU stage
     by stage; the attention sublayer's prefill and decode with #3 and the
-    decode kernels held against their plain versions. The model's whole
-    depth (72 sublayers, 16 experts of f 24,576 on every other; about
-    100 GB even packed) and its FFN and MoE sublayers wait for drawing
-    seeded weights a layer at a time. → stats."""
+    decode kernels held against their plain versions. → stats."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import resolve_decode_flags
+    from repro_torch.launch.serve import make_requests
     from repro_torch.models import mamba
-    from repro_torch.models.transformer import _attention_init
-    from repro_torch.serving.quantize import quantize_layer
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving.api import GenerateRequest, PooledEngine
+    from repro_torch.serving.cache import capacity_for
+    from repro_torch.serving.scheduler import Scheduler
 
-    cfg = resolve_decode_flags(get_config("jamba-1.5-large-398b"))
+    cfg = resolve_decode_flags(get_config("jamba-1.5-large-398b").replace(
+        n_layers=get_config("jamba-1.5-large-398b").attn_every))
     free_cuda(torch)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    masters = {"mamba": mamba.mamba_init(gen, cfg, device="cuda"),
-               "attn": _attention_init(gen, cfg, device="cuda")}
-    master_bytes = tree_bytes(masters)
-    sub = quantize_layer(masters)
-    del masters
+    engine = PooledEngine.from_seed(cfg, seed=SEED, max_len=JAMBA_SB_MAX_LEN,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    drawn_s = time.monotonic() - t0
+    draw_peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if draw_peak >= total:
+        raise AssertionError(f"jamba superblock draw peak {draw_peak} B")
+    sb = layer_slice(engine.qp["blocks"], 0)
+    moe_bytes = sum(tree_bytes(sb[f"sub{j}"]["moe"])
+                    for j in range(cfg.attn_every) if cfg.is_moe_layer(j))
+    cap = capacity_for(cfg, JAMBA_SB_MAX_LEN)
+    log(f"  [jamba superblock] seeded weights drawn and quantized a "
+        f"sublayer at a time in {drawn_s:.1f} s (d {cfg.d_model}, "
+        f"{cfg.attn_every} sublayers: "
+        + ", ".join(("attn" if cfg.is_attn_layer(j) else "mamba")
+                    + ("+moe" if cfg.is_moe_layer(j) else "+ffn")
+                    for j in range(cfg.attn_every))
+        + f"; {cfg.n_experts} experts top-{cfg.top_k} of f {cfg.d_ff}): "
+        f"serving weights {tree_bytes(engine.qp) / 2**30:.3f} GiB (the 4 "
+        f"MoEs {moe_bytes / 2**30:.3f} GiB, embed and head f32 "
+        f"{tree_bytes({k: engine.qp[k] for k in ('embed', 'head')}) / 2**30:.3f}"
+        f" GiB); draw peak {draw_peak / 2**30:.2f} GiB of the card's "
+        f"{total / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held by the "
+        f"earlier phases); capacity {cap} [{card}]")
+    dense = PooledEngine(cfg, engine.qp, max_len=JAMBA_SB_MAX_LEN,
+                         use_lop=False, device="cuda")
+    reqs = make_requests(cfg, n_requests=JAMBA_SB_REQUESTS,
+                         min_prompt=JAMBA_SB_MIN, max_prompt=JAMBA_SB_MAX,
+                         gen=JAMBA_SB_GEN, seed=JAMBA_SB_SEED)
+    warm = Scheduler(engine, n_slots=1)
+    warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:8],
+                                max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+    prompt = hybrid_prefill_launches(torch, engine, reqs, "jamba superblock")
+    runs, launches = {}, {k: 0 for k in KERNEL_NAMES}
+    for label, eng in (("jamba superblock LOP greedy", engine),
+                       ("jamba superblock no-LOP greedy", dense)):
+        attn = "fused_decode_attention" if eng.use_lop else DENSE
+        runs[label] = recurrent_serve(
+            torch, np, eng, reqs, label, card, cap,
+            ("fused_qlinear", "fused_ffn", "fused_ffn_experts",
+             "fused_prefill_attention", attn),
+            ("fused_qlinear_experts",
+             DENSE if attn != DENSE else "fused_decode_attention"))
+        step = decode_arms(torch, np, eng, reqs, label, card)
+        runs[label].update(decode_step_ms_p50=step["ms"],
+                           eager_decode_step_ms_p50=step["eager_ms"])
+        for k in KERNEL_NAMES:
+            launches[k] += runs[label]["counts"][k]
+        del step
+    del dense
     free_cuda(torch)
-    draw_peak = torch.cuda.max_memory_allocated() - base
-    mp, ap = sub["mamba"], sub["attn"]
+    moe_sub = next(j for j in range(cfg.attn_every) if cfg.is_moe_layer(j))
+    expert_rows = expert_ffn_rows(
+        torch, np, np.random.default_rng(SEED + 20), sb[f"sub{moe_sub}"]["moe"],
+        (capacity(cfg, N_SLOTS), capacity(cfg, len(prompt))),
+        f"jamba sub{moe_sub}", card)
+    g, d = runs["jamba superblock LOP greedy"], runs[
+        "jamba superblock no-LOP greedy"]
+    log(f"  [jamba superblock] LOP greedy {g['tokens_per_s']:.2f} tok/s, "
+        f"TTFT p50 {g['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA "
+        f"graph {g['decode_step_ms_p50']:.2f} ms, eager "
+        f"{g['eager_decode_step_ms_p50']:.2f} ms, peak while serving "
+        f"{g['peak_bytes'] / 2**30:.2f} GiB; no-LOP "
+        f"{d['tokens_per_s']:.2f} tok/s, graph step "
+        f"{d['decode_step_ms_p50']:.2f} ms; tokens sha256 {g['tokens']} / "
+        f"{d['tokens']} [{card}]")
+    mp = sb[next(f"sub{j}" for j in range(cfg.attn_every)
+                 if not cfg.is_attn_layer(j))]["mamba"]
+    ap = sb[next(f"sub{j}" for j in range(cfg.attn_every)
+                 if cfg.is_attn_layer(j))]["attn"]
     if "packed" not in mp["dt_proj"] or "b" not in mp["dt_proj"]:
         raise AssertionError("full-width dt_proj is not packed with its bias")
-    log(f"  [jamba full width] a Mamba and an attention sublayer drawn in "
-        f"{time.monotonic() - t0:.1f} s: masters "
-        f"{master_bytes / 2**30:.3f} GiB f32, served "
-        f"{tree_bytes(sub) / 2**20:.1f} MiB; peak while drawing and "
-        f"quantizing {draw_peak / 2**30:.2f} GiB [{card}]")
     rows = projection_rows(
         torch, np, {**{f"mamba {n}": mp[n] for n in (
             "in_proj", "x_proj", "dt_proj", "out_proj")},
             "attn wqkv": ap["wqkv"], "attn wo": ap["wo"]},
-        "jamba", "a full-width sublayer drawn on the card", card, SEED + 18)
+        "jamba", "the served superblock's sublayers", card, SEED + 18)
     rng = np.random.default_rng(SEED + 19)
 
     def seeded(*shape, sd=1.0):
@@ -4146,24 +4554,27 @@ def jamba_width_arm(torch, np, card: str) -> dict:
         f"graph {step_graph_ms:.3f} ms; 4 #1 launches a call [{card}]")
     cpu = mamba_card_vs_cpu(torch, np, cfg, mp, card)
     attn = jamba_attention_checks(torch, np, cfg, ap, card)
-    del sub, mp, ap
+    del sb, mp, ap, engine
     free_cuda(torch)
     return dict(rows=rows, mamba_prefill_ms=prefill_ms,
                 mamba_step_ms=step_ms, mamba_step_graph_ms=step_graph_ms,
-                card_vs_cpu=cpu, attention=attn, draw_peak_bytes=draw_peak)
+                card_vs_cpu=cpu, attention=attn, draw_peak_bytes=draw_peak,
+                runs=runs, launches=launches, expert_rows=expert_rows)
 
 
 def recurrent_phase(torch, np, card: str) -> dict:
-    """Phase 4i: (a) rwkv6-1.6b at full width and depth, (b)
-    jamba-1.5-large-398b reduced, (c) one full-width jamba sublayer of
-    each mixer; each arm's engine freed before the next. → stats, with
-    every serve run's launches summed by kernel."""
+    """Phase 4i: (a) rwkv6-1.6b at full width and ``RWKV_SERVE_LAYERS``
+    layers, (b) jamba-1.5-large-398b reduced, (c) one full-width jamba
+    superblock served, its sublayers checked; each arm's engine freed
+    before the next. → stats, with every serve run's launches summed by
+    kernel."""
     t0 = time.monotonic()
     rwkv = rwkv_arm(torch, np, card)
     jamba = jamba_arm(torch, np, card)
     width = jamba_width_arm(torch, np, card)
     launches = {k: 0 for k in KERNEL_NAMES}
-    for run in (*rwkv["runs"].values(), *jamba["runs"].values()):
+    for run in (*rwkv["runs"].values(), *jamba["runs"].values(),
+                *width["runs"].values()):
         for k in KERNEL_NAMES:
             launches[k] += run["counts"][k]
     log(f"  phase 4i's serve runs launched {json.dumps(launches)}; phase 4i "
@@ -4180,8 +4591,8 @@ def recurrent_phase(torch, np, card: str) -> dict:
 VLM_SEED = 4                       # the vlm traffic's request rng
 VLM_MIN_TEXT, VLM_MAX_TEXT = 64, 512
 VLM_SPEC_REQUESTS = 2
-VLM_SERVE_LAYERS = 12              # of 60: drawn whole, served cut (time)
-MISTRAL_LAYERS = 12                # of 40: drawn and served cut (time)
+VLM_SERVE_LAYERS = 6               # of 60: drawn whole, served cut (time)
+MISTRAL_LAYERS = 6                 # of 40: drawn and served cut (time)
 VLM_SHARED_TEXT = 1024             # the text-only prefix-store arm
 DRAW_PEAK_LIMIT = 30 * 2 ** 30     # llava's streamed draw (its whole f32
 #                                    master tree would not fit the card)
@@ -4255,10 +4666,11 @@ def prefill_chunk_rows(torch, np, rng, cfg, cl, start: int, c: int,
                        label: str, card: str) -> dict:
     """#3 causal at a chunk's shape over one layer's pages ``cl`` (batch
     1; ``c`` rows a query head at global positions [start, start + c),
-    kv_len start + c; G = H / Hkv rows a kv lane, g-major), seeded
-    queries, through the ops entry against the plain version, then timed
-    alone (CUDA events, L2 cold) beside its bound and SDPA on the
-    dequantized tensors with the chunk's causal mask."""
+    kv_len start + c; G = H / Hkv rows a kv lane, g-major; ``cfg``'s
+    sliding window), seeded queries, through the ops
+    entry against the plain version, then timed alone (CUDA events, L2
+    cold) beside its bound (the (row, key) pairs the mask keeps) and
+    SDPA on the dequantized tensors with the chunk's mask."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as plain
     from repro_torch.kernels.prefill_attention import fused_prefill_attention
@@ -4274,11 +4686,12 @@ def prefill_chunk_rows(torch, np, rng, cfg, cl, start: int, c: int,
         np.float32)).to(dev)
     kv_len = torch.full((1,), kvl, dtype=torch.int32, device=dev)
     scale = dh ** -0.5
+    win = cfg.swa_window
     view = [cl[key][:1] for key in ("k", "v", "k_scale", "v_scale")]
     got = ops.prefill_attention(qi, qsc, *view, kv_len, q_offset=start,
-                                causal=True)
+                                causal=True, window=win)
     want = plain.prefill_attention_ref(qi, qsc, *view, kv_len, start,
-                                       causal=True, window=0,
+                                       causal=True, window=win,
                                        softmax_scale=scale)
     err = check_close(torch, f"fused_prefill_attention[{label}]", got, want)
     args = (qi.reshape(hkv, g * c, dh).contiguous(),
@@ -4287,12 +4700,13 @@ def prefill_chunk_rows(torch, np, rng, cfg, cl, start: int, c: int,
 
     def kern(*a):
         return fused_prefill_attention(*a, hkv=hkv, chunk=c, causal=True,
-                                       window=0, softmax_scale=scale)
+                                       window=win, softmax_scale=scale)
     ms = cuda_ms(torch, kern, copies(torch, args), 10)
     p_ms = cuda_ms(torch, lambda: plain.prefill_attention_ref(
-        qi, qsc, *view, kv_len, start, causal=True, window=0,
+        qi, qsc, *view, kv_len, start, causal=True, window=win,
         softmax_scale=scale), [()], 2)
-    visible = c * start + c * (c + 1) // 2          # causal pairs a head
+    pos = np.arange(start, start + c)               # (row, key) pairs kept
+    visible = int((np.minimum(pos + 1, win) if win else pos + 1).sum())
     b_ms, b_by = bound_ms(nbytes(qi, qsc) + hkv * kvl * (2 * dh + 8)
                           + h * c * dh * 4, int8_ops=2.0 * h * visible * dh,
                           f32_ops=2.0 * h * visible * dh)
@@ -4300,20 +4714,23 @@ def prefill_chunk_rows(torch, np, rng, cfg, cl, start: int, c: int,
     vf = (view[1][:, :, :kvl].float() * view[3][:, :, :kvl, None])
     kf, vf = (x.repeat_interleave(g, dim=1) for x in (kf, vf))
     qf = qi.float() * qsc[..., None]
-    mask = (torch.arange(kvl, device=dev)[None, :]
-            <= (start + torch.arange(c, device=dev))[:, None])
+    rel = ((start + torch.arange(c, device=dev))[:, None]
+           - torch.arange(kvl, device=dev)[None, :])
+    mask = (rel >= 0) & (rel < win) if win else rel >= 0
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = cuda_ms(torch, lambda: sdpa(qf, kf, vf, attn_mask=mask),
                      [()], 3)
-    del kf, vf, qf, mask
+    del kf, vf, qf, mask, rel
     log(f"  fused_prefill_attention {label} (causal, C={c} rows a head at "
         f"start {start}, kv_len {kvl}, M={m}, H {h} over Hkv {hkv}, G {g}, "
-        f"dh {dh}): max |err| {err:.3g}; {ms:.4f} ms (plain {p_ms:.3f} ms, "
+        f"dh {dh}, window {win}): max |err| {err:.3g}; {ms:.4f} ms (plain "
+        f"{p_ms:.3f} ms, "
         f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
         f"{b_ms / ms:.1%} of bound) [{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
-                shape=f"C={c} start={start} M={m} H={h} Hkv={hkv} dh={dh}")
+                shape=f"C={c} start={start} M={m} H={h} Hkv={hkv} dh={dh}"
+                + (f" window={win}" if win else ""))
 
 
 def vlm_chunks(torch, engine, req, card: str) -> dict:
@@ -5421,7 +5838,7 @@ def rec_train_phase(torch, np, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SP_RANKS, SP_CAPACITY, SP_STEPS = 2, 2048, 8
-SP_LAYERS = 13                     # of bitnet-3b's 26 (the smoke run's time)
+SP_LAYERS = 8                      # of bitnet-3b's 26 (the smoke run's time)
 # arm → (use_lop, f-axis TP of the FFN, sequence-parallel)
 SP_ARMS = {"sp": (True, False, True), "sp-tp": (True, True, True),
            "sp-dense": (False, False, True), "single": (True, False, False)}
@@ -6834,6 +7251,11 @@ ELASTIC_SURVIVORS = 3                    # plan (1, 2): one spare
 SPR_RANKS, SPR_STEPS, SPR_LANES = 2, 8, 4
 SPR_ARCHS = {"jamba": ("jamba-1.5-large-398b-reduced", None, 96, 255),
              "rwkv6": ("rwkv6-1.6b", RWKV_SERVE_LAYERS, 256, 1024)}
+# (a), (b), (c) and (e) share one spawn of 4 ranks: (a) and (c) on the
+# (data, model) mesh it is spawned with, (b) and (e) on meshes built
+# over its first CM_RANKS and SPR_RANKS ranks
+SHARED_RANKS = math.prod(FSDP_MESH)
+assert EP_MESH == FSDP_MESH and CM_RANKS == SHARED_RANKS >= SPR_RANKS
 
 
 def ep_inputs(torch):
@@ -7013,8 +7435,10 @@ def fsdp_rank(mesh, ckpt_dir: str) -> dict:
     cfg, params, batch = fsdp_inputs(torch)
     torch.cuda.synchronize()
     drawn = time.monotonic() - t0
+    t0 = time.monotonic()
     out = _checked_steps(torch, cfg, mesh, params, adamw_init(params), batch,
                          f"{ckpt_dir}/want_c.pt", sc.FAULTS)
+    stepped = time.monotonic() - t0
     t0 = time.monotonic()
     state = {"params": gather_tree(out.pop("p"), out["dims"], mesh),
              "opt": gather_tree(out.pop("o"), out["dims"], mesh)}
@@ -7022,8 +7446,50 @@ def fsdp_rank(mesh, ckpt_dir: str) -> dict:
     gathered = time.monotonic() - t0
     if mesh.rank(mesh.axis_names) == 0:
         save_checkpoint(f"{ckpt_dir}/ckpt", 1, state)
-    return dict(out, draw_s=drawn, gather_s=gathered,
+    return dict(out, draw_s=drawn, steps_s=stepped, gather_s=gathered,
                 save_s=time.monotonic() - t0 - gathered)
+
+
+def first_cuda(torch) -> dict:
+    """A spawned rank's wall-clock stamps (``time.time()``, comparable
+    across processes): entering its target (after the process start, its
+    imports, the gloo rendezvous and the mesh), then after its first CUDA
+    call."""
+    stamps = {"entered": time.time()}
+    torch.zeros(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    stamps["cuda"] = time.time()
+    return stamps
+
+
+def shared_rank(mesh, ckpt_dir: str) -> dict:
+    """4m (a), (b), (c) and (e) on one of the 4 ranks of one spawn, one
+    after the other, the rank's peak reset and its memory freed between
+    them: (a) :func:`ep_rank` and (c) :func:`fsdp_rank` on the (data,
+    model) mesh it was spawned with, (b) :func:`cm_rank` on a 4-rank
+    model mesh and (e) :func:`sp_rec_rank` on a 2-rank model mesh over
+    ranks 0 and 1 (the others sit (e) out). Every rank builds both meshes,
+    in the same order. → each sub-arm's result under its letter, and the
+    rank's stamps (:func:`first_cuda`, then the end of each sub-arm)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    stamps = first_cuda(torch)
+    out = {}
+    arms = (("a", lambda: ep_rank(mesh)),
+            ("b", lambda: cm_rank(make_host_mesh((CM_RANKS,), ("model",)))),
+            ("c", lambda: fsdp_rank(mesh, ckpt_dir)),
+            ("e", lambda: (lambda m: None if m is None else sp_rec_rank(m))(
+                make_host_mesh((SPR_RANKS,), ("model",)))))
+    for key, arm in arms:
+        torch.cuda.reset_peak_memory_stats()
+        res = arm()
+        if res is not None:
+            out[key] = res
+        free_cuda(torch)
+        stamps[key] = time.time()
+    out["stamps"] = stamps
+    return out
 
 
 def elastic_rank(mesh, ckpt_dir: str) -> dict:
@@ -7036,6 +7502,7 @@ def elastic_rank(mesh, ckpt_dir: str) -> dict:
 
     from repro_torch.distributed.fault_tolerance import elastic_restart
     from repro_torch.training.optimizer import adamw_init
+    stamps = first_cuda(torch)
     t0 = time.monotonic()
     cfg, like, batch = fsdp_inputs(torch)
     emesh, state, step, _ = elastic_restart(
@@ -7045,11 +7512,13 @@ def elastic_rank(mesh, ckpt_dir: str) -> dict:
     torch.cuda.synchronize()
     loaded = time.monotonic() - t0
     if emesh is None:
-        return {"spare": True, "step": step}
+        return {"spare": True, "step": step,
+                "stamps": dict(stamps, d=time.time())}
     out = _checked_steps(torch, cfg, emesh, state["params"], state["opt"],
                          batch, f"{ckpt_dir}/want_d.pt")
     out.pop("p"), out.pop("o")
-    return dict(out, step=step, shape=dict(emesh.shape), load_s=loaded)
+    return dict(out, step=step, shape=dict(emesh.shape), load_s=loaded,
+                stamps=dict(stamps, d=time.time()))
 
 
 def sp_rec_rank(mesh) -> dict:
@@ -7108,82 +7577,115 @@ def _rank_peaks(ranks) -> str:
                       if "peak" in r) + " GiB"
 
 
+def stamp_line(t_spawn: float, t_back: float, ranks, arms) -> str:
+    """Where a spawn's seconds went, by the ranks' stamps (the slowest
+    rank at each): the start (processes, imports, gloo rendezvous, mesh)
+    and the first CUDA call, each sub-arm's work, then the exit and
+    join."""
+    stamps = [r["stamps"] for r in ranks]
+    marks = [("start", "entered"), ("first CUDA call", "cuda")] + [
+        (f"({k})", k) for k in arms]
+    parts, t = [], t_spawn
+    for label, key in marks:
+        end = max(st[key] for st in stamps if key in st)
+        parts.append(f"{label} {end - t:.1f}")
+        t = end
+    parts.append(f"exit and join {t_back - t:.1f}")
+    return ", ".join(parts) + f" s ({t_back - t_spawn:.1f} s in all)"
+
+
 def distributed_phase(torch, np, card: str) -> dict:
     """Phase 4m: (a) EP MoE, (b) the ring collective matmuls, (c) the
-    sharded training step, (d) its elastic restart, (e) SP decode of the
-    hybrid and ssm families; each over gloo ranks on cuda:0, spawned once
-    and gone before the next. → #4/#5 launches of (e)'s rank 0."""
+    sharded training step, (e) SP decode of the hybrid and ssm families
+    in one spawn of 4 gloo ranks on cuda:0 (:func:`shared_rank`), each
+    held against this process's single-process run made before the spawn;
+    then (d), the elastic restart from (c)'s checkpoint, in a fresh spawn
+    of 3 survivors. Each spawn's seconds are split by the ranks' stamps.
+    → #4/#5 launches of (e)'s rank 0."""
     import os
     import tempfile
 
     from repro_torch.launch.mesh import local_mesh, spawn_ranks
     from repro_torch.models.moe import train_moe_apply
 
-    # ---- (a) EP MoE ----
-    t0 = time.monotonic()
-    cfg, p, x = ep_inputs(torch)
-    n_tok = x.shape[0] * x.shape[1] // EP_MESH[0]
-    want, _ = train_moe_apply(cfg.replace(moe_group=n_tok), p, x)
-    local = ep_rank(local_mesh(EP_MESH, ("data", "model")))
-    del p, x
-    free_cuda(torch)
-    ranks = spawn_ranks("chip_smoke:ep_rank", math.prod(EP_MESH),
-                        shape=EP_MESH, axes=("data", "model"), timeout=600)
-    want = want.cpu()
-    err = max(float((y - want).abs().max()) for y in local["y"][0])
-    if not all(torch.allclose(y, want, rtol=2e-3, atol=2e-3)
-               for y in local["y"][0]):
-        raise AssertionError(f"(a) EP on the card's single-process mesh "
-                             f"{err:.3g} from moe_apply")
-    for r, res in enumerate(ranks):
-        if not torch.equal(res["y"], local["y"][0, r % EP_MESH[1]]):
-            raise AssertionError(f"(a) EP rank {r} != the single-process "
-                                 f"mesh's rows")
-    log(f"  (a) EP MoE, granite-moe-1b-a400m's layer (d {cfg.d_model}, E "
-        f"{cfg.n_experts} top-{cfg.top_k}, f {cfg.d_ff}; bf16 mode, capacity "
-        f"factor 8), x {list(EP_X)} x {cfg.d_model} on (data, model) "
-        f"{EP_MESH}, {cfg.n_experts // EP_MESH[1]} experts a rank: "
-        f"{err:.3g} from moe_apply at moe_group {n_tok} (gate 2e-3); "
-        f"{len(ranks)} ranks bitwise the single-process mesh; one call "
-        + " / ".join(f"{r['ms']:.1f}" for r in ranks)
-        + f" ms by rank (single-process mesh {local['ms']:.1f} ms; two "
-        f"all_to_all_singles and the rows' all_gather through gloo); "
-        f"peaks {_rank_peaks(ranks)}; "
-        f"{time.monotonic() - t0:.1f} s [{card}]")
-    del ranks, local, want
-    free_cuda(torch)
-
-    # ---- (b) ring collective matmuls ----
-    t0 = time.monotonic()
-    ranks = spawn_ranks("chip_smoke:cm_rank", CM_RANKS, shape=(CM_RANKS,),
-                        axes=("model",), timeout=600)
-    for r, res in enumerate(ranks):
-        if not (res["ring_ok"] and res["ag_ok"]):
-            raise AssertionError(f"(b) rank {r}: {res}")
-    log(f"  (b) bitnet-3b's O shape (k 3200 cut 4 ways, n 3200, "
-        f"{CM_ROWS} rows) over {CM_RANKS} model ranks: ring_reduce_matmul "
-        f"{max(r['ring_vs_psum'] for r in ranks):.3g} from psum(x_loc @ "
-        f"w_loc) ({max(r['ring_vs_full'] for r in ranks):.3g} from X @ W; "
-        f"values to {ranks[0]['scale']:.1f}), allgather_matmul "
-        f"{max(r['ag_err'] for r in ranks):.3g} from X @ W_loc (gates "
-        f"rtol = atol = 1e-4); ms by rank: ring "
-        + " / ".join(f"{r['ring_ms']:.2f}" for r in ranks) + ", all-gather "
-        + " / ".join(f"{r['ag_ms']:.2f}" for r in ranks)
-        + ", one plain all_reduce of the product "
-        + " / ".join(f"{r['all_reduce_ms']:.2f}" for r in ranks)
-        + f" (gloo on one card: no overlap to show); peaks "
-        f"{_rank_peaks(ranks)}; {time.monotonic() - t0:.1f} s [{card}]")
-    del ranks
-
-    # ---- (c) the sharded step, then (d) its elastic restart ----
     sc = tests_module("torch_step_check")
-    t0 = time.monotonic()
     with tempfile.TemporaryDirectory() as tmp:
+        # ---- this process's side of (a), (c) and (e) ----
+        t0 = time.monotonic()
+        cfg, p, x = ep_inputs(torch)
+        n_tok = x.shape[0] * x.shape[1] // EP_MESH[0]
+        want_a, _ = train_moe_apply(cfg.replace(moe_group=n_tok), p, x)
+        want_a = want_a.cpu()
+        local = ep_rank(local_mesh(EP_MESH, ("data", "model")))
+        del p, x
+        free_cuda(torch)
+        t_a = time.monotonic() - t0
+        t0 = time.monotonic()
         cfg_c, single_ms, m, em = fsdp_single(torch, f"{tmp}/want_c.pt")
-        ranks = spawn_ranks("chip_smoke:fsdp_rank", math.prod(FSDP_MESH),
-                            (tmp,), shape=FSDP_MESH, axes=("data", "model"),
-                            timeout=900)
+        t_c = time.monotonic() - t0
+        t0 = time.monotonic()
+        single = sp_rec_rank(None)
+        free_cuda(torch)
+        t_e = time.monotonic() - t0
+        log(f"  this process's runs before the spawn: (a) the single-process "
+            f"mesh and moe_apply {t_a:.1f} s, (c) the mesh-less step and the "
+            f"ranks' emulation {t_c:.1f} s, (e) the unsharded engines "
+            f"{t_e:.1f} s [{card}]")
+
+        # ---- (a), (b), (c) and (e) on one spawn of 4 ranks ----
+        t_spawn = time.time()
+        shared = spawn_ranks("chip_smoke:shared_rank", SHARED_RANKS, (tmp,),
+                             shape=FSDP_MESH, axes=("data", "model"),
+                             timeout=1200)
+        t_back = time.time()
         os.remove(f"{tmp}/want_c.pt")
+        log(f"  one spawn of {SHARED_RANKS} ranks for (a), (b), (c), (e): "
+            + stamp_line(t_spawn, t_back, shared, "abce") + f" [{card}]")
+
+        # ---- (a) EP MoE ----
+        ranks = [r["a"] for r in shared]
+        err = max(float((y - want_a).abs().max()) for y in local["y"][0])
+        if not all(torch.allclose(y, want_a, rtol=2e-3, atol=2e-3)
+                   for y in local["y"][0]):
+            raise AssertionError(f"(a) EP on the card's single-process mesh "
+                                 f"{err:.3g} from moe_apply")
+        for r, res in enumerate(ranks):
+            if not torch.equal(res["y"], local["y"][0, r % EP_MESH[1]]):
+                raise AssertionError(f"(a) EP rank {r} != the "
+                                     f"single-process mesh's rows")
+        log(f"  (a) EP MoE, granite-moe-1b-a400m's layer (d {cfg.d_model}, E "
+            f"{cfg.n_experts} top-{cfg.top_k}, f {cfg.d_ff}; bf16 mode, "
+            f"capacity factor 8), x {list(EP_X)} x {cfg.d_model} on (data, "
+            f"model) {EP_MESH}, {cfg.n_experts // EP_MESH[1]} experts a rank: "
+            f"{err:.3g} from moe_apply at moe_group {n_tok} (gate 2e-3); "
+            f"{len(ranks)} ranks bitwise the single-process mesh; one call "
+            + " / ".join(f"{r['ms']:.1f}" for r in ranks)
+            + f" ms by rank (single-process mesh {local['ms']:.1f} ms; two "
+            f"all_to_all_singles and the rows' all_gather through gloo); "
+            f"peaks {_rank_peaks(ranks)} [{card}]")
+        del local, want_a
+
+        # ---- (b) ring collective matmuls ----
+        ranks = [r["b"] for r in shared]
+        for r, res in enumerate(ranks):
+            if not (res["ring_ok"] and res["ag_ok"]):
+                raise AssertionError(f"(b) rank {r}: {res}")
+        log(f"  (b) bitnet-3b's O shape (k 3200 cut 4 ways, n 3200, "
+            f"{CM_ROWS} rows) over {CM_RANKS} model ranks: ring_reduce_matmul "
+            f"{max(r['ring_vs_psum'] for r in ranks):.3g} from psum(x_loc @ "
+            f"w_loc) ({max(r['ring_vs_full'] for r in ranks):.3g} from X @ W; "
+            f"values to {ranks[0]['scale']:.1f}), allgather_matmul "
+            f"{max(r['ag_err'] for r in ranks):.3g} from X @ W_loc (gates "
+            f"rtol = atol = 1e-4); ms by rank: ring "
+            + " / ".join(f"{r['ring_ms']:.2f}" for r in ranks)
+            + ", all-gather " + " / ".join(f"{r['ag_ms']:.2f}" for r in ranks)
+            + ", one plain all_reduce of the product "
+            + " / ".join(f"{r['all_reduce_ms']:.2f}" for r in ranks)
+            + f" (gloo on one card: no overlap to show); peaks "
+            f"{_rank_peaks(ranks)} [{card}]")
+
+        # ---- (c) the sharded step ----
+        ranks = [r["c"] for r in shared]
         worst, bitwise, caught = fsdp_verdict(sc, ranks, m, em, "(c)",
                                               sc.FAULTS)
         res = ranks[0]
@@ -7212,21 +7714,62 @@ def distributed_phase(torch, np, card: str) -> dict:
             + f" (single-process {single_ms:.0f}; the emulation and its "
             f"6-GB file {em['s']:.1f} s), rank 0's fault steps "
             + " / ".join(f"{res[f'ms/{f}']:.0f}" for f in sc.FAULTS)
-            + " ms; rank 0's draw "
-            f"{res['draw_s']:.1f} s, gather of the state {res['gather_s']:.1f}"
-            f" s, checkpoint write {res['save_s']:.1f} s; peaks "
-            f"{_rank_peaks(ranks)}; {time.monotonic() - t0:.1f} s [{card}]")
-        del ranks
+            + f" ms; rank 0's draw {res['draw_s']:.1f} s, the checked steps "
+            f"with their sums {res['steps_s']:.1f} s, gather of the state "
+            f"{res['gather_s']:.1f} s, checkpoint write {res['save_s']:.1f} "
+            f"s; peaks {_rank_peaks(ranks)} [{card}]")
+
+        # ---- (e) SP decode of the hybrid and ssm families ----
+        ranks = [r["e"] for r in shared[:SPR_RANKS]]
+        if any("e" in r for r in shared[SPR_RANKS:]):
+            raise AssertionError("(e) ran on a rank outside its mesh")
+        for arm, want in single.items():
+            for r, res in enumerate(ranks):
+                if not np.array_equal(res[arm]["tokens"], want["tokens"]):
+                    raise AssertionError(
+                        f"(e) [{arm}] rank {r} tokens "
+                        f"{res[arm]['tokens'].tolist()} != unsharded "
+                        f"{want['tokens'].tolist()}")
+            counts = {k: v for k, v in ranks[0][arm]["counts"].items() if v}
+            attn = ("fused_decode_attention" if arm.endswith("lop")
+                    else DENSE)
+            # every attention launch of a sequence-parallel step is in the
+            # pos_offset + return_stats mode (jamba's; rwkv6 has none)
+            need = ["fused_qlinear"] + ([attn] if arm.startswith("jamba")
+                                        else [])
+            if any(counts.get(k, 0) <= 0 for k in need):
+                raise AssertionError(f"(e) [{arm}] rank 0 launched "
+                                     f"{counts}, not {need}")
+            log(f"  (e) [{arm}] {SPR_LANES} lanes, {SPR_STEPS} greedy steps "
+                f"with sp_axes=('model',) over {SPR_RANKS} ranks == the "
+                f"unsharded engine's tokens; rank 0's launches {counts}; "
+                f"step p50 " + " / ".join(f"{r[arm]['step_ms']:.2f}"
+                                          for r in ranks)
+                + f" ms by rank (unsharded {want['step_ms']:.2f}); peaks "
+                + " / ".join(f"{r[arm]['peak'] / 2**30:.2f}" for r in ranks)
+                + f" GiB [{card}]")
+        stats = {"lop": 0, "dense": 0}
+        for arm, res in ranks[0].items():
+            mode = arm.split("/")[1]
+            name = "fused_decode_attention" if mode == "lop" else DENSE
+            stats[mode] += res["counts"][name]
+        del shared, ranks, single
+        free_cuda(torch)
+
+        # ---- (d) the elastic restart: a fresh spawn of 3 survivors ----
         t0 = time.monotonic()
         # the single-process step from the same checkpoint
-        _, _, m, em = fsdp_single(torch, f"{tmp}/want_d.pt",
-                                  f"{tmp}/ckpt")
+        _, _, m, em = fsdp_single(torch, f"{tmp}/want_d.pt", f"{tmp}/ckpt")
+        t_single = time.monotonic() - t0
+        t_spawn = time.time()
         ranks = spawn_ranks("chip_smoke:elastic_rank", ELASTIC_SURVIVORS,
                             (tmp,), timeout=900)
+        t_back = time.time()
     on_mesh = [r for r in ranks if not r.get("spare")]
     if len(on_mesh) != 2 or not ranks[-1].get("spare") or any(
             r["step"] != 1 for r in ranks):
-        raise AssertionError(f"(d) elastic restart: {[r.get('shape') for r in ranks]}")
+        raise AssertionError(f"(d) elastic restart: "
+                             f"{[r.get('shape') for r in ranks]}")
     worst, bitwise, _ = fsdp_verdict(sc, on_mesh, m, em, "(d)", ())
     log(f"  (d) elastic restart on {ELASTIC_SURVIVORS} survivors: plan "
         f"{tuple(on_mesh[0]['shape'].values())} (rank 2 the spare), the "
@@ -7242,44 +7785,11 @@ def distributed_phase(torch, np, card: str) -> dict:
         f"{worst['v']:.3g}; load s by rank "
         + " / ".join(f"{r['load_s']:.1f}" for r in on_mesh)
         + ", step ms by rank " + " / ".join(f"{r['ms']:.0f}" for r in on_mesh)
-        + f"; peaks {_rank_peaks(on_mesh)}; {time.monotonic() - t0:.1f} s "
-        f"[{card}]")
+        + f"; peaks {_rank_peaks(on_mesh)}; this process's step and "
+        f"emulation from the checkpoint {t_single:.1f} s, the spawn "
+        + stamp_line(t_spawn, t_back, ranks, "d") + f" [{card}]")
     del ranks, on_mesh
     free_cuda(torch)
-
-    # ---- (e) SP decode of the hybrid and ssm families ----
-    t0 = time.monotonic()
-    single = sp_rec_rank(None)
-    ranks = spawn_ranks("chip_smoke:sp_rec_rank", SPR_RANKS,
-                        shape=(SPR_RANKS,), axes=("model",), timeout=900)
-    for arm, want in single.items():
-        for r, res in enumerate(ranks):
-            if not np.array_equal(res[arm]["tokens"], want["tokens"]):
-                raise AssertionError(f"(e) [{arm}] rank {r} tokens "
-                                     f"{res[arm]['tokens'].tolist()} != "
-                                     f"unsharded {want['tokens'].tolist()}")
-        counts = {k: v for k, v in ranks[0][arm]["counts"].items() if v}
-        attn = ("fused_decode_attention" if arm.endswith("lop") else DENSE)
-        # every attention launch of a sequence-parallel step is in the
-        # pos_offset + return_stats mode (jamba's; rwkv6 has none)
-        need = ["fused_qlinear"] + ([attn] if arm.startswith("jamba")
-                                    else [])
-        if any(counts.get(k, 0) <= 0 for k in need):
-            raise AssertionError(f"(e) [{arm}] rank 0 launched {counts}, "
-                                 f"not {need}")
-        log(f"  (e) [{arm}] {SPR_LANES} lanes, {SPR_STEPS} greedy steps "
-            f"with sp_axes=('model',) over {SPR_RANKS} ranks == the "
-            f"unsharded engine's tokens; rank 0's launches {counts}; step "
-            f"p50 " + " / ".join(f"{r[arm]['step_ms']:.2f}" for r in ranks)
-            + f" ms by rank (unsharded {want['step_ms']:.2f}); peaks "
-            + " / ".join(f"{r[arm]['peak'] / 2**30:.2f}" for r in ranks)
-            + f" GiB [{card}]")
-    log(f"  (e) took {time.monotonic() - t0:.1f} s")
-    stats = {"lop": 0, "dense": 0}
-    for arm, res in ranks[0].items():
-        mode = arm.split("/")[1]
-        name = "fused_decode_attention" if mode == "lop" else DENSE
-        stats[mode] += res["counts"][name]
     return stats
 
 
@@ -7564,7 +8074,8 @@ def main() -> int:
     #      family (whisper) ----
     log(f"[serve families] stablelm-1.6b (LayerNorm) full width at "
         f"{STABLELM_LAYERS} of 24 layers, "
-        f"qwen1.5-32b (QKV bias) full width at {QWEN_LAYERS} of 64 layers, "
+        f"qwen1.5-32b (QKV bias) full width and depth ({QWEN_LAYERS} "
+        f"layers), "
         f"whisper-small (encoder-decoder) full width and depth; {N_SLOTS} "
         f"slots, {N_REQUESTS} requests, gen {GEN} [{smi}]")
     fam = families_phase(torch, np, smi)
@@ -7628,6 +8139,23 @@ def main() -> int:
     phase_s["5"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
+    # ---- 4o. mixtral-8x22b at full width and depth (the earlier phases'
+    #      engines freed: its served tree is 34 GiB) ----
+    log(f"[serve mixtral] mixtral-8x22b full width and depth (56 layers, d "
+        f"6144, 48 heads of 128 over 8, 8 experts top-2 of f 16,384, "
+        f"swa_window 4096), drawn a layer at a time; {MIXTRAL_SHORT} "
+        f"requests of {MIN_PROMPT}-{MAX_PROMPT} tokens and "
+        f"{len(MIXTRAL_LONG)} past the window "
+        f"({', '.join(map(str, MIXTRAL_LONG))}), gen {GEN}, {N_SLOTS} "
+        f"slots: greedy LOP, then the long requests no-LOP [{smi}]")
+    mix = mixtral_phase(torch, np, smi)
+    for kname, n in mix["launches"].items():
+        launches[kname] += n
+    kernel_rows(rows, mix["rows"])
+
+    phase_s["4o"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4k. the QAT training path: bitnet-3b trained at full width and
     #      depth, the reduced loop, then the trained masters served ----
     log(f"[train] bitnet-3b full width and depth, {TRAIN_STEPS} steps of "
@@ -7680,13 +8208,14 @@ def main() -> int:
 
     # ---- 4m. the distributed modules over gloo ranks on cuda:0 ----
     free_cuda(torch)
-    log(f"[distributed] gloo ranks on cuda:0, each sub-arm spawned once: (a) "
-        f"EP MoE (granite-moe-1b-a400m's layer, (data, model) {EP_MESH}); "
-        f"(b) ring_reduce_matmul and allgather_matmul ({CM_RANKS} ranks); "
-        f"(c) the sharded training step (stablelm-1.6b full width, "
-        f"{FSDP_LAYERS} layers, {FSDP_MESH}); (d) its elastic restart on "
-        f"{ELASTIC_SURVIVORS} survivors; (e) SP decode of jamba reduced and "
-        f"rwkv6 ({RWKV_SERVE_LAYERS} layers) over {SPR_RANKS} ranks [{smi}]")
+    log(f"[distributed] gloo ranks on cuda:0, one spawn of {SHARED_RANKS} "
+        f"ranks for (a) EP MoE (granite-moe-1b-a400m's layer, (data, model) "
+        f"{EP_MESH}), (b) ring_reduce_matmul and allgather_matmul "
+        f"({CM_RANKS} ranks), (c) the sharded training step (stablelm-1.6b "
+        f"full width, {FSDP_LAYERS} layers, {FSDP_MESH}) and (e) SP decode "
+        f"of jamba reduced and rwkv6 ({RWKV_SERVE_LAYERS} layers) over "
+        f"{SPR_RANKS} ranks; then a fresh spawn for (d), (c)'s elastic "
+        f"restart on {ELASTIC_SURVIVORS} survivors [{smi}]")
     dist_stats = distributed_phase(torch, np, smi)
     phase_s["4m"] = time.monotonic() - t_phase
     mode_launches = {
@@ -7709,12 +8238,10 @@ def main() -> int:
             *(r["max_abs_err"] for r in by_mode.values()))
     # phase 4j's shapes: #3 at llava's image-prefixed first chunk and a
     # text chunk past it, #4/#5 at G 7 on llava's pages, #1 at
-    # mistral-nemo's O projection
-    for kname, by_shape in vlm4j["rows"].items():
-        rows[kname].setdefault("shapes", {}).update(by_shape)
-        rows[kname]["max_abs_err"] = max(
-            rows[kname]["max_abs_err"],
-            *(r["max_abs_err"] for r in by_shape.values()))
+    # mistral-nemo's O projection; phase 4i's: #2 with E 16 at full-width
+    # jamba's
+    kernel_rows(rows, vlm4j["rows"])
+    kernel_rows(rows, {"fused_ffn_experts": rec["jamba_width"]["expert_rows"]})
 
     sources = {"fused_qlinear": ("qlinear.cu", "src/repro/kernels/qlinear.py:224"),
                "fused_ffn": ("qlinear.cu", "src/repro/kernels/qlinear.py:368"),

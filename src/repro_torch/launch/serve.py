@@ -1,8 +1,8 @@
 """Continuous-batching serving entry point of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch {bitnet-3b,granite-moe-1b-a400m,stablelm-1.6b,qwen1.5-32b,
-                mistral-nemo-12b,whisper-small,rwkv6-1.6b,
+        --arch {bitnet-3b,granite-moe-1b-a400m,mixtral-8x22b,stablelm-1.6b,
+                qwen1.5-32b,mistral-nemo-12b,whisper-small,rwkv6-1.6b,
                 jamba-1.5-large-398b,llava-next-34b} \\
         --slots 4 --requests 8 --gen 32 [--reduced] [--device cpu] \\
         [--no-lop] [--temperature T --top-k K --top-p P --sample-seed S] \\
@@ -232,10 +232,10 @@ def serve_loop(engine: PooledEngine, reqs: list, *, n_slots: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="bitnet-3b",
-                    help="bitnet-3b, granite-moe-1b-a400m, stablelm-1.6b, "
-                         "qwen1.5-32b, mistral-nemo-12b, whisper-small, "
-                         "rwkv6-1.6b, jamba-1.5-large-398b (with --reduced) "
-                         "or llava-next-34b")
+                    help="bitnet-3b, granite-moe-1b-a400m, mixtral-8x22b, "
+                         "stablelm-1.6b, qwen1.5-32b, mistral-nemo-12b, "
+                         "whisper-small, rwkv6-1.6b, jamba-1.5-large-398b "
+                         "(with --reduced) or llava-next-34b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)

@@ -64,12 +64,13 @@ def layer_slice(tree, i: int):
 
 def moe_init(gen: torch.Generator, cfg, *, device) -> dict:
     """One MoE layer's f32 master weights: the router [d, E] and the
-    expert stacks, each scaled by its fan-in^-0.5."""
+    expert stacks, each scaled by its fan-in^-0.5 in place (a full-width
+    jamba stack is 12.9 GB: no second copy while it is drawn)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
 
     def draw(*shape, fan_in):
         return torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.float32) * (fan_in ** -0.5)
+                           dtype=torch.float32).mul_(fan_in ** -0.5)
     return {"router": draw(d, e, fan_in=d),
             "w_gate": draw(e, d, f, fan_in=d),
             "w_up": draw(e, d, f, fan_in=d),
@@ -118,13 +119,11 @@ def rwkv_layer_init(gen, cfg, *, device) -> dict:
             "ln2": norm_init(d, cfg.norm, device=device)}
 
 
-def superblock_init(gen, cfg, *, device) -> dict:
-    """One jamba superblock: ``sub{j}`` for j < ``attn_every``, each an
-    attention or Mamba sublayer and an FFN or MoE by its position."""
-    return {f"sub{j}": _layer_init(
-        gen, cfg, j, device=device,
-        mixer="attn" if cfg.is_attn_layer(j) else "mamba")
-        for j in range(cfg.attn_every)}
+def sublayer_init(gen, cfg, j: int, *, device) -> dict:
+    """Sublayer ``sub{j}`` of a jamba superblock: an attention or Mamba
+    sublayer and an FFN or MoE by its position ``j``."""
+    return _layer_init(gen, cfg, j, device=device,
+                       mixer="attn" if cfg.is_attn_layer(j) else "mamba")
 
 
 def draw_params(cfg, seed: int, device="cpu"):
@@ -134,7 +133,11 @@ def draw_params(cfg, seed: int, device="cpu"):
     superblocks), then (vlm) the projector. Yields ``(name, i, n, tree)``:
     a top-level entry with ``i`` and ``n`` None, or entry ``i`` of the
     ``n`` of the stack ``name`` (``enc_layers``, ``layers``, ``blocks``),
-    each drawn only when it is asked for. :func:`init_params` and the
+    each drawn only when it is asked for. A superblock comes one sublayer
+    at a time, ``tree`` then ``{"sub{j}": sublayer}``: entry ``i`` is the
+    union of the trees yielded for it, and one full-width jamba sublayer's
+    masters (~40 GB) are at most what a draw holds, where its superblock's
+    are ~176 GB. :func:`init_params` and the
     streamed draw (:func:`repro_torch.serving.quantize.
     init_serving_params`) both walk it, so they make the same
     ``torch.randn`` calls with the same shapes in the same order. On the
@@ -158,7 +161,9 @@ def draw_params(cfg, seed: int, device="cpu"):
     if cfg.family == "hybrid":
         n = cfg.n_layers // cfg.attn_every
         for i in range(n):
-            yield "blocks", i, n, superblock_init(gen, cfg, device=device)
+            for j in range(cfg.attn_every):
+                yield "blocks", i, n, {f"sub{j}": sublayer_init(
+                    gen, cfg, j, device=device)}
         return
     encdec = cfg.family == "encdec"
     if encdec:
@@ -177,11 +182,11 @@ def init_params(cfg, seed: int, device="cpu") -> dict:
     """Full f32 master tree of any family, the entries of
     :func:`draw_params` with each stack's layers stacked."""
     params = {}
-    for name, i, _, tree in draw_params(cfg, seed, device):
+    for name, i, n, tree in draw_params(cfg, seed, device):
         if i is None:
             params[name] = tree
         else:
-            params.setdefault(name, []).append(tree)
+            params.setdefault(name, [{} for _ in range(n)])[i].update(tree)
     return {name: stack_trees(val) if isinstance(val, list) else val
             for name, val in params.items()}
 

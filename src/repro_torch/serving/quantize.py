@@ -34,9 +34,10 @@ reference's ``_KEEP_FP``). Layer-stacked trees
 ``sub{j}`` sublayers over the superblocks) keep their leading axis.
 
 :func:`init_serving_params` draws and quantizes a seeded model one stack
-entry at a time, so a model whose f32 master tree does not fit the card
-but whose serving tree does (llava-next-34b, mistral-nemo-12b) is served
-from a seed.
+entry at a time (a hybrid superblock one sublayer at a time), so a model
+whose f32 master tree does not fit the card but whose serving tree does
+(llava-next-34b, mistral-nemo-12b, mixtral-8x22b, a full-width jamba
+superblock) is served from a seed.
 """
 
 from __future__ import annotations
@@ -155,8 +156,8 @@ def quantize_layer(lp: dict) -> dict:
 
 
 def _quantize_entry(name: str, tree: dict) -> dict:
-    """One entry of a stack → serving format: a layer, or a superblock
-    (``blocks``) of ``sub{j}`` sublayers, each quantized as a layer."""
+    """One entry of a stack → serving format: a layer, or (``blocks``)
+    ``sub{j}`` sublayers of a superblock, each quantized as a layer."""
     if name == "blocks":
         return {sub: quantize_layer(lp) for sub, lp in tree.items()}
     return quantize_layer(tree)
@@ -180,10 +181,11 @@ def quantize_params(cfg, params: dict) -> dict:
 def init_serving_params(cfg, seed: int, device="cpu") -> dict:
     """The serving tree of ``quantize_params(cfg, init_params(cfg, seed,
     device))``, bitwise, without the whole f32 master tree: each stack
-    entry is drawn (:func:`repro_torch.models.transformer.draw_params`),
-    quantized and written into a stacked serving tree allocated once, from
-    the first entry's shapes, before the next entry is drawn. The peak is
-    the serving tree, one entry's masters and the quantizer's temporaries.
+    entry (a superblock's sublayer) is drawn
+    (:func:`repro_torch.models.transformer.draw_params`), quantized and
+    written into a stacked serving tree allocated once, from the first
+    entry's shapes, before the next entry is drawn. The peak is the
+    serving tree, one entry's masters and the quantizer's temporaries.
 
     Bitwise equality holds because both paths make the same
     ``torch.randn`` calls, with the same shapes, in the same order (the
@@ -198,7 +200,7 @@ def init_serving_params(cfg, seed: int, device="cpu") -> dict:
         entry = _quantize_entry(name, tree)
         del tree
         if i == 0:
-            out[name] = _empty_stack(entry, n)
+            out.setdefault(name, {}).update(_empty_stack(entry, n))
         _write_entry(out[name], i, entry)
         del entry
     return out

@@ -2619,3 +2619,86 @@ def test_dryrun_decode_step_predicts_the_card(cuda, use_lop):
     card = sum(x.numel() * x.element_size() for t in (qp, pool, tokens)
                for x in leaves(t))
     assert tr.argument_bytes() == card
+
+
+# ---------------------------------------------------------------------------
+# the last full-width configurations: mixtral-8x22b's expert FFN and its
+# sliding window past the window's end, jamba's sublayer-streamed draw
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", [4, 640])
+def test_expert_ffn_at_mixtral_width_bitwise(cuda, c):
+    """#2 with the expert axis at mixtral-8x22b's widths (E 8, d 6144, f
+    16,384) at the decode capacity (C 4) and a full 2048-token group's
+    (C 640): one launch, bitwise the plain version, zero rows exact
+    zeros."""
+    rng = np.random.default_rng(c)
+    e, d, f = 8, 6144, 16384
+    x = _expert_rows(rng, e, c, d, zero_from=c // 2 + 1)
+    gu = rng.integers(0, 256, (e, d // 4, 2 * f)).astype(np.uint8)
+    gs = rng.uniform(0.01, 0.05, (e, 1, 2 * f)).astype(np.float32)
+    down = rng.integers(0, 256, (e, f // 4, d)).astype(np.uint8)
+    ds = rng.uniform(0.01, 0.05, (e, 1, 1)).astype(np.float32)
+    args = _dev((x, gu, gs, down, ds), cuda)
+    ops.reset_launch_counts()
+    got = ops.ffn_fused(*args, gated=True, act="silu")
+    assert ops.launch_counts()["fused_ffn_experts"] == 1
+    want = plain.ffn_fused_ref(*args[:4], args[4].expand(e, 1, d),
+                               gated=True, act="silu")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    assert not got[:, c // 2 + 1:].any()
+
+
+@pytest.mark.parametrize("use_lop", [True, False], ids=["lop", "dense"])
+def test_decode_kernels_past_the_window_at_group_6(cuda, use_lop):
+    """#4 and #5 at mixtral-8x22b's decode shape: B 4, 48 heads over 8 (G
+    6), dh 128, M 4736 (capacity of a 4700-token prompt and 32 new),
+    swa_window 4096, lanes past the window's end (4700, 4200), inside it
+    (1500) and retired (exact zero)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.lop_select import k_keep_blocks
+    cfg = get_config("mixtral-8x22b")
+    m, blk = 4736, cfg.lop_block
+    k_keep = k_keep_blocks(cfg, m)
+    rng = np.random.default_rng(11 + use_lop)
+    arrs = _dev(_decode(rng, 4, 48, 8, m, 128), cuda)
+    new_len = torch.tensor((4700, 0, 1500, 4200), dtype=torch.int32,
+                           device=cuda)
+    kw = dict(block=blk, k_keep=k_keep, window=cfg.swa_window,
+              use_lop=use_lop)
+    got = ops.decode_attention(*arrs, new_len, **kw)
+    want = plain.decode_attention_ref(*arrs, new_len,
+                                      softmax_scale=128 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[1].any()
+
+
+def test_hybrid_sublayer_draw_bitwise_on_card(cuda):
+    """Reduced jamba drawn on the card a sublayer at a time: each entry
+    ``draw_params`` yields is one sublayer, bitwise its slice of the
+    whole-tree ``init_params`` drawn on the card, and the streamed served
+    tree bitwise ``quantize_params`` of the whole tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import draw_params, init_params
+    from repro_torch.serving.quantize import (init_serving_params,
+                                              quantize_params)
+    cfg = get_config("jamba-1.5-large-398b-reduced")
+    whole = init_params(cfg, 3, cuda)
+    n = 0
+    for name, i, _, tree in draw_params(cfg, 3, cuda):
+        if i is None:
+            continue
+        (sub,) = tree
+        n += 1
+        want = dict(_leaves(whole[name][sub]))
+        for path, leaf in _leaves(tree[sub]):
+            assert torch.equal(leaf, want[path][i]), (i, sub, path)
+    assert n == cfg.n_layers
+    want = dict(_leaves(quantize_params(cfg, whole)))
+    got = dict(_leaves(init_serving_params(cfg, 3, cuda)))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert torch.equal(got[path], leaf), path

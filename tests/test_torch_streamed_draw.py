@@ -65,3 +65,41 @@ def test_draw_order_is_the_stacked_tree():
                      + [("layers", i, d) for i in range(d)])
     assert list(whole) == ["embed", "ln_f", "head", "enc_layers", "ln_enc",
                            "layers"]
+
+
+def test_hybrid_draw_yields_one_sublayer_at_a_time():
+    """A superblock comes as its ``attn_every`` sublayers in order, each
+    entry ``{"sub{j}": sublayer}`` bitwise its slice of ``init_params``'
+    stack."""
+    cfg = get_config("jamba-1.5-large-398b-reduced")
+    whole = init_params(cfg, 2, "cpu")
+    order = []
+    for name, i, n, tree in draw_params(cfg, 2, "cpu"):
+        if i is None:
+            continue
+        (sub,) = tree
+        order.append((name, i, n, sub))
+        want = dict(_flat(whole[name][sub]))
+        for path, leaf in _flat(tree[sub]):
+            assert torch.equal(leaf, want[path][i]), (i, sub, path)
+    n = cfg.n_layers // cfg.attn_every
+    assert order == [("blocks", i, n, f"sub{j}") for i in range(n)
+                     for j in range(cfg.attn_every)]
+
+
+def test_full_width_jamba_draw_holds_one_sublayer():
+    """Full-width jamba-1.5-large-398b walked on ``meta`` (nothing drawn):
+    no entry exceeds one sublayer's masters (a Mamba or attention mixer
+    and an MoE of 16 experts of f 24,576: ~40 GB), where a whole
+    superblock is ~176 GB, so the streamed draw of one superblock fits a
+    card of 80 GB beside its ~15 GB served tree."""
+    cfg = get_config("jamba-1.5-large-398b")
+    sizes, per_block = [], {}
+    for name, i, _, tree in draw_params(cfg, 0, "meta"):
+        b = sum(leaf.numel() * leaf.element_size() for _, leaf in _flat(tree))
+        if i is not None:
+            sizes.append(b)
+            per_block[i] = per_block.get(i, 0) + b
+    assert len(sizes) == cfg.n_layers
+    assert max(sizes) <= 41e9
+    assert min(per_block.values()) >= 170e9
