@@ -160,14 +160,15 @@ printed:
               layers (the run's time; d 2048, 32 heads of 64, f 5632)
               and qwen1.5-32b (QKV
               bias, drawn nonzero from a seeded generator before
-              quantization) at full width and depth (d 5120, 40 heads
-              of 128, f 27,392, vocab 152,064, 64 layers; its served
-              tree, pool and draw peak printed): phase 4's 8 requests
+              quantization) at full width and 8 of its 64 layers (the
+              run's time; d 5120, 40 heads of 128, f 27,392, vocab
+              152,064; its served tree, pool and draw peak printed;
+              phase 4p holds the bias at full depth): phase 4's 8 requests
               greedy LOP,
               chunked, through the Scheduler on 4 slots, scheduler ==
               lockstep for 2 requests, the clean decode step on graphs
               and eager with its launches (#1 / #2 / decode kernel 24 /
-              12 / 12 and 128 / 64 / 64 a step), #1 at qwen's QKV shape with
+              12 / 12 and 16 / 8 / 8 a step), #1 at qwen's QKV shape with
               its bias bitwise its plain version on layer 0's served
               weights, half of qwen's #1 launches carrying the bias; then
               whisper-small (encoder-decoder) at full width and depth (12
@@ -254,6 +255,31 @@ printed:
               each against its plain version with times and bound;
               tokens/s, TTFT, the step ms and one exact-length prefill
               of the longest prompt;
+  4p. qwen   qwen1.5-110b at full width and depth (80 layers, d 8192, 64
+              heads of 128 over 8: G 8, f 49,152, vocab 152,064, QKV
+              bias drawn nonzero), after 4o with mixtral freed, drawn
+              and quantized on the card a layer at a time (served tree,
+              pool and draw peak printed): phase 4's first 4 requests
+              greedy LOP, chunked, through the Scheduler on 4 slots,
+              scheduler == lockstep for the shortest, half of #1's
+              launches with the bias; #1 QKV + bias (m 4, k 8192, n
+              10,240) and O, #2 at d 8192, f 49,152 (m 4 and 128), #3
+              causal over a 1536-token prompt whole and #4 / #5 at G 8
+              (B 4, M 1664) on layer 0's served weights and pages, each
+              against its plain version, timed eagerly (and #1, #2, #4,
+              #5 in a CUDA graph) beside its bound, #3 and #5 beside
+              SDPA on the dequantized pages; the 2 shortest requests
+              no-LOP (#5 on the served path); the clean decode step on
+              graphs and eager (160 / 80 / 80 launches a step) over the
+              4 prompts cut to 384 tokens;
+  9. examples the port's examples in this process: torch_quickstart
+              (bitnet-3b reduced, keep 0.25; its pipeline also on
+              CPU-drawn weights card against CPU), torch_serve_lop
+              (mistral-nemo-12b reduced: the keep ablation, both
+              scheduler demos equal to their lockstep replays) at their
+              defaults, torch_train_bitnet (bitnet-100m, 60 steps of 8 x
+              256, a checkpoint every 20, preempted after 40 and resumed
+              to 60, the loss falling, no kernel launched);
   4j. vlm   the streamed draw, then two models that only it fits on the
       + draw card, each drawn and quantized one layer at a time
               (init_serving_params): bitnet-3b at full width and depth
@@ -333,7 +359,7 @@ printed:
               beside their bounds;
   4l. train  the recurrent families' training: (a) full-width rwkv6-1.6b
       recurrent (24 layers, d 2048) with f32 masters drawn on the card,
-              4 make_train_step steps of batch 4 x 256 (bf16 activations,
+              2 make_train_step steps of batch 4 x 256 (bf16 activations,
               layer and chunk remat, peak lr 3e-5 after 1 warmup step),
               each step's loss, grad norm and synchronized ms, the peak;
               gates as 4k (a) (the last step's loss the run's lowest);
@@ -354,13 +380,8 @@ printed:
               Di 16,384) trained forward and backward at 1 x 512 tokens
               (8 remat'd chunks), timed with its peak, its f32 gradients
               at T 16 card (on the CPU's int8 activations and ternary
-              weights) against CPU within 1e-4; (e) one
-              data-parallel step of reduced rwkv6 (batch 8 x 32) with
-              the int8 gradient compression (CompressedMean) over 2 gloo
-              ranks on cuda:0: both ranks' masters bitwise each other
-              and a single-process mesh's step, the error feedback's
-              running mean converging, one compressed all-reduce of a
-              2048 x 7168 gradient timed beside the plain f32 one;
+              weights) against CPU within 1e-4 (the int8 gradient
+              compression runs in 4m's spawn, as its (f));
   4f. sp     (run last, the earlier engines freed) the reference's
               production decode path: full-width bitnet-3b at 8 of its
               26 layers (the run's time) drawn from the
@@ -429,10 +450,11 @@ printed:
               4k (a)'s training step traced on meta: no kernel record,
               the predicted peak within 10 % of 4k (a)'s;
   4m. dist   (last) the distributed modules over gloo ranks on cuda:0:
-              (a), (b), (c) and (e) in one spawn of 4 ranks, one after
-              the other, then (d) in a fresh spawn of 3; each spawn's
-              seconds split by the ranks' stamps (start, first CUDA
-              call, each sub-arm, exit): (a)
+              (a), (b), (c), (e) and (f) in one spawn of 4 ranks, one
+              after the other, then (d) in a fresh spawn of 3, this
+              process's single-process runs made while the ranks start;
+              each spawn's seconds split by the ranks' stamps (start,
+              first CUDA call, each sub-arm, exit): (a)
               ``ep_moe_apply`` on granite-moe-1b-a400m's layer at full
               width (bf16 mode, capacity factor 8), x [4, 512, 1024] on
               (data 2, model 2), every rank returning the whole batch's
@@ -449,8 +471,8 @@ printed:
               check of ``tests/torch_step_check.py`` (each rank checks
               its shards against the single-process step saved to
               disk), which fails on the same step with the update
-              skipped, flipped, or each rank's gradient block taken at
-              its model neighbour's coordinates; each rank holding a
+              flipped (one of the check's three planted faults: the
+              run's time; the CPU tests plant all three); each rank holding a
               quarter of every leaf cut on both axes; the state
               gathered and checkpointed; (d) the elastic restart: 3
               survivors, plan (1, 2), the spare sits out, one more step
@@ -458,7 +480,13 @@ printed:
               single-process step from it; (e)
               ``serve_step(sp_axes=("model",))`` of reduced jamba and
               rwkv6-1.6b at full width and 3 layers over 2 ranks, LOP
-              and dense: greedy tokens equal the unsharded engine's.
+              and dense: greedy tokens equal the unsharded engine's;
+              (f) one data-parallel step of reduced rwkv6 (batch 8 x 32)
+              with the int8 gradient compression (CompressedMean) over
+              2 ranks: both ranks' masters bitwise each other and a
+              single-process mesh's step, the error feedback's running
+              mean converging, one compressed all-reduce of a 2048 x
+              7168 gradient timed beside the plain f32 one.
 
 The line before the last two is the ``kernels`` JSON (eleven entries:
 the nine TPU kernels, and #1 and #2 once more in their expert form; #1,
@@ -3306,10 +3334,126 @@ def mixtral_phase(torch, np, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4p: qwen1.5-110b at full width and depth
+# ---------------------------------------------------------------------------
+
+QWEN110_REQUESTS = 4               # phase 4's first 4 (the run's time)
+QWEN110_NOLOP = 2                  # the shortest, served again no-LOP
+QWEN110_STEADY = 384               # the steady lanes' prompt tokens (time)
+QWEN110_NEW_LEN = (1600, 0, 700, 1200)   # the decode rows' lanes
+
+
+def qwen110b_rows(torch, np, engine, pool, card: str) -> dict:
+    """qwen1.5-110b's own kernel shapes on layer 0's served weights and
+    pages: #1 at O (m 4 and 1536), #2 at d 8192, f 49,152 (m 4 and 128,
+    eager and in a CUDA graph), #3 causal over one 1536-token prompt whole
+    (64 heads over 8), #4 and #5 at G 8 (B 4, M 1664) — each against its
+    plain version, timed beside its bound (and #3, #5 beside SDPA). →
+    kernel → {shape label: row}."""
+    from repro_torch.models.transformer import layer_slice
+
+    cfg = engine.cfg
+    lp = layer_slice(engine.qp["layers"], 0)
+    cl = {key: pool["layers"][key][0]
+          for key in ("k", "v", "k_scale", "v_scale")}
+    rng = np.random.default_rng(SEED + 35)
+    o = projection_rows(torch, np, {"O": lp["attn"]["wo"]}, "qwen1.5-110b",
+                        "layer 0's served weights", card, SEED + 36)
+    ffn = served_ffn_rows(torch, np, lp["ffn"], cfg.d_model, card,
+                           rows_m=(N_SLOTS, 128), whose="qwen1.5-110b")
+    whole = prefill_chunk_rows(torch, np, rng, cfg, cl, 0, MAX_PROMPT,
+                               f"qwen1.5-110b's {MAX_PROMPT}-token prompt "
+                               f"whole", card)
+    new_len = torch.tensor(QWEN110_NEW_LEN, dtype=torch.int32,
+                           device="cuda")
+    dec = decode_rows(torch, np, rng, cfg, cl, new_len,
+                      "qwen1.5-110b layer 0's served pages", card)
+    del cl
+    free_cuda(torch)
+    return {"fused_qlinear": {f"qwen1.5-110b {k}": v for k, v in o.items()},
+            "fused_ffn": {f"qwen1.5-110b {k}": v for k, v in ffn.items()},
+            "fused_prefill_attention": {"qwen1.5-110b whole prompt, G 8":
+                                        whole},
+            "fused_decode_attention": {
+                "qwen1.5-110b G 8": dec["fused_decode_attention"]},
+            DENSE: {"qwen1.5-110b G 8": dec[DENSE]}}
+
+
+def qwen110b_nolop(torch, np, engine, reqs, card: str) -> dict:
+    """The ``QWEN110_NOLOP`` shortest requests again on a no-LOP engine
+    sharing the served weights: #5 at G 8 on the served path, #4 idle."""
+    from repro_torch.serving.api import PooledEngine
+
+    label = (f"qwen1.5-110b no-LOP greedy, the {QWEN110_NOLOP} shortest "
+             f"requests")
+    dense = PooledEngine(engine.cfg, engine.qp, max_len=engine.max_len,
+                         use_lop=False, device="cuda")
+    short = sorted(reqs, key=lambda r: len(r.prompt))[:QWEN110_NOLOP]
+    run = serve_run(torch, np, dense, short, label, card)
+    check_counts(run["counts"], label,
+                 ("fused_qlinear", "fused_ffn", "fused_prefill_attention",
+                  DENSE), idle=("fused_decode_attention",
+                                "fused_qlinear_experts", "fused_ffn_experts"))
+    check_tokens(engine.cfg, run["results"], GEN, label)
+    out = dict(counts=run["counts"], tokens=tokens_digest(run["results"]),
+               tokens_per_s=run["tokens_per_s"],
+               ttft_p50_ms=run["ttft_p50_ms"])
+    del run, dense
+    free_cuda(torch)
+    return out
+
+
+def qwen110b_phase(torch, np, card: str) -> dict:
+    """Phase 4p: qwen1.5-110b at full width and depth (80 layers, d 8192,
+    64 heads of 128 over 8 KV heads: G 8, f 49,152, vocab 152,064, QKV
+    bias drawn nonzero), drawn and quantized on the card one layer at a
+    time; phase 4's first ``QWEN110_REQUESTS`` requests greedy LOP,
+    chunked, through the Scheduler on 4 slots (scheduler == lockstep for
+    the shortest, half of #1's launches with the bias); the kernel rows
+    at its shapes on layer 0's served weights and pages; the
+    ``QWEN110_NOLOP`` shortest requests no-LOP (#5 at G 8); the clean
+    decode step (160 / 80 / 80 launches of #1 / #2 / #4) on CUDA graphs
+    and eager over the 4 prompts cut to ``QWEN110_STEADY`` tokens. →
+    stats, launches and kernel rows."""
+    from repro_torch.configs import get_config
+
+    t0 = time.monotonic()
+    cfg = get_config("qwen1.5-110b")
+    label = f"qwen1.5-110b ({cfg.n_layers} layers) LOP greedy"
+
+    def served(engine, pool, reqs):
+        return dict(rows=qwen110b_rows(torch, np, engine, pool, card),
+                    nolop=qwen110b_nolop(torch, np, engine, reqs, card))
+    out = dense_feature_arm(torch, np, cfg, label, card,
+                            bias_seed=SEED + 110,
+                            n_requests=QWEN110_REQUESTS, lockstep=None,
+                            steady_prompt=QWEN110_STEADY, served=served)
+    rows, nolop = out["rows"], out["nolop"]
+    rows["fused_qlinear"]["qwen1.5-110b QKV + bias m=4"] = dict(
+        out["bias_check"], library_ms=None)
+    launches = {k: out["counts"][k] + nolop["counts"][k]
+                for k in KERNEL_NAMES}
+    log(f"  [qwen1.5-110b] LOP greedy {out['tokens_per_s']:.2f} tok/s, TTFT "
+        f"p50 {out['ttft_p50_ms']:.1f} ms, decode step (B={N_SLOTS}) CUDA "
+        f"graph {out['decode_step_ms_p50']:.2f} ms, eager "
+        f"{out['eager_decode_step_ms_p50']:.2f} ms, peak while serving "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB, draw peak "
+        f"{out['init_peak_bytes'] / 2**30:.2f} GiB; no-LOP ("
+        f"{QWEN110_NOLOP} requests) {nolop['tokens_per_s']:.2f} tok/s, TTFT "
+        f"p50 {nolop['ttft_p50_ms']:.1f} ms; tokens sha256 {out['tokens']} /"
+        f" {nolop['tokens']}; phase 4p took {time.monotonic() - t0:.1f} s "
+        f"[{card}]")
+    return dict(out, nolop=nolop, rows=rows, launches=launches,
+                bias=out["counts"]["fused_qlinear:bias"]
+                + nolop["counts"]["fused_qlinear:bias"])
+
+
+# ---------------------------------------------------------------------------
 # phase 4h: the dense family's LayerNorm and QKV bias; the encdec family
 # ---------------------------------------------------------------------------
 
-QWEN_LAYERS = 64                   # all of qwen1.5-32b's layers
+QWEN_LAYERS = 8                    # of 64 (the run's time; 4p holds the
+                                   # QKV bias at full depth)
 STABLELM_LAYERS = 6                # of 24 (the smoke run's time)
 WHISPER_MAX_LEN = 448              # whisper's decoder context
 WHISPER_FRAMES = 1500              # a full 30-s window (cross_ctx)
@@ -3363,15 +3507,24 @@ def qkv_bias_check(torch, np, qp, card: str) -> dict:
 
 
 def dense_feature_arm(torch, np, cfg, label: str, card: str,
-                      bias_seed: int | None = None) -> dict:
+                      bias_seed: int | None = None,
+                      n_requests: int = N_REQUESTS, lockstep=(0, 1),
+                      steady_prompt: int | None = None,
+                      served=None) -> dict:
     """One dense model at full width through phase 4's traffic: seeded
     weights drawn and quantized on the card one layer at a time
     (``bias_seed``: the QKV biases drawn nonzero from a generator of that
-    seed, the values a draw onto the master tree gave); then phase 4's 8 requests greedy LOP through the
-    Scheduler on 4 slots (chunked), scheduler == lockstep for 2 requests,
-    and the clean decode step (over the 4 shortest prompts) on CUDA graphs
-    and eager with its launches.
+    seed, the values a draw onto the master tree gave); then the first
+    ``n_requests`` of phase 4's requests greedy LOP through the Scheduler
+    on 4 slots (chunked), scheduler == lockstep for the rids ``lockstep``
+    (None: the shortest prompt's), then
+    ``served(engine, pool, reqs)`` (more arms on the served weights and
+    pages; its dict joins the stats), and the clean decode step (over the
+    4 shortest prompts, cut to ``steady_prompt`` tokens when given) on
+    CUDA graphs and eager with its launches.
     → stats."""
+    from dataclasses import replace
+
     from repro_torch.launch.serve import make_requests
     from repro_torch.serving.api import GenerateRequest, PooledEngine
     from repro_torch.serving.quantize import init_serving_params
@@ -3403,8 +3556,9 @@ def dense_feature_arm(torch, np, cfg, label: str, card: str,
         f"quantizing one layer at a time {(init_peak - base) / 2**30:.2f} "
         f"GiB above the "
         f"{base / 2**30:.2f} GiB the earlier phases hold [{card}]")
-    reqs = make_requests(cfg, n_requests=N_REQUESTS, min_prompt=MIN_PROMPT,
+    reqs = make_requests(cfg, n_requests=n_requests, min_prompt=MIN_PROMPT,
                          max_prompt=MAX_PROMPT, gen=GEN, seed=SEED)
+    by_len = sorted(reqs, key=lambda r: len(r.prompt))
     warm = Scheduler(engine, n_slots=1)
     warm.submit(GenerateRequest(rid=-1, prompt=reqs[0].prompt[:64],
                                 max_new_tokens=2))
@@ -3422,16 +3576,20 @@ def dense_feature_arm(torch, np, cfg, label: str, card: str,
         f"of {N_SLOTS} slots x {run['sched'].capacity} "
         f"{pool / 2**30:.3f} GiB ({pool / (N_SLOTS * run['sched'].capacity) / 1e3:.1f}"
         f" KB a token), draw peak {(init_peak - base) / 2**30:.2f} GiB [{card}]")
-    check_lockstep(engine, reqs, run["results"], (0, 1), label)
+    check_lockstep(engine, reqs, run["results"],
+                   (by_len[0].rid,) if lockstep is None else lockstep, label)
     bias = run["counts"].get("fused_qlinear:bias", 0)
     if cfg.qkv_bias and 2 * bias != run["counts"]["fused_qlinear"]:
         raise AssertionError(f"[{label}] {bias} of "
                              f"{run['counts']['fused_qlinear']} #1 launches "
                              f"carried the QKV bias, want half")
-    # the steady lanes: the 4 shortest prompts (qwen's 64 layers prefill
-    # them eagerly twice)
-    step = decode_arms(torch, np, engine,
-                       sorted(reqs, key=lambda r: len(r.prompt)), label, card)
+    if served is not None:
+        out.update(served(engine, run["sched"].pool, reqs))
+    # the steady lanes: the 4 shortest prompts (each arm of the step
+    # prefills them eagerly), cut to steady_prompt tokens when given
+    steady = [r if steady_prompt is None else
+              replace(r, prompt=r.prompt[:steady_prompt]) for r in by_len]
+    step = decode_arms(torch, np, engine, steady, label, card)
     out.update(counts=run["counts"], tokens=tokens_digest(run["results"]),
                tokens_per_s=run["tokens_per_s"],
                ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
@@ -3595,18 +3753,48 @@ def decode_rows(torch, np, rng, cfg, cl, new_len, label: str,
         g_ms = graph_ms(torch, kern, sets)
         p_ms = cuda_ms(torch, lambda *a: plain.decode_attention_ref(
             *a, softmax_scale=scale, **kw), [args], 3)
+        lib_ms = None if use_lop else dense_sdpa_ms(
+            torch, qi, qsc, cl, new_len, g, window, scale)
         log(f"  {name} {label} (B={b}, H {h} over Hkv {hkv}, G {g}, dh "
             f"{dh}, M={m}, new_len {nl}, window {window}, k_keep {k_keep}, "
             f"no write): max "
             f"|err| {err:.3g}, cache untouched; {ms:.4f} ms, in a CUDA graph "
-            f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
+            f"{g_ms:.4f} ms (plain {p_ms:.3f} ms, "
+            + ("" if lib_ms is None else f"SDPA {lib_ms:.4f} ms, ")
+            + f"bound {b_ms:.4f} ms by "
             f"{b_by}; {b_ms / ms:.1%} of bound, {b_ms / g_ms:.1%} in the "
             f"graph) [{card}]")
         rows[name] = dict(max_abs_err=err, ms=ms, graph_ms=g_ms,
                           plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib_ms,
                           shape=f"B={b} H={h} Hkv={hkv} M={m} new_len={nl}"
                           + (f" window={window}" if window else ""))
     return rows
+
+
+def dense_sdpa_ms(torch, qi, qsc, cl, new_len, g: int, window: int,
+                  scale: float) -> float:
+    """The library call beside #5: SDPA of the one decode row a head on
+    the dequantized f32 pages, K/V repeated to the query heads, under the
+    validity mask (a lane's first ``new_len`` keys; its last ``window``
+    of them when set). A retired lane's row is all masked (NaN), as the
+    call gives it; only its time is read."""
+    b, h, dh = qi.shape
+    m = cl["k"].shape[2]
+    kf, vf = ((cl[key].float() * cl[f"{key}_scale"][..., None])
+              .repeat_interleave(g, dim=1) for key in ("k", "v"))
+    qf = (qi.float() * qsc).reshape(b, h, 1, dh)
+    pos = torch.arange(m, device=qi.device)[None, :]
+    n = new_len.long()[:, None]
+    mask = pos < n
+    if window:
+        mask &= pos >= n - window
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = cuda_ms(torch, lambda: sdpa(qf, kf, vf, attn_mask=mask[:, None,
+                                                                None],
+                                     scale=scale), [()], 10)
+    del kf, vf, qf
+    return ms
 
 
 def whisper_projection_rows(torch, np, rng, engine, layer, card) -> dict:
@@ -3860,8 +4048,10 @@ def whisper_arm(torch, np, card: str) -> dict:
 def families_phase(torch, np, card: str) -> dict:
     """Phase 4h: (a) stablelm-1.6b (LayerNorm) at full width and
     ``STABLELM_LAYERS`` of its 24 layers,
-    (b) qwen1.5-32b (QKV bias drawn nonzero) at full width and depth, (c)
-    whisper-small (encdec) at full width and depth; each
+    (b) qwen1.5-32b (QKV bias drawn nonzero) at full width and
+    ``QWEN_LAYERS`` of its 64 layers (phase 4p serves qwen1.5-110b's bias
+    at full depth), (c) whisper-small (encdec) at full width and depth;
+    each
     arm's engine and master tree freed before the next. → stats, with the
     launches of the new kernel modes on the paths that run them and the
     kernel rows of the new shapes."""
@@ -5343,9 +5533,13 @@ def train_reduced_arm(torch, np, card: str) -> dict:
                 step1_grad_norm_rel=gn_rel, held_apart=apart, seconds=secs)
 
 
-def trained_ffn_rows(torch, np, node, d: int, card: str) -> dict:
-    """#2 on a served FFN node at the decode rows (m 4) and one 1536-token
-    prompt's, bitwise its plain version, timed beside its bound."""
+def served_ffn_rows(torch, np, node, d: int, card: str, *,
+                     rows_m=(N_SLOTS, MAX_PROMPT),
+                     whose: str = "trained") -> dict:
+    """#2 on a served FFN node (layer 0's, of the ``whose`` model) at the
+    rows ``rows_m`` (the decode rows, m 4, and one 1536-token prompt's),
+    bitwise its plain version, timed eagerly and in a CUDA graph beside
+    its bound."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as plain
     from repro_torch.kernels.qlinear import fused_ffn
@@ -5355,7 +5549,7 @@ def trained_ffn_rows(torch, np, node, d: int, card: str) -> dict:
     gs = ops._col_scale(node["gu_scale"], 2 * f).reshape(2 * f).contiguous()
     ds = ops._col_scale(node["down_scale"], d).reshape(d).contiguous()
     rows = {}
-    for m in (N_SLOTS, MAX_PROMPT):
+    for m in rows_m:
         x = torch.from_numpy(rng.standard_normal((m, d)).astype(
             np.float32)).cuda()
         args = (x, node["gu_packed"].contiguous(), gs,
@@ -5367,20 +5561,24 @@ def trained_ffn_rows(torch, np, node, d: int, card: str) -> dict:
         def ref(x_, gu_, gs_, down_, ds_):
             return plain.ffn_fused_ref(x_, gu_, gs_[None], down_, ds_[None],
                                        gated=True, act="silu")
-        err = check_close(torch, f"fused_ffn[trained, m={m}]", kern(*args),
+        err = check_close(torch, f"fused_ffn[{whose}, m={m}]", kern(*args),
                           ref(*args), bitwise=True)
         sets = copies(torch, args)
         ms = cuda_ms(torch, kern, sets, 30)
+        g_ms = graph_ms(torch, kern, sets)
         p_ms = cuda_ms(torch, ref, [args], 3)
+        free_cuda(torch)
         b_ms, b_by = bound_ms(nbytes(*args) + m * d * 4,
                               int8_ops=2.0 * m * d * 3 * f)
         rows[f"m={m}"] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by=b_by,
+                              graph_ms=g_ms, bound_ms=b_ms, bound_by=b_by,
                               shape=f"m={m} d={d} f={f}")
-        log(f"  fused_ffn on layer 0's trained served weights (m={m}, d={d}, "
-            f"f={f}): bitwise the plain version; {ms:.4f} ms (plain "
-            f"{p_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}; "
-            f"{b_ms / ms:.2%} of bound) [{card}]")
+        log(f"  fused_ffn on layer 0's {whose} served weights (m={m}, d={d}, "
+            f"f={f}): bitwise the plain version; {ms:.4f} ms, in a CUDA "
+            f"graph {g_ms:.4f} ms (plain {p_ms:.3f} ms, bound {b_ms:.6f} ms "
+            f"by {b_by}; {b_ms / ms:.2%} of bound, {b_ms / g_ms:.2%} in the "
+            f"graph) [{card}]")
+        del x, args, sets
     return rows
 
 
@@ -5430,7 +5628,7 @@ def train_serve_arm(torch, np, params, card: str) -> dict:
     rows = projection_rows(torch, np, {"wqkv": qkv},
                            "trained bitnet-3b", "layer 0's trained served "
                            "weights", card, SEED + 28)
-    ffn = trained_ffn_rows(torch, np, layer0["ffn"], cfg.d_model, card)
+    ffn = served_ffn_rows(torch, np, layer0["ffn"], cfg.d_model, card)
     out = dict(counts=run["counts"], tokens=tokens_digest(run["results"]),
                tokens_per_s=run["tokens_per_s"],
                ttft_p50_ms=run["ttft_p50_ms"], peak_bytes=run["peak_bytes"],
@@ -5470,15 +5668,17 @@ def train_phase(torch, np, card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 4l: training of the recurrent families — train, quantize, serve;
-# the int8 gradient compression over gloo
+# the int8 gradient compression's pieces (run in 4m's spawn)
 # ---------------------------------------------------------------------------
 
 # at seq 512 a full-width rwkv6 step took 8.1 s (the wkv time loop of
 # plain ops, run three times under the nested remat, is host-bound), so
 # (a) trains at seq 256. At peak lr 1e-4 its loss rises after step 2
 # (11.60, 8.87, 9.41, 9.44; the grad norm 38,715 at step 3) and at 3e-5
-# it falls at every step (scripts/train_lr_check.py --arch rwkv6-1.6b)
-REC_TRAIN_STEPS, REC_TRAIN_SEQ, REC_TRAIN_LR = 4, 256, 3e-5
+# it falls at every step (scripts/train_lr_check.py --arch rwkv6-1.6b).
+# 2 steps for the run's time: the loss falls at step 2, and step 1's
+# update is the same at any step count
+REC_TRAIN_STEPS, REC_TRAIN_SEQ, REC_TRAIN_LR = 2, 256, 3e-5
 REC_RED_STEPS, REC_RED_LR = 12, 3e-3
 MAMBA_TRAIN_T, MAMBA_HELD_T = 512, 16
 DP_RANKS, DP_BATCH, DP_SEQ, EF_ROUNDS = 2, 8, 32, 16
@@ -5687,7 +5887,7 @@ def rec_serve_arm(torch, np, params, card: str) -> dict:
 
 
 def dp_rank(mesh, masters, batch) -> dict:
-    """One process of phase 4l (e), a rank of a gloo group on cuda:0 (or,
+    """One process of phase 4m (f), a rank of a gloo group on cuda:0 (or,
     given a single-process mesh, every shard in this process): one
     data-parallel ``make_train_step`` of reduced rwkv6 on this rank's
     share of ``batch`` with ``CompressedMean`` (the int8 psum with error
@@ -5747,33 +5947,34 @@ def dp_rank(mesh, masters, batch) -> dict:
     return out
 
 
-def compress_arm(torch, np, card: str) -> dict:
-    """(e) ``dp_rank`` on 2 gloo ranks spawned on cuda:0 and on a
-    single-process mesh of 2 shards in this process, from the same
-    masters and batch: both ranks' masters after the step bitwise equal
-    and bitwise the single-process mesh's; the error-feedback check's
-    running mean after 16 rounds below half its first-round error on
-    every rank; one compressed all-reduce's ms beside the plain f32
-    one's. → stats."""
+def dp_inputs():
+    """4m (f)'s inputs, made alike in every process: reduced rwkv6's
+    seeded masters on the CPU and its first batch."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticDataset
-    from repro_torch.launch.mesh import local_mesh, spawn_ranks
     from repro_torch.models.transformer import init_params
-    from repro_torch.tree_util import flatten_with_path
 
     cfg = get_config("rwkv6-1.6b-reduced")
-    masters = init_params(cfg, SEED, "cpu")
-    batch = SyntheticDataset(cfg, seq_len=DP_SEQ, global_batch=DP_BATCH,
-                             seed=SEED).batch(0)
-    t0 = time.monotonic()
-    ranks = spawn_ranks("chip_smoke:dp_rank", DP_RANKS, (masters, batch),
-                        timeout=600)
-    rank_s = time.monotonic() - t0
-    one = dp_rank(local_mesh((DP_RANKS,), ("data",)), masters, batch)
+    return (init_params(cfg, SEED, "cpu"),
+            SyntheticDataset(cfg, seq_len=DP_SEQ, global_batch=DP_BATCH,
+                             seed=SEED).batch(0))
+
+
+def compress_verdict(torch, ranks, one, card: str) -> dict:
+    """4m (f): :func:`dp_rank` on the first 2 gloo ranks of the shared
+    spawn (``ranks``) and on a single-process mesh of 2 shards in this
+    process (``one``), from the same masters and batch: both ranks'
+    masters after the step bitwise equal and bitwise the single-process
+    mesh's; the error-feedback check's running mean after 16 rounds below
+    half its first-round error on every rank; one compressed all-reduce's
+    ms beside the plain f32 one's. → stats."""
+    from repro_torch.tree_util import flatten_with_path
+
+    masters, _ = dp_inputs()
     for i, rk in enumerate(ranks):
         for k, v in one["params"].items():
             if not torch.equal(rk["params"][k], v):
-                raise AssertionError(f"[compress] rank {i}'s {k} != the "
+                raise AssertionError(f"(f) rank {i}'s {k} != the "
                                      f"single-process mesh's")
     moved = sum(not torch.equal(one["params"][k], v)
                 for k, v in flatten_with_path(masters))
@@ -5781,11 +5982,10 @@ def compress_arm(torch, np, card: str) -> dict:
                     ("single-process mesh", one)):
         e = rk["ef_mean_err"]
         if not e[-1] < 0.5 * e[0]:
-            raise AssertionError(f"[compress] {who}: running-mean error "
-                                 f"{e}")
-    log(f"  [compress] reduced rwkv6, batch {DP_BATCH} x {DP_SEQ} over "
-        f"{DP_RANKS} gloo ranks on cuda:0 ({rank_s:.1f} s with the spawn, "
-        f"{ranks[0]['step_s']:.1f} s of it rank 0's step): "
+            raise AssertionError(f"(f) {who}: running-mean error {e}")
+    log(f"  (f) the int8 gradient compression, reduced rwkv6, batch "
+        f"{DP_BATCH} x {DP_SEQ} over {DP_RANKS} of the ranks (rank 0's step "
+        f"{ranks[0]['step_s']:.1f} s): "
         f"one make_train_step with CompressedMean (int8 psum over gloo, "
         f"int32 codes on CUDA tensors): both ranks' masters "
         f"({len(one['params'])} leaves, {moved} moved) bitwise each other "
@@ -5798,16 +5998,16 @@ def compress_arm(torch, np, card: str) -> dict:
         f"{ranks[0]['f32_ms']:.2f} ms (rank 0, host clock to a synchronize)"
         f" [{card}]")
     return dict(compressed_ms=ranks[0]["compressed_ms"],
-                f32_ms=ranks[0]["f32_ms"], ef_mean_err=ranks[0]["ef_mean_err"],
-                spawn_s=rank_s)
+                f32_ms=ranks[0]["f32_ms"], ef_mean_err=ranks[0]["ef_mean_err"])
 
 
 def rec_train_phase(torch, np, card: str) -> dict:
     """Phase 4l: (a) rwkv6-1.6b trained at full width and depth, (b)
     reduced rwkv6 and jamba card against CPU and a short loop, (c) a
     full-width jamba Mamba sublayer trained, (d) (a)'s masters quantized
-    and served at full width and depth, (e) the int8 gradient compression
-    over 2 gloo ranks on cuda:0. → stats with (d)'s launches."""
+    and served at full width and depth (the int8 gradient compression
+    runs in phase 4m's spawn, as its (f)). → stats with (d)'s
+    launches."""
     t0 = time.monotonic()
     free_cuda(torch)
     matmul = torch.backends.cuda.matmul
@@ -5823,14 +6023,13 @@ def rec_train_phase(torch, np, card: str) -> dict:
         reduced = {arch: rec_reduced_arm(torch, np, arch, card)
                    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b")}
         width = mamba_train_arm(torch, np, card)
-        compress = compress_arm(torch, np, card)
     finally:
         matmul.allow_bf16_reduced_precision_reduction = reduced_bf16
     launches = {k: serve["counts"][k] for k in KERNEL_NAMES}
     log(f"  phase 4l's serve run launched {json.dumps(launches)}; phase 4l "
         f"took {time.monotonic() - t0:.1f} s")
     return dict(full=full, serve=serve, reduced=reduced, width=width,
-                compress=compress, launches=launches)
+                launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -7247,6 +7446,9 @@ def dryrun_phase(torch, engine, card: str, host) -> dict:
 EP_MESH, EP_X = (2, 2), (4, 512)         # (data, model); x [B, S] at d 1024
 CM_RANKS, CM_ROWS = 4, 64                # bitnet-3b's O: k 3200 → n 3200
 FSDP_MESH, FSDP_LAYERS, FSDP_BATCH, FSDP_SEQ = (2, 2), 1, 8, 128
+# (c) plants one of the step check's three faults (the run's time: each is
+# a sharded step through gloo); tests/test_torch_distributed.py plants all
+SMOKE_FAULTS = ("sign",)
 ELASTIC_SURVIVORS = 3                    # plan (1, 2): one spare
 SPR_RANKS, SPR_STEPS, SPR_LANES = 2, 8, 4
 SPR_ARCHS = {"jamba": ("jamba-1.5-large-398b-reduced", None, 96, 255),
@@ -7256,6 +7458,52 @@ SPR_ARCHS = {"jamba": ("jamba-1.5-large-398b-reduced", None, 96, 255),
 # over its first CM_RANKS and SPR_RANKS ranks
 SHARED_RANKS = math.prod(FSDP_MESH)
 assert EP_MESH == FSDP_MESH and CM_RANKS == SHARED_RANKS >= SPR_RANKS
+
+
+def wait_for(path: str, timeout: float = 900.0) -> None:
+    """On a rank: wait until the parent has written ``path`` (atomically:
+    :func:`fsdp_single`) or has failed (``path``.failed)."""
+    import os
+
+    end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if os.path.exists(path + ".failed"):
+            raise RuntimeError(f"the parent failed before writing {path}")
+        if time.monotonic() > end:
+            raise TimeoutError(f"{path} not written in {timeout} s")
+        time.sleep(0.1)
+
+
+@contextlib.contextmanager
+def ranks_behind(want: str, target: str, world: int, args, **kw):
+    """``spawn_ranks(target, world, args, **kw)`` in a thread, so that this
+    process makes the file ``want`` that the ranks wait for
+    (:func:`wait_for`) while they start; the dict yielded holds their
+    results under "ranks" after the block. If the block raises, the ranks
+    are told (``want``.failed) and joined before it propagates."""
+    import threading
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    box = {}
+
+    def run():
+        try:
+            box["ranks"] = spawn_ranks(target, world, args, **kw)
+        except BaseException as exc:
+            box["exc"] = exc
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        yield box
+    except BaseException:
+        with open(want + ".failed", "w"):
+            pass
+        thread.join()
+        raise
+    thread.join()
+    if "exc" in box:
+        raise box.pop("exc")
 
 
 def ep_inputs(torch):
@@ -7384,6 +7632,7 @@ def _checked_steps(torch, cfg, mesh, params, opt, batch, want: str,
     held = sum(x.numel() * 4 for path, x in flatten_with_path(p0)
                if path in both)
     step = make_train_step(cfg, mesh=mesh, dims=dims, **sc.STEP)
+    wait_for(want)
     ref = torch.load(want, mmap=True, map_location="cpu")
     coords = mesh.coords()
     start = dict(flatten_with_path(p0))
@@ -7437,7 +7686,7 @@ def fsdp_rank(mesh, ckpt_dir: str) -> dict:
     drawn = time.monotonic() - t0
     t0 = time.monotonic()
     out = _checked_steps(torch, cfg, mesh, params, adamw_init(params), batch,
-                         f"{ckpt_dir}/want_c.pt", sc.FAULTS)
+                         f"{ckpt_dir}/want_c.pt", SMOKE_FAULTS)
     stepped = time.monotonic() - t0
     t0 = time.monotonic()
     state = {"params": gather_tree(out.pop("p"), out["dims"], mesh),
@@ -7463,13 +7712,14 @@ def first_cuda(torch) -> dict:
 
 
 def shared_rank(mesh, ckpt_dir: str) -> dict:
-    """4m (a), (b), (c) and (e) on one of the 4 ranks of one spawn, one
-    after the other, the rank's peak reset and its memory freed between
-    them: (a) :func:`ep_rank` and (c) :func:`fsdp_rank` on the (data,
-    model) mesh it was spawned with, (b) :func:`cm_rank` on a 4-rank
-    model mesh and (e) :func:`sp_rec_rank` on a 2-rank model mesh over
-    ranks 0 and 1 (the others sit (e) out). Every rank builds both meshes,
-    in the same order. → each sub-arm's result under its letter, and the
+    """4m (a), (b), (c), (e) and (f) on one of the 4 ranks of one spawn,
+    one after the other, the rank's peak reset and its memory freed
+    between them: (a) :func:`ep_rank` and (c) :func:`fsdp_rank` on the
+    (data, model) mesh it was spawned with, (b) :func:`cm_rank` on a
+    4-rank model mesh, (e) :func:`sp_rec_rank` on a 2-rank model mesh
+    and (f) :func:`dp_rank` on a 2-rank data mesh, both over ranks 0 and
+    1 (the others sit them out). Every rank builds every mesh, in the
+    same order. → each sub-arm's result under its letter, and the
     rank's stamps (:func:`first_cuda`, then the end of each sub-arm)."""
     import torch
 
@@ -7480,7 +7730,9 @@ def shared_rank(mesh, ckpt_dir: str) -> dict:
             ("b", lambda: cm_rank(make_host_mesh((CM_RANKS,), ("model",)))),
             ("c", lambda: fsdp_rank(mesh, ckpt_dir)),
             ("e", lambda: (lambda m: None if m is None else sp_rec_rank(m))(
-                make_host_mesh((SPR_RANKS,), ("model",)))))
+                make_host_mesh((SPR_RANKS,), ("model",)))),
+            ("f", lambda: (lambda m: None if m is None else dp_rank(
+                m, *dp_inputs()))(make_host_mesh((DP_RANKS,), ("data",)))))
     for key, arm in arms:
         torch.cuda.reset_peak_memory_stats()
         res = arm()
@@ -7597,50 +7849,62 @@ def stamp_line(t_spawn: float, t_back: float, ranks, arms) -> str:
 def distributed_phase(torch, np, card: str) -> dict:
     """Phase 4m: (a) EP MoE, (b) the ring collective matmuls, (c) the
     sharded training step, (e) SP decode of the hybrid and ssm families
-    in one spawn of 4 gloo ranks on cuda:0 (:func:`shared_rank`), each
-    held against this process's single-process run made before the spawn;
-    then (d), the elastic restart from (c)'s checkpoint, in a fresh spawn
-    of 3 survivors. Each spawn's seconds are split by the ranks' stamps.
-    → #4/#5 launches of (e)'s rank 0."""
+    and (f) the int8 gradient compression in one spawn of 4 gloo ranks on
+    cuda:0 (:func:`shared_rank`), each held against this process's
+    single-process run, made while the ranks start; then (d), the elastic
+    restart from (c)'s checkpoint, in a fresh spawn of 3 survivors. Each
+    spawn's seconds are split by the ranks' stamps. → #4/#5 launches of
+    (e)'s rank 0."""
     import os
     import tempfile
 
-    from repro_torch.launch.mesh import local_mesh, spawn_ranks
+    from repro_torch.launch.mesh import local_mesh
     from repro_torch.models.moe import train_moe_apply
 
     sc = tests_module("torch_step_check")
     with tempfile.TemporaryDirectory() as tmp:
-        # ---- this process's side of (a), (c) and (e) ----
-        t0 = time.monotonic()
-        cfg, p, x = ep_inputs(torch)
-        n_tok = x.shape[0] * x.shape[1] // EP_MESH[0]
-        want_a, _ = train_moe_apply(cfg.replace(moe_group=n_tok), p, x)
-        want_a = want_a.cpu()
-        local = ep_rank(local_mesh(EP_MESH, ("data", "model")))
-        del p, x
-        free_cuda(torch)
-        t_a = time.monotonic() - t0
-        t0 = time.monotonic()
-        cfg_c, single_ms, m, em = fsdp_single(torch, f"{tmp}/want_c.pt")
-        t_c = time.monotonic() - t0
-        t0 = time.monotonic()
-        single = sp_rec_rank(None)
-        free_cuda(torch)
-        t_e = time.monotonic() - t0
-        log(f"  this process's runs before the spawn: (a) the single-process "
-            f"mesh and moe_apply {t_a:.1f} s, (c) the mesh-less step and the "
-            f"ranks' emulation {t_c:.1f} s, (e) the unsharded engines "
-            f"{t_e:.1f} s [{card}]")
-
-        # ---- (a), (b), (c) and (e) on one spawn of 4 ranks ----
+        # ---- (a), (b), (c) and (e) on one spawn of 4 ranks, and this
+        # process's side of (a), (c) and (e) while the ranks start ----
         t_spawn = time.time()
-        shared = spawn_ranks("chip_smoke:shared_rank", SHARED_RANKS, (tmp,),
-                             shape=FSDP_MESH, axes=("data", "model"),
-                             timeout=1200)
+        with ranks_behind(f"{tmp}/want_c.pt", "chip_smoke:shared_rank",
+                          SHARED_RANKS, (tmp,), shape=FSDP_MESH,
+                          axes=("data", "model"), timeout=1200) as spawn:
+            t0 = time.monotonic()
+            cfg_c, single_ms, m, em = fsdp_single(torch, f"{tmp}/want_c.pt")
+            t_c = time.monotonic() - t0
+            t0 = time.monotonic()
+            cfg, p, x = ep_inputs(torch)
+            n_tok = x.shape[0] * x.shape[1] // EP_MESH[0]
+            want_a, _ = train_moe_apply(cfg.replace(moe_group=n_tok), p, x)
+            want_a = want_a.cpu()
+            local = ep_rank(local_mesh(EP_MESH, ("data", "model")))
+            del p, x
+            free_cuda(torch)
+            t_a = time.monotonic() - t0
+            t0 = time.monotonic()
+            single = sp_rec_rank(None)
+            free_cuda(torch)
+            t_e = time.monotonic() - t0
+            t0 = time.monotonic()
+            matmul = torch.backends.cuda.matmul
+            reduced_bf16 = matmul.allow_bf16_reduced_precision_reduction
+            try:                         # dp_rank sets it for its process
+                one_f = dp_rank(local_mesh((DP_RANKS,), ("data",)),
+                                *dp_inputs())
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = reduced_bf16
+            t_f = time.monotonic() - t0
+            log(f"  this process's runs while the ranks start: (c) the "
+                f"mesh-less step and the ranks' emulation {t_c:.1f} s, (a) "
+                f"the single-process mesh and moe_apply {t_a:.1f} s, (e) "
+                f"the unsharded engines {t_e:.1f} s, (f) the "
+                f"single-process mesh {t_f:.1f} s [{card}]")
+        shared = spawn["ranks"]
         t_back = time.time()
         os.remove(f"{tmp}/want_c.pt")
-        log(f"  one spawn of {SHARED_RANKS} ranks for (a), (b), (c), (e): "
-            + stamp_line(t_spawn, t_back, shared, "abce") + f" [{card}]")
+        log(f"  one spawn of {SHARED_RANKS} ranks for (a), (b), (c), (e), "
+            f"(f): " + stamp_line(t_spawn, t_back, shared, "abcef")
+            + f" [{card}]")
 
         # ---- (a) EP MoE ----
         ranks = [r["a"] for r in shared]
@@ -7687,7 +7951,7 @@ def distributed_phase(torch, np, card: str) -> dict:
         # ---- (c) the sharded step ----
         ranks = [r["c"] for r in shared]
         worst, bitwise, caught = fsdp_verdict(sc, ranks, m, em, "(c)",
-                                              sc.FAULTS)
+                                              SMOKE_FAULTS)
         res = ranks[0]
         log(f"  (c) stablelm-1.6b full width (d {cfg_c.d_model}, vocab "
             f"{cfg_c.vocab}), {cfg_c.n_layers} layers, f32, batch "
@@ -7713,7 +7977,7 @@ def distributed_phase(torch, np, card: str) -> dict:
             + " / ".join(f"{r['ms']:.0f}" for r in ranks)
             + f" (single-process {single_ms:.0f}; the emulation and its "
             f"6-GB file {em['s']:.1f} s), rank 0's fault steps "
-            + " / ".join(f"{res[f'ms/{f}']:.0f}" for f in sc.FAULTS)
+            + " / ".join(f"{res[f'ms/{f}']:.0f}" for f in SMOKE_FAULTS)
             + f" ms; rank 0's draw {res['draw_s']:.1f} s, the checked steps "
             f"with their sums {res['steps_s']:.1f} s, gather of the state "
             f"{res['gather_s']:.1f} s, checkpoint write {res['save_s']:.1f} "
@@ -7753,17 +8017,25 @@ def distributed_phase(torch, np, card: str) -> dict:
             mode = arm.split("/")[1]
             name = "fused_decode_attention" if mode == "lop" else DENSE
             stats[mode] += res["counts"][name]
-        del shared, ranks, single
+        # ---- (f) the int8 gradient compression ----
+        stats["compress"] = compress_verdict(
+            torch, [r["f"] for r in shared[:DP_RANKS]], one_f, card)
+        if any("f" in r for r in shared[DP_RANKS:]):
+            raise AssertionError("(f) ran on a rank outside its mesh")
+        del shared, ranks, single, one_f
         free_cuda(torch)
 
-        # ---- (d) the elastic restart: a fresh spawn of 3 survivors ----
-        t0 = time.monotonic()
-        # the single-process step from the same checkpoint
-        _, _, m, em = fsdp_single(torch, f"{tmp}/want_d.pt", f"{tmp}/ckpt")
-        t_single = time.monotonic() - t0
+        # ---- (d) the elastic restart: a fresh spawn of 3 survivors, and
+        # the single-process step from the same checkpoint while they
+        # start and load it ----
         t_spawn = time.time()
-        ranks = spawn_ranks("chip_smoke:elastic_rank", ELASTIC_SURVIVORS,
-                            (tmp,), timeout=900)
+        with ranks_behind(f"{tmp}/want_d.pt", "chip_smoke:elastic_rank",
+                          ELASTIC_SURVIVORS, (tmp,), timeout=900) as spawn:
+            t0 = time.monotonic()
+            _, _, m, em = fsdp_single(torch, f"{tmp}/want_d.pt",
+                                      f"{tmp}/ckpt")
+            t_single = time.monotonic() - t0
+        ranks = spawn["ranks"]
         t_back = time.time()
     on_mesh = [r for r in ranks if not r.get("spare")]
     if len(on_mesh) != 2 or not ranks[-1].get("spare") or any(
@@ -7786,7 +8058,8 @@ def distributed_phase(torch, np, card: str) -> dict:
         + " / ".join(f"{r['load_s']:.1f}" for r in on_mesh)
         + ", step ms by rank " + " / ".join(f"{r['ms']:.0f}" for r in on_mesh)
         + f"; peaks {_rank_peaks(on_mesh)}; this process's step and "
-        f"emulation from the checkpoint {t_single:.1f} s, the spawn "
+        f"emulation from the checkpoint {t_single:.1f} s while the ranks "
+        f"start and load it, the spawn "
         + stamp_line(t_spawn, t_back, ranks, "d") + f" [{card}]")
     del ranks, on_mesh
     free_cuda(torch)
@@ -7802,6 +8075,8 @@ def fsdp_single(torch, want: str, ckpt: str | None = None):
     are saved by path at ``want`` for the ranks' step check. → (the
     config, the mesh-less step's ms and metrics, the emulation's
     metrics)."""
+    import os
+
     from repro_torch.checkpoint.store import load_checkpoint
     from repro_torch.launch.mesh import local_mesh
     from repro_torch.training.optimizer import adamw_init
@@ -7833,7 +8108,8 @@ def fsdp_single(torch, want: str, ckpt: str | None = None):
                                             **sc.STEP)
     torch.save({part: {path: x.cpu() for path, x in flatten_with_path(tree)}
                 for part, tree in (("p", params), ("m", opt.m),
-                                   ("v", opt.v))}, want)
+                                   ("v", opt.v))}, want + ".part")
+    os.replace(want + ".part", want)        # whole when a rank sees it
     del params, opt, batch
     free_cuda(torch)
     em = {k: v.cpu() for k, v in em.items()}
@@ -7882,6 +8158,278 @@ def fsdp_verdict(sc, ranks, m: dict, em: dict, label: str,
             raise AssertionError(f"{label} the step check passed a step "
                                  f"with the fault {fault!r} planted")
     return sc.worst(sums, lr), bitwise, caught
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the port's examples, the entry points a user starts from
+# ---------------------------------------------------------------------------
+
+EXAMPLE_STEPS, EXAMPLE_CKPT_EVERY, EXAMPLE_PREEMPT = 60, 20, 40
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` of this checkout as a module (examples is no
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def printed(fn, *args, label: str | None = None, **kw):
+    """``fn(*args, **kw)`` with its standard output captured (and, with a
+    ``label``, logged a line at a time under it). → (result, lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    lines = buf.getvalue().splitlines()
+    if label is not None:
+        for line in lines:
+            log(f"  [{label}] {line}")
+    return out, lines
+
+
+def continuation(lines: list) -> list:
+    """The greedy continuation's rows of the quickstart's printed lines."""
+    at = lines.index("greedy continuation:") + 1
+    rows = []
+    for line in lines[at:]:
+        rows.append([int(t) for t in line.strip(" []").split()])
+        if line.endswith("]]"):
+            return rows
+    raise AssertionError(f"no continuation in {lines}")
+
+
+def teacher_forced(torch, np, cfg, qp, card: str) -> dict:
+    """The quickstart's pipeline on the card and on the CPU from the same
+    weights, both fed the CPU's greedy tokens. Gates: every kernel call of
+    the card's run (#1–#4 at the example's shapes) against its plain
+    version on the same card inputs (#1, #2 bitwise, #3, #4 within
+    ``TOL``); layer 0's prefill pages bitwise the CPU's; and every argmax
+    that parts a near-tie, the CPU's top-2 margin below the lane's logit
+    gap. Logged beside them: the int8 K/V values that part by layer, and
+    the first of the attention's int8 barriers (q, k, v of the prefill
+    and each step, the engine's ``_q``) to part, with how far apart the
+    two sides' x/scale lie there and after it. → the figures."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine
+    from repro_torch.tree_util import tree_map
+
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 24)).astype(
+        np.int32))
+    sides = {"cpu": (qp, "cpu"),
+             "card": (tree_map(lambda x: x.to("cuda"), qp), "cuda")}
+    rec = {side: [] for side in sides}
+    held = {}                       # kernel → [calls, max |err|]
+    real_q, now = engine._q, []
+    entries = {"qlinear_fused": ("fused_qlinear", True),
+               "ffn_fused": ("fused_ffn", True),
+               "prefill_attention": ("fused_prefill_attention", False),
+               "decode_attention": ("fused_decode_attention", False)}
+    real = {name: getattr(ops, name) for name in entries}
+
+    def recorded(x):
+        rec[now[-1]].append(x.detach().to("cpu", torch.float32, copy=True))
+        return real_q(x)
+
+    def against_plain(name):
+        kernel, bitwise = entries[name]
+
+        def call(*a, **k):
+            got = real[name](*a, **k)
+            if a[0].device.type == "cuda":
+                on_cuda, ops._on_cuda = ops._on_cuda, lambda t: False
+                try:
+                    want = real[name](*a, **k)        # the plain version
+                finally:
+                    ops._on_cuda = on_cuda
+                kname = (f"{kernel}[quickstart, "
+                         f"{'x'.join(map(str, a[0].shape))}]")
+                err = check_close(torch, kname, got, want, bitwise=bitwise)
+                calls, worst = held.get(kernel, (0, 0.0))
+                held[kernel] = (calls + 1, max(worst, err))
+            return got
+        return call
+
+    def both(fn):
+        out = {}
+        for side, (w, dev) in sides.items():
+            now.append(side)
+            out[side] = fn(side, w, dev)
+        return out
+    engine._q = recorded
+    for name in entries:
+        setattr(ops, name, against_plain(name))
+    try:
+        state = both(lambda side, w, dev: engine.prefill(
+            cfg, w, prompts.to(dev), max_len=40))
+        pages = {side: state[side][1]["layers"] for side in sides}
+        apart = [sum(int((pages["cpu"][key][i]
+                          != pages["card"][key][i].cpu()).sum())
+                     for key in ("k", "v")) for i in range(cfg.n_layers)]
+        gaps, ties, step = [], [], 0
+        while True:
+            cpu, dev = state["cpu"][0], state["card"][0].cpu()
+            gap = (cpu - dev).abs().amax(-1)
+            gaps.append(float(gap.max()))
+            for lane in (cpu.argmax(-1) != dev.argmax(-1)).nonzero()[:, 0]:
+                top = cpu[lane].topk(2).values
+                ties.append((step, int(lane), float(top[0] - top[1]),
+                             float(gap[lane])))
+            if step == 16:
+                break
+            step += 1
+            tok = cpu.argmax(-1)[:, None].to(torch.int32)
+            state = both(lambda side, w, dev: engine.serve_step(
+                cfg, w, state[side][1], tok.to(dev)))
+    finally:
+        engine._q = real_q
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    per = 3 * cfg.n_layers
+    if len(rec["cpu"]) != 17 * per or len(rec["card"]) != 17 * per:
+        raise AssertionError(f"[quickstart] {len(rec['cpu'])} / "
+                             f"{len(rec['card'])} int8 barriers recorded, "
+                             f"want 17 x {per}")
+    if sorted(held) != sorted(k for k, _ in entries.values()):
+        raise AssertionError(f"[quickstart] kernels held against their "
+                             f"plain versions: {held}")
+    first, drift, n_apart = None, 0.0, 0
+    for i, (xc, xd) in enumerate(zip(rec["cpu"], rec["card"])):
+        qc, qd = quantize(xc), quantize(xd)
+        parts = int((qc.values != qd.values).sum())
+        d = float((xc / qc.scale - xd / qd.scale).abs().max())
+        if parts and first is None:
+            first = (i, parts, d)
+        if first is not None:
+            drift = max(drift, d)
+        n_apart += parts
+
+    def where(i):
+        return (f"{'prefill' if i < per else f'step {i // per}'} layer "
+                f"{i % per // 3} {'qkv'[i % 3]}")
+    faults = ([f"layer 0's prefill pages part at {apart[0]} values"]
+              if apart[0] else [])
+    faults += [f"step {s} lane {lane}: the argmax parts at a top-2 margin "
+               f"{m:.3g}, not below the logit gap {g:.3g}"
+               for s, lane, m, g in ties if m >= g]
+    log(f"  [quickstart] teacher-forced on the CPU's tokens: every kernel "
+        f"call of the card's run against its plain version on the card "
+        + ", ".join(f"{k} {n} calls (max |err| {e:.3g})"
+                    for k, (n, e) in held.items())
+        + f"; card against CPU: int8 K/V values of the prefill's pages "
+        f"apart by layer {apart}; {n_apart} int8 values apart over the "
+        f"{len(rec['cpu'])} q/k/v barriers, the first at "
+        + ("none" if first is None else
+           f"{where(first[0])} ({first[1]} value(s), x/scale {first[2]:.3g}"
+           f" steps apart there, at most {drift:.3g} from there on)")
+        + f"; max |logit gap| {gaps[0]:.3g} at the prefill, "
+        f"{max(gaps):.3g} over 16 steps; {len(ties)} argmax parting(s) "
+        f"{[(s, lane, round(m, 4), round(g, 4)) for s, lane, m, g in ties]}"
+        f" (step, lane, the CPU's top-2 margin, the lane's gap) [{card}]")
+    if faults:
+        raise AssertionError(f"[quickstart] card against CPU: {faults[:8]}")
+    return dict(kernels=held, pages_apart=apart, values_apart=n_apart,
+                first_parting=None if first is None else where(first[0]),
+                drift=drift, ties=ties, max_gap=max(gaps))
+
+
+def examples_phase(torch, np, card: str) -> dict:
+    """Phase 9: the three examples of the port, in this process on the
+    card, each with the launch counts zeroed just before and read just
+    after: (a) ``torch_quickstart`` at its defaults through its entry
+    point (#1–#4 launched, #5 idle), then its pipeline on CPU-drawn
+    weights on the card against the CPU (:func:`teacher_forced`, a
+    gate); (b) ``torch_serve_lop`` at its defaults (mistral-nemo-12b
+    reduced): every request of both scheduler demos
+    equal to its lockstep replay; (c) ``torch_train_bitnet``'s
+    bitnet-100m, ``EXAMPLE_STEPS`` steps of 8 x 256 with a checkpoint
+    every ``EXAMPLE_CKPT_EVERY``, preempted after step
+    ``EXAMPLE_PREEMPT``, then resumed from that checkpoint to the end:
+    no kernel of the table launched, the mean loss of the last 10 steps
+    below the first 10's. → launches and stats."""
+    import tempfile
+
+    from repro_torch.checkpoint.store import latest_step
+    from repro_torch.kernels import ops
+    from repro_torch.serving.quantize import init_serving_params
+
+    launches = {k: 0 for k in KERNEL_NAMES}
+    seconds = {}
+
+    def counted(label, want, idle, fn, *args, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        out, lines = printed(fn, *args, label=label, **kw)
+        torch.cuda.synchronize()
+        seconds[label] = time.monotonic() - t0
+        counts = ops.launch_counts()
+        check_counts(counts, label, want, idle)
+        for k in KERNEL_NAMES:
+            launches[k] += counts[k]
+        log(f"  [{label}] {seconds[label]:.1f} s; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})} [{card}]")
+        return out, lines
+
+    experts = ("fused_qlinear_experts", "fused_ffn_experts")
+    # (a) the quickstart
+    quick = example_module("torch_quickstart")
+    rc, lines = counted("quickstart", LOP_PATH, (DENSE, *experts),
+                        quick.main, [])
+    rows = continuation(lines)
+    cfg = quick.CFG.replace(lop_keep=0.25)
+    if rc or len(rows) != 4 or any(
+            len(r) != 16 or not all(0 <= t < cfg.vocab_padded for t in r)
+            for r in rows):
+        raise AssertionError(f"[quickstart] exit {rc}, continuation {rows}")
+    tied = teacher_forced(torch, np, cfg,
+                          init_serving_params(cfg, SEED, "cpu"), card)
+    # (b) serve_lop
+    serve = example_module("torch_serve_lop")
+    out, _ = counted("serve_lop", (*LOP_PATH, DENSE), experts, serve.demo,
+                     serve.parse_args([]))
+    for part in ("batching", "sampled"):
+        n = len(out[part]["results"])
+        if out[part]["agree"] != n or not out[part]["verified"]:
+            raise AssertionError(f"[serve_lop] {part}: lockstep agreement "
+                                 f"{out[part]['agree']}/{n}")
+    # (c) train_bitnet: preempted, then resumed from its checkpoint
+    train = example_module("torch_train_bitnet")
+    with tempfile.TemporaryDirectory() as ckpt:
+        kw = dict(steps=EXAMPLE_STEPS, global_batch=8, seq=256,
+                  ckpt_dir=ckpt, ckpt_every=EXAMPLE_CKPT_EVERY)
+        first, _ = counted("train_bitnet", (), KERNEL_NAMES, train.train,
+                           train.CFG_100M, preemption=StopAfter(
+                               EXAMPLE_PREEMPT), **kw)
+        stopped = latest_step(ckpt)
+        rest, lines = counted("train_bitnet resumed", (), KERNEL_NAMES,
+                              train.train, train.CFG_100M, **kw)
+        last = latest_step(ckpt)
+    losses = first["losses"] + rest["losses"]
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if (first["last_step"] != EXAMPLE_PREEMPT or stopped != EXAMPLE_PREEMPT
+            or f"resumed from step {EXAMPLE_PREEMPT}" not in lines
+            or rest["last_step"] != EXAMPLE_STEPS or last != EXAMPLE_STEPS
+            or len(losses) != EXAMPLE_STEPS or not tail < head):
+        raise AssertionError(
+            f"[train_bitnet] stopped at {first['last_step']} (checkpoint "
+            f"{stopped}), resumed to {rest['last_step']} (checkpoint "
+            f"{last}), {len(losses)} losses, {head:.4f} → {tail:.4f}")
+    log(f"  [train_bitnet] preempted after step {EXAMPLE_PREEMPT} "
+        f"(checkpoint {stopped}), resumed to {last}: loss (mean of 10) "
+        f"{head:.4f} → {tail:.4f}; straggler summary {rest['straggler']} "
+        f"[{card}]")
+    return dict(launches=launches, seconds=seconds,
+                keep_agreement=out["agreement"], loss=(head, tail),
+                teacher_forced=tied)
 
 
 # ---------------------------------------------------------------------------
@@ -8074,8 +8622,7 @@ def main() -> int:
     #      family (whisper) ----
     log(f"[serve families] stablelm-1.6b (LayerNorm) full width at "
         f"{STABLELM_LAYERS} of 24 layers, "
-        f"qwen1.5-32b (QKV bias) full width and depth ({QWEN_LAYERS} "
-        f"layers), "
+        f"qwen1.5-32b (QKV bias) full width at {QWEN_LAYERS} of 64 layers, "
         f"whisper-small (encoder-decoder) full width and depth; {N_SLOTS} "
         f"slots, {N_REQUESTS} requests, gen {GEN} [{smi}]")
     fam = families_phase(torch, np, smi)
@@ -8156,6 +8703,35 @@ def main() -> int:
     phase_s["4o"] = time.monotonic() - t_phase
     t_phase = time.monotonic()
 
+    # ---- 4p. qwen1.5-110b at full width and depth (mixtral's tree freed:
+    #      its served tree is 35 GiB) ----
+    log(f"[serve qwen1.5-110b] full width and depth (80 layers, d 8192, 64 "
+        f"heads of 128 over 8: G 8, f 49,152, vocab 152,064, QKV bias drawn "
+        f"nonzero), drawn a layer at a time; {QWEN110_REQUESTS} requests of "
+        f"{MIN_PROMPT}-{MAX_PROMPT} tokens, gen {GEN}, {N_SLOTS} slots, "
+        f"greedy LOP, then the {QWEN110_NOLOP} shortest no-LOP; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before "
+        f"it [{smi}]")
+    q110 = qwen110b_phase(torch, np, smi)
+    for kname, n in q110["launches"].items():
+        launches[kname] += n
+    kernel_rows(rows, q110["rows"])
+
+    phase_s["4p"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
+    # ---- 9. the port's examples on the card ----
+    log(f"[examples] examples/torch_quickstart.py and torch_serve_lop.py at "
+        f"their defaults, torch_train_bitnet.py {EXAMPLE_STEPS} steps (a "
+        f"checkpoint every {EXAMPLE_CKPT_EVERY}, preempted after "
+        f"{EXAMPLE_PREEMPT}, resumed), in this process [{smi}]")
+    ex = examples_phase(torch, np, smi)
+    for kname, n in ex["launches"].items():
+        launches[kname] += n
+
+    phase_s["9"] = time.monotonic() - t_phase
+    t_phase = time.monotonic()
+
     # ---- 4k. the QAT training path: bitnet-3b trained at full width and
     #      depth, the reduced loop, then the trained masters served ----
     log(f"[train] bitnet-3b full width and depth, {TRAIN_STEPS} steps of "
@@ -8179,15 +8755,13 @@ def main() -> int:
 
     # ---- 4l. training of the recurrent families: rwkv6-1.6b trained at
     #      full width and depth, then served; reduced rwkv6 and jamba card
-    #      vs CPU; a full-width jamba Mamba sublayer trained; the int8
-    #      gradient compression over 2 gloo ranks ----
+    #      vs CPU; a full-width jamba Mamba sublayer trained ----
     log(f"[train recurrent] rwkv6-1.6b full width and depth, "
         f"{REC_TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq "
         f"{REC_TRAIN_SEQ}, then quantized and served ({TRAIN_REQUESTS} "
         f"requests); reduced rwkv6 and jamba card vs CPU and "
-        f"{REC_RED_STEPS} steps; a full-width jamba Mamba sublayer trained; "
-        f"the int8 gradient compression over {DP_RANKS} gloo ranks on "
-        f"cuda:0 [{smi}]")
+        f"{REC_RED_STEPS} steps; a full-width jamba Mamba sublayer trained "
+        f"[{smi}]")
     rtrain = rec_train_phase(torch, np, smi)
     for kname, n in rtrain["launches"].items():
         launches[kname] += n
@@ -8212,9 +8786,10 @@ def main() -> int:
         f"ranks for (a) EP MoE (granite-moe-1b-a400m's layer, (data, model) "
         f"{EP_MESH}), (b) ring_reduce_matmul and allgather_matmul "
         f"({CM_RANKS} ranks), (c) the sharded training step (stablelm-1.6b "
-        f"full width, {FSDP_LAYERS} layers, {FSDP_MESH}) and (e) SP decode "
+        f"full width, {FSDP_LAYERS} layers, {FSDP_MESH}), (e) SP decode "
         f"of jamba reduced and rwkv6 ({RWKV_SERVE_LAYERS} layers) over "
-        f"{SPR_RANKS} ranks; then a fresh spawn for (d), (c)'s elastic "
+        f"{SPR_RANKS} ranks and (f) the int8 gradient compression over "
+        f"{DP_RANKS}; then a fresh spawn for (d), (c)'s elastic "
         f"restart on {ELASTIC_SURVIVORS} survivors [{smi}]")
     dist_stats = distributed_phase(torch, np, smi)
     phase_s["4m"] = time.monotonic() - t_phase
@@ -8231,6 +8806,7 @@ def main() -> int:
     # launches on the path that runs it and phase 4h's check and times
     for kname, by_mode in fam["modes"].items():
         mode_launches.setdefault(kname, {}).update(by_mode)
+    mode_launches["fused_qlinear"]["bias"] += q110["bias"]
     for kname, by_mode in fam["rows"].items():
         rows[kname].setdefault("modes", {}).update(by_mode)
         rows[kname]["max_abs_err"] = max(

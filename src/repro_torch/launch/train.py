@@ -59,7 +59,7 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                               warmup=max(steps // 10, 1), total_steps=steps)
     monitor = StragglerMonitor()
     losses = []
-    n = start
+    n, saved = start, None          # the step last checkpointed, once each
     for n in range(start, steps):
         t0 = time.time()
         batch = {k: torch.from_numpy(v).to(device)
@@ -78,12 +78,11 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                 h(n, params, opt_state, metrics)
         if ckpt_dir and (n + 1) % ckpt_every == 0:
             save_checkpoint(ckpt_dir, n + 1, (params, opt_state))
+            saved = n + 1
         if preemption is not None and preemption.preempted:
-            if ckpt_dir:
-                save_checkpoint(ckpt_dir, n + 1, (params, opt_state))
             print(f"preempted at step {n + 1}: checkpointed, exiting")
             break
-    if ckpt_dir:
+    if ckpt_dir and saved != n + 1:
         save_checkpoint(ckpt_dir, n + 1, (params, opt_state))
     return {"losses": losses, "last_step": n + 1,
             "straggler": monitor.summary(), "params": params,

@@ -2702,3 +2702,83 @@ def test_hybrid_sublayer_draw_bitwise_on_card(cuda):
     assert got.keys() == want.keys()
     for path, leaf in want.items():
         assert torch.equal(got[path], leaf), path
+
+
+# ---------------------------------------------------------------------------
+# qwen1.5-110b's shapes: #4/#5 at G 8, #2 at f 49,152, #1 + bias at its
+# fused QKV
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_lop", [True, False], ids=["lop", "dense"])
+def test_decode_kernels_at_group_8(cuda, use_lop):
+    """#4 and #5 at qwen1.5-110b's decode shape: B 4, 64 heads of 128
+    over 8 (G 8), M 1664, lanes of 1600, 0 (retired: exact zero), 700 and
+    1200 tokens; against the plain version, and every ring depth the tile
+    sweep may pick bitwise the default launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        fused_decode_attention, fused_dense_decode_attention)
+    from repro_torch.serving.lop_select import k_keep_blocks
+    cfg = get_config("qwen1.5-110b")
+    b, h, hkv, m, dh = 4, cfg.n_heads, cfg.n_kv_heads, 1664, cfg.hd
+    blk, k_keep = cfg.lop_block, k_keep_blocks(cfg, 1664)
+    rng = np.random.default_rng(110 + use_lop)
+    arrs = _dev(_decode(rng, b, h, hkv, m, dh), cuda)
+    new_len = torch.tensor((1600, 0, 700, 1200), dtype=torch.int32,
+                           device=cuda)
+    kw = dict(block=blk, k_keep=k_keep, window=0, use_lop=use_lop)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(*arrs, new_len, **kw)
+    want = plain.decode_attention_ref(*arrs, new_len,
+                                      softmax_scale=dh ** -0.5, **kw)
+    torch.cuda.synchronize()
+    name = "fused_decode_attention" if use_lop else \
+        "fused_dense_decode_attention"
+    assert ops.launch_counts()[name] == 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[1].any()
+    g = h // hkv
+    lanes = [arrs[0].reshape(b * hkv, g, dh), arrs[1].reshape(b * hkv, g),
+             *(a.reshape(b * hkv, *a.shape[2:]) for a in arrs[2:6])]
+    if use_lop:
+        lanes.append(arrs[6].reshape(b * hkv, m, dh // 2))
+    call = fused_decode_attention if use_lop else fused_dense_decode_attention
+    extra = dict(k_keep=k_keep) if use_lop else {}
+    base = call(*lanes, new_len, hkv=hkv, block=blk, window=0,
+                softmax_scale=dh ** -0.5, **extra)
+    assert torch.equal(base.reshape(got.shape), got)
+    for stages in (2, 3, 4):
+        again = call(*lanes, new_len, hkv=hkv, block=blk, window=0,
+                     softmax_scale=dh ** -0.5, stages=stages, **extra)
+        assert torch.equal(again, base), stages
+
+
+def test_ffn_at_qwen110b_width_bitwise(cuda):
+    """#2 at qwen1.5-110b's widths (d 8192, f 49,152) at the decode rows
+    (m 4): bitwise the plain version (a float64 unpack of 9.7 GB)."""
+    rng = np.random.default_rng(49152)
+    args = _dev(_ffn_args(rng, 4, 8192, 49152, True), cuda)
+    got = ops.ffn_fused(*args, gated=True, act="silu")
+    want = _ffn_plain(args, 8192, True, "silu")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_qlinear_bias_at_qwen110b_qkv_shape(cuda):
+    """#1 with its bias epilogue at qwen1.5-110b's fused QKV (k 8192, n
+    8192 + 2 · 1024) at the decode rows: bitwise the plain version,
+    counted under the "bias" mode."""
+    rng = np.random.default_rng(8192)
+    m, k, n = 4, 8192, 10240
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    packed = rng.integers(0, 256, (k // 4, n)).astype(np.uint8)
+    gamma = rng.uniform(0.01, 0.05, (1, n)).astype(np.float32)
+    b = rng.standard_normal((n,)).astype(np.float32) * 0.02
+    x, packed, gamma, b = _dev((x, packed, gamma, b), cuda)
+    ops.reset_launch_counts()
+    got = ops.qlinear_fused(x, packed, gamma, b)
+    want = plain.qlinear_ref(x, packed, gamma, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts(modes=True)["fused_qlinear:bias"] == 1
+    assert torch.equal(got, want)

@@ -1,6 +1,6 @@
 """One data-parallel QAT step of reduced rwkv6 with the int8 gradient
-compression, for ``tests/test_torch_recurrent_training.py`` and phase 4l
-(e) of ``chip_smoke.py``: a module of its own, importing neither JAX nor
+compression, for ``tests/test_torch_recurrent_training.py`` and phase 4m
+(f) of ``chip_smoke.py``: a module of its own, importing neither JAX nor
 the test module, so that the gloo ranks ``spawn_ranks`` starts on it
 import only torch and the port."""
 import torch
